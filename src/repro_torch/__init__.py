@@ -1,0 +1,11 @@
+"""PyTorch + CUDA port of the out-of-order dataflow overlay simulator.
+
+A second package beside the JAX reference (``repro``), with the same module
+layout, that never imports it. It runs the single-device overlay simulation
+(:func:`run`) on an NVIDIA Hopper card, with the scheduler's leading-one
+pick in hand-written CUDA kernels (:mod:`repro_torch.kernels.lod`), and
+reproduces the reference's results bit for bit.
+"""
+from .api import run
+
+__all__ = ["run"]

@@ -1,0 +1,52 @@
+"""repro_torch.run — the front door for overlay simulation on a torch device."""
+from __future__ import annotations
+
+from typing import Any, Sequence
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the CUDA card; with no card present that raises (the
+    port never falls back to the CPU on its own). Pass ``device="cpu"`` to
+    run on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch: no CUDA device is available; pass device='cpu' "
+                "to run on the CPU")
+        device = "cuda"
+    return torch.device(device)
+
+
+def run(graph_or_gm, cfg=None, *, mesh=None, batch: Sequence | None = None,
+        nx: int | None = None, ny: int | None = None, device=None) -> Any:
+    """Simulate an overlay on one device.
+
+    Args:
+      graph_or_gm: a packed :class:`repro_torch.core.partition.GraphMemory`,
+        or a raw :class:`repro_torch.core.graph.DataflowGraph` plus
+        ``nx``/``ny`` (identity placement, with the memory layout the
+        scheduler prefers).
+      cfg: a :class:`repro_torch.core.overlay.OverlayConfig` (``None`` =
+        defaults: ``ooo`` through the leading-one kernels).
+      mesh, batch: the sharded and batched engines; not ported yet.
+      nx, ny: PE grid, required only with a raw ``DataflowGraph``.
+      device: torch device; ``None`` = the CUDA card (raises without one).
+
+    Returns:
+      :class:`repro_torch.core.overlay.SimResult`, equal bit for bit to the
+      reference package's ``repro.run`` on the same inputs.
+    """
+    if batch is not None:
+        raise NotImplementedError(
+            "batch= (the batched sweep engine) is not ported yet "
+            "(ROADMAP queue 1, item 6)")
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (the sharded engines) is not ported yet "
+            "(ROADMAP queue 1, item 8)")
+    from .core.overlay import _simulate
+
+    return _simulate(graph_or_gm, cfg, nx=nx, ny=ny,
+                     device=resolve_device(device))

@@ -1,0 +1,81 @@
+"""The port's CUDA kernels and select engine on a card. Every test here
+needs a CUDA device and skips without one; the file imports neither JAX nor
+the reference package, so it runs on a machine that has only torch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core import workloads as wl
+from repro_torch.core.graph import reference_evaluate
+from repro_torch.core.overlay import OverlayConfig
+from repro_torch.kernels import lod
+
+pytestmark = pytest.mark.cuda
+
+# Reference cycle/deflection counts of arrow_lu_graph(3, 6, 4, seed=5) on 2x2.
+GOLDENS = {"ooo": (1402, 2358), "inorder": (1507, 2508),
+           "lru_flat": (1486, 2328), "scan": (8664, 161)}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(p, w, seed, device):
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2**32, size=(p, w), dtype=np.uint32)
+    bits[rng.random((p, w)) < 0.5] = 0
+    bits[rng.random((p, w)) < 0.1] |= np.uint32(0x80000000)
+    bits[0] = 0
+    ptr = rng.integers(0, w * 32, size=p).astype(np.int32)
+    ptr[:4] = np.array([0, 31, 32, w * 32 - 1]) % (w * 32)
+    gates = [None, np.ones(p, bool), np.zeros(p, bool), rng.random(p) < 0.5]
+    t = lambda a: None if a is None else torch.from_numpy(a).to(device)
+    return t(bits.view(np.int32)), t(ptr), [t(g) for g in gates]
+
+
+@pytest.mark.parametrize("p,w", [(256, 2), (256, 4), (256, 15), (1024, 64)])
+def test_kernels_match_plain_versions(cuda, p, w):
+    bits, ptr, gates = _inputs(p, w, seed=w, device=cuda)
+    lod.reset_launches()
+    pairs = [((lod.lod(bits),), (lod.lod_plain(bits),))]
+    for gate in gates:
+        pairs.append((lod.schedule_step(bits, gate),
+                      lod.schedule_step_plain(bits, gate)))
+        pairs.append((lod.rotating_schedule_step(bits, ptr, gate),
+                      lod.rotating_schedule_step_plain(bits, ptr, gate)))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert lod.launches == {"lod": 1, "schedule_step": 4,
+                            "rotating_schedule_step": 4}
+
+
+@pytest.mark.parametrize("policy", sorted(GOLDENS))
+def test_select_engine_reproduces_goldens(cuda, policy):
+    g = wl.arrow_lu_graph(3, 6, 4, seed=5)
+    lod.reset_launches()
+    r = repro_torch.run(g, OverlayConfig(scheduler=policy, engine="select"),
+                        nx=2, ny=2)
+    assert r.done
+    assert (r.cycles, r.deflections) == GOLDENS[policy]
+    assert (r.busy_cycles, r.delivered) == (1777, 3554)
+    np.testing.assert_allclose(r.values, reference_evaluate(g),
+                               rtol=1e-5, atol=1e-5)
+    kernel = {"ooo": "schedule_step", "scan": "rotating_schedule_step",
+              "lru_flat": "rotating_schedule_step"}.get(policy)
+    if kernel is not None:
+        assert lod.launches[kernel] > 0
+    # The tensor engine on the card gives the same bits.
+    t = repro_torch.run(g, OverlayConfig(scheduler=policy, engine="tensor"),
+                        nx=2, ny=2)
+    assert (t.cycles, t.deflections) == (r.cycles, r.deflections)
+    np.testing.assert_array_equal(t.values, r.values)

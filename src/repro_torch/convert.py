@@ -19,6 +19,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from .api import resolve_device
 from .core import noc
 from .core.partition import GraphMemory
 
@@ -44,8 +45,10 @@ def _to_tensor(a, device, key=None):
     return torch.from_numpy(a).to(device)
 
 
-def state_from_numpy(tree: Mapping, device="cpu") -> dict:
-    """Reference state pytree (numpy leaves) -> the port's state dict."""
+def state_from_numpy(tree: Mapping, device=None) -> dict:
+    """Reference state pytree (numpy leaves) -> the port's state dict on
+    ``device`` (``None`` = the CUDA card; raises without one)."""
+    device = resolve_device(device)
     out = {}
     for k, v in tree.items():
         if k in _LINKS:

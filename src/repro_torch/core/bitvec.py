@@ -111,6 +111,25 @@ def leading_one(bits):
     return torch.where(key < none, key, -1)
 
 
+def rotating_leading_one(bits, ptr):
+    """First set slot at or after ``ptr`` ([...]) in each row of ``bits``
+    ([..., W]), wrapping to :func:`leading_one` when that window is empty:
+    the rotating-priority pick of the ``scan`` and ``lru_flat`` policies."""
+    hi = leading_one(bits & mask_slots_ge(ptr, bits.shape[-1]))
+    return torch.where(hi >= 0, hi, leading_one(bits))
+
+
+def clear_slot(bits, slot, on):
+    """Copy of ``bits`` ([..., W]) with the flag of ``slot`` ([...], clamped
+    into [0, 32 W)) cleared on rows where ``on``: a gather/scatter along the
+    word axis, one word per row."""
+    L = bits.shape[-1] * FLAGS_PER_WORD
+    word, mask = slot_word_mask(slot.clamp(0, L - 1))
+    row = torch.gather(bits, -1, word[..., None])[..., 0]
+    new = torch.where(on, row & ~mask, row)
+    return bits.scatter(-1, word[..., None], new[..., None])
+
+
 def count_set(bits):
     """Total set flags per row ([..., W] -> [...])."""
     return popcount(bits).sum(dim=-1, dtype=torch.int32)

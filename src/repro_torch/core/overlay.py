@@ -37,6 +37,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..api import resolve_device
 from . import bitvec, noc, schedulers
 from .graph import DIV_EPS, OP_ADD, OP_DIV, OP_MUL, OP_SUB, DataflowGraph
 from .partition import GraphMemory, build_graph_memory
@@ -147,8 +148,11 @@ class DeviceGraph(dict):
     """GraphMemory as torch tensors reshaped to [nx, ny, ...]."""
 
 
-def device_graph(gm: GraphMemory, device="cpu") -> DeviceGraph:
+def device_graph(gm: GraphMemory, device=None) -> DeviceGraph:
+    """Move ``gm`` onto ``device`` (``None`` = the CUDA card; raises without
+    one). The simulation runs on the device its graph is on."""
     nx, ny = gm.nx, gm.ny
+    device = resolve_device(device)
 
     def r3(a, dtype=None):
         t = torch.from_numpy(np.ascontiguousarray(a)).reshape(nx, ny, -1)
@@ -463,7 +467,7 @@ def _as_memory(gm, cfg: OverlayConfig, nx: int | None, ny: int | None):
 def _simulate(gm: GraphMemory | DataflowGraph,
               cfg: OverlayConfig | None = None, *,
               nx: int | None = None, ny: int | None = None,
-              device="cuda") -> SimResult:
+              device=None) -> SimResult:
     """Run the overlay to completion on one device (behind
     :func:`repro_torch.run`)."""
     cfg = cfg or OverlayConfig()

@@ -12,9 +12,11 @@ protocol:
 
 Its per-cycle entry point is ``step(st, idle, gate, use_kernels=...) ->
 (cand, have, st)``; the base class composes ``select`` + ``commit``, while
-``ooo``/``scan``/``lru_flat`` route the pick and the RDY clear through the
-fused leading-one kernels of :mod:`repro_torch.kernels.lod` when
-``OverlayConfig(engine="select")``.
+``ooo``/``scan``/``lru_flat`` do the pick and the RDY clear in one call of
+:mod:`repro_torch.kernels.lod`: its fused leading-one kernel under
+``OverlayConfig(engine="select")``, its plain version (the same
+:mod:`repro_torch.core.bitvec` ops as ``select`` + ``commit``) under
+``engine="tensor"``.
 
 Registered policies:
 
@@ -37,6 +39,7 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels import lod
 from . import bitvec
 
 
@@ -76,15 +79,6 @@ def _set_rdy_bit(rdy, slot, on):
     return rdy.scatter(2, word[..., None], new[..., None])
 
 
-def _clear_selected(rdy, sel, cand):
-    """Clear bit ``cand`` on PEs where ``sel``; L = W * 32."""
-    L = rdy.shape[-1] * bitvec.FLAGS_PER_WORD
-    word, mask = bitvec.slot_word_mask(cand.clamp(0, L - 1))
-    row = torch.gather(rdy, 2, word[..., None])[..., 0]
-    new = torch.where(sel, row & ~mask, row)
-    return rdy.scatter(2, word[..., None], new[..., None])
-
-
 class Scheduler:
     """Base policy. Subclasses override the hooks; see the module docstring."""
 
@@ -117,8 +111,8 @@ class Scheduler:
 
         ``gate`` marks PEs whose pick is consumed this cycle (idle and past
         the exposed select latency); the candidate is committed where
-        ``gate & have``. Policies with a fused kernel override this
-        (``use_kernels=True``) to do the pick and the RDY clear in one launch.
+        ``gate & have``. Policies with a fused kernel override this to do the
+        pick and the RDY clear in one call (one launch when ``use_kernels``).
         """
         cand, have = self.select(st, idle)
         return cand, have, self.commit(st, gate & have, cand)
@@ -163,19 +157,15 @@ class OooScheduler(Scheduler):
         return cand, cand >= 0
 
     def commit(self, st, sel, cand):
-        return dict(st, rdy=_clear_selected(st["rdy"], sel, cand))
+        return dict(st, rdy=bitvec.clear_slot(st["rdy"], cand, sel))
 
     def empty(self, st):
         return (st["rdy"] == 0).all()
 
     def step(self, st, idle, gate, *, use_kernels=False):
-        if not use_kernels:
-            return super().step(st, idle, gate)
-        from ..kernels import lod
-
         nx, ny, W = st["rdy"].shape
-        slot, newbits = lod.schedule_step(
-            st["rdy"].reshape(nx * ny, W), gate.reshape(nx * ny))
+        fn = lod.schedule_step if use_kernels else lod.schedule_step_plain
+        slot, newbits = fn(st["rdy"].reshape(nx * ny, W), gate.reshape(nx * ny))
         cand = slot.reshape(nx, ny)
         return cand, cand >= 0, dict(st, rdy=newbits.reshape(nx, ny, W))
 
@@ -243,14 +233,11 @@ class _RotatingRdyScheduler(Scheduler):
         return dict(st, rdy=_set_rdy_bit(st["rdy"], slot, ready))
 
     def select(self, st, idle):
-        rdy = st["rdy"]
-        hi = rdy & bitvec.mask_slots_ge(st["ptr"], rdy.shape[-1])
-        cand_hi = bitvec.leading_one(hi)
-        cand = torch.where(cand_hi >= 0, cand_hi, bitvec.leading_one(rdy))
+        cand = bitvec.rotating_leading_one(st["rdy"], st["ptr"])
         return cand, cand >= 0
 
     def commit(self, st, sel, cand):
-        rdy = _clear_selected(st["rdy"], sel, cand)
+        rdy = bitvec.clear_slot(st["rdy"], cand, sel)
         L = rdy.shape[-1] * bitvec.FLAGS_PER_WORD
         ptr = torch.where(sel, (cand.clamp(0, L - 1) + 1) % L, st["ptr"])
         return dict(rdy=rdy, ptr=ptr)
@@ -259,13 +246,11 @@ class _RotatingRdyScheduler(Scheduler):
         return (st["rdy"] == 0).all()
 
     def step(self, st, idle, gate, *, use_kernels=False):
-        if not use_kernels:
-            return super().step(st, idle, gate)
-        from ..kernels import lod
-
         nx, ny, W = st["rdy"].shape
         L = W * bitvec.FLAGS_PER_WORD
-        slot, newbits = lod.rotating_schedule_step(
+        fn = (lod.rotating_schedule_step if use_kernels
+              else lod.rotating_schedule_step_plain)
+        slot, newbits = fn(
             st["rdy"].reshape(nx * ny, W), st["ptr"].reshape(nx * ny),
             gate.reshape(nx * ny))
         cand = slot.reshape(nx, ny)

@@ -6,8 +6,9 @@ The three wrappers replace the Pallas TPU kernels of the reference package's
 Each takes RDY words as ``[P, W]`` int32 storage holding the uint32 bit
 pattern (see :mod:`repro_torch.core.bitvec`):
 
-  * a tensor on the CPU goes to the plain version (``*_plain``), tensor ops
-    that repeat the kernel's arithmetic;
+  * a tensor on the CPU goes to the plain version (``*_plain``): the
+    policies' pick and clear from :mod:`repro_torch.core.bitvec`, which the
+    ``"tensor"`` engine runs too;
   * a CUDA tensor launches the kernel of ``csrc/lod.cu`` on the current
     stream, or raises. There is no fallback.
 
@@ -34,17 +35,9 @@ def reset_launches() -> None:
 
 
 # ---------------------------------------------------------------------------
-# Plain versions.
+# Plain versions: the scheduler policies' own pick and clear
+# (:mod:`repro_torch.core.bitvec`), which the ``"tensor"`` engine runs.
 # ---------------------------------------------------------------------------
-
-def _clear_slot(bits, slot, do):
-    """Copy of ``bits`` with the flag of ``slot`` cleared on rows where ``do``."""
-    s = slot.clamp(0, bits.shape[-1] * bitvec.FLAGS_PER_WORD - 1)
-    word, mask = bitvec.slot_word_mask(s)
-    row = torch.gather(bits, 1, word[:, None])[:, 0]
-    cleared = torch.where(do, row & ~mask, row)
-    return bits.scatter(1, word[:, None], cleared[:, None])
-
 
 def _do(slot, gate):
     have = slot >= 0
@@ -60,15 +53,14 @@ def schedule_step_plain(bits, gate=None):
     """Pick as :func:`lod_plain`, then clear the pick on rows where ``gate``
     (every row when None). -> (slot [P] int32, new bits [P, W])."""
     slot = bitvec.leading_one(bits)
-    return slot, _clear_slot(bits, slot, _do(slot, gate))
+    return slot, bitvec.clear_slot(bits, slot, _do(slot, gate))
 
 
 def rotating_schedule_step_plain(bits, ptr, gate=None):
     """First set slot at or after ``ptr`` per row, wrapping to the plain pick
     when that window is empty; gated clear as :func:`schedule_step_plain`."""
-    hi = bitvec.leading_one(bits & bitvec.mask_slots_ge(ptr, bits.shape[-1]))
-    slot = torch.where(hi >= 0, hi, bitvec.leading_one(bits))
-    return slot, _clear_slot(bits, slot, _do(slot, gate))
+    slot = bitvec.rotating_leading_one(bits, ptr)
+    return slot, bitvec.clear_slot(bits, slot, _do(slot, gate))
 
 
 # ---------------------------------------------------------------------------

@@ -186,7 +186,7 @@ def test_state_conversion_round_trip():
         link_s={k: np.asarray(v) for k, v in _packets(rng, 2, 3).items()},
         value=rng.standard_normal((2, 3, 128)).astype(np.float32),
         cycle=np.int32(17), done=np.bool_(False))
-    st = state_from_numpy(tree)
+    st = state_from_numpy(tree, device="cpu")
     assert st["sched"]["rdy"].dtype == torch.int32
     assert st["link_e"].shape == (6, 2, 3)
     _assert_state(st, tree)

@@ -92,8 +92,9 @@ def test_state_carried_across_matches_reference(reference, policy, engine):
     start, end = CARRY
     gm = build_graph_memory(GRAPHS["arrow"](), 2, 2,
                             criticality_order=policy == "ooo")
-    g = overlay.device_graph(gm)
-    state = state_from_numpy(unflatten(reference, f"state/{policy}/{start}"))
+    g = overlay.device_graph(gm, device="cpu")
+    state = state_from_numpy(unflatten(reference, f"state/{policy}/{start}"),
+                             device="cpu")
     assert int(state["cycle"]) == start
     cfg = OverlayConfig(scheduler=policy, check_every=1, max_cycles=end,
                         engine=engine)
@@ -104,8 +105,8 @@ def test_state_carried_across_matches_reference(reference, policy, engine):
 def test_initial_state_matches_reference_layout(reference):
     """init_state has the reference's keys and dtypes (values at cycle 0)."""
     gm = build_graph_memory(GRAPHS["arrow"](), 2, 2)
-    st = state_to_numpy(overlay.init_state(overlay.device_graph(gm),
-                                           OverlayConfig()))
+    st = state_to_numpy(overlay.init_state(
+        overlay.device_graph(gm, device="cpu"), OverlayConfig()))
     want = unflatten(reference, f"state/ooo/{CARRY[0]}")
 
     def keys(t):
@@ -128,11 +129,19 @@ def test_fig1_full_width_on_cpu():
         np.testing.assert_allclose(r.values, ref, rtol=1e-5, atol=1e-5)
 
 
-def test_run_without_device_needs_cuda(monkeypatch):
+@pytest.mark.parametrize("entry", ["run", "device_graph", "state_from_numpy"])
+def test_run_without_device_needs_cuda(monkeypatch, entry):
+    """``device=None`` means the card, on the front door and on the hand-over
+    path (``run_state(device_graph(gm), cfg, state_from_numpy(tree))``)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     g = wl.layered_dag(3, 4, seed=1)
+    make = {"run": lambda: repro_torch.run(g, nx=2, ny=2),
+            "device_graph": lambda: overlay.device_graph(
+                build_graph_memory(g, 2, 2)),
+            "state_from_numpy": lambda: state_from_numpy(
+                {"cycle": np.int32(0), "sched": {"ptr": np.zeros(2, np.int32)}})}
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        repro_torch.run(g, nx=2, ny=2)
+        make[entry]()
 
 
 def test_parts_not_ported_yet_raise():

@@ -1,43 +1,65 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py              # everything, as the check runs it
-    python3 chip_smoke.py --rows n15072  # only the smallest main-path row
+    python3 chip_smoke.py                   # everything, as the check runs it
+    python3 chip_smoke.py --rows n15072 --mega-rows n15072   # smallest rows
 
 Phases, each of which fails the run on any error:
   1. the card: its name and power limit from ``nvidia-smi``;
-  2. build: compiles every CUDA source of the port with ``nvcc`` (set-up);
-  3. kernels: each leading-one kernel against its plain torch version on the
-     card, at the benchmark shapes and the main path's shapes, on edge-case
-     inputs (words with the top bit set, empty rows, ``ptr`` at 0, 31, 32
-     and W*32-1, gates all on, all off and mixed); equality must be exact.
-     Then kernel and plain version are timed with CUDA events: device time
-     per call (100 calls captured in a CUDA graph and replayed, median of 7
+  2. build: compiles every CUDA source of the port with ``nvcc``, one
+     process per source, all started together (set-up), and prints each
+     source's ``ptxas -v`` lines;
+  3. leading-one kernels: each against its plain torch version on the card,
+     at the benchmark shapes and the main path's shapes, on edge-case inputs
+     (words with the top bit set, empty rows, ``ptr`` at 0, 31, 32 and
+     W*32-1, gates all on, all off and mixed); equality must be exact. Then
+     kernel and plain version are timed with CUDA events: device time per
+     call (100 calls captured in a CUDA graph and replayed, median of 7
      replays) and latency per call from the host (median of 100 calls);
-  4. main path: ``repro_torch.run`` with ``engine="select"`` on the 16x16
-     PE grid for the Fig. 1 arrow-LU graphs; every cycle count must equal
-     the reference's golden, values must match ``reference_evaluate``
-     (rtol = atol = 1e-5, as the reference's own tests hold them), the
-     n15072 results must equal a CPU run of the port bit for bit, and the
-     scheduler kernels must have been launched during this phase.
+  4. megakernel: the one-launch K-cycle chunk against its plain version
+     (the tensor engine's chunk, on the card) for every policy x eject
+     configuration on the small matrix graph (2x2) and on n15072 (16x16),
+     from four states (cycle 0; mid-run, made by the plain chunk; three
+     cycles before completion; the mid-run state with every zero of the
+     float planes made -0.0), at K = 1, 7 and 32, on clones of one state:
+     every state leaf and the done trace must be equal as bit patterns.
+     Also the matrix graph on 36x36 (above 1024 PEs: each thread loops
+     over PEs) and 42x42 (links in global scratch, not shared memory);
+  5. main path, ``engine="select"``: ``repro_torch.run`` on the 16x16 PE
+     grid for the Fig. 1 arrow-LU graphs (default rows n15072 and n29772;
+     ``--rows`` adds n117972); every cycle count must equal the reference's
+     golden, values must match ``reference_evaluate`` (rtol = atol = 1e-5,
+     as the reference's own tests hold them), the n15072 results must equal
+     a CPU run of the port bit for bit, and the scheduler kernels must have
+     been launched during this phase;
+  6. main path, ``engine="megakernel"``: the same checks on rows n15072,
+     n29772, n117972 and n470772 (``--mega-rows``), each result bit-identical
+     to the select engine's where that phase ran the row too, and the
+     megakernel launched during this phase;
+  7. megakernel time: device time per K=32 chunk by CUDA events between
+     chunks enqueued back to back (median over chunks) at n15072 and
+     n117972, beside the plain chunk's, the host time per call and the
+     bytes bound;
+  8. profiles: ``torch.profiler`` over the first 300 cycles of the n15072
+     ``ooo`` select run and over the whole n15072 ``ooo`` megakernel run,
+     each with its device busy share, device ops per cycle and top kernels.
 
-A last phase traces the first 300 cycles of the n15072 ``ooo`` run with
-``torch.profiler`` and prints the device busy share and the kernels that
-take the device time.
-
-The second-to-last line is a JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
-the rest of the repository beside this file, the script exits non-zero
-before printing any result.
+Each graph is built once (numpy set-up) and shared by the phases. The
+second-to-last line is a JSON object describing each kernel; the last line
+is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+rest of the repository beside this file, the script exits non-zero before
+printing any result.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -52,7 +74,15 @@ ROWS = {
     "n29772": ((8, 10, 8, 3), {"ooo": 3974, "inorder": 4393,
                                "lru_flat": 4344, "scan": 4625}),
     "n117972": ((32, 10, 8, 3), {"ooo": 14213, "inorder": 17004}),
+    "n470772": ((128, 10, 8, 3), {"ooo": 54943, "inorder": 66669}),
 }
+#: Default rows of each main path. The select engine runs ~400 cycles/s, so
+#: its default stops at n29772; the megakernel runs the larger rows.
+SELECT_ROWS = ("n15072", "n29772")
+MEGA_ROWS = ("n15072", "n29772", "n117972", "n470772")
+#: Rows at which a megakernel chunk is timed (K = 32, ``ooo``).
+MEGA_TIMED_ROWS = ("n15072", "n117972")
+MEGA_K = 32
 
 #: Row whose GPU results are also checked bit for bit against a CPU run.
 CROSS_CHECK_ROW = "n15072"
@@ -69,6 +99,15 @@ KERNELS = {
     "rotating_schedule_step": "src/repro/kernels/lod.py:167",
 }
 SOURCE = "src/repro_torch/kernels/csrc/lod.cu"
+MEGA_REPLACES = "src/repro/kernels/megakernel.py:68"
+MEGA_SOURCE = "src/repro_torch/kernels/csrc/megakernel.cu"
+
+POLICIES = ("ooo", "inorder", "lru_flat", "scan")
+#: Eject configurations: name -> (eject_capacity, eject_policy).
+EJECTS = {"n_first_cap1": (1, "n_first"), "priority_cap1": (1, "priority"),
+          "cap2": (2, "n_first")}
+#: The small matrix graph of the CPU parity tests.
+MATRIX_GRAPH = (3, 6, 4, 5)
 
 
 def card_line() -> str:
@@ -198,85 +237,280 @@ def kernel_times(torch, np, lod, p, w):
             for name, (k, plain, nbytes) in calls.items()}
 
 
-def main_path(torch, np, rows, lod):
+class Graphs:
+    """Each main-path graph built once: the DataflowGraph, its
+    ``reference_evaluate`` values and its 16x16 GraphMemory per layout."""
+
+    def __init__(self):
+        self._graphs, self._memories = {}, {}
+
+    def graph(self, name):
+        from repro_torch.core import workloads as wl
+        from repro_torch.core.graph import reference_evaluate
+
+        if name not in self._graphs:
+            args, _ = ROWS[name]
+            t = time.perf_counter()
+            g = wl.arrow_lu_graph(*args[:3], seed=args[3])
+            self._graphs[name] = (g, reference_evaluate(g))
+            print(f"set-up {name}: arrow_lu_graph{args} -> {g.num_nodes} "
+                  f"nodes, {time.perf_counter() - t:.1f} s", flush=True)
+        return self._graphs[name]
+
+    def memory(self, name, sched):
+        """The GraphMemory ``repro_torch.run`` would build for ``sched``."""
+        from repro_torch.core import schedulers
+        from repro_torch.core.partition import build_graph_memory
+
+        crit = schedulers.get(sched).wants_criticality_order
+        if (name, crit) not in self._memories:
+            g, _ = self.graph(name)
+            t = time.perf_counter()
+            self._memories[name, crit] = build_graph_memory(
+                g, 16, 16, criticality_order=crit)
+            print(f"set-up {name}: graph memory (criticality order {crit}), "
+                  f"{time.perf_counter() - t:.1f} s", flush=True)
+        return self._memories[name, crit]
+
+
+def run_main_path(torch, np, graphs, rows, engine, launch_counts, reset):
+    """``repro_torch.run`` with ``engine`` over ``rows``; every run must
+    reproduce its golden and match ``reference_evaluate``. The launch counts
+    are set to 0 just before the runs and read just after. Returns
+    ({(row, sched): SimResult}, counts)."""
     import repro_torch
-    from repro_torch.core import workloads as wl
-    from repro_torch.core.graph import reference_evaluate
     from repro_torch.core.overlay import OverlayConfig
 
-    graphs = {}
+    for name in rows:          # set-up before the counted runs
+        for sched in ROWS[name][1]:
+            graphs.memory(name, sched)
+    results = {}
+    reset()
     for name in rows:
-        args, _ = ROWS[name]
-        t = time.perf_counter()
-        g = wl.arrow_lu_graph(*args[:3], seed=args[3])
-        graphs[name] = (g, reference_evaluate(g))
-        print(f"set-up {name}: arrow_lu_graph{args} -> {g.num_nodes} nodes, "
-              f"{time.perf_counter() - t:.1f} s", flush=True)
-
-    lod.reset_launches()
-    for name in rows:
-        g, ref = graphs[name]
+        _, ref = graphs.graph(name)
         for sched, golden in ROWS[name][1].items():
-            cfg = OverlayConfig(scheduler=sched, engine="select")
+            gm = graphs.memory(name, sched)
+            cfg = OverlayConfig(scheduler=sched, engine=engine)
             torch.cuda.synchronize()
             t = time.perf_counter()
-            r = repro_torch.run(g, cfg, nx=16, ny=16)
+            r = repro_torch.run(gm, cfg)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
             ok_vals = bool(np.isfinite(r.values).all()) and bool(
                 np.allclose(r.values, ref, rtol=1e-5, atol=1e-5))
-            print(f"main path {name} {sched}: cycles {r.cycles} (golden "
-                  f"{golden}), done {r.done}, deflections {r.deflections}, "
-                  f"wall {wall:.2f} s, {r.cycles / wall:.0f} cycles/s",
-                  flush=True)
+            print(f"main path {engine} {name} {sched}: cycles {r.cycles} "
+                  f"(golden {golden}), done {r.done}, deflections "
+                  f"{r.deflections}, wall {wall:.3f} s, "
+                  f"{r.cycles / wall:.0f} cycles/s", flush=True)
             if not (r.done and r.cycles == golden and ok_vals):
                 raise AssertionError(
-                    f"main path {name} {sched}: cycles {r.cycles} vs golden "
-                    f"{golden}, done {r.done}, values match {ok_vals}")
-            if name == CROSS_CHECK_ROW:
-                # The same run on the CPU (plain versions in place of the
-                # kernels) must give the same bits: counters and values.
-                c = repro_torch.run(g, cfg, nx=16, ny=16, device="cpu")
-                same = (c.cycles, c.deflections, c.busy_cycles) == (
-                    r.cycles, r.deflections, r.busy_cycles) and np.array_equal(
-                    c.values, r.values)
-                print(f"main path {name} {sched}: CPU run bit-identical {same}",
-                      flush=True)
-                if not same:
-                    raise AssertionError(f"{name} {sched}: GPU and CPU differ")
-    counts = dict(lod.launches)
-    print(f"main path kernel launches: {counts}", flush=True)
-    for name in ("schedule_step", "rotating_schedule_step"):
-        wanted = any(sched in ROWS[r][1] for r in rows for sched in
-                     (("ooo",) if name == "schedule_step"
-                      else ("scan", "lru_flat")))
-        if wanted and counts[name] == 0:
-            raise AssertionError(f"the main path never launched {name}")
+                    f"main path {engine} {name} {sched}: cycles {r.cycles} vs "
+                    f"golden {golden}, done {r.done}, values match {ok_vals}")
+            results[name, sched] = r
+    counts = launch_counts()
+    print(f"main path {engine} kernel launches: {counts}", flush=True)
+    return results, counts
+
+
+def same_result(np, a, b) -> bool:
+    fields = ("cycles", "done", "delivered", "deflections", "busy_cycles",
+              "noc_deflections", "eject_deflections")
+    return all(getattr(a, f) == getattr(b, f) for f in fields) and (
+        np.array_equal(a.values.view(np.int32), b.values.view(np.int32)))
+
+
+def select_main_path(torch, np, graphs, rows, lod):
+    import repro_torch
+    from repro_torch.core.overlay import OverlayConfig
+
+    results, counts = run_main_path(
+        torch, np, graphs, rows, "select", lambda: dict(lod.launches),
+        lod.reset_launches)
+    for name in rows:
+        wanted = {"schedule_step": "ooo" in ROWS[name][1],
+                  "rotating_schedule_step": bool(
+                      {"scan", "lru_flat"} & set(ROWS[name][1]))}
+        for kernel, want in wanted.items():
+            if want and counts[kernel] == 0:
+                raise AssertionError(f"the main path never launched {kernel}")
+    if CROSS_CHECK_ROW in rows:
+        # The same runs on the CPU (plain versions in place of the kernels)
+        # must give the same bits: counters and values.
+        for sched in ROWS[CROSS_CHECK_ROW][1]:
+            c = repro_torch.run(graphs.memory(CROSS_CHECK_ROW, sched),
+                                OverlayConfig(scheduler=sched), device="cpu")
+            same = same_result(np, c, results[CROSS_CHECK_ROW, sched])
+            print(f"main path select {CROSS_CHECK_ROW} {sched}: CPU run "
+                  f"bit-identical {same}", flush=True)
+            if not same:
+                raise AssertionError(f"{CROSS_CHECK_ROW} {sched}: GPU and "
+                                     f"CPU differ")
+    return results, counts
+
+
+def mega_main_path(torch, np, graphs, rows, mk, select_results):
+    results, counts = run_main_path(
+        torch, np, graphs, rows, "megakernel", lambda: dict(mk.launches),
+        mk.reset_launches)
+    if counts["mega_chunk"] == 0:
+        raise AssertionError("the main path never launched mega_chunk")
+    for key, r in results.items():
+        if key in select_results:
+            same = same_result(np, r, select_results[key])
+            print(f"main path megakernel {key[0]} {key[1]}: bit-identical to "
+                  f"the select engine {same}", flush=True)
+            if not same:
+                raise AssertionError(f"{key}: megakernel and select differ")
     return counts
 
 
-def profile_main_path(torch, cycles=300):
-    """Device busy share and top kernels over the first ``cycles`` cycles of
-    the n15072 ``ooo`` run (a prefix: the run stops at ``max_cycles``)."""
-    from torch.profiler import ProfilerActivity, profile
+def clone_state(s):
+    return {k: clone_state(v) if isinstance(v, dict) else v.clone()
+            for k, v in s.items()}
 
-    import repro_torch
+
+def state_err(torch, got, want, path=""):
+    """Largest |difference| over the leaves (floats as floats); raises
+    unless every leaf is equal as a bit pattern."""
+    err = 0.0
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, dict):
+            err = max(err, state_err(torch, g, w, f"{path}/{k}"))
+            continue
+        if w.dtype == torch.float32:
+            d = (g.double() - w.double()).abs()
+            bits_equal = torch.equal(g.view(torch.int32), w.view(torch.int32))
+        else:
+            d = (g.to(torch.float64) - w.to(torch.float64)).abs()
+            bits_equal = torch.equal(g, w)
+        e = float(d.nan_to_num(nan=float("inf")).max()) if d.numel() else 0.0
+        if not bits_equal:
+            raise AssertionError(f"megakernel state leaf {path}/{k} differs "
+                                 f"from the plain chunk (max abs error {e})")
+        err = max(err, e)
+    return err
+
+
+def check_megakernel(torch, np, graphs, mk):
+    """The megakernel chunk against its plain version on clones of one
+    state, every leaf and the done trace as bit patterns. Returns the
+    largest abs error and the number of cases."""
     from repro_torch.core import workloads as wl
-    from repro_torch.core.overlay import OverlayConfig
+    from repro_torch.core.overlay import (OverlayConfig, device_graph,
+                                          init_state, run_state)
     from repro_torch.core.partition import build_graph_memory
 
-    args, _ = ROWS["n15072"]
-    gm = build_graph_memory(wl.arrow_lu_graph(*args[:3], seed=args[3]), 16, 16)
-    cfg = OverlayConfig(scheduler="ooo", engine="select", max_cycles=cycles)
-    repro_torch.run(gm, cfg)   # warm-up
+    b, s, w, seed = MATRIX_GRAPH
+    matrix = wl.arrow_lu_graph(b, s, w, seed=seed)
+    n15072, _ = graphs.graph("n15072")
+    grids = [("matrix 2x2", matrix, 2, 2, POLICIES, EJECTS),
+             ("n15072 16x16", n15072, 16, 16, POLICIES, EJECTS),
+             ("matrix 36x36", matrix, 36, 36, ("ooo",), ("n_first_cap1",)),
+             ("matrix 42x42", matrix, 42, 42, ("inorder",), ("cap2",))]
+    err, cases = 0.0, 0
+    for label, graph, nx, ny, policies, ejects in grids:
+        for sched in policies:
+            gm = (graphs.memory("n15072", sched) if label.startswith("n15072")
+                  else build_graph_memory(graph, nx, ny,
+                                          criticality_order=sched == "ooo"))
+            g = device_graph(gm)
+            for eject in ejects:
+                cap, pol = EJECTS[eject]
+                cfg = OverlayConfig(scheduler=sched, eject_capacity=cap,
+                                    eject_policy=pol, engine="megakernel")
+                s0 = init_state(g, cfg)
+                end = int(run_state(g, cfg, clone_state(s0))["cycle"])
+                late = run_state(g, dataclasses.replace(
+                    cfg, max_cycles=max(end - 3, 0)), clone_state(s0))
+                mid = mk.mega_chunk_plain(g, cfg, 40)(clone_state(s0))
+                zeros = clone_state(mid)
+                for leaf in ("operands", "value"):
+                    zeros[leaf] = torch.where(
+                        zeros[leaf] == 0, torch.full_like(zeros[leaf], -0.0),
+                        zeros[leaf])
+                states = {"cycle 0": s0, "mid-run": mid, "3 before end": late,
+                          "signed zeros": zeros}
+                for sname, st in states.items():
+                    for K in (1, 7, 32):
+                        want, want_tr = mk.mega_chunk_plain(
+                            g, cfg, K, with_trace=True)(clone_state(st))
+                        got, got_tr = mk.make_mega_chunk_fn(
+                            g, cfg, K, with_trace=True)(clone_state(st))
+                        torch.cuda.synchronize()
+                        err = max(err, state_err(torch, got, want))
+                        if not torch.equal(got_tr, want_tr):
+                            raise AssertionError(
+                                f"megakernel done trace differs: {label} "
+                                f"{sched} {eject} {sname} K={K}")
+                        cases += 1
+                print(f"megakernel equals its plain version: {label} {sched} "
+                      f"{eject} (run ends at cycle {end}; 4 states x K in 1, "
+                      f"7, 32)", flush=True)
+    return err, cases
+
+
+def mega_times(torch, graphs, mk, name, chunks=40, plain_chunks=5):
+    """Per K=32 ``ooo`` chunk from cycle 0: device ms of the kernel and of
+    its plain version, host ms per kernel call, and the bytes bound.
+
+    The chunks are enqueued back to back with a CUDA event between two
+    chunks, and a chunk's time is the median interval between its events.
+    The host enqueues a kernel chunk faster than the card runs it, so the
+    kernel's intervals are its device time; the plain chunk's ~5,600 small
+    launches keep the card waiting on the host, so its intervals are the
+    host-bound time the card spends on one chunk."""
+    from repro_torch.core.overlay import OverlayConfig, device_graph, init_state
+
+    cfg = OverlayConfig(scheduler="ooo", engine="megakernel")
+    g = device_graph(graphs.memory(name, "ooo"))
+
+    def timed(fn, s, n):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+        host = []
+        events[0].record()
+        for i in range(n):
+            t = time.perf_counter()
+            s = fn(s)
+            host.append(time.perf_counter() - t)
+            events[i + 1].record()
+        events[-1].synchronize()
+        dev = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+        return statistics.median(dev), statistics.median(host) * 1e3
+
+    s = init_state(g, cfg)
+    kernel = mk.make_mega_chunk_fn(g, cfg, MEGA_K)
+    s = kernel(kernel(s))     # warm-up
+    ms, call_ms = timed(kernel, s, chunks)
+    plain = mk.mega_chunk_plain(g, cfg, MEGA_K)
+    s = plain(init_state(g, cfg))
+    plain_ms, _ = timed(plain, s, plain_chunks)
+
+    def nbytes(tree):
+        return sum(nbytes(v) if isinstance(v, dict)
+                   else v.numel() * v.element_size() for v in tree.values())
+
+    # Graph leaves read once, state leaves read and written once, the done
+    # trace written once.
+    total = nbytes(dict(g)) + 2 * nbytes(init_state(g, cfg)) + MEGA_K
+    return dict(ms=ms, plain_ms=plain_ms, call_ms=call_ms, bytes=total,
+                shape=list(g["opcode"].shape))
+
+
+def profile_run(torch, run, cycles, label):
+    """Device busy share, device ops per cycle and top kernels of ``run()``
+    (which simulates ``cycles`` cycles) under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()   # warm-up
     torch.cuda.synchronize()
     t = time.perf_counter()
-    repro_torch.run(gm, cfg)
+    run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        repro_torch.run(gm, cfg)
+        run()
         torch.cuda.synchronize()
         traced_wall = time.perf_counter() - t
     # Device-side events only: the kernels (and copies) that ran on the card.
@@ -284,21 +518,54 @@ def profile_main_path(torch, cycles=300):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)
-    print(f"profile n15072 ooo, {cycles} cycles: wall {wall * 1e3:.1f} ms "
-          f"untraced ({wall / cycles * 1e3:.3f} ms/cycle), "
+    print(f"profile {label}, {cycles} cycles: wall {wall * 1e3:.1f} ms "
+          f"untraced ({wall / cycles * 1e3:.4f} ms/cycle), "
           f"{traced_wall * 1e3:.1f} ms traced; device busy "
           f"{device_us / 1e3:.2f} ms = {device_us / (wall * 1e6):.4f} of the "
-          f"untraced wall; {launches} device ops ({launches / cycles:.1f}/cycle)",
+          f"untraced wall; {launches} device ops ({launches / cycles:.2f}/cycle)",
           flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:7d}x  "
               f"{e.key[:100]}", flush=True)
 
 
+def profiles(torch, graphs):
+    import repro_torch
+    from repro_torch.core.overlay import OverlayConfig
+
+    gm = graphs.memory("n15072", "ooo")
+    select = OverlayConfig(scheduler="ooo", engine="select", max_cycles=300)
+    profile_run(torch, lambda: repro_torch.run(gm, select), 300,
+                "n15072 ooo select (first 300 cycles)")
+    golden = ROWS["n15072"][1]["ooo"]
+    mega = OverlayConfig(scheduler="ooo", engine="megakernel")
+    profile_run(torch, lambda: repro_torch.run(gm, mega), golden,
+                "n15072 ooo megakernel (whole run)")
+
+
+def build_all(_build, sources):
+    """Compile every source at once, one nvcc each; print ptxas lines."""
+    t = time.perf_counter()
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(_build.build, sources))
+    print(f"build: {', '.join(sources)} in {time.perf_counter() - t:.1f} s",
+          flush=True)
+    for source in sources:
+        _build.library(source)
+        print(f"--- {source}\n"
+              + _build.build_logs.get(source, "(library already built)").strip(),
+              flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--rows", nargs="+", default=list(ROWS), choices=list(ROWS),
-                    help="main-path rows to run (default: all)")
+    ap.add_argument("--rows", nargs="+", default=list(SELECT_ROWS),
+                    choices=list(ROWS),
+                    help="rows of the select main path (default: %(default)s)")
+    ap.add_argument("--mega-rows", nargs="+", default=list(MEGA_ROWS),
+                    choices=list(ROWS),
+                    help="rows of the megakernel main path "
+                         "(default: %(default)s)")
     args = ap.parse_args()
 
     import numpy as np
@@ -309,16 +576,12 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build, lod
+    from repro_torch.kernels import megakernel as mk
 
     print(card_line(), flush=True)   # name, power limit as nvidia-smi gives them
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
-
-    t = time.perf_counter()
-    _build.library(lod.SOURCE)
-    print(f"build: {lod.SOURCE} in {time.perf_counter() - t:.1f} s", flush=True)
-    print(_build.build_logs.get(lod.SOURCE, "(library already built)").strip(),
-          flush=True)
+    build_all(_build, [lod.SOURCE, mk.SOURCE])
 
     err = check_kernels(torch, np, lod)
     print(f"kernels equal their plain versions at {KERNEL_SHAPES}", flush=True)
@@ -332,8 +595,28 @@ def main() -> int:
                   f"{t['plain_call_ms'] * 1e3:.2f} us), bytes bound "
                   f"{t['bytes'] / HBM_BYTES_PER_S * 1e6:.4f} us", flush=True)
 
-    counts = main_path(torch, np, args.rows, lod)
-    profile_main_path(torch)
+    graphs = Graphs()
+    t = time.perf_counter()
+    mega_err, cases = check_megakernel(torch, np, graphs, mk)
+    print(f"megakernel equals its plain version in {cases} cases, max abs "
+          f"error {mega_err}, {time.perf_counter() - t:.1f} s", flush=True)
+
+    select_results, counts = select_main_path(torch, np, graphs, args.rows, lod)
+    mega_counts = mega_main_path(torch, np, graphs, args.mega_rows, mk,
+                                 select_results)
+
+    mega_timed = {}
+    for name in MEGA_TIMED_ROWS:
+        mt = mega_times(torch, graphs, mk, name)
+        mega_timed[name] = mt
+        print(f"megakernel time {name} {mt['shape']} K={MEGA_K}: device "
+              f"{mt['ms'] * 1e3:.1f} us per chunk "
+              f"({mt['ms'] * 1e3 / MEGA_K:.2f} us per cycle), plain "
+              f"{mt['plain_ms'] * 1e3:.1f} us per chunk, host "
+              f"{mt['call_ms'] * 1e3:.1f} us per call, bytes bound "
+              f"{mt['bytes'] / HBM_BYTES_PER_S * 1e6:.3f} us "
+              f"({mt['bytes']} bytes)", flush=True)
+    profiles(torch, graphs)
 
     line = []
     for name, replaces in KERNELS.items():
@@ -345,6 +628,14 @@ def main() -> int:
             plain_ms=t["plain_ms"], bound_ms=t["bytes"] / HBM_BYTES_PER_S * 1e3,
             bound_by="bytes", library_ms=None, call_ms=t["call_ms"],
             shape=list(TIMED_SHAPE)))
+    mt = mega_timed[MEGA_TIMED_ROWS[0]]
+    line.append(dict(
+        name="mega_chunk", route="cuda", source=MEGA_SOURCE,
+        replaces=MEGA_REPLACES, launches=mega_counts["mega_chunk"],
+        max_abs_err=mega_err, equal=mega_err == 0, ms=mt["ms"],
+        plain_ms=mt["plain_ms"], bound_ms=mt["bytes"] / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes", library_ms=None, call_ms=mt["call_ms"],
+        shape=mt["shape"], K=MEGA_K))
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

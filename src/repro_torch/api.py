@@ -29,7 +29,11 @@ def run(graph_or_gm, cfg=None, *, mesh=None, batch: Sequence | None = None,
         ``nx``/``ny`` (identity placement, with the memory layout the
         scheduler prefers).
       cfg: a :class:`repro_torch.core.overlay.OverlayConfig` (``None`` =
-        defaults: ``ooo`` through the leading-one kernels).
+        defaults: ``ooo`` through the leading-one kernels). Its ``engine``
+        is ``"select"`` (the leading-one kernels once per cycle),
+        ``"tensor"`` (plain tensor ops) or ``"megakernel"`` (one kernel
+        launch per ``check_every``-cycle chunk); all three give the same
+        bits.
       mesh, batch: the sharded and batched engines; not ported yet.
       nx, ny: PE grid, required only with a raw ``DataflowGraph``.
       device: torch device; ``None`` = the CUDA card (raises without one).

@@ -29,7 +29,7 @@ PKT_FIELDS = ("valid", "dst_x", "dst_y", "dst_slot", "opidx", "value")
 VALID, DST_X, DST_Y, DST_SLOT, OPIDX, VALUE = range(len(PKT_FIELDS))
 
 
-def empty_packets(nx: int, ny: int, device=None) -> torch.Tensor:
+def empty_packets(nx: int, ny: int, *, device) -> torch.Tensor:
     return torch.zeros((len(PKT_FIELDS), nx, ny), dtype=torch.int32,
                        device=device)
 
@@ -70,7 +70,7 @@ def roll_shift_s(link_s):
     return torch.roll(link_s, 1, dims=2)
 
 
-def grid_coords(nx: int, ny: int, device=None):
+def grid_coords(nx: int, ny: int, *, device):
     """([nx, 1], [1, ny]) int32 router coordinates."""
     return (torch.arange(nx, dtype=torch.int32, device=device)[:, None],
             torch.arange(ny, dtype=torch.int32, device=device)[None, :])

@@ -18,7 +18,10 @@ Engines (``OverlayConfig.engine``), identical in what they compute:
   * ``"select"`` (default): the scheduler pick and RDY clear go through the
     hand-written leading-one kernels of :mod:`repro_torch.kernels.lod`;
   * ``"tensor"``: the same cycle with the pick as plain tensor ops (the
-    counterpart of the reference's ``"jnp"`` engine).
+    counterpart of the reference's ``"jnp"`` engine);
+  * ``"megakernel"``: each K-cycle chunk is one launch of the hand-written
+    kernel of :mod:`repro_torch.kernels.megakernel` on a CUDA state, the
+    ``"tensor"`` chunk on a CPU state.
 
 Chunked stepping: ``check_every`` cycles run back to back between two reads
 of ``done`` by the host. A completed overlay is a fixed point of the cycle
@@ -27,7 +30,8 @@ counter, which is repaired from the chunk's per-cycle done trace
 (:func:`make_chunk_fn`). Results are bit-identical for every ``check_every``.
 
 The cycle updates the state's slot planes (``pending``, ``operands``,
-``value``, ``computed``) in place; :func:`init_state` allocates them fresh.
+``value``, ``computed``) in place, and the megakernel every state tensor;
+:func:`init_state` allocates them fresh.
 """
 from __future__ import annotations
 
@@ -44,7 +48,7 @@ from .partition import GraphMemory, build_graph_memory
 from .schedulers import row_gather as _row_gather
 
 #: Chunk execution engines (cycle-exact by construction, see OverlayConfig).
-ENGINES = ("tensor", "select")
+ENGINES = ("tensor", "select", "megakernel")
 
 
 def alu(opcode, a, b):
@@ -88,14 +92,12 @@ class OverlayConfig:
     check_every: int | None = None   # cycles per termination check; None=auto
     eject_policy: str = "n_first"    # NoC eject arbitration (see noc.py)
     placement: Any = None            # only None (identity placement) so far
-    engine: str = "select"           # "select" | "tensor"
+    #: "select" (leading-one kernels per cycle), "tensor" (plain tensor
+    #: ops) or "megakernel" (one kernel launch per K-cycle chunk).
+    engine: str = "select"
     telemetry: Any = None            # only None (tracing off) so far
 
     def __post_init__(self):
-        if self.engine == "megakernel":
-            raise NotImplementedError(
-                "engine='megakernel' is not ported yet: it is the next slice "
-                "(ROADMAP queue 1, item 5)")
         if self.engine not in ENGINES:
             raise ValueError(
                 f"engine must be one of {ENGINES}, got {self.engine!r}")
@@ -133,10 +135,14 @@ def resolve_check_every(cfg: OverlayConfig, nx: int, ny: int, L: int, *,
 
       * grows with the slot count: 8 / 16 / 32;
       * at least 16 on CUDA, where each read of ``done`` synchronises the
-        host with the device, and under ``engine="select"``.
+        host with the device, and under ``engine="select"``;
+      * always 32 under ``engine="megakernel"``: one launch per chunk, so
+        the launch amortizes with depth whatever the graph size.
     """
     if cfg.check_every is not None:
         return cfg.check_every
+    if cfg.engine == "megakernel":
+        return 32
     slots = nx * ny * L
     base = 8 if slots <= 4_096 else (16 if slots <= 65_536 else 32)
     if cfg.engine == "select" or device_type == "cuda":
@@ -370,7 +376,7 @@ def make_cycle_fn(g: DeviceGraph, cfg: OverlayConfig):
     return cycle
 
 
-def make_chunk_fn(cycle_fn, check_every: int):
+def make_chunk_fn(cycle_fn, check_every: int, *, with_trace: bool = False):
     """Wrap ``check_every`` cycles of ``cycle_fn`` into one chunk step.
 
     The chunk body is guard-free: a completed overlay is a *fixed point* of
@@ -380,6 +386,7 @@ def make_chunk_fn(cycle_fn, check_every: int):
     counters need no repair on one device (their increments vanish at the
     fixed point). The ``max_cycles`` budget is enforced by the caller: a
     chunk is entered only while a full chunk fits (see :func:`run_state`).
+    With ``with_trace`` the chunk returns ``(state, done_trace [K])``.
     """
 
     def chunk(s):
@@ -394,9 +401,23 @@ def make_chunk_fn(cycle_fn, check_every: int):
         cycle = torch.where(
             start_done, start_cycle,
             torch.where(any_done, start_cycle + first + 1, s["cycle"]))
-        return dict(s, done=any_done, cycle=cycle)
+        s = dict(s, done=any_done, cycle=cycle)
+        return (s, done_trace) if with_trace else s
 
     return chunk
+
+
+def make_engine_chunk_fn(g: DeviceGraph, cfg: OverlayConfig, check_every: int,
+                         *, cycle_fn=None):
+    """Chunk step for ``cfg.engine``, the one dispatch point of the
+    engines: ``"megakernel"`` builds the one-launch chunk
+    (:mod:`repro_torch.kernels.megakernel`); ``"tensor"`` and ``"select"``
+    chain ``cycle_fn`` (built here when not supplied)."""
+    if cfg.engine == "megakernel":
+        from ..kernels import megakernel
+
+        return megakernel.make_mega_chunk_fn(g, cfg, check_every)
+    return make_chunk_fn(cycle_fn or make_cycle_fn(g, cfg), check_every)
 
 
 @dataclasses.dataclass
@@ -415,19 +436,25 @@ class SimResult:
 def run_state(g: DeviceGraph, cfg: OverlayConfig, state: dict) -> dict:
     """Advance ``state`` until done or ``cfg.max_cycles``: full chunks while
     one fits the budget, then cycle by cycle. The host reads ``done`` once
-    per chunk (and once per tail cycle)."""
+    per chunk (and once per tail cycle).
+
+    The megakernel engine chunks even at K=1 and runs its tail as chunks of
+    one cycle, so every cycle of its run goes through its kernel on the
+    card; a chunk of one cycle is that cycle, bit for bit."""
     nx, ny, L = g["opcode"].shape
     K = resolve_check_every(cfg, nx, ny, L, device_type=g["opcode"].device.type)
-    cycle_fn = make_cycle_fn(g, cfg)
+    mega = cfg.engine == "megakernel"
+    cycle_fn = None if mega else make_cycle_fn(g, cfg)
     cycle, done = int(state["cycle"]), bool(state["done"])
-    if K > 1:
-        chunk = make_chunk_fn(cycle_fn, K)
+    if K > 1 or mega:
+        chunk = make_engine_chunk_fn(g, cfg, K, cycle_fn=cycle_fn)
         while not done and cycle + K <= cfg.max_cycles:
             state = chunk(state)
             done = bool(state["done"])
             cycle += K      # exact while not done
+    step = make_engine_chunk_fn(g, cfg, 1) if mega else cycle_fn
     while not done and cycle < cfg.max_cycles:
-        state = cycle_fn(state)
+        state = step(state)
         done = bool(state["done"])
         cycle += 1
     return state

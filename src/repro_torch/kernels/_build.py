@@ -33,6 +33,10 @@ SIGNATURES = {
         "lod_schedule_step": (_P, _P, _P, _P, _I, _I, _P),
         "lod_rotating_schedule_step": (_P, _P, _P, _P, _P, _I, _I, _P),
     },
+    # mega_chunk(const MegaArgs* args, int policy, int eject, void* stream)
+    "megakernel.cu": {
+        "mega_chunk": (_P, _I, _I, _P),
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -108,9 +108,11 @@ def assert_tree_equal(got: dict, want: dict, path: str = "") -> None:
         np.testing.assert_array_equal(got[k], w, err_msg=f"{path}/{k}")
 
 
-def matrix_reference(tmp_path_factory, policy: str, cells) -> dict:
+def matrix_reference(tmp_path_factory, policy: str, cells,
+                     engine: str = "jnp") -> dict:
     """Reference results of ``policy`` on the matrix graph for each
-    ``(check_every, eject)`` in ``cells``, keyed ``"<K>/<eject>/<field>"``."""
+    ``(check_every, eject)`` in ``cells`` under the reference's ``engine``,
+    keyed ``"<K>/<eject>/<field>"``."""
     crit = policy == "ooo"
     body = f"""
     import repro
@@ -126,11 +128,12 @@ def matrix_reference(tmp_path_factory, policy: str, cells) -> dict:
     for K, eject in {sorted(set(cells))!r}:
         cap, pol = ejects[eject]
         r = repro.run(gm, OverlayConfig(scheduler={policy!r}, check_every=K,
-                                        eject_capacity=cap, eject_policy=pol))
+                                        eject_capacity=cap, eject_policy=pol,
+                                        engine={engine!r}))
         for k, v in sim_result(r).items():
             res[f"{{K}}/{{eject}}/{{k}}"] = np.asarray(v)
     """
-    return run_reference(tmp_path_factory, f"matrix_{policy}", body)
+    return run_reference(tmp_path_factory, f"matrix_{policy}_{engine}", body)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels and select engine on a card. Every test here
-needs a CUDA device and skips without one; the file imports neither JAX nor
-the reference package, so it runs on a machine that has only torch:
+"""The port's CUDA kernels and its select and megakernel engines on a card.
+Every test here needs a CUDA device and skips without one; the file imports
+neither JAX nor the reference package, so it runs on a machine that has only
+torch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -11,8 +12,10 @@ import torch
 import repro_torch
 from repro_torch.core import workloads as wl
 from repro_torch.core.graph import reference_evaluate
-from repro_torch.core.overlay import OverlayConfig
-from repro_torch.kernels import lod
+from repro_torch.core.overlay import (OverlayConfig, device_graph, init_state,
+                                      run_state)
+from repro_torch.core.partition import build_graph_memory
+from repro_torch.kernels import lod, megakernel
 
 pytestmark = pytest.mark.cuda
 
@@ -79,3 +82,75 @@ def test_select_engine_reproduces_goldens(cuda, policy):
                         nx=2, ny=2)
     assert (t.cycles, t.deflections) == (r.cycles, r.deflections)
     np.testing.assert_array_equal(t.values, r.values)
+
+
+EJECTS = {"n_first_cap1": (1, "n_first"), "priority_cap1": (1, "priority"),
+          "cap2": (2, "n_first")}
+
+
+def _clone(s):
+    return {k: _clone(v) if isinstance(v, dict) else v.clone()
+            for k, v in s.items()}
+
+
+def _assert_bits_equal(got, want, path=""):
+    for k, w in want.items():
+        if isinstance(w, dict):
+            _assert_bits_equal(got[k], w, f"{path}/{k}")
+        elif w.dtype == torch.float32:
+            assert torch.equal(got[k].view(torch.int32),
+                               w.view(torch.int32)), f"{path}/{k}"
+        else:
+            assert torch.equal(got[k], w), f"{path}/{k}"
+
+
+@pytest.mark.parametrize("eject", sorted(EJECTS))
+@pytest.mark.parametrize("policy", sorted(GOLDENS))
+def test_megakernel_matches_plain_chunk(cuda, policy, eject):
+    """The kernel's chunk equals the plain chunk bit for bit, every state
+    leaf and the done trace, from cycle 0, mid-run, near the end and a
+    state whose float planes hold -0.0, at K = 1, 7 and 32."""
+    cap, pol = EJECTS[eject]
+    gm = build_graph_memory(wl.arrow_lu_graph(3, 6, 4, seed=5), 2, 2,
+                            criticality_order=policy == "ooo")
+    g = device_graph(gm, device=cuda)
+    cfg = OverlayConfig(scheduler=policy, eject_capacity=cap,
+                        eject_policy=pol, engine="megakernel")
+    s0 = init_state(g, cfg)
+    end = int(run_state(g, cfg, _clone(s0))["cycle"])
+    late = run_state(g, OverlayConfig(
+        scheduler=policy, eject_capacity=cap, eject_policy=pol,
+        engine="megakernel", max_cycles=end - 3), _clone(s0))
+    mid = megakernel.mega_chunk_plain(g, cfg, 40)(_clone(s0))
+    zeros = _clone(mid)
+    for leaf in ("operands", "value"):
+        zeros[leaf] = torch.where(zeros[leaf] == 0,
+                                  torch.full_like(zeros[leaf], -0.0),
+                                  zeros[leaf])
+    for state in (s0, mid, late, zeros):
+        for k in (1, 7, 32):
+            want, want_trace = megakernel.mega_chunk_plain(
+                g, cfg, k, with_trace=True)(_clone(state))
+            megakernel.reset_launches()
+            got, got_trace = megakernel.make_mega_chunk_fn(
+                g, cfg, k, with_trace=True)(_clone(state))
+            torch.cuda.synchronize()
+            assert megakernel.launches["mega_chunk"] == 1
+            _assert_bits_equal(got, want)
+            assert torch.equal(got_trace, want_trace)
+
+
+@pytest.mark.parametrize("policy", sorted(GOLDENS))
+def test_megakernel_engine_reproduces_goldens(cuda, policy):
+    g = wl.arrow_lu_graph(3, 6, 4, seed=5)
+    megakernel.reset_launches()
+    r = repro_torch.run(g, OverlayConfig(scheduler=policy,
+                                         engine="megakernel"), nx=2, ny=2)
+    assert r.done
+    assert (r.cycles, r.deflections) == GOLDENS[policy]
+    assert (r.busy_cycles, r.delivered) == (1777, 3554)
+    assert megakernel.launches["mega_chunk"] > 0
+    t = repro_torch.run(g, OverlayConfig(scheduler=policy, engine="tensor"),
+                        nx=2, ny=2)
+    np.testing.assert_array_equal(r.values.view(np.int32),
+                                  t.values.view(np.int32))

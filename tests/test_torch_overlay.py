@@ -146,8 +146,6 @@ def test_run_without_device_needs_cuda(monkeypatch, entry):
 
 def test_parts_not_ported_yet_raise():
     g = wl.layered_dag(3, 4, seed=1)
-    with pytest.raises(NotImplementedError, match="megakernel"):
-        OverlayConfig(engine="megakernel")
     with pytest.raises(NotImplementedError, match="placement"):
         OverlayConfig(placement="anneal")
     with pytest.raises(NotImplementedError, match="telemetry"):

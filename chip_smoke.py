@@ -24,7 +24,10 @@ Phases, each of which fails the run on any error:
      float planes made -0.0), at K = 1, 7 and 32, on clones of one state:
      every state leaf and the done trace must be equal as bit patterns.
      Also the matrix graph on 36x36 (above 1024 PEs: each thread loops
-     over PEs) and 42x42 (links in global scratch, not shared memory);
+     over PEs) and 42x42 (links in global scratch, not shared memory), and
+     each larger megakernel row's policies (``--mega-rows`` beyond n15072)
+     from three states (cycle 40, made by the plain chunk; half-way to the
+     golden; three cycles before it) at K = 1 and 32;
   5. main path, ``engine="select"``: ``repro_torch.run`` on the 16x16 PE
      grid for the Fig. 1 arrow-LU graphs (default rows n15072 and n29772;
      ``--rows`` adds n117972); every cycle count must equal the reference's
@@ -392,10 +395,33 @@ def state_err(torch, got, want, path=""):
     return err
 
 
-def check_megakernel(torch, np, graphs, mk):
+def compare_chunks(torch, mk, g, cfg, states, ks, label):
+    """For each start state and K: the kernel chunk and the plain chunk on
+    clones of the state; every leaf and the done trace must be equal as bit
+    patterns. Returns the largest abs error and the number of cases."""
+    err, cases = 0.0, 0
+    for sname, st in states.items():
+        for K in ks:
+            want, want_tr = mk.mega_chunk_plain(
+                g, cfg, K, with_trace=True)(clone_state(st))
+            got, got_tr = mk.make_mega_chunk_fn(
+                g, cfg, K, with_trace=True)(clone_state(st))
+            torch.cuda.synchronize()
+            err = max(err, state_err(torch, got, want))
+            if not torch.equal(got_tr, want_tr):
+                raise AssertionError(f"megakernel done trace differs: "
+                                     f"{label} {sname} K={K}")
+            cases += 1
+    return err, cases
+
+
+def check_megakernel(torch, np, graphs, mk, rows):
     """The megakernel chunk against its plain version on clones of one
-    state, every leaf and the done trace as bit patterns. Returns the
-    largest abs error and the number of cases."""
+    state, every leaf and the done trace as bit patterns: every policy x
+    eject configuration on the small matrix graph and on n15072, the
+    matrix graph on grids above 1024 PEs, and the main-path policies of the
+    larger megakernel ``rows``. Returns the largest abs error and the
+    number of cases."""
     from repro_torch.core import workloads as wl
     from repro_torch.core.overlay import (OverlayConfig, device_graph,
                                           init_state, run_state)
@@ -431,22 +457,34 @@ def check_megakernel(torch, np, graphs, mk):
                         zeros[leaf])
                 states = {"cycle 0": s0, "mid-run": mid, "3 before end": late,
                           "signed zeros": zeros}
-                for sname, st in states.items():
-                    for K in (1, 7, 32):
-                        want, want_tr = mk.mega_chunk_plain(
-                            g, cfg, K, with_trace=True)(clone_state(st))
-                        got, got_tr = mk.make_mega_chunk_fn(
-                            g, cfg, K, with_trace=True)(clone_state(st))
-                        torch.cuda.synchronize()
-                        err = max(err, state_err(torch, got, want))
-                        if not torch.equal(got_tr, want_tr):
-                            raise AssertionError(
-                                f"megakernel done trace differs: {label} "
-                                f"{sched} {eject} {sname} K={K}")
-                        cases += 1
+                e, n = compare_chunks(torch, mk, g, cfg, states, (1, 7, 32),
+                                      f"{label} {sched} {eject}")
+                err, cases = max(err, e), cases + n
                 print(f"megakernel equals its plain version: {label} {sched} "
                       f"{eject} (run ends at cycle {end}; 4 states x K in 1, "
                       f"7, 32)", flush=True)
+    # The larger main-path rows, at the main path's eject configuration:
+    # states made by the plain chunk (40 cycles from cycle 0) and by the
+    # engine (half-way to the golden, and 3 cycles before it).
+    for name in rows:
+        if name == "n15072":
+            continue
+        for sched, golden in ROWS[name][1].items():
+            g = device_graph(graphs.memory(name, sched))
+            cfg = OverlayConfig(scheduler=sched, engine="megakernel")
+            s0 = init_state(g, cfg)
+            half = run_state(g, dataclasses.replace(cfg, max_cycles=golden // 2),
+                             clone_state(s0))
+            late = run_state(g, dataclasses.replace(cfg, max_cycles=golden - 3),
+                             clone_state(half))
+            states = {"mid-run": mk.mega_chunk_plain(g, cfg, 40)(s0),
+                      "half-way": half, "3 before end": late}
+            e, n = compare_chunks(torch, mk, g, cfg, states, (1, 32),
+                                  f"{name} {sched}")
+            err, cases = max(err, e), cases + n
+            print(f"megakernel equals its plain version: {name} {sched} "
+                  f"(states at cycles 40, {golden // 2}, {golden - 3}; K in 1, "
+                  f"32)", flush=True)
     return err, cases
 
 
@@ -490,9 +528,13 @@ def mega_times(torch, graphs, mk, name, chunks=40, plain_chunks=5):
         return sum(nbytes(v) if isinstance(v, dict)
                    else v.numel() * v.element_size() for v in tree.values())
 
-    # Graph leaves read once, state leaves read and written once, the done
-    # trace written once.
-    total = nbytes(dict(g)) + 2 * nbytes(init_state(g, cfg)) + MEGA_K
+    # The graph leaves the kernel reads, read once (``fanin``, ``init_value``
+    # and ``valid`` are read only by ``init_state``); the state leaves read
+    # and written once, but ``sel_lat`` only read; the done trace written
+    # once.
+    state = init_state(g, cfg)
+    total = (nbytes({k: g[k] for k in mk.GRAPH_LEAVES}) + 2 * nbytes(state)
+             - nbytes({"sel_lat": state["sel_lat"]}) + MEGA_K)
     return dict(ms=ms, plain_ms=plain_ms, call_ms=call_ms, bytes=total,
                 shape=list(g["opcode"].shape))
 
@@ -597,7 +639,7 @@ def main() -> int:
 
     graphs = Graphs()
     t = time.perf_counter()
-    mega_err, cases = check_megakernel(torch, np, graphs, mk)
+    mega_err, cases = check_megakernel(torch, np, graphs, mk, args.mega_rows)
     print(f"megakernel equals its plain version in {cases} cases, max abs "
           f"error {mega_err}, {time.perf_counter() - t:.1f} s", flush=True)
 

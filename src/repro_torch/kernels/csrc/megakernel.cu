@@ -24,8 +24,9 @@
 // that each thread loops over its PEs and they go through global memory.
 // Links go to a global scratch buffer when they do not fit shared memory.
 //
-// Bound. A chunk's bytes are the graph leaves read once and the state leaves
-// read and written once: ~1.1 MB at 16x16 x 64 slots, 0.3 us at 3.35 TB/s.
+// Bound. A chunk's bytes are the graph leaves it reads (opcode, fanout
+// ranges, edge records) read once and the state leaves read and written
+// once: ~1.3 MB at 16x16 x 64 slots, 0.39 us at 3.35 TB/s.
 // The kernel is bound instead by the latency of one SM's dependent loads of
 // graph memory and slot planes (L2-resident at these sizes) and its per-cycle
 // barrier. The design keeps all K cycles in one launch, so the ~175 host
@@ -57,8 +58,10 @@ enum Stat { kFired = 0, kDelivered, kDNoc, kDEj, kBusyPes, kStats };
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr unsigned kAllLanes = 0xFFFFFFFFu;
-// Link buffers above this many bytes of shared memory go to global scratch.
+// Link buffers above this many bytes of shared memory go to global scratch
+// (MAX_LINK_SMEM in kernels/megakernel.py).
 constexpr int kMaxLinkSmem = 160 * 1024;
+constexpr int kDefaultSmem = 48 * 1024;
 
 constexpr int OP_ADD = 1, OP_SUB = 2, OP_MUL = 3, OP_DIV = 4;
 constexpr float kDivEps = 1e-3f;
@@ -101,7 +104,7 @@ struct MegaArgs {
   int32_t* busy_cycles;
   // scratch from the wrapper
   uint8_t* trace;          // [K] bool
-  int32_t* link_scratch;   // [2, 2, 6, P], used when links exceed kMaxLinkSmem
+  int32_t* link_scratch;   // [2, 2, 6, P] when links exceed kMaxLinkSmem, else null
   int32_t nx, ny, L, W, emax, K;
 };
 
@@ -512,15 +515,12 @@ int launch(const MegaArgs& a, cudaStream_t stream) {
   const int link_bytes = 2 * 2 * kFields * P * static_cast<int>(sizeof(int));
   const bool in_smem = link_bytes <= kMaxLinkSmem;
   const int smem = in_smem ? link_bytes : 0;
-  if (one_pe) {
-    auto* k = mega_chunk_kernel<POLICY, EJECT, true>;
+  auto* k = one_pe ? mega_chunk_kernel<POLICY, EJECT, true>
+                   : mega_chunk_kernel<POLICY, EJECT, false>;
+  // Above the default 48 KB a kernel must opt in to more shared memory.
+  if (smem > kDefaultSmem)
     cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    k<<<1, threads, smem, stream>>>(a, in_smem);
-  } else {
-    auto* k = mega_chunk_kernel<POLICY, EJECT, false>;
-    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    k<<<1, threads, smem, stream>>>(a, in_smem);
-  }
+  k<<<1, threads, smem, stream>>>(a, in_smem);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,7 +17,9 @@ reference's chunk repair of ``cycle`` and ``done``. The chunk
 
 Every graph and state leaf is checked (one device, contiguous, the dtype
 and shape that ``device_graph``/``init_state`` give it) before the dispatch,
-so a malformed state raises ``ValueError`` on either device.
+so a malformed state raises ``ValueError`` on either device. A state whose
+tensors are the last call's (the kernel updates them in place) is not
+checked again.
 
 :data:`launches` counts kernel launches, so a run can show that its main
 path went through the kernel.
@@ -133,8 +135,11 @@ def _check_tree(tree, spec, device, path):
 # The kernel's argument struct (``MegaArgs`` in ``csrc/megakernel.cu``).
 # ---------------------------------------------------------------------------
 
-_POINTERS = (
-    "opcode", "fo_base", "fo_count", "e_dst_pe", "e_dst_slot", "e_dst_opidx",
+#: The graph leaves the kernel reads (``fanin``, ``init_value`` and ``valid``
+#: are read only by ``init_state``).
+GRAPH_LEAVES = ("opcode", "fo_base", "fo_count", "e_dst_pe", "e_dst_slot",
+                "e_dst_opidx")
+_POINTERS = GRAPH_LEAVES + (
     "pending", "operands", "computed", "value", "remaining",
     "rdy", "ptr", "fifo", "head", "size",
     "active", "cursor", "cursor_end", "sel_lat", "sel_wait",
@@ -143,10 +148,23 @@ _POINTERS = (
     "busy_cycles", "trace", "link_scratch")
 _INTS = ("nx", "ny", "L", "W", "emax", "K")
 
+#: Link buffers above this many bytes go to a global scratch buffer instead
+#: of shared memory (``kMaxLinkSmem`` in ``csrc/megakernel.cu``).
+MAX_LINK_SMEM = 160 * 1024
+
 
 class _Args(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p) for n in _POINTERS]
                 + [(n, ctypes.c_int32) for n in _INTS])
+
+
+def _leaves(s):
+    """The state's tensors in a fixed order, or None if it lacks a key."""
+    try:
+        return ([v for k, v in s.items() if k != "sched"]
+                + list(s["sched"].values()))
+    except (AttributeError, KeyError):
+        return None
 
 
 def make_mega_chunk_fn(g: overlay.DeviceGraph, cfg: overlay.OverlayConfig,
@@ -169,10 +187,36 @@ def make_mega_chunk_fn(g: overlay.DeviceGraph, cfg: overlay.OverlayConfig,
     dims = dict(nx=nx, ny=ny, L=L, W=L // bitvec.FLAGS_PER_WORD,
                 emax=g["e_dst_pe"].shape[-1], K=K)
     plain = None
+    # The kernel updates a state in place, so chunk after chunk of one run
+    # passes the same tensors: their check, the argument struct and the
+    # scratch are made once, when the leaves differ from the last call's.
+    last = dict(leaves=None, args=None, trace=None, scratch=None)
+
+    def prepare(s):
+        _check_tree(s, spec, device, "state")
+        if device.type != "cuda":
+            return
+        trace = torch.empty(K, dtype=torch.bool, device=device)
+        link_bytes = 2 * 2 * len(noc.PKT_FIELDS) * nx * ny * 4
+        scratch = (torch.empty(link_bytes // 4, dtype=torch.int32,
+                               device=device)
+                   if link_bytes > MAX_LINK_SMEM else None)
+        tensors = dict(g, **{k: v for k, v in s.items() if k != "sched"},
+                       **s["sched"], trace=trace, link_scratch=scratch)
+        last.update(args=_Args(
+            **{n: tensors[n].data_ptr() if tensors.get(n) is not None
+               else None for n in _POINTERS}, **dims),
+            trace=trace, scratch=scratch)
 
     def chunk(s):
         nonlocal plain
-        _check_tree(s, spec, device, "state")
+        leaves = _leaves(s)
+        prev = last["leaves"]
+        if (leaves is None or prev is None or len(leaves) != len(prev)
+                or any(a is not b for a, b in zip(leaves, prev))):
+            last["leaves"] = None
+            prepare(s)
+            last["leaves"] = leaves
         if device.type == "cpu":
             if plain is None:
                 plain = mega_chunk_plain(g, cfg, K, with_trace=True)
@@ -180,13 +224,10 @@ def make_mega_chunk_fn(g: overlay.DeviceGraph, cfg: overlay.OverlayConfig,
             return (s, trace) if with_trace else s
         if device.type != "cuda":
             raise ValueError(f"no megakernel for device {device}")
-        trace = torch.empty(K, dtype=torch.bool, device=device)
-        scratch = torch.empty(2 * 2 * len(noc.PKT_FIELDS) * nx * ny,
-                              dtype=torch.int32, device=device)
-        tensors = dict(g, **{k: v for k, v in s.items() if k != "sched"},
-                       **s["sched"], trace=trace, link_scratch=scratch)
-        args = _Args(**{n: tensors[n].data_ptr() if n in tensors else None
-                        for n in _POINTERS}, **dims)
+        args, trace = last["args"], last["trace"]
+        if with_trace:        # the caller keeps it: a fresh one per call
+            trace = torch.empty(K, dtype=torch.bool, device=device)
+            args.trace = trace.data_ptr()
         with torch.cuda.device(device):
             fn = _build.library(SOURCE).mega_chunk
             launches["mega_chunk"] += 1

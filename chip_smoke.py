@@ -23,8 +23,8 @@ Phases, each of which fails the run on any error:
      cycles before completion; the mid-run state with every zero of the
      float planes made -0.0), at K = 1, 7 and 32, on clones of one state:
      every state leaf and the done trace must be equal as bit patterns.
-     Also the matrix graph on 36x36 (above 1024 PEs: each thread loops
-     over PEs) and 42x42 (links in global scratch, not shared memory), and
+     Also the matrix graph on 36x36 and 42x42 (above 1024 PEs: each
+     thread loops over more than one PE), and
      each larger megakernel row's policies (``--mega-rows`` beyond n15072)
      from three states (cycle 40, made by the plain chunk; half-way to the
      golden; three cycles before it) at K = 1 and 32;

@@ -16,13 +16,13 @@
 // Hoplite link registers (read from the west and north neighbour's previous
 // cycle) and the termination predicate and stat counters (grid-wide sums).
 // So the K cycles run as a loop inside one block: the links are
-// double-buffered by cycle parity in shared memory, and one __syncthreads
-// ends each cycle, after each warp has written its partial sums; warp 0
-// reduces them and thread 0 keeps the counters and writes the done trace.
-// A PE's own registers (active, cursor, scheduler head/size/pointer) stay in
-// registers for the whole chunk when the grid has at most 1024 PEs; above
-// that each thread loops over its PEs and they go through global memory.
-// Links go to a global scratch buffer when they do not fit shared memory.
+// double-buffered by cycle parity in a global scratch buffer (L1/L2
+// resident), and one __syncthreads ends each cycle, after each warp has
+// written its partial sums; warp 0 reduces them and thread 0 keeps the
+// counters and writes the done trace. Each thread loops over its PEs (one
+// up to 1024 PEs) and loads and stores a PE's own registers (active, cursor,
+// scheduler head/size/pointer) around its cycle. Keeping those registers in
+// the thread and the links in shared memory was timed at 16x16: no faster.
 //
 // Bound. A chunk's bytes are the graph leaves it reads (opcode, fanout
 // ranges, edge records) read once and the state leaves read and written
@@ -58,10 +58,6 @@ enum Stat { kFired = 0, kDelivered, kDNoc, kDEj, kBusyPes, kStats };
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr unsigned kAllLanes = 0xFFFFFFFFu;
-// Link buffers above this many bytes of shared memory go to global scratch
-// (MAX_LINK_SMEM in kernels/megakernel.py).
-constexpr int kMaxLinkSmem = 160 * 1024;
-constexpr int kDefaultSmem = 48 * 1024;
 
 constexpr int OP_ADD = 1, OP_SUB = 2, OP_MUL = 3, OP_DIV = 4;
 constexpr float kDivEps = 1e-3f;
@@ -104,7 +100,7 @@ struct MegaArgs {
   int32_t* busy_cycles;
   // scratch from the wrapper
   uint8_t* trace;          // [K] bool
-  int32_t* link_scratch;   // [2, 2, 6, P] when links exceed kMaxLinkSmem, else null
+  int32_t* link_scratch;   // [2, 2, 6, P] links of the cycle's two parities
   int32_t nx, ny, L, W, emax, K;
 };
 
@@ -405,16 +401,15 @@ __device__ __forceinline__ void pe_cycle(const MegaArgs& a, int p, PeRegs& r,
   st[kBusyPes] += quiet ? 0 : 1;
 }
 
-template <int POLICY, int EJECT, bool ONE_PE_PER_THREAD>
+template <int POLICY, int EJECT>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-mega_chunk_kernel(const MegaArgs a, bool links_in_smem) {
-  extern __shared__ int smem_links[];
+mega_chunk_kernel(const MegaArgs a) {
   __shared__ int partial[2][kMaxWarps][kStats];
 
   const int P = a.nx * a.ny;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
-  int* links = links_in_smem ? smem_links : a.link_scratch;
+  int* links = a.link_scratch;
   const int sel_lat = *a.sel_lat;
 
   for (int p = tid; p < P; p += blockDim.x) {
@@ -424,9 +419,6 @@ mega_chunk_kernel(const MegaArgs a, bool links_in_smem) {
       links[(kFields + f) * P + p] = a.link_s[f * P + p];
     }
   }
-  PeRegs regs{};
-  if (ONE_PE_PER_THREAD && tid < P) regs = load_regs<POLICY>(a, tid);
-
   // Thread 0 keeps the grid-wide scalars.
   int remaining = 0, delivered = 0, d_noc = 0, d_ej = 0, deflections = 0,
       busy = 0, first = -1;
@@ -444,14 +436,10 @@ mega_chunk_kernel(const MegaArgs a, bool links_in_smem) {
     const int* in = links + (k & 1) * 2 * kFields * P;
     int* out = links + ((k + 1) & 1) * 2 * kFields * P;
     int st[kStats] = {0, 0, 0, 0, 0};
-    if (ONE_PE_PER_THREAD) {
-      if (tid < P) pe_cycle<POLICY, EJECT>(a, tid, regs, in, out, sel_lat, st);
-    } else {
-      for (int p = tid; p < P; p += blockDim.x) {
-        PeRegs r = load_regs<POLICY>(a, p);
-        pe_cycle<POLICY, EJECT>(a, p, r, in, out, sel_lat, st);
-        store_regs<POLICY>(a, p, r);
-      }
+    for (int p = tid; p < P; p += blockDim.x) {
+      PeRegs r = load_regs<POLICY>(a, p);
+      pe_cycle<POLICY, EJECT>(a, p, r, in, out, sel_lat, st);
+      store_regs<POLICY>(a, p, r);
     }
 #pragma unroll
     for (int i = 0; i < kStats; ++i) {
@@ -479,7 +467,6 @@ mega_chunk_kernel(const MegaArgs a, bool links_in_smem) {
     }
   }
 
-  if (ONE_PE_PER_THREAD && tid < P) store_regs<POLICY>(a, tid, regs);
   const int* last = links + (a.K & 1) * 2 * kFields * P;
   for (int p = tid; p < P; p += blockDim.x) {
 #pragma unroll
@@ -510,17 +497,8 @@ mega_chunk_kernel(const MegaArgs a, bool links_in_smem) {
 template <int POLICY, int EJECT>
 int launch(const MegaArgs& a, cudaStream_t stream) {
   const int P = a.nx * a.ny;
-  const bool one_pe = P <= kMaxThreads;
-  const int threads = one_pe ? (P + 31) / 32 * 32 : kMaxThreads;
-  const int link_bytes = 2 * 2 * kFields * P * static_cast<int>(sizeof(int));
-  const bool in_smem = link_bytes <= kMaxLinkSmem;
-  const int smem = in_smem ? link_bytes : 0;
-  auto* k = one_pe ? mega_chunk_kernel<POLICY, EJECT, true>
-                   : mega_chunk_kernel<POLICY, EJECT, false>;
-  // Above the default 48 KB a kernel must opt in to more shared memory.
-  if (smem > kDefaultSmem)
-    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  k<<<1, threads, smem, stream>>>(a, in_smem);
+  const int threads = min((P + 31) / 32 * 32, kMaxThreads);
+  mega_chunk_kernel<POLICY, EJECT><<<1, threads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

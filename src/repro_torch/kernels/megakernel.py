@@ -148,10 +148,6 @@ _POINTERS = GRAPH_LEAVES + (
     "busy_cycles", "trace", "link_scratch")
 _INTS = ("nx", "ny", "L", "W", "emax", "K")
 
-#: Link buffers above this many bytes go to a global scratch buffer instead
-#: of shared memory (``kMaxLinkSmem`` in ``csrc/megakernel.cu``).
-MAX_LINK_SMEM = 160 * 1024
-
 
 class _Args(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p) for n in _POINTERS]
@@ -197,10 +193,9 @@ def make_mega_chunk_fn(g: overlay.DeviceGraph, cfg: overlay.OverlayConfig,
         if device.type != "cuda":
             return
         trace = torch.empty(K, dtype=torch.bool, device=device)
-        link_bytes = 2 * 2 * len(noc.PKT_FIELDS) * nx * ny * 4
-        scratch = (torch.empty(link_bytes // 4, dtype=torch.int32,
-                               device=device)
-                   if link_bytes > MAX_LINK_SMEM else None)
+        # the links of both cycle parities: [2, 2 (E, S), 6, P]
+        scratch = torch.empty(2 * 2 * len(noc.PKT_FIELDS) * nx * ny,
+                              dtype=torch.int32, device=device)
         tensors = dict(g, **{k: v for k, v in s.items() if k != "sched"},
                        **s["sched"], trace=trace, link_scratch=scratch)
         last.update(args=_Args(

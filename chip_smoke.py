@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py                   # everything, as the check runs it
     python3 chip_smoke.py --rows n15072 --mega-rows n15072   # smallest rows
+    python3 chip_smoke.py --baseline DIR    # also time DIR's solo megakernel
 
-Phases, each of which fails the run on any error:
+Phases, each of which fails the run on any error (each prints its seconds):
   1. the card: its name and power limit from ``nvidia-smi``;
   2. build: compiles every CUDA source of the port with ``nvcc``, one
      process per source, all started together (set-up), and prints each
@@ -23,27 +24,57 @@ Phases, each of which fails the run on any error:
      cycles before completion; the mid-run state with every zero of the
      float planes made -0.0), at K = 1, 7 and 32, on clones of one state:
      every state leaf and the done trace must be equal as bit patterns.
-     Also the matrix graph on 36x36 and 42x42 (above 1024 PEs: each
+     Also the matrix graph on 36x36 and 42x42 (above 512 PEs: each
      thread loops over more than one PE), and
      each larger megakernel row's policies (``--mega-rows`` beyond n15072)
      from three states (cycle 40, made by the plain chunk; half-way to the
      golden; three cycles before it) at K = 1 and 32;
-  5. main path, ``engine="select"``: ``repro_torch.run`` on the 16x16 PE
+  5. batched megakernel: the batched chunk (one CTA per config) against its
+     plain version (each element through the tensor engine's chunk) on a
+     mixed batch (all four policies, ``ooo`` at select latency 4, ``scan``
+     with a budget of 100) on the matrix graph and on n15072, every eject
+     configuration, from four states (cycle 0; mid-run; each element three
+     cycles before its own end; signed zeros) at K = 1, 7 and 32, plus a
+     one-cycle tail launch that freezes elements at their budgets: every
+     leaf and the [K, B] trace equal as bit patterns;
+  6. main path, ``engine="select"``: ``repro_torch.run`` on the 16x16 PE
      grid for the Fig. 1 arrow-LU graphs (default rows n15072 and n29772;
      ``--rows`` adds n117972); every cycle count must equal the reference's
      golden, values must match ``reference_evaluate`` (rtol = atol = 1e-5,
      as the reference's own tests hold them), the n15072 results must equal
      a CPU run of the port bit for bit, and the scheduler kernels must have
      been launched during this phase;
-  6. main path, ``engine="megakernel"``: the same checks on rows n15072,
+  7. main path, ``engine="megakernel"``: the same checks on rows n15072,
      n29772, n117972 and n470772 (``--mega-rows``), each result bit-identical
      to the select engine's where that phase ran the row too, and the
      megakernel launched during this phase;
-  7. megakernel time: device time per K=32 chunk by CUDA events between
+  8. batched main path: the same rows through ``repro_torch.run(gm,
+     batch=...)`` with the megakernel, one batch per memory layout (as the
+     reference's Fig. 1 benchmark groups them; at n29772 this is the
+     reference's ``policy_sweep``): goldens, values, every element
+     bit-identical to phase 7's solo run, the batched kernel launched;
+  9. full-card sweeps at n29772, one batch each: ``sweep_ooo`` (``ooo`` x
+     select latency 1..128, B = 128) and ``sweep_mixed`` (inorder,
+     lru_flat, scan x 1..42, B = 126); every element bit-identical to a solo
+     megakernel run of its config, and the goldens at each policy's default
+     latency;
+ 10. batched select: a small mixed batch under ``engine="select"`` (the
+     leading-one kernels element by element) equal to the same batch under
+     the megakernel;
+ 11. megakernel time: device time per K=32 chunk by CUDA events between
      chunks enqueued back to back (median over chunks) at n15072 and
      n117972, beside the plain chunk's, the host time per call and the
      bytes bound;
-  8. profiles: ``torch.profiler`` over the first 300 cycles of the n15072
+ 12. batch scaling: the first B = 1, 8, 32, 64 and 128 configs of ``sweep_ooo``:
+     wall, simulated cycles summed over the elements per second, device
+     time per K=32 batched chunk, the same B solo runs' summed wall, the
+     bytes bound, host time per batched call and kernel launches; and at
+     B = 8 the plain batched chunk's time;
+ 13. with ``--baseline DIR ...``: the solo K=32 chunk at n15072 and n117972
+     of each other source tree (e.g. a ``git archive`` of another commit,
+     its own ``src/repro_torch`` built from its own sources) timed in turns
+     with this tree's (A B .. B A);
+ 14. profiles: ``torch.profiler`` over the first 300 cycles of the n15072
      ``ooo`` select run and over the whole n15072 ``ooo`` megakernel run,
      each with its device busy share, device ops per cycle and top kernels.
 
@@ -57,11 +88,14 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
+import importlib.util
 import json
 import statistics
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -104,6 +138,20 @@ KERNELS = {
 SOURCE = "src/repro_torch/kernels/csrc/lod.cu"
 MEGA_REPLACES = "src/repro/kernels/megakernel.py:68"
 MEGA_SOURCE = "src/repro_torch/kernels/csrc/megakernel.cu"
+
+#: The full-card sweeps (one batch each) on this row: (memory layout of the
+#: scheduler, policies, select latencies).
+SWEEP_ROW = "n29772"
+SWEEPS = {"sweep_ooo": ("ooo", ("ooo",), range(1, 129)),
+          "sweep_mixed": ("inorder", ("inorder", "lru_flat", "scan"),
+                          range(1, 43))}
+#: Batch sizes of the scaling phase (the first B configs of sweep_ooo), and
+#: the one at which the plain batched chunk is timed for the kernels line.
+SCALING_B = (1, 8, 32, 64, 128)
+BATCH_TIMED_B = 8
+#: The mixed batch of the batched kernel checks: policies on one layout,
+#: ``ooo`` at select latency 4, ``scan`` with a short budget.
+BATCH_POLICIES = ("inorder", "lru_flat", "ooo", "scan")
 
 POLICIES = ("ooo", "inorder", "lru_flat", "scan")
 #: Eject configurations: name -> (eject_capacity, eject_policy).
@@ -364,7 +412,159 @@ def mega_main_path(torch, np, graphs, rows, mk, select_results):
                   f"the select engine {same}", flush=True)
             if not same:
                 raise AssertionError(f"{key}: megakernel and select differ")
+    return results, counts
+
+
+def layout_groups(policies):
+    """Policies grouped by the memory layout they want, as the reference's
+    Fig. 1 benchmark groups them into one batch each."""
+    from repro_torch.core import schedulers
+
+    groups = {}
+    for p in policies:
+        groups.setdefault(schedulers.get(p).wants_criticality_order,
+                          []).append(p)
+    return list(groups.values())
+
+
+def batched_main_path(torch, np, graphs, rows, mk, solo_results):
+    """The megakernel main path through ``run(gm, batch=...)``, one batch
+    per memory layout: goldens, values, and every element bit-identical to
+    the solo run of phase 7. Counts are set to 0 just before the runs and
+    read just after."""
+    import repro_torch
+    from repro_torch.core.overlay import OverlayConfig
+
+    for name in rows:
+        for sched in ROWS[name][1]:
+            graphs.memory(name, sched)
+    mk.reset_launches()
+    for name in rows:
+        _, ref = graphs.graph(name)
+        for group in layout_groups(ROWS[name][1]):
+            cfgs = [OverlayConfig(scheduler=p, engine="megakernel")
+                    for p in group]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rs = repro_torch.run(graphs.memory(name, group[0]), batch=cfgs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            for p, r in zip(group, rs):
+                golden = ROWS[name][1][p]
+                ok_vals = bool(np.isfinite(r.values).all()) and bool(
+                    np.allclose(r.values, ref, rtol=1e-5, atol=1e-5))
+                same = same_result(np, r, solo_results[name, p])
+                print(f"batched main path {name} {p} (batch {group}): cycles "
+                      f"{r.cycles} (golden {golden}), done {r.done}, "
+                      f"bit-identical to the solo run {same}", flush=True)
+                if not (r.done and r.cycles == golden and ok_vals and same):
+                    raise AssertionError(
+                        f"batched main path {name} {p}: cycles {r.cycles} vs "
+                        f"golden {golden}, done {r.done}, values match "
+                        f"{ok_vals}, equal to solo {same}")
+            print(f"batched main path {name} {group}: wall {wall:.3f} s, "
+                  f"{sum(r.cycles for r in rs) / wall:.0f} simulated cycles/s",
+                  flush=True)
+    counts = dict(mk.launches)
+    print(f"batched main path kernel launches: {counts}", flush=True)
+    if counts["mega_chunk_batched"] == 0:
+        raise AssertionError("the batched main path never launched "
+                             "mega_chunk_batched")
     return counts
+
+
+def sweep_configs(sweep):
+    from repro_torch.core.overlay import OverlayConfig
+
+    _, policies, lats = SWEEPS[sweep]
+    return [OverlayConfig(scheduler=p, select_latency=lat, engine="megakernel")
+            for p in policies for lat in lats]
+
+
+def full_card_sweeps(torch, np, graphs):
+    """Each sweep as one batch at SWEEP_ROW; every element bit-identical to
+    a solo megakernel run of its config, the goldens at each policy's
+    default latency. Returns {sweep: [solo wall s per config]}."""
+    import repro_torch
+    from repro_torch.core import schedulers
+    from repro_torch.core.overlay import OverlayConfig
+
+    goldens = ROWS[SWEEP_ROW][1]
+    solo_walls = {}
+    for sweep, (layout, _, _) in SWEEPS.items():
+        gm = graphs.memory(SWEEP_ROW, layout)
+        cfgs = sweep_configs(sweep)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rs = repro_torch.run(gm, batch=cfgs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        walls, at_default = [], 0
+        for c, rb in zip(cfgs, rs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = repro_torch.run(gm, c)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            if not (rb.done and same_result(np, rb, r)):
+                raise AssertionError(
+                    f"{sweep} {c.scheduler} latency {c.select_latency}: "
+                    f"batch element (cycles {rb.cycles}, done {rb.done}) "
+                    f"differs from its solo run (cycles {r.cycles})")
+            default = schedulers.get(c.scheduler).sel_lat(
+                OverlayConfig(scheduler=c.scheduler), gm.lmax // 32)
+            if c.select_latency == default:
+                at_default += 1
+                if rb.cycles != goldens[c.scheduler]:
+                    raise AssertionError(
+                        f"{sweep} {c.scheduler} at its default latency "
+                        f"{default}: {rb.cycles} cycles, golden "
+                        f"{goldens[c.scheduler]}")
+        cycles = sum(r.cycles for r in rs)
+        print(f"{sweep} {SWEEP_ROW}: B = {len(cfgs)} in one batch, wall "
+              f"{wall:.3f} s ({cycles} simulated cycles, {cycles / wall:.0f} "
+              f"per s; longest element {max(r.cycles for r in rs)} cycles); "
+              f"{len(cfgs)} solo runs {sum(walls):.3f} s; every element "
+              f"bit-identical to its solo run; {at_default} elements at "
+              f"their default latency equal the goldens", flush=True)
+        solo_walls[sweep] = walls
+    return solo_walls
+
+
+def batched_select(torch, np, lod):
+    """A small mixed batch under ``engine="select"`` (the leading-one
+    kernels element by element) against the same batch under the
+    megakernel: the matrix graph, every policy plus ``ooo`` at latency 4,
+    each at a budget of 300 cycles."""
+    import repro_torch
+    from repro_torch.core import workloads as wl
+    from repro_torch.core.overlay import OverlayConfig
+    from repro_torch.core.partition import build_graph_memory
+
+    b, s, w, seed = MATRIX_GRAPH
+    gm = build_graph_memory(wl.arrow_lu_graph(b, s, w, seed=seed), 2, 2,
+                            criticality_order=True)
+
+    def batch(engine):
+        return [OverlayConfig(scheduler=p, max_cycles=300, engine=engine)
+                for p in BATCH_POLICIES] + [OverlayConfig(
+                    scheduler="ooo", select_latency=4, max_cycles=300,
+                    engine=engine)]
+
+    lod.reset_launches()
+    sel = repro_torch.run(gm, batch=batch("select"))
+    counts = dict(lod.launches)
+    mega = repro_torch.run(gm, batch=batch("megakernel"))
+    for c, a, m in zip(batch("select"), sel, mega):
+        if not same_result(np, a, m):
+            raise AssertionError(f"batched select {c.scheduler} latency "
+                                 f"{c.select_latency}: differs from the "
+                                 f"megakernel batch")
+    if counts["schedule_step"] == 0 or counts["rotating_schedule_step"] == 0:
+        raise AssertionError(f"the batched select engine launched {counts}")
+    print(f"batched select (matrix graph 2x2, B = {len(sel)}, budget 300): "
+          f"equal to the megakernel batch; kernel launches {counts}",
+          flush=True)
 
 
 def clone_state(s):
@@ -488,7 +688,54 @@ def check_megakernel(torch, np, graphs, mk, rows):
     return err, cases
 
 
-def mega_times(torch, graphs, mk, name, chunks=40, plain_chunks=5):
+def timed_chunks(torch, fn, s, n):
+    """``n`` calls ``s = fn(s)`` enqueued back to back with a CUDA event
+    between two: (median ms between events, median host ms per call)."""
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    host = []
+    events[0].record()
+    for i in range(n):
+        t = time.perf_counter()
+        s = fn(s)
+        host.append(time.perf_counter() - t)
+        events[i + 1].record()
+    events[-1].synchronize()
+    dev = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    return statistics.median(dev), statistics.median(host) * 1e3
+
+
+def nbytes(tree):
+    return sum(nbytes(v) if isinstance(v, dict)
+               else v.numel() * v.element_size() for v in tree.values())
+
+
+def chunk_bytes(g, state, mk, K):
+    """Bytes a chunk must move: the graph leaves the kernel reads, read once
+    (``fanin``, ``init_value`` and ``valid`` are read only by
+    ``init_state``); the state leaves read and written once, but the
+    read-only ``sel_lat`` (and a batch's ``policy_id``) only read; the done
+    trace written once. A batch's state holds B elements."""
+    read_only = {"sel_lat": state["sel_lat"]}
+    if "policy_id" in state["sched"]:
+        read_only["policy_id"] = state["sched"]["policy_id"]
+    return (nbytes({k: g[k] for k in mk.GRAPH_LEAVES}) + 2 * nbytes(state)
+            - nbytes(read_only) + K * state["done"].numel())
+
+
+def solo_chunk_ms(torch, api, gm, chunks=40):
+    """Device ms and host ms per K=32 ``ooo`` chunk from cycle 0 through the
+    solo megakernel of ``api`` (a namespace with ``OverlayConfig``,
+    ``device_graph``, ``init_state`` and ``mk``, the megakernel module; from
+    this tree or another)."""
+    cfg = api.OverlayConfig(scheduler="ooo", engine="megakernel")
+    g = api.device_graph(gm)
+    s = api.init_state(g, cfg)
+    kernel = api.mk.make_mega_chunk_fn(g, cfg, MEGA_K)
+    s = kernel(kernel(s))     # warm-up
+    return timed_chunks(torch, kernel, s, chunks)
+
+
+def mega_times(torch, graphs, mk, name, plain_chunks=5):
     """Per K=32 ``ooo`` chunk from cycle 0: device ms of the kernel and of
     its plain version, host ms per kernel call, and the bytes bound.
 
@@ -498,45 +745,213 @@ def mega_times(torch, graphs, mk, name, chunks=40, plain_chunks=5):
     kernel's intervals are its device time; the plain chunk's ~5,600 small
     launches keep the card waiting on the host, so its intervals are the
     host-bound time the card spends on one chunk."""
-    from repro_torch.core.overlay import OverlayConfig, device_graph, init_state
+    from repro_torch.core import overlay
 
-    cfg = OverlayConfig(scheduler="ooo", engine="megakernel")
-    g = device_graph(graphs.memory(name, "ooo"))
-
-    def timed(fn, s, n):
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
-        host = []
-        events[0].record()
-        for i in range(n):
-            t = time.perf_counter()
-            s = fn(s)
-            host.append(time.perf_counter() - t)
-            events[i + 1].record()
-        events[-1].synchronize()
-        dev = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
-        return statistics.median(dev), statistics.median(host) * 1e3
-
-    s = init_state(g, cfg)
-    kernel = mk.make_mega_chunk_fn(g, cfg, MEGA_K)
-    s = kernel(kernel(s))     # warm-up
-    ms, call_ms = timed(kernel, s, chunks)
+    api = types.SimpleNamespace(OverlayConfig=overlay.OverlayConfig,
+                             device_graph=overlay.device_graph,
+                             init_state=overlay.init_state, mk=mk)
+    gm = graphs.memory(name, "ooo")
+    ms, call_ms = solo_chunk_ms(torch, api, gm)
+    cfg = overlay.OverlayConfig(scheduler="ooo", engine="megakernel")
+    g = overlay.device_graph(gm)
     plain = mk.mega_chunk_plain(g, cfg, MEGA_K)
-    s = plain(init_state(g, cfg))
-    plain_ms, _ = timed(plain, s, plain_chunks)
-
-    def nbytes(tree):
-        return sum(nbytes(v) if isinstance(v, dict)
-                   else v.numel() * v.element_size() for v in tree.values())
-
-    # The graph leaves the kernel reads, read once (``fanin``, ``init_value``
-    # and ``valid`` are read only by ``init_state``); the state leaves read
-    # and written once, but ``sel_lat`` only read; the done trace written
-    # once.
-    state = init_state(g, cfg)
-    total = (nbytes({k: g[k] for k in mk.GRAPH_LEAVES}) + 2 * nbytes(state)
-             - nbytes({"sel_lat": state["sel_lat"]}) + MEGA_K)
+    s = plain(overlay.init_state(g, cfg))
+    plain_ms, _ = timed_chunks(torch, plain, s, plain_chunks)
+    total = chunk_bytes(g, overlay.init_state(g, cfg), mk, MEGA_K)
     return dict(ms=ms, plain_ms=plain_ms, call_ms=call_ms, bytes=total,
                 shape=list(g["opcode"].shape))
+
+
+def load_tree(root, alias):
+    """Import ``root/src/repro_torch`` (another source tree) as the package
+    ``alias``; its kernels build from its own sources into ``root/build``."""
+    init = Path(root).resolve() / "src" / "repro_torch" / "__init__.py"
+    spec = importlib.util.spec_from_file_location(
+        alias, init, submodule_search_locations=[str(init.parent)])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = pkg
+    spec.loader.exec_module(pkg)
+    overlay = importlib.import_module(f"{alias}.core.overlay")
+    return types.SimpleNamespace(
+        OverlayConfig=overlay.OverlayConfig, device_graph=overlay.device_graph,
+        init_state=overlay.init_state,
+        mk=importlib.import_module(f"{alias}.kernels.megakernel"))
+
+
+def baseline_compare(torch, graphs, mk, trees, rounds=2):
+    """The solo K=32 ``ooo`` chunk at MEGA_TIMED_ROWS of this tree and of
+    each tree in ``trees``: one untimed pass over all (builds, clocks up),
+    then ``rounds`` rounds in turns (A B .. B A); each time is the median
+    over 40 chunks, and the ratio is of the means over the turns."""
+    from repro_torch.core import overlay
+
+    apis = {"this tree": types.SimpleNamespace(
+        OverlayConfig=overlay.OverlayConfig, device_graph=overlay.device_graph,
+        init_state=overlay.init_state, mk=mk)}
+    for i, root in enumerate(trees):
+        apis[root] = load_tree(root, f"repro_torch_baseline{i}")
+    for key in apis:
+        for row in MEGA_TIMED_ROWS:
+            solo_chunk_ms(torch, apis[key], graphs.memory(row, "ooo"))
+    order = (list(apis) + list(reversed(apis))) * rounds
+    times = {(k, row): [] for k in apis for row in MEGA_TIMED_ROWS}
+    for key in order:
+        for row in MEGA_TIMED_ROWS:
+            ms, _ = solo_chunk_ms(torch, apis[key], graphs.memory(row, "ooo"))
+            times[key, row].append(ms)
+    for (key, row), ts in times.items():
+        print(f"baseline solo chunk {row} K={MEGA_K} {key}: "
+              + ", ".join(f"{t * 1e3:.1f}" for t in ts) + " us", flush=True)
+    for root in trees:
+        for row in MEGA_TIMED_ROWS:
+            ratio = (statistics.mean(times["this tree", row])
+                     / statistics.mean(times[root, row]))
+            print(f"baseline solo chunk {row}: this tree / {root} = "
+                  f"{ratio:.4f}", flush=True)
+
+
+def mixed_batch(g, cap, pol, budget=100):
+    """All four policies, ``ooo`` at select latency 4 and ``scan`` with a
+    short budget on one memory layout: (base config, configs, state)."""
+    from repro_torch.core import schedulers
+    from repro_torch.core.overlay import OverlayConfig, init_batch_state
+
+    W = g["opcode"].shape[2] // 32
+    cfgs = [OverlayConfig(scheduler=p) for p in BATCH_POLICIES] + [
+        OverlayConfig(scheduler="ooo", select_latency=4),
+        OverlayConfig(scheduler="scan", max_cycles=budget)]
+    base = OverlayConfig(scheduler=BATCH_POLICIES[0], eject_capacity=cap,
+                         eject_policy=pol, engine="megakernel")
+    state = init_batch_state(
+        g, base, BATCH_POLICIES,
+        [BATCH_POLICIES.index(c.scheduler) for c in cfgs],
+        [schedulers.get(c.scheduler).sel_lat(c, W) for c in cfgs])
+    return base, cfgs, state
+
+
+def compare_batch_chunks(torch, mk, g, base, states, ks, label,
+                         max_cycles=None):
+    """The batched kernel chunk against its plain version on clones of each
+    state: every leaf and the [K, B] trace equal as bit patterns."""
+    err, cases = 0.0, 0
+    for sname, st in states.items():
+        for K in ks:
+            want, want_tr = mk.mega_batch_chunk_plain(
+                g, base, K, BATCH_POLICIES, with_trace=True,
+                max_cycles=max_cycles)(clone_state(st))
+            got, got_tr = mk.make_mega_chunk_fn(
+                g, base, K, names=BATCH_POLICIES, with_trace=True,
+                max_cycles=max_cycles)(clone_state(st))
+            torch.cuda.synchronize()
+            err = max(err, state_err(torch, got, want))
+            if not torch.equal(got_tr, want_tr):
+                raise AssertionError(f"batched megakernel done trace "
+                                     f"differs: {label} {sname} K={K}")
+            cases += 1
+    return err, cases
+
+
+def check_batched_megakernel(torch, graphs, mk):
+    """The batched kernel against its plain version: a mixed batch on the
+    matrix graph (2x2) and on n15072 (16x16), every eject configuration,
+    four start states, K = 1, 7, 32, and a one-cycle tail launch with
+    elements frozen at their budgets. Returns (max abs error, cases)."""
+    from repro_torch.core import workloads as wl
+    from repro_torch.core.overlay import device_graph, run_batch_state
+    from repro_torch.core.partition import build_graph_memory
+
+    b, s, w, seed = MATRIX_GRAPH
+    memories = {
+        "matrix 2x2": build_graph_memory(wl.arrow_lu_graph(b, s, w, seed=seed),
+                                         2, 2, criticality_order=True),
+        "n15072 16x16": graphs.memory("n15072", "ooo")}
+    err, cases = 0.0, 0
+    for label, gm in memories.items():
+        g = device_graph(gm)
+        for eject, (cap, pol) in EJECTS.items():
+            base, cfgs, s0 = mixed_batch(g, cap, pol)
+            budgets = [c.max_cycles for c in cfgs]
+            ends = run_batch_state(g, base, BATCH_POLICIES, clone_state(s0),
+                                   budgets)["cycle"].tolist()
+            late = run_batch_state(
+                g, base, BATCH_POLICIES, clone_state(s0),
+                [min(m, e - 3) for m, e in zip(budgets, ends)])
+            mid = mk.mega_batch_chunk_plain(g, base, 40, BATCH_POLICIES)(
+                clone_state(s0))
+            zeros = clone_state(mid)
+            for leaf in ("operands", "value"):
+                zeros[leaf] = torch.where(
+                    zeros[leaf] == 0, torch.full_like(zeros[leaf], -0.0),
+                    zeros[leaf])
+            states = {"cycle 0": s0, "mid-run": mid, "3 before each end": late,
+                      "signed zeros": zeros}
+            e, n = compare_batch_chunks(torch, mk, g, base, states, (1, 7, 32),
+                                        f"{label} {eject}")
+            # The tail: elements at budgets 40 (= their cycle) freeze.
+            frozen = torch.tensor([40, 10_000, 41, 40, 10_000, 100],
+                                  dtype=torch.int32, device=g["opcode"].device)
+            e2, n2 = compare_batch_chunks(torch, mk, g, base, {"tail": mid},
+                                          (1,), f"{label} {eject}",
+                                          max_cycles=frozen)
+            err, cases = max(err, e, e2), cases + n + n2
+            print(f"batched megakernel equals its plain version: {label} "
+                  f"{eject}, B = {len(cfgs)} (elements end at cycles {ends}; "
+                  f"4 states x K in 1, 7, 32, and a tail launch)", flush=True)
+    return err, cases
+
+
+def batch_scaling(torch, graphs, mk, solo_walls):
+    """The first B configs of sweep_ooo for B in SCALING_B: wall and summed
+    simulated cycles per second of ``run(batch=)``, the same B solo runs'
+    summed wall, device and host ms per K=32 batched chunk from cycle 0,
+    its bytes bound and the run's kernel launches; at BATCH_TIMED_B the plain
+    batched chunk too. Returns {B: numbers}."""
+    import repro_torch
+    from repro_torch.core import schedulers
+    from repro_torch.core.overlay import device_graph, init_batch_state
+
+    layout, names, _ = SWEEPS["sweep_ooo"]
+    gm = graphs.memory(SWEEP_ROW, layout)
+    g = device_graph(gm)
+    all_cfgs = sweep_configs("sweep_ooo")
+    W = gm.lmax // 32
+    out = {}
+    for B in SCALING_B:
+        cfgs = all_cfgs[:B]
+        base = dataclasses.replace(cfgs[0], select_latency=None)
+        mk.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rs = repro_torch.run(gm, batch=cfgs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = mk.launches["mega_chunk_batched"]
+
+        def state():
+            return init_batch_state(
+                g, base, names, [0] * B,
+                [schedulers.get(c.scheduler).sel_lat(c, W) for c in cfgs])
+
+        chunk = mk.make_mega_chunk_fn(g, base, MEGA_K, names=names)
+        ms, call_ms = timed_chunks(torch, chunk, chunk(chunk(state())), 40)
+        n = dict(B=B, wall=wall, cycles=sum(r.cycles for r in rs),
+                 solo_wall=sum(solo_walls[:B]), ms=ms, call_ms=call_ms,
+                 bytes=chunk_bytes(g, state(), mk, MEGA_K), launches=launches,
+                 shape=[B, *g["opcode"].shape])
+        if B == BATCH_TIMED_B:
+            plain = mk.mega_batch_chunk_plain(g, base, MEGA_K, names)
+            n["plain_ms"], _ = timed_chunks(torch, plain, plain(state()), 2)
+        out[B] = n
+        print(f"batch scaling {SWEEP_ROW} sweep_ooo B = {B}: wall "
+              f"{wall:.3f} s, {n['cycles'] / wall:.0f} simulated cycles/s "
+              f"summed over elements ({n['cycles']} cycles); {B} solo runs "
+              f"{n['solo_wall']:.3f} s; device {ms * 1e3:.1f} us per K="
+              f"{MEGA_K} chunk, host {call_ms * 1e3:.1f} us per call, bytes "
+              f"bound {n['bytes'] / HBM_BYTES_PER_S * 1e6:.3f} us "
+              f"({n['bytes']} bytes); {launches} mega_chunk_batched launches"
+              + (f"; plain batched chunk {n['plain_ms']:.1f} ms"
+                 if "plain_ms" in n else ""), flush=True)
+    return out
 
 
 def profile_run(torch, run, cycles, label):
@@ -599,6 +1014,14 @@ def build_all(_build, sources):
               flush=True)
 
 
+def phase(name, fn, *args):
+    """Run one phase and print its seconds."""
+    t = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", nargs="+", default=list(SELECT_ROWS),
@@ -606,8 +1029,11 @@ def main() -> int:
                     help="rows of the select main path (default: %(default)s)")
     ap.add_argument("--mega-rows", nargs="+", default=list(MEGA_ROWS),
                     choices=list(ROWS),
-                    help="rows of the megakernel main path "
-                         "(default: %(default)s)")
+                    help="rows of the megakernel main paths, solo and "
+                         "batched (default: %(default)s)")
+    ap.add_argument("--baseline", nargs="+", default=[], metavar="DIR",
+                    help="other source trees whose solo megakernel chunk is "
+                         "timed in turns with this tree's")
     args = ap.parse_args()
 
     import numpy as np
@@ -623,31 +1049,45 @@ def main() -> int:
     print(card_line(), flush=True)   # name, power limit as nvidia-smi gives them
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
-    build_all(_build, [lod.SOURCE, mk.SOURCE])
+    phase("build", build_all, _build, [lod.SOURCE, mk.SOURCE])
 
+    t = time.perf_counter()
     err = check_kernels(torch, np, lod)
     print(f"kernels equal their plain versions at {KERNEL_SHAPES}", flush=True)
     timed = {}
     for p, w in KERNEL_SHAPES:
         timed[(p, w)] = kernel_times(torch, np, lod, p, w)
-        for name, t in timed[(p, w)].items():
-            print(f"kernel time {name} {p}x{w}: device {t['ms'] * 1e3:.2f} us "
-                  f"(plain {t['plain_ms'] * 1e3:.2f} us), per call "
-                  f"{t['call_ms'] * 1e3:.2f} us (plain "
-                  f"{t['plain_call_ms'] * 1e3:.2f} us), bytes bound "
-                  f"{t['bytes'] / HBM_BYTES_PER_S * 1e6:.4f} us", flush=True)
+        for name, t_ in timed[(p, w)].items():
+            print(f"kernel time {name} {p}x{w}: device {t_['ms'] * 1e3:.2f} us "
+                  f"(plain {t_['plain_ms'] * 1e3:.2f} us), per call "
+                  f"{t_['call_ms'] * 1e3:.2f} us (plain "
+                  f"{t_['plain_call_ms'] * 1e3:.2f} us), bytes bound "
+                  f"{t_['bytes'] / HBM_BYTES_PER_S * 1e6:.4f} us", flush=True)
+    print(f"phase leading-one kernels: {time.perf_counter() - t:.1f} s",
+          flush=True)
 
     graphs = Graphs()
-    t = time.perf_counter()
-    mega_err, cases = check_megakernel(torch, np, graphs, mk, args.mega_rows)
+    mega_err, cases = phase("megakernel check", check_megakernel, torch, np,
+                            graphs, mk, args.mega_rows)
     print(f"megakernel equals its plain version in {cases} cases, max abs "
-          f"error {mega_err}, {time.perf_counter() - t:.1f} s", flush=True)
+          f"error {mega_err}", flush=True)
+    batch_err, batch_cases = phase("batched megakernel check",
+                                   check_batched_megakernel, torch, graphs, mk)
+    print(f"batched megakernel equals its plain version in {batch_cases} "
+          f"cases, max abs error {batch_err}", flush=True)
 
-    select_results, counts = select_main_path(torch, np, graphs, args.rows, lod)
-    mega_counts = mega_main_path(torch, np, graphs, args.mega_rows, mk,
-                                 select_results)
+    select_results, counts = phase("main path select", select_main_path,
+                                   torch, np, graphs, args.rows, lod)
+    mega_results, mega_counts = phase("main path megakernel", mega_main_path,
+                                      torch, np, graphs, args.mega_rows, mk,
+                                      select_results)
+    batch_counts = phase("batched main path", batched_main_path, torch, np,
+                         graphs, args.mega_rows, mk, mega_results)
+    solo_walls = phase("full-card sweeps", full_card_sweeps, torch, np, graphs)
+    phase("batched select", batched_select, torch, np, lod)
 
     mega_timed = {}
+    t = time.perf_counter()
     for name in MEGA_TIMED_ROWS:
         mt = mega_times(torch, graphs, mk, name)
         mega_timed[name] = mt
@@ -658,17 +1098,22 @@ def main() -> int:
               f"{mt['call_ms'] * 1e3:.1f} us per call, bytes bound "
               f"{mt['bytes'] / HBM_BYTES_PER_S * 1e6:.3f} us "
               f"({mt['bytes']} bytes)", flush=True)
-    profiles(torch, graphs)
+    print(f"phase megakernel time: {time.perf_counter() - t:.1f} s", flush=True)
+    scaling = phase("batch scaling", batch_scaling, torch, graphs, mk,
+                    solo_walls["sweep_ooo"])
+    if args.baseline:
+        phase("baseline", baseline_compare, torch, graphs, mk, args.baseline)
+    phase("profiles", profiles, torch, graphs)
 
     line = []
     for name, replaces in KERNELS.items():
-        t = timed[TIMED_SHAPE][name]
+        t_ = timed[TIMED_SHAPE][name]
         line.append(dict(
             name=name, route="cuda", source=SOURCE, replaces=replaces,
             launches=counts[name], max_abs_err=err[name],
-            equal=err[name] == 0, ms=t["ms"],
-            plain_ms=t["plain_ms"], bound_ms=t["bytes"] / HBM_BYTES_PER_S * 1e3,
-            bound_by="bytes", library_ms=None, call_ms=t["call_ms"],
+            equal=err[name] == 0, ms=t_["ms"],
+            plain_ms=t_["plain_ms"], bound_ms=t_["bytes"] / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes", library_ms=None, call_ms=t_["call_ms"],
             shape=list(TIMED_SHAPE)))
     mt = mega_timed[MEGA_TIMED_ROWS[0]]
     line.append(dict(
@@ -678,6 +1123,14 @@ def main() -> int:
         plain_ms=mt["plain_ms"], bound_ms=mt["bytes"] / HBM_BYTES_PER_S * 1e3,
         bound_by="bytes", library_ms=None, call_ms=mt["call_ms"],
         shape=mt["shape"], K=MEGA_K))
+    bt = scaling[BATCH_TIMED_B]
+    line.append(dict(
+        name="mega_chunk_batched", route="cuda", source=MEGA_SOURCE,
+        replaces=MEGA_REPLACES + " (batched=True)",
+        launches=batch_counts["mega_chunk_batched"], max_abs_err=batch_err,
+        equal=batch_err == 0, ms=bt["ms"], plain_ms=bt["plain_ms"],
+        bound_ms=bt["bytes"] / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=None, call_ms=bt["call_ms"], shape=bt["shape"], K=MEGA_K))
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,23 +34,32 @@ def run(graph_or_gm, cfg=None, *, mesh=None, batch: Sequence | None = None,
         ``"tensor"`` (plain tensor ops) or ``"megakernel"`` (one kernel
         launch per ``check_every``-cycle chunk); all three give the same
         bits.
-      mesh, batch: the sharded and batched engines; not ported yet.
+      mesh: the sharded engines; not ported yet.
+      batch: a sequence of configs to sweep as one batch over the same graph
+        (mutually exclusive with ``cfg``). They must share ``eject_capacity``,
+        ``eject_policy``, ``engine``, ``placement`` and ``telemetry``; under
+        ``engine="megakernel"`` each chunk is one launch of the kernel with
+        one CTA per config.
       nx, ny: PE grid, required only with a raw ``DataflowGraph``.
       device: torch device; ``None`` = the CUDA card (raises without one).
 
     Returns:
-      :class:`repro_torch.core.overlay.SimResult`, equal bit for bit to the
-      reference package's ``repro.run`` on the same inputs.
+      :class:`repro_torch.core.overlay.SimResult` (a list of them, one per
+      config, with ``batch=``), equal bit for bit to the reference package's
+      ``repro.run`` on the same inputs.
     """
-    if batch is not None:
-        raise NotImplementedError(
-            "batch= (the batched sweep engine) is not ported yet "
-            "(ROADMAP queue 1, item 6)")
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (the sharded engines) is not ported yet "
             "(ROADMAP queue 1, item 8)")
-    from .core.overlay import _simulate
+    from .core import overlay
 
-    return _simulate(graph_or_gm, cfg, nx=nx, ny=ny,
-                     device=resolve_device(device))
+    if batch is not None:
+        if cfg is not None:
+            raise ValueError(
+                "repro_torch.run: pass either cfg= (one config) or batch= "
+                "(a config sweep), not both")
+        return overlay._simulate_batch(graph_or_gm, batch, nx=nx, ny=ny,
+                                       device=resolve_device(device))
+    return overlay._simulate(graph_or_gm, cfg, nx=nx, ny=ny,
+                             device=resolve_device(device))

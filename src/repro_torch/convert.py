@@ -10,6 +10,11 @@ Two representations differ:
     int32 storage here: they are reinterpreted (``.view``), never converted;
   * a link's packet is a dict of six [nx, ny] fields in the reference and
     one [6, nx, ny] int32 tensor here (:func:`repro_torch.core.noc.pack`).
+
+A batched state (``batched=True``) has a leading config axis on every leaf:
+the reference's link fields are [B, nx, ny] and the port's links
+[B, 6, nx, ny]; the members' scheduler states nest under ``sched`` as in the
+reference.
 """
 from __future__ import annotations
 
@@ -45,30 +50,37 @@ def _to_tensor(a, device, key=None):
     return torch.from_numpy(a).to(device)
 
 
-def state_from_numpy(tree: Mapping, device=None) -> dict:
+def state_from_numpy(tree: Mapping, device=None, *,
+                     batched: bool = False) -> dict:
     """Reference state pytree (numpy leaves) -> the port's state dict on
-    ``device`` (``None`` = the CUDA card; raises without one)."""
+    ``device`` (``None`` = the CUDA card; raises without one). ``batched``:
+    the leaves carry a leading config axis."""
     device = resolve_device(device)
     out = {}
     for k, v in tree.items():
         if k in _LINKS:
-            out[k] = noc.pack({f: torch.from_numpy(np.array(v[f], copy=True))
-                               for f in noc.PKT_FIELDS}).to(device)
+            packed = noc.pack({f: torch.from_numpy(np.array(v[f], copy=True))
+                               for f in noc.PKT_FIELDS})
+            if batched:                      # [6, B, nx, ny] -> [B, 6, nx, ny]
+                packed = packed.transpose(0, 1).contiguous()
+            out[k] = packed.to(device)
         elif isinstance(v, Mapping):
-            out[k] = state_from_numpy(v, device)
+            out[k] = state_from_numpy(v, device, batched=batched)
         else:
             out[k] = _to_tensor(v, device, k)
     return out
 
 
-def state_to_numpy(state: Mapping) -> dict:
-    """The port's state dict -> a reference-layout pytree of numpy arrays."""
+def state_to_numpy(state: Mapping, *, batched: bool = False) -> dict:
+    """The port's state dict -> a reference-layout pytree of numpy arrays
+    (``batched``: the leaves carry a leading config axis)."""
     out = {}
     for k, v in state.items():
         if k in _LINKS:
-            out[k] = {f: t.cpu().numpy() for f, t in noc.unpack(v).items()}
+            fields = noc.unpack(v.transpose(0, 1) if batched else v)
+            out[k] = {f: t.cpu().numpy() for f, t in fields.items()}
         elif isinstance(v, Mapping):
-            out[k] = state_to_numpy(v)
+            out[k] = state_to_numpy(v, batched=batched)
         else:
             a = v.cpu().numpy()
             out[k] = a.view(np.uint32) if k in _WORDS else a

@@ -206,11 +206,16 @@ for _name, _doc in (
     register_counter(_name, _doc)
 
 
-def init_state(g: DeviceGraph, cfg: OverlayConfig):
+def _resolve(cfg: OverlayConfig, scheduler):
+    return scheduler if scheduler is not None else schedulers.get(cfg.scheduler)
+
+
+def init_state(g: DeviceGraph, cfg: OverlayConfig, *, scheduler=None):
     """Policy-agnostic simulation state, keyed as the reference's state.
     Scheduler state lives under ``state["sched"]``; packets on the links are
-    [6, nx, ny] tensors (:mod:`repro_torch.core.noc`)."""
-    sched = schedulers.get(cfg.scheduler)
+    [6, nx, ny] tensors (:mod:`repro_torch.core.noc`). ``scheduler``
+    overrides ``cfg.scheduler`` (the batched engine's composite policy)."""
+    sched = _resolve(cfg, scheduler)
     nx, ny, L = g["opcode"].shape
     dev = g["opcode"].device
     i32 = dict(dtype=torch.int32, device=dev)
@@ -237,13 +242,14 @@ def init_state(g: DeviceGraph, cfg: OverlayConfig):
     )
 
 
-def make_cycle_fn(g: DeviceGraph, cfg: OverlayConfig):
-    """Build the one-cycle transition ``state -> state``.
+def make_cycle_fn(g: DeviceGraph, cfg: OverlayConfig, *, scheduler=None):
+    """Build the one-cycle transition ``state -> state`` (``scheduler``
+    overrides ``cfg.scheduler``).
 
     The tables the cycle reads every time (router coordinates, the edge
     records stacked as packet fields, the fanout base/count pairs, flat slot
     offsets) are built once here."""
-    sched = schedulers.get(cfg.scheduler)
+    sched = _resolve(cfg, scheduler)
     nx, ny, L = g["opcode"].shape
     dev = g["opcode"].device
     use_kernels = cfg.engine == "select"
@@ -407,17 +413,75 @@ def make_chunk_fn(cycle_fn, check_every: int, *, with_trace: bool = False):
     return chunk
 
 
+def element(state: dict, b: int) -> dict:
+    """Batch element ``b`` of a batched state: views ``leaf[b]``, each a
+    contiguous tensor in the solo layout, sharing storage with ``state``."""
+    return {k: element(v, b) if isinstance(v, dict) else v[b]
+            for k, v in state.items()}
+
+
+def _copy_into(dst: dict, src: dict) -> None:
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _copy_into(dst[k], v)
+        elif v is not dst[k]:
+            dst[k].copy_(v)
+
+
+def make_batch_chunk_fn(cycle_fn, check_every: int, *,
+                        with_trace: bool = False, max_cycles=None):
+    """The batched chunk as a loop over the elements: each element's views
+    go through the solo chunk of ``cycle_fn`` (built with the
+    :class:`~repro_torch.core.schedulers.BatchedScheduler`), and the leaves
+    it returns are copied back into the stacked tensors; the done trace is
+    ``[K, B]``. Elements that are done still run whole chunks (their cycle is
+    repaired), as the reference's vmapped chunk runs them.
+
+    With ``max_cycles`` (``[B]`` int32) the chunk leaves a halted element
+    (done, or at its own budget) untouched, leaf for leaf, and records its
+    ``done`` in the trace: the reference's per-cycle freeze of the tail."""
+    chunk = make_chunk_fn(cycle_fn, check_every, with_trace=True)
+
+    def batch_chunk(s):
+        halted = None
+        if max_cycles is not None:
+            halted = (s["done"] | (s["cycle"] >= max_cycles)).tolist()
+        traces = []
+        for b in range(s["cycle"].shape[0]):
+            view = element(s, b)
+            if halted is not None and halted[b]:
+                traces.append(view["done"].expand(check_every))
+                continue
+            new, trace = chunk(view)
+            _copy_into(view, new)
+            traces.append(trace)
+        trace = torch.stack(traces, dim=1)
+        return (s, trace) if with_trace else s
+
+    return batch_chunk
+
+
 def make_engine_chunk_fn(g: DeviceGraph, cfg: OverlayConfig, check_every: int,
-                         *, cycle_fn=None):
+                         *, cycle_fn=None, names=None, max_cycles=None):
     """Chunk step for ``cfg.engine``, the one dispatch point of the
     engines: ``"megakernel"`` builds the one-launch chunk
     (:mod:`repro_torch.kernels.megakernel`); ``"tensor"`` and ``"select"``
-    chain ``cycle_fn`` (built here when not supplied)."""
+    chain ``cycle_fn`` (built here when not supplied).
+
+    ``names`` (the member policies) makes the chunk batched: it steps a
+    state with a leading config axis (:func:`init_batch_state`), and with
+    ``max_cycles`` freezes halted elements (see :func:`make_batch_chunk_fn`)."""
     if cfg.engine == "megakernel":
         from ..kernels import megakernel
 
-        return megakernel.make_mega_chunk_fn(g, cfg, check_every)
-    return make_chunk_fn(cycle_fn or make_cycle_fn(g, cfg), check_every)
+        return megakernel.make_mega_chunk_fn(g, cfg, check_every, names=names,
+                                             max_cycles=max_cycles)
+    if names is None:
+        return make_chunk_fn(cycle_fn or make_cycle_fn(g, cfg), check_every)
+    return make_batch_chunk_fn(
+        cycle_fn or make_cycle_fn(
+            g, cfg, scheduler=schedulers.BatchedScheduler(names)),
+        check_every, max_cycles=max_cycles)
 
 
 @dataclasses.dataclass
@@ -460,7 +524,10 @@ def run_state(g: DeviceGraph, cfg: OverlayConfig, state: dict) -> dict:
     return state
 
 
-def _unpack_result(final, gm: GraphMemory) -> SimResult:
+def _unpack_result(final, gm: GraphMemory, b: int | None = None) -> SimResult:
+    """The result of a solo state, or of element ``b`` of a batched one."""
+    if b is not None:
+        final = element(final, b)
     value = final["value"].reshape(gm.num_pes, gm.lmax).cpu().numpy()
     return SimResult(
         cycles=int(final["cycle"]),
@@ -502,3 +569,117 @@ def _simulate(gm: GraphMemory | DataflowGraph,
     g = device_graph(gm, device)
     final = run_state(g, cfg, init_state(g, cfg))
     return _unpack_result(final, gm)
+
+
+# ---------------------------------------------------------------------------
+# Batched sweep engine: one graph under many configs, stepped together.
+# ---------------------------------------------------------------------------
+
+def init_batch_state(g: DeviceGraph, base: OverlayConfig, names, policy_ids,
+                     sel_lats) -> dict:
+    """The state of a batch: :func:`init_state` under the
+    :class:`~repro_torch.core.schedulers.BatchedScheduler` of ``names``,
+    with a leading ``[B]`` axis on every leaf (links ``[B, 6, nx, ny]``, so
+    element ``b``'s view is a contiguous solo-layout tensor). ``policy_id``
+    and ``sel_lat`` are ``[B]``, and ``sel_wait`` starts at
+    ``sel_lat - 1`` per element."""
+    one = init_state(g, base, scheduler=schedulers.BatchedScheduler(names))
+    B = len(policy_ids)
+
+    def stack(tree):
+        return {k: stack(v) if isinstance(v, dict)
+                else v.unsqueeze(0).repeat(B, *(1,) * v.dim())
+                for k, v in tree.items()}
+
+    state = stack(one)
+    dev = g["opcode"].device
+    state["sched"]["policy_id"] = torch.tensor(policy_ids, dtype=torch.int32,
+                                               device=dev)
+    lat = torch.tensor(sel_lats, dtype=torch.int32, device=dev)
+    state["sel_lat"] = lat
+    state["sel_wait"] = (lat - 1).reshape(B, 1, 1).expand_as(
+        state["sel_wait"]).contiguous()
+    return state
+
+
+@torch.inference_mode()
+def run_batch_state(g: DeviceGraph, cfg: OverlayConfig, names, state: dict,
+                    max_cycles) -> dict:
+    """Advance a batched state until every element is done or at its own
+    budget ``max_cycles[b]``. Whole chunks run while some element runs and
+    every running element has a full chunk of budget left (elements that
+    are done run on as fixed points, their cycle repaired); then the tail
+    runs cycle by cycle and freezes each element that is done or at its
+    budget. The host reads ``done`` [B] once per chunk and tail cycle.
+
+    As in :func:`run_state`, the megakernel engine runs its tail as chunks
+    of one cycle, so every cycle of its batch goes through its kernel."""
+    nx, ny, L = g["opcode"].shape
+    dev = g["opcode"].device
+    K = resolve_check_every(cfg, nx, ny, L, device_type=dev.type)
+    mega = cfg.engine == "megakernel"
+    budget = [int(m) for m in max_cycles]
+    cycle, done = state["cycle"].tolist(), state["done"].tolist()
+    cycle_fn = None if mega else make_cycle_fn(
+        g, cfg, scheduler=schedulers.BatchedScheduler(names))
+
+    def running():
+        return [not d and c < m for c, d, m in zip(cycle, done, budget)]
+
+    def overruns():
+        return any(not d and c + K > m for c, d, m in zip(cycle, done, budget))
+
+    if K > 1 or mega:
+        chunk = make_engine_chunk_fn(g, cfg, K, cycle_fn=cycle_fn, names=names)
+        while any(running()) and not overruns():
+            state = chunk(state)
+            cycle = [c if d else c + K for c, d in zip(cycle, done)]
+            done = state["done"].tolist()
+    step = make_engine_chunk_fn(
+        g, cfg, 1, cycle_fn=cycle_fn, names=names,
+        max_cycles=torch.tensor(budget, dtype=torch.int32, device=dev))
+    while any(live := running()):
+        state = step(state)
+        cycle = [c + 1 if r else c for c, r in zip(cycle, live)]
+        done = state["done"].tolist()
+    return state
+
+
+def _simulate_batch(gm: GraphMemory | DataflowGraph, cfgs, *,
+                    nx: int | None = None, ny: int | None = None,
+                    device=None) -> list[SimResult]:
+    """Run one graph under many configs as one batch (behind
+    :func:`repro_torch.run` with ``batch=``). Every element's result equals
+    the solo run of its config. The configs must share ``eject_capacity``,
+    ``eject_policy``, ``engine``, ``placement`` and ``telemetry``; a raw
+    ``DataflowGraph`` also needs one memory layout (a uniform
+    ``wants_criticality_order``)."""
+    cfgs = list(cfgs)
+    if not cfgs:
+        return []
+    for knob in ("eject_capacity", "eject_policy", "engine", "placement",
+                 "telemetry"):
+        got = {getattr(c, knob) for c in cfgs}
+        if len(got) != 1:
+            raise ValueError(f"run(batch=) needs a uniform {knob}, got {got}")
+    if not isinstance(gm, GraphMemory):
+        wants = {schedulers.get(c.scheduler).wants_criticality_order
+                 for c in cfgs}
+        if len(wants) != 1:
+            raise ValueError(
+                "run(batch=) over a raw DataflowGraph needs schedulers with a "
+                "uniform wants_criticality_order; group configs by memory "
+                "layout or pass a pre-built GraphMemory")
+    gm = _as_memory(gm, cfgs[0], nx, ny)
+    names = tuple(dict.fromkeys(c.scheduler for c in cfgs))
+    base = dataclasses.replace(cfgs[0], scheduler=names[0],
+                               select_latency=None,
+                               max_cycles=max(c.max_cycles for c in cfgs))
+    g = device_graph(gm, device)
+    num_words = g["opcode"].shape[2] // bitvec.FLAGS_PER_WORD
+    state = init_batch_state(
+        g, base, names, [names.index(c.scheduler) for c in cfgs],
+        [schedulers.get(c.scheduler).sel_lat(c, num_words) for c in cfgs])
+    final = run_batch_state(g, base, names, state,
+                            [c.max_cycles for c in cfgs])
+    return [_unpack_result(final, gm, b) for b in range(len(cfgs))]

@@ -280,3 +280,104 @@ class LruFlatScheduler(_RotatingRdyScheduler):
     exploit criticality ordering."""
 
     name = "lru_flat"
+
+
+class BatchedScheduler(Scheduler):
+    """Composite policy of the batched sweep engine.
+
+    Holds every member policy's state side by side under its name, plus the
+    element's ``policy_id`` (the index of its member in ``names``):
+    ``{name: substate, ..., "policy_id": 0-dim int32}``. ``on_ready`` goes to
+    every member, so an inactive member's state keeps advancing (an
+    ``inorder`` FIFO keeps taking pushes while ``ooo`` picks); ``step``
+    runs each member under ``gate & (policy_id == i)``, so only the active
+    member commits; ``select`` and ``empty`` dispatch on ``policy_id``.
+    Each batch element is thus cycle-exact with the solo run of its member,
+    and its inactive substates equal the reference's leaf for leaf. With a
+    single member the dispatch is pruned.
+    """
+
+    name = "batched"
+    wants_criticality_order = True
+
+    def __init__(self, names: tuple[str, ...] = ()):
+        self.names = tuple(names)
+        self.policies = [get(n) for n in self.names]
+
+    def sel_lat(self, cfg, num_words):
+        # Placeholder: init_batch_state sets sel_lat/sel_wait per element.
+        return 1
+
+    def init(self, g, cfg):
+        st = {n: p.init(g, cfg) for n, p in zip(self.names, self.policies)}
+        st["policy_id"] = torch.zeros((), dtype=torch.int32,
+                                      device=g["opcode"].device)
+        return st
+
+    @property
+    def _solo(self):
+        return len(self.policies) == 1
+
+    def _members(self):
+        return enumerate(zip(self.names, self.policies))
+
+    @staticmethod
+    def _dispatch(preds, values):
+        """The value of the member whose predicate holds (member 0's when
+        none does, as ``jnp.select``'s default)."""
+        out = values[0]
+        for pred, v in zip(preds[1:], values[1:]):
+            out = torch.where(pred, v, out)
+        return out
+
+    def _preds(self, st):
+        return [st["policy_id"] == i for i in range(len(self.policies))]
+
+    def on_ready(self, st, slot, ready):
+        out = dict(st)
+        for _, (n, p) in self._members():
+            out[n] = p.on_ready(st[n], slot, ready)
+        return out
+
+    def select(self, st, idle):
+        if self._solo:
+            return self.policies[0].select(st[self.names[0]], idle)
+        cands, haves = zip(*(p.select(st[n], idle) for _, (n, p)
+                             in self._members()))
+        preds = self._preds(st)
+        return self._dispatch(preds, cands), self._dispatch(preds, haves)
+
+    def commit(self, st, sel, cand):
+        out = dict(st)
+        if self._solo:
+            n = self.names[0]
+            out[n] = self.policies[0].commit(st[n], sel, cand)
+            return out
+        for i, (n, p) in self._members():
+            out[n] = p.commit(st[n], sel & (st["policy_id"] == i), cand)
+        return out
+
+    def empty(self, st):
+        if self._solo:
+            return self.policies[0].empty(st[self.names[0]])
+        return self._dispatch(self._preds(st), [
+            p.empty(st[n]) for _, (n, p) in self._members()])
+
+    def step(self, st, idle, gate, *, use_kernels=False):
+        out = dict(st)
+        if self._solo:
+            n = self.names[0]
+            cand, have, out[n] = self.policies[0].step(
+                st[n], idle, gate, use_kernels=use_kernels)
+            return cand, have, out
+        # Each member commits its own candidate under its dispatch predicate;
+        # where the predicate holds, the member's candidate IS the dispatched
+        # candidate, so this equals select-then-masked-commit exactly.
+        preds = self._preds(st)
+        cands, haves = [], []
+        for i, (n, p) in self._members():
+            c, h, out[n] = p.step(st[n], idle, gate & preds[i],
+                                  use_kernels=use_kernels)
+            cands.append(c)
+            haves.append(h)
+        return self._dispatch(preds, cands), self._dispatch(preds, haves), out

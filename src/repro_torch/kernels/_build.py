@@ -33,9 +33,9 @@ SIGNATURES = {
         "lod_schedule_step": (_P, _P, _P, _P, _I, _I, _P),
         "lod_rotating_schedule_step": (_P, _P, _P, _P, _P, _I, _I, _P),
     },
-    # mega_chunk(const MegaArgs* args, int policy, int eject, void* stream)
+    # mega_chunk(const MegaArgs* args, int eject, void* stream)
     "megakernel.cu": {
-        "mega_chunk": (_P, _I, _I, _P),
+        "mega_chunk": (_P, _I, _P),
     },
 }
 

@@ -1,28 +1,34 @@
 """The overlay's K-cycle chunk in one launch (the "megakernel"): the CUDA
-kernel and its plain torch version.
+kernel and its plain torch version, solo and batched.
 
 :func:`make_mega_chunk_fn` replaces the Pallas TPU kernel of the reference
-package's ``kernels/megakernel.py`` (``make_mega_chunk_fn``), solo form: it
-builds ``chunk(state) -> state`` running ``check_every`` cycles of
+package's ``kernels/megakernel.py`` (``make_mega_chunk_fn``) in both its
+forms: it builds ``chunk(state) -> state`` running ``check_every`` cycles of
 :func:`repro_torch.core.overlay.make_cycle_fn` back to back, with the
-reference's chunk repair of ``cycle`` and ``done``. The chunk
+reference's chunk repair of ``cycle`` and ``done``. With ``names`` (the
+member policies of a sweep) it is the batched form: the state has a leading
+config axis (:func:`repro_torch.core.overlay.init_batch_state`), the done
+trace is ``[K, B]`` and the repair runs per element; the kernel runs one CTA
+per config. The chunk
 
   * on a state on the CPU runs the plain version, :func:`mega_chunk_plain`
     (the ``"tensor"`` engine's cycle, chunked by
-    :func:`repro_torch.core.overlay.make_chunk_fn`);
+    :func:`repro_torch.core.overlay.make_chunk_fn`) or
+    :func:`mega_batch_chunk_plain` (that chunk on each element in turn);
   * on a state on a CUDA device launches the kernel of
     ``csrc/megakernel.cu`` once on the current stream, or raises. There is
     no fallback. The kernel updates every state tensor in place and the
     chunk returns the same dict.
 
 Every graph and state leaf is checked (one device, contiguous, the dtype
-and shape that ``device_graph``/``init_state`` give it) before the dispatch,
-so a malformed state raises ``ValueError`` on either device. A state whose
-tensors are the last call's (the kernel updates them in place) is not
-checked again.
+and shape that ``device_graph``/``init_state``/``init_batch_state`` give
+it) before the dispatch, so a malformed state raises ``ValueError`` on
+either device. A state whose tensors are the last call's (the kernel
+updates them in place) is not checked again.
 
-:data:`launches` counts kernel launches, so a run can show that its main
-path went through the kernel.
+:data:`launches` counts kernel launches (``"mega_chunk"`` solo,
+``"mega_chunk_batched"`` batched), so a run can show that its main path went
+through the kernel.
 """
 from __future__ import annotations
 
@@ -31,19 +37,21 @@ import dataclasses
 
 import torch
 
-from ..core import bitvec, noc, overlay
+from ..core import bitvec, noc, overlay, schedulers
 from . import _build
 
 SOURCE = "megakernel.cu"
 
 #: Kernel launches since the last :func:`reset_launches`.
-launches: dict[str, int] = {"mega_chunk": 0}
+launches: dict[str, int] = {"mega_chunk": 0, "mega_chunk_batched": 0}
 
-#: Compile-time variants of the kernel: the policy's pick and the eject
-#: arbitration (``csrc/megakernel.cu``'s ``Policy`` and ``Eject``).
+#: The kernel's pick of each policy (``csrc/megakernel.cu``'s ``Policy``)
+#: and its eject arbitration variants (``Eject``).
 POLICIES = {"ooo": 0, "inorder": 1, "scan": 2, "lru_flat": 2}
 _EJECT_CAP1 = {"n_first": 0, "priority": 1}
 _EJECT_CAP2 = 2
+#: Member policies one state may hold (``kMaxMembers``).
+MAX_MEMBERS = 4
 
 
 def reset_launches() -> None:
@@ -68,6 +76,23 @@ def mega_chunk_plain(g: overlay.DeviceGraph, cfg: overlay.OverlayConfig,
     return overlay.make_chunk_fn(cycle, check_every, with_trace=with_trace)
 
 
+def mega_batch_chunk_plain(g: overlay.DeviceGraph, cfg: overlay.OverlayConfig,
+                           check_every: int, names, *,
+                           with_trace: bool = False, max_cycles=None):
+    """The plain batched version: each element's views through the
+    ``"tensor"`` engine's chunk under the
+    :class:`~repro_torch.core.schedulers.BatchedScheduler` of ``names``
+    (:func:`repro_torch.core.overlay.make_batch_chunk_fn`; ``max_cycles``
+    freezes halted elements). ``with_trace`` also returns the ``[K, B]``
+    done trace."""
+    cycle = overlay.make_cycle_fn(
+        g, dataclasses.replace(cfg, engine="tensor"),
+        scheduler=schedulers.BatchedScheduler(names))
+    return overlay.make_batch_chunk_fn(cycle, check_every,
+                                       with_trace=with_trace,
+                                       max_cycles=max_cycles)
+
+
 # ---------------------------------------------------------------------------
 # Leaf checks.
 # ---------------------------------------------------------------------------
@@ -84,23 +109,35 @@ def _graph_spec(g):
         e_dst_opidx=(edges, i32))
 
 
-def _state_spec(g, cfg):
+def _state_spec(g, cfg, names=None, batch=None):
+    """Solo (``names=None``): the state of ``cfg.scheduler``. Batched: every
+    leaf with a leading ``[batch]`` axis, the states of the member policies
+    ``names`` side by side under ``sched``."""
     nx, ny, L = g["opcode"].shape
-    i32, plane, pe = torch.int32, (nx, ny, L), (nx, ny)
-    rdy = ((nx, ny, L // bitvec.FLAGS_PER_WORD), i32)
-    sched = {"ooo": dict(rdy=rdy),
-             "inorder": dict(fifo=(plane, i32), head=(pe, i32),
-                             size=(pe, i32))}.get(
-        cfg.scheduler, dict(rdy=rdy, ptr=(pe, i32)))
-    links = ((len(noc.PKT_FIELDS), nx, ny), i32)
+    lead = () if names is None else (batch,)
+    i32, plane, pe = torch.int32, (*lead, nx, ny, L), (*lead, nx, ny)
+    rdy = ((*lead, nx, ny, L // bitvec.FLAGS_PER_WORD), i32)
+
+    def member(name):
+        return {"ooo": dict(rdy=rdy),
+                "inorder": dict(fifo=(plane, i32), head=(pe, i32),
+                                size=(pe, i32))}.get(
+            name, dict(rdy=rdy, ptr=(pe, i32)))
+
+    if names is None:
+        sched = member(cfg.scheduler)
+    else:
+        sched = {n: member(n) for n in names}
+        sched["policy_id"] = (lead, i32)
+    links = ((*lead, len(noc.PKT_FIELDS), nx, ny), i32)
     return dict(
         pending=(plane, i32), operands=((*plane, 2), torch.float32),
         computed=(plane, torch.bool), value=(plane, torch.float32),
-        remaining=((), i32), sched=sched,
+        remaining=(lead, i32), sched=sched,
         active=(pe, i32), cursor=(pe, i32), cursor_end=(pe, i32),
-        sel_lat=((), i32), sel_wait=(pe, i32), link_e=links, link_s=links,
-        cycle=((), i32), done=((), torch.bool),
-        **{k: ((), i32) for k in overlay.STAT_COUNTERS})
+        sel_lat=(lead, i32), sel_wait=(pe, i32), link_e=links, link_s=links,
+        cycle=(lead, i32), done=(lead, torch.bool),
+        **{k: (lead, i32) for k in overlay.STAT_COUNTERS})
 
 
 def _check_tree(tree, spec, device, path):
@@ -141,67 +178,130 @@ GRAPH_LEAVES = ("opcode", "fo_base", "fo_count", "e_dst_pe", "e_dst_slot",
                 "e_dst_opidx")
 _POINTERS = GRAPH_LEAVES + (
     "pending", "operands", "computed", "value", "remaining",
-    "rdy", "ptr", "fifo", "head", "size",
     "active", "cursor", "cursor_end", "sel_lat", "sel_wait",
     "link_e", "link_s", "cycle", "done",
     "delivered", "noc_deflections", "eject_deflections", "deflections",
-    "busy_cycles", "trace", "link_scratch")
-_INTS = ("nx", "ny", "L", "W", "emax", "K")
+    "busy_cycles", "policy_id", "max_cycles", "trace", "link_scratch")
+_MEMBER_POINTERS = ("rdy", "ptr", "fifo", "head", "size")
+_STRIDES = ("s_plane", "s_pe", "s_words", "s_links")
+_INTS = ("nx", "ny", "L", "W", "emax", "K", "B", "n_members")
+
+
+class _Member(ctypes.Structure):
+    _fields_ = ([(n, ctypes.c_void_p) for n in _MEMBER_POINTERS]
+                + [("kind", ctypes.c_int32), ("unused", ctypes.c_int32)])
 
 
 class _Args(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p) for n in _POINTERS]
+                + [("members", _Member * MAX_MEMBERS)]
+                + [(n, ctypes.c_int64) for n in _STRIDES]
                 + [(n, ctypes.c_int32) for n in _INTS])
 
 
-def _leaves(s):
-    """The state's tensors in a fixed order, or None if it lacks a key."""
-    try:
-        return ([v for k, v in s.items() if k != "sched"]
-                + list(s["sched"].values()))
-    except (AttributeError, KeyError):
+def _leaves(tree):
+    """The tree's tensors in a fixed order, or None if it is no dict."""
+    if not isinstance(tree, dict):
         return None
+    out = []
+    for v in tree.values():
+        if isinstance(v, dict):
+            out.extend(_leaves(v))
+        else:
+            out.append(v)
+    return out
+
+
+def _batch_size(s) -> int:
+    """B of a batched state, or -1 (the leaf check then names the fault)."""
+    try:
+        return int(s["cycle"].shape[0])
+    except (TypeError, KeyError, IndexError, AttributeError):
+        return -1
 
 
 def make_mega_chunk_fn(g: overlay.DeviceGraph, cfg: overlay.OverlayConfig,
-                       check_every: int, *, with_trace: bool = False):
+                       check_every: int, *, names=None, max_cycles=None,
+                       with_trace: bool = False):
     """Build ``chunk(state) -> state`` running ``check_every`` cycles in one
     kernel launch on a CUDA state, or the plain version on a CPU state (see
     the module docstring). ``with_trace`` makes the chunk return
-    ``(state, done_trace)``, the per-cycle done flags ``[K]`` bool."""
+    ``(state, done_trace)``, the per-cycle done flags ``[K]`` (``[K, B]``
+    batched).
+
+    ``names`` (the member policies, in ``policy_id`` order) builds the
+    batched form for a state of :func:`overlay.init_batch_state`; with
+    ``max_cycles`` (``[B]`` int32 budgets on the state's device) the chunk
+    leaves each element that is done or at its budget untouched, the tail's
+    freeze."""
     K = int(check_every)
     if K < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
-    policy = POLICIES.get(cfg.scheduler)
-    if policy is None:
-        raise ValueError(f"no megakernel variant for scheduler "
-                         f"{cfg.scheduler!r}; have {sorted(POLICIES)}")
+    batched = names is not None
+    members = tuple(names) if batched else (cfg.scheduler,)
+    for name in members:
+        if name not in POLICIES:
+            raise ValueError(f"no megakernel variant for scheduler "
+                             f"{name!r}; have {sorted(POLICIES)}")
+    if not 1 <= len(members) <= MAX_MEMBERS or len(set(members)) != len(
+            members):
+        raise ValueError(f"a batch needs 1 to {MAX_MEMBERS} distinct member "
+                         f"policies, got {members}")
+    if max_cycles is not None and not batched:
+        raise ValueError("max_cycles freezes elements of a batch: pass names")
     eject = eject_variant(cfg)
     device = _check_tree(dict(g), _graph_spec(g), None, "graph")
-    spec = _state_spec(g, cfg)
     nx, ny, L = g["opcode"].shape
-    dims = dict(nx=nx, ny=ny, L=L, W=L // bitvec.FLAGS_PER_WORD,
-                emax=g["e_dst_pe"].shape[-1], K=K)
+    P, W = nx * ny, L // bitvec.FLAGS_PER_WORD
     plain = None
     # The kernel updates a state in place, so chunk after chunk of one run
     # passes the same tensors: their check, the argument struct and the
     # scratch are made once, when the leaves differ from the last call's.
-    last = dict(leaves=None, args=None, trace=None, scratch=None)
+    last = dict(leaves=None, args=None, trace=None, scratch=None, B=1)
 
     def prepare(s):
-        _check_tree(s, spec, device, "state")
+        B = _batch_size(s) if batched else None
+        _check_tree(s, _state_spec(g, cfg, names if batched else None, B),
+                    device, "state")
+        B = B if batched else 1
+        if max_cycles is not None:
+            _check_tree(dict(max_cycles=max_cycles),
+                        dict(max_cycles=((B,), torch.int32)), device, "")
+        last["B"] = B
         if device.type != "cuda":
             return
-        trace = torch.empty(K, dtype=torch.bool, device=device)
-        # the links of both cycle parities: [2, 2 (E, S), 6, P]
-        scratch = torch.empty(2 * 2 * len(noc.PKT_FIELDS) * nx * ny,
+        if batched:
+            pid = s["sched"]["policy_id"]
+            if int(pid.min()) < 0 or int(pid.max()) >= len(members):
+                raise ValueError(f"state/sched/policy_id must index the "
+                                 f"members {members}")
+        trace = torch.empty((K, B) if batched else (K,), dtype=torch.bool,
+                            device=device)
+        # each element's links of both cycle parities: [B, 2, 2 (E, S), 6, P]
+        scratch = torch.empty(B * 2 * 2 * len(noc.PKT_FIELDS) * P,
                               dtype=torch.int32, device=device)
+        subs = ([s["sched"][n] for n in members] if batched
+                else [s["sched"]])
         tensors = dict(g, **{k: v for k, v in s.items() if k != "sched"},
-                       **s["sched"], trace=trace, link_scratch=scratch)
-        last.update(args=_Args(
-            **{n: tensors[n].data_ptr() if tensors.get(n) is not None
-               else None for n in _POINTERS}, **dims),
-            trace=trace, scratch=scratch)
+                       policy_id=s["sched"]["policy_id"] if batched else None,
+                       max_cycles=max_cycles, trace=trace,
+                       link_scratch=scratch)
+        args = _Args(**{n: None if tensors.get(n) is None
+                        else tensors[n].data_ptr() for n in _POINTERS},
+                     nx=nx, ny=ny, L=L, W=W, emax=g["e_dst_pe"].shape[-1],
+                     K=K, B=B, n_members=len(members))
+        for m, (name, sub) in enumerate(zip(members, subs)):
+            args.members[m] = _Member(
+                kind=POLICIES[name],
+                **{n: sub[n].data_ptr() if n in sub else None
+                   for n in _MEMBER_POINTERS})
+        if batched:
+            # element strides of the [B, ...] leaves (contiguous, checked)
+            args.s_plane = s["pending"].stride(0)
+            args.s_pe = s["active"].stride(0)
+            args.s_words = P * W
+            args.s_links = s["link_e"].stride(0)
+        last.update(args=args, trace=trace, scratch=scratch)
 
     def chunk(s):
         nonlocal plain
@@ -214,23 +314,29 @@ def make_mega_chunk_fn(g: overlay.DeviceGraph, cfg: overlay.OverlayConfig,
             last["leaves"] = leaves
         if device.type == "cpu":
             if plain is None:
-                plain = mega_chunk_plain(g, cfg, K, with_trace=True)
+                plain = (mega_batch_chunk_plain(g, cfg, K, members,
+                                                with_trace=True,
+                                                max_cycles=max_cycles)
+                         if batched else
+                         mega_chunk_plain(g, cfg, K, with_trace=True))
             s, trace = plain(s)
             return (s, trace) if with_trace else s
         if device.type != "cuda":
             raise ValueError(f"no megakernel for device {device}")
         args, trace = last["args"], last["trace"]
         if with_trace:        # the caller keeps it: a fresh one per call
-            trace = torch.empty(K, dtype=torch.bool, device=device)
+            trace = torch.empty_like(trace)
             args.trace = trace.data_ptr()
+        key = "mega_chunk_batched" if batched else "mega_chunk"
         with torch.cuda.device(device):
             fn = _build.library(SOURCE).mega_chunk
-            launches["mega_chunk"] += 1
-            rc = fn(ctypes.addressof(args), policy, eject,
+            launches[key] += 1
+            rc = fn(ctypes.addressof(args), eject,
                     torch.cuda.current_stream(device).cuda_stream)
+        # The launch copied the struct; later calls write the wrapper's own.
+        args.trace = last["trace"].data_ptr()
         if rc != 0:
-            raise RuntimeError(f"mega_chunk kernel launch failed: CUDA "
-                               f"error {rc}")
+            raise RuntimeError(f"{key} kernel launch failed: CUDA error {rc}")
         return (s, trace) if with_trace else s
 
     return chunk

@@ -11,6 +11,7 @@ Inputs are made from numpy seeds and handed to both sides as numpy arrays.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import os
 import subprocess
@@ -170,3 +171,123 @@ def assert_matches(result, ref: dict, prefix: str) -> None:
             np.testing.assert_array_equal(got, want)
         else:
             assert got == want.item(), (prefix, k, got, want)
+
+
+# ---------------------------------------------------------------------------
+# The batched sweep engine (``run(gm, batch=cfgs)``).
+# ---------------------------------------------------------------------------
+
+#: Policies in the order the reference's batch tests list them.
+BATCH_POLICIES = ("inorder", "lru_flat", "ooo", "scan")
+
+#: The reference's own batch cases: name -> (graph, grid, configs as
+#: OverlayConfig keyword dicts). Every policy on one (criticality) layout.
+#:  * "chunked": ``tests/test_chunked.py:71-89``, with ``scan`` at a budget
+#:    of 100 (it freezes mid-run) and ``ooo`` at select latency 4 (it
+#:    finishes early and keeps re-entering chunks);
+#:  * "budget": ``tests/test_chunked.py:91-105``, a budget on a chunk
+#:    boundary (98 = 14 x 7);
+#:  * "layered": ``tests/test_megakernel.py:62-75``.
+BATCH_CASES = {
+    "chunked": ("arrow", (4, 4), [
+        *(dict(scheduler=p, max_cycles=500_000) for p in BATCH_POLICIES),
+        dict(scheduler="scan", max_cycles=100),
+        dict(scheduler="ooo", select_latency=4, max_cycles=500_000)]),
+    "budget": ("arrow", (4, 4), [dict(scheduler="scan", max_cycles=98),
+                                 dict(scheduler="ooo", max_cycles=500_000)]),
+    "layered": ("layered", (2, 2), [
+        *(dict(scheduler=p, max_cycles=100_000) for p in BATCH_POLICIES),
+        dict(scheduler="scan", max_cycles=20)]),
+}
+
+#: The reference engine each port engine is held against.
+REF_ENGINE = {"tensor": "jnp", "select": "select", "megakernel": "megakernel"}
+
+_GRAPHS_SRC = f"""
+from repro.core import workloads as wl
+b, s, w, seed = {MATRIX_GRAPH!r}
+graphs = dict(arrow=lambda: wl.arrow_lu_graph(b, s, w, seed=seed),
+              layered=lambda: wl.layered_dag(4, 6, seed=3))
+"""
+
+
+def batch_reference(tmp_path_factory, name: str, runs) -> dict:
+    """The reference's ``repro.run(gm, batch=cfgs)`` for each
+    ``(case, check_every, port engine)`` in ``runs``, keyed
+    ``"<case>/<K>/<engine>/<b>/<field>"``."""
+    body = _GRAPHS_SRC + f"""
+import repro
+from repro.core.overlay import OverlayConfig
+from repro.core.partition import build_graph_memory
+
+cases = {BATCH_CASES!r}
+engines = {REF_ENGINE!r}
+for case, K, engine in {sorted(set(runs))!r}:
+    graph, (nx, ny), kws = cases[case]
+    gm = build_graph_memory(graphs[graph](), nx, ny, criticality_order=True)
+    cfgs = [OverlayConfig(check_every=K, engine=engines[engine], **kw)
+            for kw in kws]
+    for i, r in enumerate(repro.run(gm, batch=cfgs)):
+        for k, v in sim_result(r).items():
+            res[f"{{case}}/{{K}}/{{engine}}/{{i}}/{{k}}"] = np.asarray(v)
+"""
+    return run_reference(tmp_path_factory, name, body)
+
+
+@functools.lru_cache(maxsize=None)
+def batch_memory(graph: str, nx: int, ny: int):
+    from repro_torch.core import workloads as wl
+    from repro_torch.core.partition import build_graph_memory
+
+    b, s, w, seed = MATRIX_GRAPH
+    g = (wl.arrow_lu_graph(b, s, w, seed=seed) if graph == "arrow"
+         else wl.layered_dag(4, 6, seed=3))
+    return build_graph_memory(g, nx, ny, criticality_order=True)
+
+
+def batch_configs(case: str, check_every: int, engine: str):
+    from repro_torch.core.overlay import OverlayConfig
+
+    _, _, kws = BATCH_CASES[case]
+    return [OverlayConfig(check_every=check_every, engine=engine, **kw)
+            for kw in kws]
+
+
+@functools.lru_cache(maxsize=None)
+def port_batch_run(case: str, check_every: int, engine: str):
+    """The port's ``run(gm, batch=cfgs, device="cpu")`` of one case."""
+    import repro_torch
+
+    graph, grid, _ = BATCH_CASES[case]
+    return repro_torch.run(batch_memory(graph, *grid),
+                           batch=batch_configs(case, check_every, engine),
+                           device="cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def port_solo_run(graph: str, grid: tuple, cfg):
+    """The port's solo run of one config (cached per module process)."""
+    import repro_torch
+
+    return repro_torch.run(batch_memory(graph, *grid), cfg, device="cpu")
+
+
+def assert_batch_matches(reference: dict, case: str, check_every: int,
+                         engine: str) -> None:
+    """Every element of the port's batch equals the reference's batch bit
+    for bit, and the port's solo run of its config."""
+    graph, grid, _ = BATCH_CASES[case]
+    results = port_batch_run(case, check_every, engine)
+    cfgs = batch_configs(case, check_every, engine)
+    assert len(results) == len(cfgs)
+    for i, (cfg, r) in enumerate(zip(cfgs, results)):
+        assert_matches(r, reference, f"{case}/{check_every}/{engine}/{i}")
+        solo = port_solo_run(graph, grid,
+                             dataclasses.replace(cfg, check_every=None))
+        for k in RESULT_KEYS:
+            got, want = getattr(r, k), getattr(solo, k)
+            if k == "values":
+                np.testing.assert_array_equal(got.view(np.int32),
+                                              want.view(np.int32))
+            else:
+                assert got == want, (case, i, k, got, want)

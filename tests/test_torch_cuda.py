@@ -154,3 +154,92 @@ def test_megakernel_engine_reproduces_goldens(cuda, policy):
                         nx=2, ny=2)
     np.testing.assert_array_equal(r.values.view(np.int32),
                                   t.values.view(np.int32))
+
+
+BATCH_POLICIES = ("inorder", "lru_flat", "ooo", "scan")
+
+
+def _mixed_batch(g, cap, pol):
+    """All four policies, ``ooo`` at select latency 4 and ``scan`` with a
+    short budget, on one memory layout: (base config, names, state)."""
+    from repro_torch.core import schedulers
+    from repro_torch.core.overlay import init_batch_state
+
+    W = g["opcode"].shape[2] // 32
+    cfgs = [OverlayConfig(scheduler=p) for p in BATCH_POLICIES] + [
+        OverlayConfig(scheduler="ooo", select_latency=4),
+        OverlayConfig(scheduler="scan", max_cycles=100)]
+    base = OverlayConfig(scheduler=BATCH_POLICIES[0], eject_capacity=cap,
+                         eject_policy=pol, engine="megakernel")
+    state = init_batch_state(
+        g, base, BATCH_POLICIES,
+        [BATCH_POLICIES.index(c.scheduler) for c in cfgs],
+        [schedulers.get(c.scheduler).sel_lat(c, W) for c in cfgs])
+    return base, cfgs, state
+
+
+@pytest.mark.parametrize("eject", sorted(EJECTS))
+def test_batched_megakernel_matches_plain_chunk(cuda, eject):
+    """The batched kernel equals ``mega_batch_chunk_plain`` bit for bit,
+    every leaf and the [K, B] trace, on a mixed batch from cycle 0, mid-run,
+    each element 3 cycles before its end and a state with -0.0 in its float
+    planes, at K = 1, 7 and 32; and a one-cycle tail launch that freezes the
+    elements at their budgets."""
+    from repro_torch.core.overlay import run_batch_state
+
+    cap, pol = EJECTS[eject]
+    gm = build_graph_memory(wl.arrow_lu_graph(3, 6, 4, seed=5), 2, 2,
+                            criticality_order=True)
+    g = device_graph(gm, device=cuda)
+    base, cfgs, s0 = _mixed_batch(g, cap, pol)
+    budgets = [c.max_cycles for c in cfgs]
+    end = run_batch_state(g, base, BATCH_POLICIES, _clone(s0), budgets)
+    ends = end["cycle"].tolist()
+    late = run_batch_state(g, base, BATCH_POLICIES, _clone(s0),
+                           [min(m, e - 3) for m, e in zip(budgets, ends)])
+    mid = megakernel.mega_batch_chunk_plain(g, base, 40,
+                                            BATCH_POLICIES)(_clone(s0))
+    zeros = _clone(mid)
+    for leaf in ("operands", "value"):
+        zeros[leaf] = torch.where(zeros[leaf] == 0,
+                                  torch.full_like(zeros[leaf], -0.0),
+                                  zeros[leaf])
+    for state in (s0, mid, late, zeros):
+        for k in (1, 7, 32):
+            want, want_trace = megakernel.mega_batch_chunk_plain(
+                g, base, k, BATCH_POLICIES, with_trace=True)(_clone(state))
+            megakernel.reset_launches()
+            got, got_trace = megakernel.make_mega_chunk_fn(
+                g, base, k, names=BATCH_POLICIES, with_trace=True)(
+                _clone(state))
+            torch.cuda.synchronize()
+            assert megakernel.launches["mega_chunk_batched"] == 1
+            _assert_bits_equal(got, want)
+            assert torch.equal(got_trace, want_trace)
+    frozen = torch.tensor([40, 10_000, 41, 40, 10_000, 100],
+                          dtype=torch.int32, device=cuda)
+    want, want_trace = megakernel.mega_batch_chunk_plain(
+        g, base, 1, BATCH_POLICIES, with_trace=True,
+        max_cycles=frozen)(_clone(mid))
+    got, got_trace = megakernel.make_mega_chunk_fn(
+        g, base, 1, names=BATCH_POLICIES, with_trace=True,
+        max_cycles=frozen)(_clone(mid))
+    _assert_bits_equal(got, want)
+    assert torch.equal(got_trace, want_trace)
+
+
+def test_policy_sweep_goldens_through_batch(cuda):
+    """The reference's ``policy_sweep`` at 29,772 nodes on 16x16 through
+    ``run(batch=)`` with the megakernel: inorder, lru_flat and scan as one
+    batch on the node-id layout, ooo on the criticality layout."""
+    g = wl.arrow_lu_graph(8, 10, 8, seed=3)
+    goldens = {"inorder": 4393, "lru_flat": 4344, "scan": 4625, "ooo": 3974}
+    megakernel.reset_launches()
+    got = {}
+    for group in (("inorder", "lru_flat", "scan"), ("ooo",)):
+        cfgs = [OverlayConfig(scheduler=p, engine="megakernel") for p in group]
+        for p, r in zip(group, repro_torch.run(g, batch=cfgs, nx=16, ny=16)):
+            assert r.done
+            got[p] = r.cycles
+    assert got == goldens
+    assert megakernel.launches["mega_chunk_batched"] > 0

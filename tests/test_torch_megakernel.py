@@ -94,7 +94,7 @@ def test_no_kernel_launch_on_cpu():
     r = repro_torch.run(_graph(), OverlayConfig(engine="megakernel"),
                         nx=2, ny=2, device="cpu")
     assert r.done and (r.cycles, r.deflections) == GOLDENS["ooo"]
-    assert megakernel.launches == {"mega_chunk": 0}
+    assert megakernel.launches == {"mega_chunk": 0, "mega_chunk_batched": 0}
 
 
 def test_tail_runs_as_chunks_of_one(monkeypatch):

@@ -152,8 +152,6 @@ def test_parts_not_ported_yet_raise():
         OverlayConfig(telemetry=object())
     with pytest.raises(ValueError, match="engine"):
         OverlayConfig(engine="jnp")
-    with pytest.raises(NotImplementedError, match="batch"):
-        repro_torch.run(g, batch=[OverlayConfig()], nx=2, ny=2, device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         repro_torch.run(g, mesh=object(), nx=2, ny=2, device="cpu")
 

@@ -3,7 +3,6 @@
 
     python3 chip_smoke.py                   # everything, as the check runs it
     python3 chip_smoke.py --rows n15072 --mega-rows n15072   # smallest rows
-    python3 chip_smoke.py --baseline DIR    # also time DIR's solo megakernel
 
 Phases, each of which fails the run on any error (each prints its seconds):
   1. the card: its name and power limit from ``nvidia-smi``;
@@ -35,8 +34,14 @@ Phases, each of which fails the run on any error (each prints its seconds):
      with a budget of 100) on the matrix graph and on n15072, every eject
      configuration, from four states (cycle 0; mid-run; each element three
      cycles before its own end; signed zeros) at K = 1, 7 and 32, plus a
-     one-cycle tail launch that freezes elements at their budgets: every
-     leaf and the [K, B] trace equal as bit patterns;
+     one-cycle tail launch that freezes elements at their budgets; then
+     every batch that phases 8, 9 and 12 run (each ``--mega-rows`` row's
+     layout groups, both sweeps) and all four policies as one batch on the
+     largest row, from each element half-way to its end, three cycles
+     before it, and three cycles before the last end (the others done), at
+     K = 1 and 32 (1 and 7 above 8 elements), plus a tail launch that
+     freezes every other element: every leaf (inactive members' states
+     included) and the [K, B] trace equal as bit patterns;
   6. main path, ``engine="select"``: ``repro_torch.run`` on the 16x16 PE
      grid for the Fig. 1 arrow-LU graphs (default rows n15072 and n29772;
      ``--rows`` adds n117972); every cycle count must equal the reference's
@@ -68,13 +73,11 @@ Phases, each of which fails the run on any error (each prints its seconds):
  12. batch scaling: the first B = 1, 8, 32, 64 and 128 configs of ``sweep_ooo``:
      wall, simulated cycles summed over the elements per second, device
      time per K=32 batched chunk, the same B solo runs' summed wall, the
-     bytes bound, host time per batched call and kernel launches; and at
-     B = 8 the plain batched chunk's time;
- 13. with ``--baseline DIR ...``: the solo K=32 chunk at n15072 and n117972
-     of each other source tree (e.g. a ``git archive`` of another commit,
-     its own ``src/repro_torch`` built from its own sources) timed in turns
-     with this tree's (A B .. B A);
- 14. profiles: ``torch.profiler`` over the first 300 cycles of the n15072
+     bytes bound, host time per batched call and kernel launches; at
+     B = 8 the plain batched chunk's time; and the device time per K=32
+     chunk of two batches with three member policies at n29772,
+     ``policy_sweep`` (B = 3) and ``sweep_mixed`` (B = 126);
+ 13. profiles: ``torch.profiler`` over the first 300 cycles of the n15072
      ``ooo`` select run and over the whole n15072 ``ooo`` megakernel run,
      each with its device busy share, device ops per cycle and top kernels.
 
@@ -88,14 +91,11 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import importlib
-import importlib.util
 import json
 import statistics
 import subprocess
 import sys
 import time
-import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -152,6 +152,8 @@ BATCH_TIMED_B = 8
 #: The mixed batch of the batched kernel checks: policies on one layout,
 #: ``ooo`` at select latency 4, ``scan`` with a short budget.
 BATCH_POLICIES = ("inorder", "lru_flat", "ooo", "scan")
+#: Batches of at most this many elements are checked at K = 32 as well.
+SMALL_B = 8
 
 POLICIES = ("ooo", "inorder", "lru_flat", "scan")
 #: Eject configurations: name -> (eject_capacity, eject_policy).
@@ -722,19 +724,6 @@ def chunk_bytes(g, state, mk, K):
             - nbytes(read_only) + K * state["done"].numel())
 
 
-def solo_chunk_ms(torch, api, gm, chunks=40):
-    """Device ms and host ms per K=32 ``ooo`` chunk from cycle 0 through the
-    solo megakernel of ``api`` (a namespace with ``OverlayConfig``,
-    ``device_graph``, ``init_state`` and ``mk``, the megakernel module; from
-    this tree or another)."""
-    cfg = api.OverlayConfig(scheduler="ooo", engine="megakernel")
-    g = api.device_graph(gm)
-    s = api.init_state(g, cfg)
-    kernel = api.mk.make_mega_chunk_fn(g, cfg, MEGA_K)
-    s = kernel(kernel(s))     # warm-up
-    return timed_chunks(torch, kernel, s, chunks)
-
-
 def mega_times(torch, graphs, mk, name, plain_chunks=5):
     """Per K=32 ``ooo`` chunk from cycle 0: device ms of the kernel and of
     its plain version, host ms per kernel call, and the bytes bound.
@@ -747,13 +736,11 @@ def mega_times(torch, graphs, mk, name, plain_chunks=5):
     host-bound time the card spends on one chunk."""
     from repro_torch.core import overlay
 
-    api = types.SimpleNamespace(OverlayConfig=overlay.OverlayConfig,
-                             device_graph=overlay.device_graph,
-                             init_state=overlay.init_state, mk=mk)
-    gm = graphs.memory(name, "ooo")
-    ms, call_ms = solo_chunk_ms(torch, api, gm)
     cfg = overlay.OverlayConfig(scheduler="ooo", engine="megakernel")
-    g = overlay.device_graph(gm)
+    g = overlay.device_graph(graphs.memory(name, "ooo"))
+    kernel = mk.make_mega_chunk_fn(g, cfg, MEGA_K)
+    s = kernel(kernel(overlay.init_state(g, cfg)))     # warm-up
+    ms, call_ms = timed_chunks(torch, kernel, s, 40)
     plain = mk.mega_chunk_plain(g, cfg, MEGA_K)
     s = plain(overlay.init_state(g, cfg))
     plain_ms, _ = timed_chunks(torch, plain, s, plain_chunks)
@@ -762,74 +749,34 @@ def mega_times(torch, graphs, mk, name, plain_chunks=5):
                 shape=list(g["opcode"].shape))
 
 
-def load_tree(root, alias):
-    """Import ``root/src/repro_torch`` (another source tree) as the package
-    ``alias``; its kernels build from its own sources into ``root/build``."""
-    init = Path(root).resolve() / "src" / "repro_torch" / "__init__.py"
-    spec = importlib.util.spec_from_file_location(
-        alias, init, submodule_search_locations=[str(init.parent)])
-    pkg = importlib.util.module_from_spec(spec)
-    sys.modules[alias] = pkg
-    spec.loader.exec_module(pkg)
-    overlay = importlib.import_module(f"{alias}.core.overlay")
-    return types.SimpleNamespace(
-        OverlayConfig=overlay.OverlayConfig, device_graph=overlay.device_graph,
-        init_state=overlay.init_state,
-        mk=importlib.import_module(f"{alias}.kernels.megakernel"))
-
-
-def baseline_compare(torch, graphs, mk, trees, rounds=2):
-    """The solo K=32 ``ooo`` chunk at MEGA_TIMED_ROWS of this tree and of
-    each tree in ``trees``: one untimed pass over all (builds, clocks up),
-    then ``rounds`` rounds in turns (A B .. B A); each time is the median
-    over 40 chunks, and the ratio is of the means over the turns."""
-    from repro_torch.core import overlay
-
-    apis = {"this tree": types.SimpleNamespace(
-        OverlayConfig=overlay.OverlayConfig, device_graph=overlay.device_graph,
-        init_state=overlay.init_state, mk=mk)}
-    for i, root in enumerate(trees):
-        apis[root] = load_tree(root, f"repro_torch_baseline{i}")
-    for key in apis:
-        for row in MEGA_TIMED_ROWS:
-            solo_chunk_ms(torch, apis[key], graphs.memory(row, "ooo"))
-    order = (list(apis) + list(reversed(apis))) * rounds
-    times = {(k, row): [] for k in apis for row in MEGA_TIMED_ROWS}
-    for key in order:
-        for row in MEGA_TIMED_ROWS:
-            ms, _ = solo_chunk_ms(torch, apis[key], graphs.memory(row, "ooo"))
-            times[key, row].append(ms)
-    for (key, row), ts in times.items():
-        print(f"baseline solo chunk {row} K={MEGA_K} {key}: "
-              + ", ".join(f"{t * 1e3:.1f}" for t in ts) + " us", flush=True)
-    for root in trees:
-        for row in MEGA_TIMED_ROWS:
-            ratio = (statistics.mean(times["this tree", row])
-                     / statistics.mean(times[root, row]))
-            print(f"baseline solo chunk {row}: this tree / {root} = "
-                  f"{ratio:.4f}", flush=True)
-
-
-def mixed_batch(g, cap, pol, budget=100):
-    """All four policies, ``ooo`` at select latency 4 and ``scan`` with a
-    short budget on one memory layout: (base config, configs, state)."""
+def batch_state(g, cfgs):
+    """(base config, member names, state) of ``cfgs`` as one batch, as
+    ``repro_torch.run(gm, batch=cfgs)`` builds them."""
     from repro_torch.core import schedulers
-    from repro_torch.core.overlay import OverlayConfig, init_batch_state
+    from repro_torch.core.overlay import init_batch_state
 
     W = g["opcode"].shape[2] // 32
-    cfgs = [OverlayConfig(scheduler=p) for p in BATCH_POLICIES] + [
-        OverlayConfig(scheduler="ooo", select_latency=4),
-        OverlayConfig(scheduler="scan", max_cycles=budget)]
-    base = OverlayConfig(scheduler=BATCH_POLICIES[0], eject_capacity=cap,
-                         eject_policy=pol, engine="megakernel")
+    names = tuple(dict.fromkeys(c.scheduler for c in cfgs))
+    base = dataclasses.replace(cfgs[0], scheduler=names[0], select_latency=None,
+                               max_cycles=max(c.max_cycles for c in cfgs))
     state = init_batch_state(
-        g, base, BATCH_POLICIES,
-        [BATCH_POLICIES.index(c.scheduler) for c in cfgs],
+        g, base, names, [names.index(c.scheduler) for c in cfgs],
         [schedulers.get(c.scheduler).sel_lat(c, W) for c in cfgs])
-    return base, cfgs, state
+    return base, names, state
 
 
-def compare_batch_chunks(torch, mk, g, base, states, ks, label,
+def mixed_batch(cap, pol, budget=100):
+    """All four policies, ``ooo`` at select latency 4 and ``scan`` with a
+    short budget, at one eject configuration."""
+    from repro_torch.core.overlay import OverlayConfig
+
+    kw = dict(eject_capacity=cap, eject_policy=pol, engine="megakernel")
+    return [OverlayConfig(scheduler=p, **kw) for p in BATCH_POLICIES] + [
+        OverlayConfig(scheduler="ooo", select_latency=4, **kw),
+        OverlayConfig(scheduler="scan", max_cycles=budget, **kw)]
+
+
+def compare_batch_chunks(torch, mk, g, base, names, states, ks, label,
                          max_cycles=None):
     """The batched kernel chunk against its plain version on clones of each
     state: every leaf and the [K, B] trace equal as bit patterns."""
@@ -837,10 +784,10 @@ def compare_batch_chunks(torch, mk, g, base, states, ks, label,
     for sname, st in states.items():
         for K in ks:
             want, want_tr = mk.mega_batch_chunk_plain(
-                g, base, K, BATCH_POLICIES, with_trace=True,
+                g, base, K, names, with_trace=True,
                 max_cycles=max_cycles)(clone_state(st))
             got, got_tr = mk.make_mega_chunk_fn(
-                g, base, K, names=BATCH_POLICIES, with_trace=True,
+                g, base, K, names=names, with_trace=True,
                 max_cycles=max_cycles)(clone_state(st))
             torch.cuda.synchronize()
             err = max(err, state_err(torch, got, want))
@@ -851,11 +798,40 @@ def compare_batch_chunks(torch, mk, g, base, states, ks, label,
     return err, cases
 
 
-def check_batched_megakernel(torch, graphs, mk):
-    """The batched kernel against its plain version: a mixed batch on the
+def main_path_batches(graphs, rows):
+    """The batches that phases 8, 9 and 12 run on the card, plus all four
+    policies as one batch on the largest row's node-id layout (several
+    members at the largest L): [(label, GraphMemory, configs)]."""
+    from repro_torch.core.overlay import OverlayConfig
+
+    batches = []
+    for name in rows:
+        for group in layout_groups(ROWS[name][1]):
+            batches.append((f"{name} {'+'.join(group)}",
+                            graphs.memory(name, group[0]),
+                            [OverlayConfig(scheduler=p, engine="megakernel")
+                             for p in group]))
+    largest = rows[-1]
+    batches.append((f"{largest} {'+'.join(POLICIES)} (node-id layout)",
+                    graphs.memory(largest, "inorder"),
+                    [OverlayConfig(scheduler=p, engine="megakernel")
+                     for p in POLICIES]))
+    for sweep, (layout, _, _) in SWEEPS.items():
+        batches.append((f"{SWEEP_ROW} {sweep}", graphs.memory(SWEEP_ROW, layout),
+                        sweep_configs(sweep)))
+    return batches
+
+
+def check_batched_megakernel(torch, graphs, mk, rows):
+    """The batched kernel against its plain version. A mixed batch on the
     matrix graph (2x2) and on n15072 (16x16), every eject configuration,
     four start states, K = 1, 7, 32, and a one-cycle tail launch with
-    elements frozen at their budgets. Returns (max abs error, cases)."""
+    elements frozen at their budgets. Then every batch that the main path
+    and the sweeps run (``main_path_batches``): from each element half-way
+    to its end, three cycles before it, and (where the ends differ) three
+    cycles before the last end with the other elements done, at K = 1 and
+    32 (K = 1 and 7 above SMALL_B elements), and a tail launch that freezes
+    every other element. Returns (max abs error, cases)."""
     from repro_torch.core import workloads as wl
     from repro_torch.core.overlay import device_graph, run_batch_state
     from repro_torch.core.partition import build_graph_memory
@@ -869,14 +845,15 @@ def check_batched_megakernel(torch, graphs, mk):
     for label, gm in memories.items():
         g = device_graph(gm)
         for eject, (cap, pol) in EJECTS.items():
-            base, cfgs, s0 = mixed_batch(g, cap, pol)
+            cfgs = mixed_batch(cap, pol)
+            base, names, s0 = batch_state(g, cfgs)
             budgets = [c.max_cycles for c in cfgs]
-            ends = run_batch_state(g, base, BATCH_POLICIES, clone_state(s0),
+            ends = run_batch_state(g, base, names, clone_state(s0),
                                    budgets)["cycle"].tolist()
             late = run_batch_state(
-                g, base, BATCH_POLICIES, clone_state(s0),
+                g, base, names, clone_state(s0),
                 [min(m, e - 3) for m, e in zip(budgets, ends)])
-            mid = mk.mega_batch_chunk_plain(g, base, 40, BATCH_POLICIES)(
+            mid = mk.mega_batch_chunk_plain(g, base, 40, names)(
                 clone_state(s0))
             zeros = clone_state(mid)
             for leaf in ("operands", "value"):
@@ -885,19 +862,56 @@ def check_batched_megakernel(torch, graphs, mk):
                     zeros[leaf])
             states = {"cycle 0": s0, "mid-run": mid, "3 before each end": late,
                       "signed zeros": zeros}
-            e, n = compare_batch_chunks(torch, mk, g, base, states, (1, 7, 32),
-                                        f"{label} {eject}")
+            e, n = compare_batch_chunks(torch, mk, g, base, names, states,
+                                        (1, 7, 32), f"{label} {eject}")
             # The tail: elements at budgets 40 (= their cycle) freeze.
             frozen = torch.tensor([40, 10_000, 41, 40, 10_000, 100],
                                   dtype=torch.int32, device=g["opcode"].device)
-            e2, n2 = compare_batch_chunks(torch, mk, g, base, {"tail": mid},
-                                          (1,), f"{label} {eject}",
-                                          max_cycles=frozen)
+            e2, n2 = compare_batch_chunks(torch, mk, g, base, names,
+                                          {"tail": mid}, (1,),
+                                          f"{label} {eject}", max_cycles=frozen)
             err, cases = max(err, e, e2), cases + n + n2
             print(f"batched megakernel equals its plain version: {label} "
                   f"{eject}, B = {len(cfgs)} (elements end at cycles {ends}; "
                   f"4 states x K in 1, 7, 32, and a tail launch)", flush=True)
+    for label, gm, cfgs in main_path_batches(graphs, rows):
+        g = device_graph(gm)
+        base, names, s0 = batch_state(g, cfgs)
+        budgets = [c.max_cycles for c in cfgs]
+        ends = run_batch_state(g, base, names, clone_state(s0),
+                               budgets)["cycle"].tolist()
+        half = run_batch_state(g, base, names, clone_state(s0),
+                               [e // 2 for e in ends])
+        late = run_batch_state(g, base, names, clone_state(half),
+                               [e - 3 for e in ends])
+        states = {"half-way": half, "3 before each end": late}
+        if len(set(ends)) > 1:   # the elements that end first are done
+            states["3 before the last end"] = run_batch_state(
+                g, base, names, clone_state(half), [max(ends) - 3] * len(cfgs))
+        ks = (1, 32) if len(cfgs) <= SMALL_B else (1, 7)
+        e, n = compare_batch_chunks(torch, mk, g, base, names, states, ks,
+                                    label)
+        frozen = late["cycle"] + torch.arange(
+            len(cfgs), dtype=torch.int32, device=g["opcode"].device) % 2
+        e2, n2 = compare_batch_chunks(torch, mk, g, base, names,
+                                      {"tail": late}, (1,), label,
+                                      max_cycles=frozen)
+        err, cases = max(err, e, e2), cases + n + n2
+        print(f"batched megakernel equals its plain version: {label}, B = "
+              f"{len(cfgs)}, members {names} (elements end at cycles "
+              f"{min(ends)}..{max(ends)}; {len(states)} states x K in {ks}, "
+              f"and a tail launch)", flush=True)
     return err, cases
+
+
+def batch_chunk_ms(torch, mk, g, cfgs):
+    """Device and host ms per K=32 batched chunk of ``cfgs`` from cycle 0
+    (after two warm-up chunks), and the chunk's bytes bound in bytes."""
+    base, names, s0 = batch_state(g, cfgs)
+    total = chunk_bytes(g, s0, mk, MEGA_K)
+    chunk = mk.make_mega_chunk_fn(g, base, MEGA_K, names=names)
+    ms, call_ms = timed_chunks(torch, chunk, chunk(chunk(s0)), 40)
+    return ms, call_ms, total
 
 
 def batch_scaling(torch, graphs, mk, solo_walls):
@@ -905,20 +919,18 @@ def batch_scaling(torch, graphs, mk, solo_walls):
     simulated cycles per second of ``run(batch=)``, the same B solo runs'
     summed wall, device and host ms per K=32 batched chunk from cycle 0,
     its bytes bound and the run's kernel launches; at BATCH_TIMED_B the plain
-    batched chunk too. Returns {B: numbers}."""
+    batched chunk too. Then the same chunk times of two batches with three
+    member policies at n29772: ``policy_sweep`` (B = 3) and ``sweep_mixed``
+    (B = 126). Returns {B: numbers}."""
     import repro_torch
-    from repro_torch.core import schedulers
-    from repro_torch.core.overlay import device_graph, init_batch_state
+    from repro_torch.core.overlay import OverlayConfig, device_graph
 
-    layout, names, _ = SWEEPS["sweep_ooo"]
-    gm = graphs.memory(SWEEP_ROW, layout)
+    gm = graphs.memory(SWEEP_ROW, SWEEPS["sweep_ooo"][0])
     g = device_graph(gm)
     all_cfgs = sweep_configs("sweep_ooo")
-    W = gm.lmax // 32
     out = {}
     for B in SCALING_B:
         cfgs = all_cfgs[:B]
-        base = dataclasses.replace(cfgs[0], select_latency=None)
         mk.reset_launches()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -926,21 +938,14 @@ def batch_scaling(torch, graphs, mk, solo_walls):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         launches = mk.launches["mega_chunk_batched"]
-
-        def state():
-            return init_batch_state(
-                g, base, names, [0] * B,
-                [schedulers.get(c.scheduler).sel_lat(c, W) for c in cfgs])
-
-        chunk = mk.make_mega_chunk_fn(g, base, MEGA_K, names=names)
-        ms, call_ms = timed_chunks(torch, chunk, chunk(chunk(state())), 40)
+        ms, call_ms, total = batch_chunk_ms(torch, mk, g, cfgs)
         n = dict(B=B, wall=wall, cycles=sum(r.cycles for r in rs),
                  solo_wall=sum(solo_walls[:B]), ms=ms, call_ms=call_ms,
-                 bytes=chunk_bytes(g, state(), mk, MEGA_K), launches=launches,
-                 shape=[B, *g["opcode"].shape])
+                 bytes=total, launches=launches, shape=[B, *g["opcode"].shape])
         if B == BATCH_TIMED_B:
+            base, names, s0 = batch_state(g, cfgs)
             plain = mk.mega_batch_chunk_plain(g, base, MEGA_K, names)
-            n["plain_ms"], _ = timed_chunks(torch, plain, plain(state()), 2)
+            n["plain_ms"], _ = timed_chunks(torch, plain, plain(s0), 2)
         out[B] = n
         print(f"batch scaling {SWEEP_ROW} sweep_ooo B = {B}: wall "
               f"{wall:.3f} s, {n['cycles'] / wall:.0f} simulated cycles/s "
@@ -951,6 +956,18 @@ def batch_scaling(torch, graphs, mk, solo_walls):
               f"({n['bytes']} bytes); {launches} mega_chunk_batched launches"
               + (f"; plain batched chunk {n['plain_ms']:.1f} ms"
                  if "plain_ms" in n else ""), flush=True)
+    layout, policies, _ = SWEEPS["sweep_mixed"]
+    g = device_graph(graphs.memory(SWEEP_ROW, layout))
+    for label, cfgs in (
+            ("policy_sweep", [OverlayConfig(scheduler=p, engine="megakernel")
+                              for p in policies]),
+            ("sweep_mixed", sweep_configs("sweep_mixed"))):
+        ms, call_ms, total = batch_chunk_ms(torch, mk, g, cfgs)
+        print(f"batch chunk {SWEEP_ROW} {label} B = {len(cfgs)} (members "
+              f"{policies}): device {ms * 1e3:.1f} us per K={MEGA_K} chunk, "
+              f"host {call_ms * 1e3:.1f} us per call, bytes bound "
+              f"{total / HBM_BYTES_PER_S * 1e6:.3f} us ({total} bytes)",
+              flush=True)
     return out
 
 
@@ -1031,9 +1048,6 @@ def main() -> int:
                     choices=list(ROWS),
                     help="rows of the megakernel main paths, solo and "
                          "batched (default: %(default)s)")
-    ap.add_argument("--baseline", nargs="+", default=[], metavar="DIR",
-                    help="other source trees whose solo megakernel chunk is "
-                         "timed in turns with this tree's")
     args = ap.parse_args()
 
     import numpy as np
@@ -1072,7 +1086,8 @@ def main() -> int:
     print(f"megakernel equals its plain version in {cases} cases, max abs "
           f"error {mega_err}", flush=True)
     batch_err, batch_cases = phase("batched megakernel check",
-                                   check_batched_megakernel, torch, graphs, mk)
+                                   check_batched_megakernel, torch, graphs, mk,
+                                   args.mega_rows)
     print(f"batched megakernel equals its plain version in {batch_cases} "
           f"cases, max abs error {batch_err}", flush=True)
 
@@ -1101,8 +1116,6 @@ def main() -> int:
     print(f"phase megakernel time: {time.perf_counter() - t:.1f} s", flush=True)
     scaling = phase("batch scaling", batch_scaling, torch, graphs, mk,
                     solo_walls["sweep_ooo"])
-    if args.baseline:
-        phase("baseline", baseline_compare, torch, graphs, mk, args.baseline)
     phase("profiles", profiles, torch, graphs)
 
     line = []

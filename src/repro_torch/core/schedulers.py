@@ -291,7 +291,9 @@ class BatchedScheduler(Scheduler):
     every member, so an inactive member's state keeps advancing (an
     ``inorder`` FIFO keeps taking pushes while ``ooo`` picks); ``step``
     runs each member under ``gate & (policy_id == i)``, so only the active
-    member commits; ``select`` and ``empty`` dispatch on ``policy_id``.
+    member commits, and returns the active member's pick; ``empty``
+    dispatches on ``policy_id``. The cycle calls only ``on_ready``,
+    ``step`` and ``empty``.
     Each batch element is thus cycle-exact with the solo run of its member,
     and its inactive substates equal the reference's leaf for leaf. With a
     single member the dispatch is pruned.
@@ -339,24 +341,6 @@ class BatchedScheduler(Scheduler):
             out[n] = p.on_ready(st[n], slot, ready)
         return out
 
-    def select(self, st, idle):
-        if self._solo:
-            return self.policies[0].select(st[self.names[0]], idle)
-        cands, haves = zip(*(p.select(st[n], idle) for _, (n, p)
-                             in self._members()))
-        preds = self._preds(st)
-        return self._dispatch(preds, cands), self._dispatch(preds, haves)
-
-    def commit(self, st, sel, cand):
-        out = dict(st)
-        if self._solo:
-            n = self.names[0]
-            out[n] = self.policies[0].commit(st[n], sel, cand)
-            return out
-        for i, (n, p) in self._members():
-            out[n] = p.commit(st[n], sel & (st["policy_id"] == i), cand)
-        return out
-
     def empty(self, st):
         if self._solo:
             return self.policies[0].empty(st[self.names[0]])
@@ -372,7 +356,7 @@ class BatchedScheduler(Scheduler):
             return cand, have, out
         # Each member commits its own candidate under its dispatch predicate;
         # where the predicate holds, the member's candidate IS the dispatched
-        # candidate, so this equals select-then-masked-commit exactly.
+        # candidate, as the reference's select-then-masked-commit gives.
         preds = self._preds(st)
         cands, haves = [], []
         for i, (n, p) in self._members():

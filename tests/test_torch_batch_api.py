@@ -122,11 +122,18 @@ def test_batched_scheduler_layout_and_dispatch():
         assert view["link_e"].data_ptr() == state["link_e"][b].data_ptr()
     # With one member the dispatch is pruned: the member's own hooks.
     solo = schedulers.BatchedScheduler(("ooo",))
-    st = solo.init(g, base)
+    ooo = schedulers.get("ooo")
+    slot = torch.full((2, 2), 5, dtype=torch.int32)
+    ready = torch.tensor([[True, False], [False, True]])
+    st = solo.on_ready(solo.init(g, base), slot, ready)
     idle = torch.ones(2, 2, dtype=torch.bool)
-    cand, have = solo.select(st, idle)
-    want, want_have = schedulers.get("ooo").select(st["ooo"], idle)
+    gate = torch.tensor([[True, True], [False, True]])
+    cand, have, out = solo.step(st, idle, gate)
+    want, want_have, want_st = ooo.step(st["ooo"], idle, gate)
     assert torch.equal(cand, want) and torch.equal(have, want_have)
+    assert have.any()
+    _assert_equal(out["ooo"], want_st)
+    assert torch.equal(solo.empty(out), ooo.empty(want_st))
 
 
 def test_on_ready_goes_to_every_member_step_commits_the_active_one():

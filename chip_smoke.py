@@ -6,9 +6,10 @@
 
 Phases, each of which fails the run on any error (each prints its seconds):
   1. the card: its name and power limit from ``nvidia-smi``;
-  2. build: compiles every CUDA source of the port with ``nvcc``, one
-     process per source, all started together (set-up), and prints each
-     source's ``ptxas -v`` lines;
+  2. build: compiles every CUDA source of the port (``lod.cu``,
+     ``megakernel.cu``, ``flash_attention.cu``) with ``nvcc``, one process
+     per source, all started together (set-up), and prints each source's
+     ``ptxas -v`` lines;
   3. leading-one kernels: each against its plain torch version on the card,
      at the benchmark shapes and the main path's shapes, on edge-case inputs
      (words with the top bit set, empty rows, ``ptr`` at 0, 31, 32 and
@@ -79,7 +80,34 @@ Phases, each of which fails the run on any error (each prints its seconds):
      ``policy_sweep`` (B = 3) and ``sweep_mixed`` (B = 126);
  13. profiles: ``torch.profiler`` over the first 300 cycles of the n15072
      ``ooo`` select run and over the whole n15072 ``ooo`` megakernel run,
-     each with its device busy share, device ops per cycle and top kernels.
+     each with its device busy share, device ops per cycle and top kernels;
+ 14. flash-attention kernel: against its plain version on the card, in
+     float32 (within 1e-4) and bfloat16 (within 2e-2), max error printed:
+     the reference's five kernel-test shapes (in the Pallas kernel's
+     [B, H, T, D] layout), qwen2-0.5b's prefill (batch 8 x 2048 tokens, 14
+     over 2 heads, head_dim 64) and decode (one query over a 2080-key cache,
+     kv_len per row from 1 to 2080), gemma-2b's head_dim 256 under MQA
+     (prefill and decode);
+ 15. flash-attention time: device time at the prefill and decode shapes in
+     bfloat16 (CUDA-graph replay) beside the plain version's, SDPA's (the
+     yardstick, with an explicit mask and without one), the host time per
+     call and the bound (FLOPs at 989 TFLOP/s or bytes at 3.35 TB/s,
+     whichever is larger);
+ 16. serve main path: ``repro_torch.launch.serve.main`` for qwen2-0.5b at
+     full width in bfloat16, batch 8 x 2048 prompt tokens, 32 new tokens
+     (after a warm-up run of 2 new tokens): prefill and decode tok/s, and
+     the flash kernel launched exactly 24 x 32 times in the counted run;
+ 17. serve consistency: full width in float32 (TF32 off), prefill and 16
+     teacher-forced decode steps through the kernel against ``forward``'s
+     logits, and against the same steps with the plain attention on the
+     card, at 3e-4;
+ 18. against the reference: the numpy recipe's weights in float32, a
+     prefill and three decode steps at full width; top-32 logits (indices
+     and values) and logsumexp against the golden the JAX package made
+     (``tests/fixtures/qwen2_0_5b_golden.npz``), at 1e-4;
+ 19. serve profiles: ``torch.profiler`` over one prefill of phase 16's
+     shape and over 8 decode steps after it, each with its device busy
+     share, device ops per step and top kernels.
 
 Each graph is built once (numpy set-up) and shared by the phases. The
 second-to-last line is a JSON object describing each kernel; the last line
@@ -971,9 +999,10 @@ def batch_scaling(torch, graphs, mk, solo_walls):
     return out
 
 
-def profile_run(torch, run, cycles, label):
-    """Device busy share, device ops per cycle and top kernels of ``run()``
-    (which simulates ``cycles`` cycles) under ``torch.profiler``."""
+def profile_run(torch, run, cycles, label, unit="cycle"):
+    """Device busy share, device ops per ``unit`` and top kernels of
+    ``run()`` (which runs ``cycles`` units: simulated cycles, or serve
+    steps) under ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
     run()   # warm-up
@@ -992,11 +1021,12 @@ def profile_run(torch, run, cycles, label):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)
-    print(f"profile {label}, {cycles} cycles: wall {wall * 1e3:.1f} ms "
-          f"untraced ({wall / cycles * 1e3:.4f} ms/cycle), "
+    print(f"profile {label}, {cycles} {unit}s: wall {wall * 1e3:.1f} ms "
+          f"untraced ({wall / cycles * 1e3:.4f} ms/{unit}), "
           f"{traced_wall * 1e3:.1f} ms traced; device busy "
           f"{device_us / 1e3:.2f} ms = {device_us / (wall * 1e6):.4f} of the "
-          f"untraced wall; {launches} device ops ({launches / cycles:.2f}/cycle)",
+          f"untraced wall; {launches} device ops "
+          f"({launches / cycles:.2f}/{unit})",
           flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:7d}x  "
@@ -1015,6 +1045,378 @@ def profiles(torch, graphs):
     mega = OverlayConfig(scheduler="ooo", engine="megakernel")
     profile_run(torch, lambda: repro_torch.run(gm, mega), golden,
                 "n15072 ooo megakernel (whole run)")
+
+
+# ---------------------------------------------------------------------------
+# The LM serving path and the flash-attention kernel.
+# ---------------------------------------------------------------------------
+
+FLASH_REPLACES = "src/repro/kernels/flash_attention.py:75"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), FLOP/s.
+BF16_FLOPS_PER_S = 989e12
+#: The serve main path: qwen2-0.5b at full width, bf16, batch 8 x 2048
+#: prompt tokens, 32 new tokens (one prefill and 31 decode steps).
+SERVE_ARGS = ["--arch", "qwen2-0.5b", "--batch", "8", "--prompt-len", "2048",
+              "--gen", "32"]
+SERVE_LAUNCHES = 24 * 32
+#: Kernel checks: name -> (b, hq, hkv, tq, tkv, d, causal, kv_len, layout).
+#: The reference's five kernel-test shapes (tests/test_kernels.py, in the
+#: Pallas kernel's [B, H, T, D] layout), the main path's prefill and decode
+#: (ragged cache fill levels, 1 and Tkv among them) and gemma-2b's
+#: head_dim 256 under MQA. Each runs in float32 and bfloat16.
+FLASH_CASES = {
+    "test_kernels_1": (2, 4, 2, 128, 128, 64, True, None, "heads"),
+    "test_kernels_2": (1, 2, 1, 64, 256, 128, True, None, "heads"),
+    "test_kernels_3": (1, 4, 4, 128, 128, 80, False, None, "heads"),
+    "test_kernels_4": (2, 2, 2, 96, 160, 64, True, None, "heads"),
+    "test_kernels_5": (1, 2, 2, 128, 128, 64, True, None, "heads"),
+    "qwen2_prefill": (8, 14, 2, 2048, 2048, 64, True, None, "tokens"),
+    "qwen2_decode": (8, 14, 2, 1, 2080, 64, True,
+                     [1, 2080, 2049, 1500, 777, 64, 65, 2079], "tokens"),
+    "gemma_mqa_prefill": (2, 8, 1, 256, 256, 256, True, None, "tokens"),
+    "gemma_mqa_decode": (4, 8, 1, 1, 300, 256, True, [1, 300, 129, 64],
+                         "tokens"),
+}
+#: Tolerances against the plain version: in float32 the two differ only in
+#: the order of f32 sums; bfloat16 is the reference's kernel-test tolerance
+#: (tests/test_kernels.py:135).
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: Timed shapes (bfloat16, the serve path's type): name -> case.
+FLASH_TIMED = {"prefill": "qwen2_prefill", "decode": "qwen2_decode"}
+#: The decode timing reads a full cache: kv_len = Tkv for every row.
+DECODE_TIMED_KV_LEN = 2080
+#: Consistency at full width (f32): batch, prompt, teacher-forced steps;
+#: the reference's serving-test tolerance (tests/test_serving.py:13).
+CONSIST = (2, 32, 16)
+CONSIST_TOL = 3e-4
+GOLDEN = ROOT / "tests" / "fixtures" / "qwen2_0_5b_golden.npz"
+#: Port (f32 on the card, TF32 off) against the reference's golden logits
+#: (f32 on a CPU): rtol = atol. The port on the CPU is within 3.4e-6 of it.
+GOLDEN_TOL = 1e-4
+
+
+def flash_inputs(torch, case, dtype, seed):
+    b, hq, hkv, tq, tkv, d, _, _, _ = FLASH_CASES[case]
+    g = torch.Generator("cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=g, device="cuda").to(dtype)
+            for shape in ((b, tq, hq, d), (b, tkv, hkv, d), (b, tkv, hkv, d))]
+
+
+def check_flash(torch, fa):
+    """The kernel against its plain version on every case, both dtypes.
+    Returns the largest error over the cases."""
+    worst = 0.0
+    for i, (case, (b, hq, hkv, tq, tkv, d, causal, kv_len, layout)) in \
+            enumerate(FLASH_CASES.items()):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(torch, case, dtype, seed=i)
+            want = fa.attention_plain(q, k, v, causal=causal, kv_len=kv_len)
+            if layout == "heads":       # the Pallas kernel's [B, H, T, D]
+                heads = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
+                got = fa.flash_attention(*heads, causal=causal).transpose(1, 2)
+            else:
+                got = fa.attention(q, k, v, causal=causal, kv_len=kv_len)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            tol = FLASH_TOL[str(dtype).split(".")[-1]]
+            print(f"flash_attention {case} {str(dtype)[6:]} "
+                  f"b={b} hq={hq} hkv={hkv} tq={tq} tkv={tkv} d={d} "
+                  f"causal={causal} kv_len={kv_len}: max abs error vs plain "
+                  f"{err:.3e} (tol {tol})", flush=True)
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+            if got.dtype != dtype or got.shape != q.shape:
+                raise AssertionError(f"{case}: output {got.dtype} "
+                                     f"{tuple(got.shape)}")
+            worst = max(worst, err)
+    return worst
+
+
+def flash_work(case, kv_len, elem):
+    """(FLOPs, bytes) the function needs: 4 * D per visible (row, key)
+    pair and q head; q, k, v read once and o written once."""
+    b, hq, hkv, tq, tkv, d, causal, _, _ = FLASH_CASES[case]
+    lens = [kv_len] * b if isinstance(kv_len, int) else kv_len
+    pairs = 0
+    for n in lens:
+        for i in range(tq):
+            pairs += min(n, i + n - tq + 1) if causal else n
+    flops = 4 * d * hq * pairs
+    nbytes = elem * (2 * b * tq * hq * d + 2 * sum(lens) * hkv * d)
+    return flops, nbytes
+
+
+def sdpa_inputs(torch, q, k, v, causal, lens):
+    """Contiguous [B, H, T, D] copies and the explicit boolean mask of the
+    ends-aligned causal and kv_len bounds, for the library yardstick."""
+    b, tq, tkv = q.shape[0], q.shape[1], k.shape[1]
+    n = torch.tensor(lens, device="cuda")[:, None, None]
+    kpos = torch.arange(tkv, device="cuda")[None, None, :]
+    mask = kpos < n
+    if causal:
+        qpos = torch.arange(tq, device="cuda")[None, :, None]
+        mask = mask & (kpos <= qpos + n - tq)
+    return ([x.transpose(1, 2).contiguous() for x in (q, k, v)],
+            mask[:, None])                                  # [B, 1, Tq, Tkv]
+
+
+def flash_times(torch, fa):
+    """Device ms of the kernel, its plain version and SDPA (one PyTorch call
+    computing the same function, the yardstick; the port never calls it) at
+    the main path's prefill and decode shapes in bfloat16, beside the
+    bound. The kernel and SDPA are replayed from a CUDA graph; the plain
+    version (which copies kv_len to the card, so it cannot be captured) is
+    timed call by call from the host. Host ms per kernel call too."""
+    import torch.nn.functional as F
+
+    out = {}
+    for label, case in FLASH_TIMED.items():
+        b, hq, hkv, tq, tkv, d, causal, _, _ = FLASH_CASES[case]
+        kv_len = tkv if label == "prefill" else DECODE_TIMED_KV_LEN
+        q, k, v = flash_inputs(torch, case, torch.bfloat16, seed=99)
+        (qh, kh, vh), mask = sdpa_inputs(torch, q, k, v, causal, [kv_len] * b)
+        kernel = lambda: fa.attention(q, k, v, causal=causal, kv_len=kv_len)
+        plain = lambda: fa.attention_plain(q, k, v, causal=causal,
+                                           kv_len=kv_len)
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, enable_gqa=True)
+        # The same function at these inputs without a mask tensor: causal
+        # from the top left is the ends-aligned mask when Tq = Tkv = kv_len,
+        # and a single query row over a full cache needs no mask.
+        sdpa_fast = lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=tq == tkv, enable_gqa=True)
+        big = label == "prefill"
+        reps = 20 if big else 100
+        n = dict(
+            ms=device_ms(torch, kernel, reps=reps, rounds=5),
+            library_ms=device_ms(torch, sdpa, reps=reps, rounds=5),
+            library_fast_ms=device_ms(torch, sdpa_fast, reps=reps, rounds=5),
+            plain_ms=call_ms(torch, plain, reps=3 if big else 20, warmup=1),
+            call_ms=call_ms(torch, kernel, reps=20 if big else 100))
+        flops, nbytes = flash_work(case, kv_len, 2)
+        n["flops"], n["bytes"] = flops, nbytes
+        n["ops_ms"] = flops / BF16_FLOPS_PER_S * 1e3
+        n["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        n["bound_ms"] = max(n["ops_ms"], n["bytes_ms"])
+        n["bound_by"] = "operations" if n["ops_ms"] >= n["bytes_ms"] else "bytes"
+        n["shape"] = [b, tq, tkv, hq, hkv, d]
+        out[label] = n
+        print(f"flash_attention time {label} bf16 b={b} tq={tq} tkv={tkv} "
+              f"hq={hq} hkv={hkv} d={d} kv_len={kv_len}: device "
+              f"{n['ms'] * 1e3:.1f} us, host {n['call_ms'] * 1e3:.1f} us per "
+              f"call; plain {n['plain_ms'] * 1e3:.1f} us; SDPA (explicit mask, "
+              f"enable_gqa) {n['library_ms'] * 1e3:.1f} us, without the mask "
+              f"{n['library_fast_ms'] * 1e3:.1f} us; bound "
+              f"{n['bound_ms'] * 1e3:.3f} us by {n['bound_by']} ({flops} FLOP "
+              f"at 989 TFLOP/s = {n['ops_ms'] * 1e3:.3f} us, {nbytes} bytes "
+              f"at 3.35 TB/s = {n['bytes_ms'] * 1e3:.3f} us)", flush=True)
+    return out
+
+
+def serve_main_path(torch, np, fa):
+    """``repro_torch.launch.serve.main`` at full width in bf16, once with
+    two new tokens as a warm-up, then counted: the flash kernel must launch
+    exactly 24 x 32 times. Returns (launches, prefill tok/s, decode tok/s)."""
+    import contextlib
+    import io
+    import re
+
+    from repro_torch.launch import serve
+
+    warm = SERVE_ARGS[:-1] + ["2"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        serve.main(warm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    fa.reset_launches()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        seq = serve.main(SERVE_ARGS)
+    wall = time.perf_counter() - t
+    launches = fa.launches["flash_attention"]
+    text = buf.getvalue()
+    print(text.rstrip(), flush=True)
+    rates = [float(x.replace(",", "")) for x in
+             re.findall(r"\(([\d,]+) tok/s\)", text)]
+    print(f"serve {' '.join(SERVE_ARGS)}: wall {wall:.2f} s (weights drawn "
+          f"on the card included), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"flash_attention launches {launches} (want {SERVE_LAUNCHES})",
+          flush=True)
+    if launches != SERVE_LAUNCHES:
+        raise AssertionError(f"serve launched flash_attention {launches} "
+                             f"times, want {SERVE_LAUNCHES}")
+    if seq.shape != (8, 32) or not ((seq >= 0) & (seq < 151936)).all():
+        raise AssertionError(f"serve returned tokens {seq.shape} out of range")
+    if len(rates) != 2:
+        raise AssertionError(f"serve printed no rates: {text!r}")
+    return launches, rates[0], rates[1]
+
+
+def full_width_f32(torch):
+    """qwen2-0.5b's full config in float32, with TF32 off for matrix
+    products (stated: a reference in f32 must not round to TF32)."""
+    from repro_torch.configs import get_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    return dataclasses.replace(get_config("qwen2-0.5b"), dtype="float32")
+
+
+def teacher_forced(torch, model, cfg, tokens, prompt):
+    """Logits of a prefill over ``tokens[:, :prompt]`` and of a decode step
+    for each later token: [steps, B, V]."""
+    from repro_torch.models import lm
+
+    b, t = tokens.shape
+    cache = lm.init_cache(cfg, b, t, device="cuda")
+    logits, cache = lm.prefill(model, cfg, tokens=tokens[:, :prompt],
+                               cache=cache)
+    steps = [logits]
+    for i in range(prompt, t):
+        logits, cache = lm.decode_step(model, cfg, tokens[:, i], cache, i)
+        steps.append(logits)
+    return torch.stack(steps)
+
+
+def consistency(torch, np, fa):
+    """Full width, f32: prefill + teacher-forced decode through the kernel
+    equal ``forward``'s logits, and the same steps with the plain attention
+    on the card, at 3e-4."""
+    from unittest import mock
+
+    from repro_torch.models import lm
+
+    cfg = full_width_f32(torch)
+    model = lm.init(torch.Generator("cuda").manual_seed(0), cfg)
+    b, p, n = CONSIST
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, p + n))
+                              .astype(np.int32)).cuda()
+    h, _ = lm.forward(model, cfg, tokens=tokens)
+    full = lm.logits_fn(model, cfg, h)[:, p - 1:].transpose(0, 1)  # [steps, B, V]
+    fa.reset_launches()
+    kern = teacher_forced(torch, model, cfg, tokens, p)
+    used = fa.launches["flash_attention"]
+    with mock.patch.object(fa, "attention", fa.attention_plain):
+        plain = teacher_forced(torch, model, cfg, tokens, p)
+    if fa.launches["flash_attention"] != used or used != 24 * (n + 1):
+        raise AssertionError(f"kernel launches {used}, then "
+                             f"{fa.launches['flash_attention']}")
+    e_full = (kern - full).abs().max().item()
+    e_plain = (kern - plain).abs().max().item()
+    print(f"consistency qwen2-0.5b f32 full width, batch {b}, prompt {p}, "
+          f"{n} decode steps: prefill+decode vs forward max abs error "
+          f"{e_full:.3e}, vs the plain attention on the card {e_plain:.3e} "
+          f"(tol {CONSIST_TOL}; |logits| up to "
+          f"{full[..., :cfg.vocab_size].abs().max().item():.3f})",
+          flush=True)
+    torch.testing.assert_close(kern, full, rtol=CONSIST_TOL, atol=CONSIST_TOL)
+    torch.testing.assert_close(kern, plain, rtol=CONSIST_TOL, atol=CONSIST_TOL)
+    return max(e_full, e_plain)
+
+
+def against_golden(torch, np):
+    """Full width, f32, the numpy recipe's weights: the top-32 logits of a
+    prefill and 3 decode steps against the reference's golden (indices and
+    values) and the logsumexp. An index may differ from the golden's only
+    where the golden's own values at the two ranks lie within 2 x tol (a
+    near-tie); the golden keeps 40 ranks for that."""
+    from repro_torch.convert import lm_params_from_numpy, numpy_lm_params
+
+    g = np.load(GOLDEN)
+    cfg = full_width_f32(torch)
+    t = time.perf_counter()
+    model = lm_params_from_numpy(cfg, numpy_lm_params(cfg, int(g["seed"])),
+                                 device="cuda")
+    print(f"golden: numpy weights (seed {int(g['seed'])}) to the card in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    tokens = torch.from_numpy(g["tokens"]).cuda()
+    lg = teacher_forced(torch, model, cfg, tokens, int(g["prompt_len"]))
+    lg = lg.cpu().numpy()
+    k = int(g["topk"])
+    gold_idx, gold_val = g["top_idx"], g["top_val"]
+    at = np.take_along_axis(lg, gold_idx[..., :k], -1)
+    err = float(np.abs(at - gold_val[..., :k]).max())
+    m = lg.max(-1)
+    lse = m + np.log(np.exp(lg - m[..., None]).sum(-1))
+    lse_err = float(np.abs(lse - g["lse"]).max())
+    idx = np.argsort(-lg, -1, kind="stable")[..., :k]
+    swaps = 0
+    for pos in zip(*np.nonzero(idx != gold_idx[..., :k])):
+        row_idx, row_val = gold_idx[pos[:-1]], gold_val[pos[:-1]]
+        hit = np.nonzero(row_idx == idx[pos])[0]
+        if not (len(hit) and abs(row_val[hit[0]] - row_val[pos[-1]])
+                <= 2 * GOLDEN_TOL):
+            raise AssertionError(f"golden: top-{k} index {idx[pos]} at rank "
+                                 f"{pos} is no near-tie of the golden's")
+        swaps += 1
+    print(f"golden qwen2-0.5b f32 full width vs the reference (CPU, f32): "
+          f"top-{k} values max abs error {err:.3e}, logsumexp {lse_err:.3e} "
+          f"(tol {GOLDEN_TOL}), top-{k} indices equal but for {swaps} "
+          f"near-tie swaps (the golden's smallest neighbour gap "
+          f"{float(g['min_gap']):.3e})", flush=True)
+    np.testing.assert_allclose(at, gold_val[..., :k], rtol=GOLDEN_TOL,
+                               atol=GOLDEN_TOL)
+    np.testing.assert_allclose(lse, g["lse"], rtol=GOLDEN_TOL, atol=GOLDEN_TOL)
+    return max(err, lse_err)
+
+
+def serve_profiles(torch):
+    """``torch.profiler`` over one prefill of the serve main path's shape
+    (qwen2-0.5b, bf16, batch 8 x 2048) and over 8 decode steps after it:
+    device busy share and top kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    cfg = get_config("qwen2-0.5b")
+    g = torch.Generator("cuda").manual_seed(0)
+    model = lm.init(g, cfg)
+    b, p, n = 8, 2048, 8
+    tokens = torch.randint(0, cfg.vocab_size, (b, p), generator=g,
+                           device="cuda", dtype=torch.int32)
+    cache = lm.init_cache(cfg, b, p + n, device="cuda")
+    cur = tokens[:, -1].contiguous()
+
+    def decode():
+        for i in range(n):
+            lm.decode_step(model, cfg, cur, cache, p + i)
+
+    profile_run(torch, lambda: lm.prefill(model, cfg, tokens=tokens,
+                                          cache=cache),
+                1, f"serve qwen2-0.5b bf16 prefill batch {b} x {p}", "prefill")
+    profile_run(torch, decode, n, f"serve qwen2-0.5b bf16 decode batch {b} "
+                f"at cache length {p}", "step")
+
+
+def lm_phases(torch, np):
+    """The LM serving path: the flash kernel against its plain version, its
+    times, serve at full width (counted), consistency, the golden and the
+    profiles. Returns the ``flash_attention`` entry of the kernels line."""
+    from repro_torch.kernels import flash_attention as fa
+
+    err = phase("flash_attention check", check_flash, torch, fa)
+    timed = phase("flash_attention time", flash_times, torch, fa)
+    launches, prefill_tps, decode_tps = phase("serve main path",
+                                              serve_main_path, torch, np, fa)
+    phase("serve consistency", consistency, torch, np, fa)
+    phase("serve against the golden", against_golden, torch, np)
+    phase("serve profiles", serve_profiles, torch)
+    pre, dec = timed["prefill"], timed["decode"]
+    return dict(
+        name="flash_attention", route="cuda", source=FLASH_SOURCE,
+        replaces=FLASH_REPLACES, launches=launches, max_abs_err=err,
+        ms=pre["ms"], plain_ms=pre["plain_ms"], bound_ms=pre["bound_ms"],
+        bound_by=pre["bound_by"], library_ms=pre["library_ms"],
+        call_ms=pre["call_ms"], shape=pre["shape"], dtype="bfloat16",
+        decode=dict((k, dec[k]) for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_fast_ms", "call_ms", "shape")),
+        library_fast_ms=pre["library_fast_ms"],
+        serve_prefill_tok_s=prefill_tps, serve_decode_tok_s=decode_tps)
 
 
 def build_all(_build, sources):
@@ -1058,12 +1460,13 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build, lod
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import megakernel as mk
 
     print(card_line(), flush=True)   # name, power limit as nvidia-smi gives them
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
-    phase("build", build_all, _build, [lod.SOURCE, mk.SOURCE])
+    phase("build", build_all, _build, [lod.SOURCE, mk.SOURCE, fa.SOURCE])
 
     t = time.perf_counter()
     err = check_kernels(torch, np, lod)
@@ -1117,6 +1520,7 @@ def main() -> int:
     scaling = phase("batch scaling", batch_scaling, torch, graphs, mk,
                     solo_walls["sweep_ooo"])
     phase("profiles", profiles, torch, graphs)
+    flash = lm_phases(torch, np)
 
     line = []
     for name, replaces in KERNELS.items():
@@ -1144,6 +1548,7 @@ def main() -> int:
         equal=batch_err == 0, ms=bt["ms"], plain_ms=bt["plain_ms"],
         bound_ms=bt["bytes"] / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=None, call_ms=bt["call_ms"], shape=bt["shape"], K=MEGA_K))
+    line.append(flash)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

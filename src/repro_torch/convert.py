@@ -1,9 +1,11 @@
-"""Carry graph memories and simulation states across from the reference.
+"""Carry graph memories, simulation states and LM weights across from the
+reference.
 
 The reference package's objects arrive as numpy: a ``GraphMemory``'s fields,
-or a simulation state pytree with every leaf converted by ``np.asarray``.
-These functions turn them into the port's objects and back, so a state can
-be handed over mid-run and compared leaf for leaf.
+a simulation state pytree or an LM parameter pytree with every leaf
+converted by ``np.asarray``. These functions turn them into the port's
+objects (and states back), so a state can be handed over mid-run and
+compared leaf for leaf, and both packages can run the same weights.
 
 Two representations differ:
   * RDY words (``state["sched"]["rdy"]``) are uint32 in the reference and
@@ -27,6 +29,7 @@ import torch
 from .api import resolve_device
 from .core import noc
 from .core.partition import GraphMemory
+from .models import lm
 
 _LINKS = ("link_e", "link_s")
 _WORDS = ("rdy",)
@@ -85,3 +88,133 @@ def state_to_numpy(state: Mapping, *, batched: bool = False) -> dict:
             a = v.cpu().numpy()
             out[k] = a.view(np.uint32) if k in _WORDS else a
     return out
+
+
+# ---------------------------------------------------------------------------
+# LM weights.
+# ---------------------------------------------------------------------------
+
+def _lm_leaf_specs(cfg):
+    """(path, shape, init) of every leaf of the reference's LM parameter
+    tree (``repro.models.lm.init``) for a dense ``cfg``, in a fixed order.
+    A segment's leaves carry a leading [n] layer axis; ``init`` is
+    ``"embed"`` (normal x 0.02), ``"dense"`` (normal / sqrt(fan_in)),
+    ``"ones"`` or ``"zeros"``."""
+    d, vocab = cfg.d_model, cfg.padded_vocab
+    h, hkv, hd, f = cfg.num_heads, cfg.num_kv_heads, cfg.hd, cfg.d_ff
+    out = [(("embed",), (vocab, d), "embed")]
+
+    def norm(pre, lead=()):
+        out.append((pre + ("w",), (*lead, d), "ones"))
+        if cfg.norm == "layernorm":
+            out.append((pre + ("b",), (*lead, d), "zeros"))
+
+    for si, (_, n) in enumerate(lm.segments(cfg)):
+        pre = ("segments", si)
+
+        def dense(name, d_in, d_out, bias):
+            out.append((pre + name + ("w",), (n, d_in, d_out), "dense"))
+            if bias:
+                out.append((pre + name + ("b",), (n, d_out), "zeros"))
+
+        norm(pre + ("ln1",), (n,))
+        dense(("attn", "wq"), d, h * hd, cfg.qkv_bias)
+        dense(("attn", "wk"), d, hkv * hd, cfg.qkv_bias)
+        dense(("attn", "wv"), d, hkv * hd, cfg.qkv_bias)
+        dense(("attn", "wo"), h * hd, d, cfg.proj_bias)
+        norm(pre + ("ln2",), (n,))
+        if cfg.mlp_glu:
+            dense(("ffn", "w_gate"), d, f, False)
+            dense(("ffn", "w_up"), d, f, False)
+            dense(("ffn", "w_down"), f, d, False)
+        else:
+            dense(("ffn", "w_up"), d, f, cfg.proj_bias)
+            dense(("ffn", "w_down"), f, d, cfg.proj_bias)
+    norm(("final_norm",))
+    if not cfg.tie_embeddings:
+        out.append((("lm_head",), (d, vocab), "embed"))
+    return out
+
+
+def numpy_lm_leaves(cfg, seed: int = 0):
+    """Yield (path, float32 array) for every leaf of :func:`numpy_lm_params`,
+    one at a time. Leaf ``i`` draws from ``np.random.default_rng([seed,
+    i])``, so each leaf can be made without the others."""
+    lm.check_supported(cfg)
+    for i, (path, shape, init) in enumerate(_lm_leaf_specs(cfg)):
+        if init in ("ones", "zeros"):
+            yield path, np.full(shape, init == "ones", dtype=np.float32)
+            continue
+        scale = 0.02 if init == "embed" else 1.0 / np.sqrt(shape[-2])
+        x = np.random.default_rng([seed, i]).standard_normal(
+            shape, dtype=np.float32)
+        x *= np.float32(scale)
+        yield path, x
+
+
+def numpy_lm_params(cfg, seed: int = 0) -> dict:
+    """The reference's LM parameter tree for a dense ``cfg`` (the shapes of
+    ``repro.models.lm.init``, ``dense_init``'s and ``embed_init``'s scales),
+    drawn with numpy from ``seed``, every leaf float32. Both packages can
+    then be fed the same weights, at any width."""
+    tree: dict = {}
+    for path, x in numpy_lm_leaves(cfg, seed):
+        node = tree
+        for key, nxt in zip(path[:-1], path[1:]):
+            if isinstance(key, int):
+                while len(node) <= key:
+                    node.append({})
+                node = node[key]
+            else:
+                node = node.setdefault(key, [] if isinstance(nxt, int) else {})
+        node[path[-1]] = x
+    return tree
+
+
+def _flatten(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def lm_params_from_numpy(cfg, tree: Mapping, device=None) -> "lm.LM":
+    """The reference's LM parameter pytree (numpy leaves; a segment's leaves
+    stacked on a leading [n] layer axis) -> the port's :class:`LM` in
+    ``cfg``'s dtype on ``device`` (``None`` = the CUDA card; raises without
+    one). Each segment is split into its layers; every matrix keeps the
+    reference's ``[in, out]`` orientation. Every leaf must land on exactly
+    one parameter and every parameter must be given."""
+    model = lm.LM(cfg, device=resolve_device(device))
+    params = dict(model.named_parameters())
+    given = set()
+
+    def put(name, leaf):
+        if name not in params or name in given:
+            raise ValueError(f"leaf {name} has no parameter of {cfg.name}")
+        a = np.asarray(leaf, dtype=np.float32)
+        if a.shape != params[name].shape:
+            raise ValueError(f"{name}: shape {a.shape}, parameter "
+                             f"{tuple(params[name].shape)}")
+        params[name].copy_(torch.from_numpy(np.array(a, copy=True)))
+        given.add(name)
+
+    layer = 0
+    for key, value in tree.items():
+        if key != "segments":
+            for name, leaf in (_flatten(value, f"{key}.")
+                               if isinstance(value, Mapping) else [(key, value)]):
+                put(name, leaf)
+    for (_, n), seg in zip(lm.segments(cfg), tree["segments"], strict=True):
+        for name, leaf in _flatten(seg):
+            if np.shape(leaf)[0] != n:
+                raise ValueError(f"segment leaf {name} has {np.shape(leaf)[0]} "
+                                 f"layers, the segment {n}")
+            for j in range(n):
+                put(f"blocks.{layer + j}.{name}", leaf[j])
+        layer += n
+    missing = set(params) - given
+    if missing:
+        raise ValueError(f"no leaf for parameters {sorted(missing)}")
+    return model

@@ -20,7 +20,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 
 #: Target Hopper's full feature set; never --use_fast_math (the simulator's
-#: results are bit-exact, and no kernel here needs fast math).
+#: results are bit-exact, and attention's exponential is the accurate expf).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,6 +36,10 @@ SIGNATURES = {
     # mega_chunk(const MegaArgs* args, int eject, void* stream)
     "megakernel.cu": {
         "mega_chunk": (_P, _I, _P),
+    },
+    # flash_attention_fwd(const FlashArgs* args, void* stream)
+    "flash_attention.cu": {
+        "flash_attention_fwd": (_P, _P),
     },
 }
 

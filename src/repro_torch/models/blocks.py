@@ -1,0 +1,171 @@
+"""Transformer block assembly, as ``nn.Module``s.
+
+The counterpart of the reference package's ``models/blocks.py`` for block
+kind ``"attn"`` without MLA: norm, attention with a KV cache, norm, dense
+MLP. Every weight keeps the reference's ``[in, out]`` orientation
+(``y = x @ w``) and its parameter path (``attn.wq.w``, ``ffn.w_down.b``), so
+a reference parameter tree maps onto a block leaf for leaf
+(:func:`repro_torch.convert.lm_params_from_numpy`).
+
+A block's forward takes ``aux = {mode: train|prefill|decode, positions,
+cache (the layer's entry or None), cache_len}`` and returns ``(h, extras)``
+with ``extras = {cache: entry}`` in prefill and decode, as the reference's
+``block_apply`` does. The reference returns a new cache; here the entry's
+tensors are updated in place (an index copy) and returned.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .attention import blockwise_attention
+from .common import (ModelConfig, act_fn, apply_rope, dense_init, layernorm,
+                     rmsnorm)
+
+
+def _param(shape, dtype, device, generator=None, fill=None):
+    """A parameter drawn by ``dense_init`` on ``generator``, filled with
+    ``fill``, or left uninitialised (to be loaded) when both are None."""
+    if generator is not None and fill is None:
+        t = dense_init(generator, shape, dtype)
+    else:
+        t = torch.empty(shape, dtype=dtype, device=device)
+        if fill is not None:
+            t.fill_(fill)
+    return nn.Parameter(t, requires_grad=False)
+
+
+class Dense(nn.Module):
+    """``x @ w (+ b)`` with w ``[in, out]``; the bias starts at zero."""
+
+    def __init__(self, d_in, d_out, cfg: ModelConfig, *, bias=False,
+                 generator=None, device=None):
+        super().__init__()
+        dt = cfg.torch_dtype
+        self.w = _param((d_in, d_out), dt, device, generator)
+        self.b = _param((d_out,), dt, device, fill=0.0) if bias else None
+
+    def forward(self, x):
+        y = x @ self.w
+        return y if self.b is None else y + self.b
+
+
+class Norm(nn.Module):
+    """rmsnorm, or layernorm with a bias (``cfg.norm``)."""
+
+    def __init__(self, cfg: ModelConfig, d=None, *, device=None):
+        super().__init__()
+        d = d or cfg.d_model
+        self.cfg = cfg
+        self.w = _param((d,), cfg.torch_dtype, device, fill=1.0)
+        self.b = (_param((d,), cfg.torch_dtype, device, fill=0.0)
+                  if cfg.norm == "layernorm" else None)
+
+    def forward(self, x):
+        if self.cfg.norm == "layernorm":
+            return layernorm(x, self.w, self.b, self.cfg.norm_eps)
+        return rmsnorm(x, self.w, self.cfg.norm_eps)
+
+
+class MLP(nn.Module):
+    """Gated (``w_gate``, ``w_up``, ``w_down``) or plain two-matrix MLP,
+    the plain one with biases under ``proj_bias``."""
+
+    def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        kw = dict(generator=generator, device=device)
+        self.glu = cfg.mlp_glu
+        self.act = act_fn(cfg.act)
+        if cfg.mlp_glu:
+            self.w_gate = Dense(d, f, cfg, **kw)
+            self.w_up = Dense(d, f, cfg, **kw)
+            self.w_down = Dense(f, d, cfg, **kw)
+        else:
+            self.w_up = Dense(d, f, cfg, bias=cfg.proj_bias, **kw)
+            self.w_down = Dense(f, d, cfg, bias=cfg.proj_bias, **kw)
+
+    def forward(self, x):
+        if self.glu:
+            return self.w_down(self.act(self.w_gate(x)) * self.w_up(x))
+        return self.w_down(self.act(self.w_up(x)))
+
+
+class Attention(nn.Module):
+    """GQA/MQA/MHA self-attention with a KV cache (``attn_apply``)."""
+
+    def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
+        super().__init__()
+        d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+        kw = dict(generator=generator, device=device)
+        self.cfg = cfg
+        self.wq = Dense(d, h * hd, cfg, bias=cfg.qkv_bias, **kw)
+        self.wk = Dense(d, hkv * hd, cfg, bias=cfg.qkv_bias, **kw)
+        self.wv = Dense(d, hkv * hd, cfg, bias=cfg.qkv_bias, **kw)
+        self.wo = Dense(h * hd, d, cfg, bias=cfg.proj_bias, **kw)
+
+    def forward(self, x, aux):
+        """train (no cache), prefill (writes the cache from position 0) or
+        decode (writes position ``cache_len``, then attends with
+        ``kv_len = cache_len + 1``). Returns (out, extras)."""
+        cfg = self.cfg
+        b, t, _ = x.shape
+        h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+        q = self.wq(x).reshape(b, t, h, hd)
+        k = self.wk(x).reshape(b, t, hkv, hd)
+        v = self.wv(x).reshape(b, t, hkv, hd)
+        if cfg.pos == "rope":
+            pos = aux["positions"]
+            q = apply_rope(q.transpose(1, 2), pos, cfg.rope_theta).transpose(1, 2)
+            k = apply_rope(k.transpose(1, 2), pos, cfg.rope_theta).transpose(1, 2)
+        mode = aux["mode"]
+        chunk = dict(q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk)
+        extras = {}
+        if mode == "train":
+            # A scoring forward: the reference's training form computes the
+            # same function; autograd through attention is not ported yet.
+            out = blockwise_attention(q, k, v, **chunk)
+        elif mode == "prefill":
+            cache = aux["cache"]
+            cache["k"][:, :t].copy_(k)
+            cache["v"][:, :t].copy_(v)
+            out = blockwise_attention(q, k, v, **chunk)
+            extras["cache"] = cache
+        elif mode == "decode":
+            cache, clen = aux["cache"], int(aux["cache_len"])
+            cache["k"][:, clen:clen + t].copy_(k)
+            cache["v"][:, clen:clen + t].copy_(v)
+            out = blockwise_attention(q, cache["k"], cache["v"],
+                                      kv_len=clen + 1, **chunk)
+            extras["cache"] = cache
+        else:
+            raise ValueError(f"unknown mode {mode!r}")
+        return self.wo(out.reshape(b, t, h * hd)), extras
+
+
+def attn_cache_init(cfg: ModelConfig, batch: int, max_len: int, device):
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
+
+
+class Block(nn.Module):
+    """Pre-norm block of kind ``"attn"``: attention, then the dense MLP."""
+
+    def __init__(self, cfg: ModelConfig, kind: str = "attn", *,
+                 generator=None, device=None):
+        super().__init__()
+        if kind != "attn" or cfg.mla is not None:
+            raise NotImplementedError(
+                f"block kind {kind!r}{' with MLA' if cfg.mla else ''} is not "
+                f"ported yet (ROADMAP queue 1 item 12)")
+        kw = dict(generator=generator, device=device)
+        self.ln1 = Norm(cfg, device=device)
+        self.attn = Attention(cfg, **kw)
+        self.ln2 = Norm(cfg, device=device)
+        self.ffn = MLP(cfg, **kw)
+
+    def forward(self, h, aux):
+        y, extras = self.attn(self.ln1(h), aux)
+        h = h + y
+        return h + self.ffn(self.ln2(h)), extras

@@ -1,0 +1,168 @@
+"""Language model of the dense family: embedding -> blocks -> norm -> head.
+
+The counterpart of the reference package's ``models/lm.py``, for the dense
+family (block kind ``"attn"``, RoPE). The functions keep the reference's
+names and signatures, with :class:`LM` (an ``nn.Module``) in place of the
+parameter pytree. Layers are grouped into the same segments; the reference
+scans a segment's stacked parameters, here each layer is its own module and
+the KV cache of a segment is stacked on a leading ``[n]`` axis as in the
+reference. The cache is updated in place.
+
+This slice serves: ``forward`` (a scoring forward), ``prefill`` and
+``decode_step`` run under ``torch.no_grad()``. Families other than dense
+raise ``NotImplementedError`` naming the ROADMAP item where they wait.
+"""
+from __future__ import annotations
+
+import itertools
+
+import torch
+from torch import nn
+
+from ..api import resolve_device
+from . import blocks as B
+from .common import ModelConfig, embed_init
+
+#: ROADMAP queue 1 item of each family or feature that is not ported yet.
+_WAITING = (
+    (lambda c: c.encdec is not None, "the encoder-decoder stack", "12f"),
+    (lambda c: c.ssm is not None, "SSM blocks", "12e"),
+    (lambda c: c.mla is not None, "MLA attention", "12d"),
+    (lambda c: c.moe is not None, "the MoE FFN", "12c"),
+    (lambda c: c.pos == "mrope" or c.family == "vlm", "M-RoPE", "12b"),
+    (lambda c: c.pos != "rope", "positions other than RoPE", "12f"),
+)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    for test, what, item in _WAITING:
+        if test(cfg):
+            raise NotImplementedError(
+                f"{cfg.name} needs {what}, which is not ported yet (ROADMAP "
+                f"queue 1 item {item}); the port's LM runs the dense family")
+
+
+def segments(cfg: ModelConfig) -> list[tuple[str, int]]:
+    kinds = [cfg.block_kind(i) for i in range(cfg.num_layers)]
+    return [(k, len(list(g))) for k, g in itertools.groupby(kinds)]
+
+
+class LM(nn.Module):
+    """Embedding ``[padded_vocab, d]``, the blocks, the final norm, and the
+    head: ``embed.T`` when embeddings are tied, else ``lm_head`` ``[d,
+    padded_vocab]``. With no generator the weights are left uninitialised,
+    to be loaded."""
+
+    def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        dt = cfg.torch_dtype
+        shape = (cfg.padded_vocab, cfg.d_model)
+
+        def table(shape):
+            t = (embed_init(generator, shape, dt) if generator is not None
+                 else torch.empty(shape, dtype=dt, device=device))
+            return nn.Parameter(t, requires_grad=False)
+
+        self.embed = table(shape)
+        self.blocks = nn.ModuleList(
+            B.Block(cfg, cfg.block_kind(i), generator=generator, device=device)
+            for i in range(cfg.num_layers))
+        self.final_norm = B.Norm(cfg, device=device)
+        self.lm_head = None if cfg.tie_embeddings else table(shape[::-1])
+
+
+def init(generator: torch.Generator, cfg: ModelConfig) -> LM:
+    """Random weights drawn on ``generator``'s device (the reference's
+    ``init(key, cfg)``)."""
+    return LM(cfg, generator=generator, device=generator.device)
+
+
+def make_positions(cfg, b, t, device=None):
+    return torch.arange(t, dtype=torch.int32, device=device).expand(b, t)
+
+
+def _apply_stack(params: LM, cfg, h, aux, cache):
+    """Run the blocks; layer j of segment s uses entry j of ``cache[s]``."""
+    layer = 0
+    for si, (_, n) in enumerate(segments(cfg)):
+        for j in range(n):
+            a = dict(aux)
+            if cache is not None:
+                a["cache"] = {name: t[j] for name, t in cache[si].items()}
+            h, _ = params.blocks[layer](h, a)
+            layer += 1
+    return h
+
+
+def embed_tokens(params: LM, cfg, tokens):
+    return params.embed[tokens]
+
+
+def _embed(params, cfg, tokens, embeds):
+    return (embed_tokens(params, cfg, tokens) if embeds is None
+            else embeds.to(cfg.torch_dtype))
+
+
+@torch.no_grad()
+def forward(params: LM, cfg: ModelConfig, *, tokens=None, embeds=None,
+            positions=None):
+    """Scoring forward -> (hidden [b, t, d], metrics)."""
+    h = _embed(params, cfg, tokens, embeds)
+    b, t, _ = h.shape
+    if positions is None:
+        positions = make_positions(cfg, b, t, device=h.device)
+    aux = {"mode": "train", "positions": positions, "cache": None,
+           "cache_len": None}
+    h = _apply_stack(params, cfg, h, aux, None)
+    return params.final_norm(h), {}
+
+
+@torch.no_grad()
+def logits_fn(params: LM, cfg, h):
+    head = params.embed.T if cfg.tie_embeddings else params.lm_head
+    logits = (h @ head).float()
+    if cfg.padded_vocab != cfg.vocab_size:          # mask pad columns
+        col = torch.arange(cfg.padded_vocab, device=logits.device)
+        logits = torch.where(col < cfg.vocab_size, logits, -1e30)
+    return logits
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    """Per segment, the layers' K and V caches stacked on a leading [n] axis:
+    ``{"k": [n, batch, max_len, Hkv, D], "v": ...}``. ``device`` None = the
+    CUDA card (raises without one)."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    out = []
+    for _, n in segments(cfg):
+        layers = [B.attn_cache_init(cfg, batch, max_len, device)
+                  for _ in range(n)]
+        out.append({k: torch.stack([c[k] for c in layers]) for k in ("k", "v")})
+    return out
+
+
+@torch.no_grad()
+def prefill(params: LM, cfg: ModelConfig, *, tokens=None, embeds=None, cache):
+    """Fill the cache with a full prompt; returns (last-token logits, cache)."""
+    h = _embed(params, cfg, tokens, embeds)
+    b, t, _ = h.shape
+    aux = {"mode": "prefill", "positions": make_positions(cfg, b, t,
+                                                          device=h.device),
+           "cache_len": t}
+    h = params.final_norm(_apply_stack(params, cfg, h, aux, cache))
+    return logits_fn(params, cfg, h[:, -1]), cache
+
+
+@torch.no_grad()
+def decode_step(params: LM, cfg: ModelConfig, tokens, cache, cache_len):
+    """One decode step. tokens: [b] int; cache_len: int (tokens already in
+    the cache). Returns (logits [b, V], cache)."""
+    cache_len = int(cache_len)
+    h = embed_tokens(params, cfg, tokens[:, None])
+    b = h.shape[0]
+    pos = torch.full((b, 1), cache_len, dtype=torch.int32, device=h.device)
+    aux = {"mode": "decode", "positions": pos, "cache_len": cache_len}
+    h = params.final_norm(_apply_stack(params, cfg, h, aux, cache))
+    return logits_fn(params, cfg, h[:, -1]), cache

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels and its select and megakernel engines on a card.
+"""The port's CUDA kernels, its select and megakernel engines and its
+flash-attention kernel on a card.
 Every test here needs a CUDA device and skips without one; the file imports
 neither JAX nor the reference package, so it runs on a machine that has only
 torch:
@@ -15,6 +16,7 @@ from repro_torch.core.graph import reference_evaluate
 from repro_torch.core.overlay import (OverlayConfig, device_graph, init_state,
                                       run_state)
 from repro_torch.core.partition import build_graph_memory
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import lod, megakernel
 
 pytestmark = pytest.mark.cuda
@@ -243,3 +245,26 @@ def test_policy_sweep_goldens_through_batch(cuda):
             got[p] = r.cycles
     assert got == goldens
     assert megakernel.launches["mega_chunk_batched"] > 0
+
+
+# (b, tq, tkv, hq, hkv, d, causal, kv_len): a causal prefill with Tq < Tkv
+# over a ragged tile, and a rep-7 GQA decode step with ragged cache lengths.
+FLASH_CASES = [(2, 33, 70, 4, 2, 64, True, None),
+               (3, 1, 90, 14, 2, 64, True, [1, 90, 45])]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_matches_plain(cuda, case, dtype, tol):
+    b, tq, tkv, hq, hkv, d, causal, kv_len = case
+    g = torch.Generator(cuda).manual_seed(tq)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for shape in ((b, tq, hq, d), (b, tkv, hkv, d), (b, tkv, hkv, d)))
+    fa.reset_launches()
+    got = fa.attention(q, k, v, causal=causal, kv_len=kv_len)
+    want = fa.attention_plain(q, k, v, causal=causal, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.device.type == "cuda"
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert fa.launches == {"flash_attention": 1}

@@ -1,0 +1,118 @@
+"""The flash-attention kernel's plain version against the reference: the
+Pallas kernel (``repro.kernels.ops.flash_attention``, interpret mode on the
+CPU) in its [B, H, T, D] layout, and the model stack's
+``repro.models.attention.blockwise_attention`` with ``kv_len``; the wrapper's
+CPU routing, input checks and launch counter. The kernel itself runs only on
+a card: see ``test_torch_cuda.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops
+from repro.models.attention import blockwise_attention as ref_blockwise
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.models.attention import blockwise_attention
+
+BF16 = np.dtype(jnp.bfloat16)
+
+
+def _t(a):
+    """numpy (float32 or bfloat16) -> torch of the same dtype, exactly."""
+    if a.dtype == BF16:
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _np(t):
+    return t.float().numpy()
+
+
+# The reference's own kernel-test shapes (tests/test_kernels.py).
+@pytest.mark.parametrize(
+    "b,hq,hkv,tq,tkv,d,causal,dtype",
+    [
+        (2, 4, 2, 128, 128, 64, True, np.float32),
+        (1, 2, 1, 64, 256, 128, True, np.float32),
+        (1, 4, 4, 128, 128, 80, False, np.float32),
+        (2, 2, 2, 96, 160, 64, True, np.float32),
+        (1, 2, 2, 128, 128, 64, True, BF16),
+    ],
+)
+def test_plain_matches_pallas_kernel(b, hq, hkv, tq, tkv, d, causal, dtype):
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((b, hq, tq, d)).astype(dtype)
+    k = rng.standard_normal((b, hkv, tkv, d)).astype(dtype)
+    v = rng.standard_normal((b, hkv, tkv, d)).astype(dtype)
+    want = ops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               causal=causal, block_q=64, block_k=64)
+    got = fa.flash_attention(_t(q), _t(k), _t(v), causal=causal)
+    assert got.dtype == _t(q).dtype and got.shape == (b, hq, tq, d)
+    tol = 2e-5 if dtype == np.float32 else 2e-2
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+# (b, tq, tkv, hq, hkv, d, causal, kv_len): decode with ragged cache fill
+# levels, rep-7 GQA (qwen2-0.5b's 14 over 2 heads), MQA, non-causal.
+BLOCKWISE_CASES = {
+    "decode_ragged": (3, 1, 50, 14, 2, 64, True, [1, 50, 23]),
+    "decode_uniform": (2, 1, 40, 4, 2, 32, True, 17),
+    "prefill_rep7": (2, 40, 40, 14, 2, 16, True, None),
+    "mqa_kv_len": (2, 8, 40, 4, 1, 32, True, [8, 40]),
+    "mqa_decode": (2, 1, 33, 8, 1, 256, True, [5, 33]),
+    "noncausal_kv_len": (2, 5, 30, 4, 2, 16, False, [3, 30]),
+    "noncausal_full": (1, 12, 20, 6, 3, 80, False, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BLOCKWISE_CASES))
+def test_plain_matches_blockwise_attention(case):
+    b, tq, tkv, hq, hkv, d, causal, kv_len = BLOCKWISE_CASES[case]
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((b, tq, hq, d)).astype(np.float32)
+    k = rng.standard_normal((b, tkv, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, tkv, hkv, d)).astype(np.float32)
+    ref_len = None if kv_len is None else jnp.asarray(kv_len, jnp.int32)
+    want = ref_blockwise(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         causal=causal, q_chunk=16, kv_chunk=16,
+                         kv_len=ref_len)
+    fa.reset_launches()
+    got = blockwise_attention(_t(q), _t(k), _t(v), causal=causal, q_chunk=16,
+                              kv_chunk=16, kv_len=kv_len)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=2e-5, atol=2e-5)
+    assert fa.launches["flash_attention"] == 0     # the CPU runs the plain version
+
+
+def test_plain_chunking_and_layouts_agree():
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.standard_normal((2, 9, 6, 32)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((2, 70, 2, 32)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((2, 70, 2, 32)).astype(np.float32))
+    one = fa.attention_plain(q, k, v, kv_len=[9, 61], kv_chunk=1024)
+    many = fa.attention_plain(q, k, v, kv_len=torch.tensor([9, 61]), kv_chunk=8)
+    torch.testing.assert_close(one, many, rtol=1e-6, atol=1e-6)
+    # The Pallas layout is the same function on transposed views.
+    heads = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), kv_len=[9, 61])
+    torch.testing.assert_close(heads.transpose(1, 2), one, rtol=0, atol=0)
+
+
+def test_wrapper_checks():
+    q = torch.zeros(2, 5, 4, 16)
+    k = torch.zeros(2, 40, 2, 16)
+    with pytest.raises(ValueError, match="kv_len >= Tq"):
+        fa.attention(q, k, k, causal=True, kv_len=[4, 40])
+    fa.attention(q, k, k, causal=False, kv_len=[4, 40])     # fine without causal
+    for bad in (0, 41, [1, 2, 3]):
+        with pytest.raises(ValueError):
+            fa.attention(q, k, k, causal=False, kv_len=bad)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.attention(q, k.to(torch.bfloat16), k, causal=True)
+    with pytest.raises(ValueError, match="multiple"):
+        fa.attention(torch.zeros(2, 5, 3, 16), k, k, causal=True)
+    with pytest.raises(NotImplementedError, match="differentiable"):
+        blockwise_attention(q, k, k, differentiable=True)
+    with pytest.raises(NotImplementedError, match="backward"):
+        fa.attention(q.requires_grad_(), k, k)

@@ -1,0 +1,240 @@
+"""The port's LM serving path against the reference package's, on the CPU.
+
+For each dense smoke config the reference's own weights (``lm.init``) go
+through ``convert.lm_params_from_numpy``; ``forward``, ``prefill`` and every
+``decode_step`` must give the reference's logits (f32, rtol = atol = 1e-4)
+and greedy decoding the same tokens. Also: the configs, the numpy weight
+recipe against the reference's parameter shapes at full width, the serve
+driver, the families that are not ported yet, and the full-width golden
+fixture against the recipe.
+"""
+import dataclasses
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCHS as REF_ARCHS
+from repro.configs import SHAPES as REF_SHAPES
+from repro.configs import get_config as ref_config
+from repro.models import common as ref_common
+from repro.models import lm as ref_lm
+from repro.train.steps import make_decode_step as ref_decode_step
+from repro.train.steps import make_prefill_step as ref_prefill_step
+from repro_torch import convert
+from repro_torch.configs import ARCHS, SHAPES, get_config
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.launch import serve
+from repro_torch.models import common, lm
+from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+DENSE = ("qwen2-0.5b", "gemma-2b", "minicpm-2b", "starcoder2-7b")
+OTHERS = tuple(a for a in ARCHS if a not in DENSE)
+TOL = dict(rtol=1e-4, atol=1e-4)
+GOLDEN = Path(__file__).parent / "fixtures" / "qwen2_0_5b_golden.npz"
+
+
+def _port(arch):
+    cfg = get_config(arch, smoke=True)
+    params = ref_lm.init(jax.random.key(1), ref_config(arch, smoke=True))
+    tree = jax.tree.map(np.asarray, params)
+    return cfg, params, convert.lm_params_from_numpy(cfg, tree, device="cpu")
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_logits_match_reference(arch):
+    cfg, params, model = _port(arch)
+    rcfg = ref_config(arch, smoke=True)
+    rng = np.random.default_rng(0)
+    b, t, p = 2, 20, 16
+    toks = rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int32)
+    h, _ = ref_lm.forward(params, rcfg, tokens=jnp.asarray(toks))
+    full = np.asarray(ref_lm.logits_fn(params, rcfg, h))
+    th, metrics = lm.forward(model, cfg, tokens=torch.from_numpy(toks))
+    assert metrics == {}
+    np.testing.assert_allclose(lm.logits_fn(model, cfg, th).numpy(), full, **TOL)
+
+    cache = ref_lm.init_cache(rcfg, b, max_len=t)
+    tcache = lm.init_cache(cfg, b, max_len=t, device="cpu")
+    lg, cache = ref_lm.prefill(params, rcfg, tokens=jnp.asarray(toks[:, :p]),
+                               cache=cache)
+    tlg, tcache = lm.prefill(model, cfg, tokens=torch.from_numpy(toks[:, :p]),
+                             cache=tcache)
+    np.testing.assert_allclose(tlg.numpy(), np.asarray(lg), **TOL)
+    for i in range(p, t):
+        lg, cache = ref_lm.decode_step(params, rcfg, jnp.asarray(toks[:, i]),
+                                       cache, jnp.int32(i))
+        tlg, tcache = lm.decode_step(model, cfg, torch.from_numpy(toks[:, i]),
+                                     tcache, i)
+        np.testing.assert_allclose(tlg.numpy(), np.asarray(lg), **TOL)
+        np.testing.assert_allclose(tlg.numpy(), full[:, i], **TOL)
+    # The cache the port filled in place holds the reference's K and V.
+    for name in ("k", "v"):
+        np.testing.assert_allclose(tcache[0][name].numpy(),
+                                   np.asarray(cache[0][name]), **TOL)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_greedy_tokens_match_reference(arch):
+    cfg, params, model = _port(arch)
+    rcfg = ref_config(arch, smoke=True)
+    b, p, gen = 2, 8, 8
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (b, p)).astype(np.int32)
+
+    def run(prefill, decode, params, cache, toks, argmax, cast):
+        logits, cache = prefill(params, {"tokens": toks}, cache)
+        cur = argmax(logits)
+        outs = [np.asarray(cur)]
+        for i in range(gen - 1):
+            cur, _, cache = decode(params, cur, cache, cast(p + i))
+            outs.append(np.asarray(cur))
+        return np.stack(outs, 1)
+
+    want = run(ref_prefill_step(rcfg), ref_decode_step(rcfg), params,
+               ref_lm.init_cache(rcfg, b, max_len=p + gen), jnp.asarray(toks),
+               lambda x: jnp.argmax(x, -1).astype(jnp.int32), jnp.int32)
+    got = run(make_prefill_step(cfg), make_decode_step(cfg), model,
+              lm.init_cache(cfg, b, max_len=p + gen, device="cpu"),
+              torch.from_numpy(toks),
+              lambda x: torch.argmax(x, -1).to(torch.int32), int)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_serve_smoke_runs_on_cpu(capsys):
+    seq = serve.main(["--arch", "qwen2-0.5b", "--smoke", "--device", "cpu",
+                      "--batch", "2", "--prompt-len", "8", "--gen", "4"])
+    assert seq.shape == (2, 4) and seq.dtype == np.int32
+    assert ((seq >= 0) & (seq < 256)).all()
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "arch=qwen2-0.5b-smoke batch=2 prompt=8 gen=4"
+    assert out[1].startswith("prefill:") and out[2].startswith("decode:")
+    assert out[-1] == "device: cpu"
+
+
+@pytest.mark.parametrize("arch", OTHERS)
+def test_other_families_raise(arch):
+    cfg = get_config(arch, smoke=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+        lm.LM(cfg, device="cpu")
+    with pytest.raises(NotImplementedError):
+        lm.init_cache(cfg, 1, 4, device="cpu")
+    with pytest.raises(NotImplementedError):
+        make_prefill_step(cfg)
+    with pytest.raises(NotImplementedError):
+        serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
+
+
+def test_sampling_raises():
+    with pytest.raises(NotImplementedError, match="queue 3 item 4"):
+        make_decode_step(get_config("qwen2-0.5b", smoke=True), greedy=False)
+
+
+@pytest.mark.parametrize("arch", REF_ARCHS)
+def test_configs_are_copies(arch):
+    assert arch in ARCHS
+    for smoke in (False, True):
+        assert (dataclasses.asdict(get_config(arch, smoke))
+                == dataclasses.asdict(ref_config(arch, smoke)))
+    assert ({k: dataclasses.asdict(v) for k, v in SHAPES.items()}
+            == {k: dataclasses.asdict(v) for k, v in REF_SHAPES.items()})
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_recipe_has_reference_shapes_at_full_width(arch):
+    """The numpy recipe's tree has ``repro.models.lm.init``'s structure and
+    shapes, at full width (shapes only: nothing is drawn here)."""
+    cfg = get_config(arch)
+    want = jax.eval_shape(lambda k: ref_lm.init(k, ref_config(arch)),
+                          jax.random.key(0))
+    specs = convert._lm_leaf_specs(cfg)
+    flat_want = {jax.tree_util.keystr(p): tuple(x.shape) for p, x in
+                 jax.tree_util.tree_flatten_with_path(want)[0]}
+    flat_got = {jax.tree_util.keystr(tuple(
+        jax.tree_util.SequenceKey(k) if isinstance(k, int)
+        else jax.tree_util.DictKey(k) for k in path)): tuple(shape)
+        for path, shape, _ in specs}
+    assert flat_got == flat_want
+
+
+def test_recipe_round_trips_through_the_port():
+    cfg = get_config("starcoder2-7b", smoke=True)      # layernorm, biases, untied
+    tree = convert.numpy_lm_params(cfg, seed=3)
+    model = convert.lm_params_from_numpy(cfg, tree, device="cpu")
+    np.testing.assert_array_equal(model.blocks[1].attn.wq.w.numpy(),
+                                  tree["segments"][0]["attn"]["wq"]["w"][1])
+    np.testing.assert_array_equal(model.lm_head.numpy(), tree["lm_head"])
+    assert (model.blocks[0].ln2.b.numpy() == 0).all()
+    w = tree["segments"][0]["ffn"]["w_up"]["w"]
+    assert abs(w.std() * np.sqrt(cfg.d_model) - 1) < 0.05
+    again = convert.numpy_lm_params(cfg, seed=3)
+    np.testing.assert_array_equal(again["embed"], tree["embed"])
+    del tree["segments"][0]["ln1"]
+    with pytest.raises(ValueError, match="no leaf"):
+        convert.lm_params_from_numpy(cfg, tree, device="cpu")
+    tree = convert.numpy_lm_params(cfg, seed=3)
+    tree["extra"] = np.zeros(3, np.float32)
+    with pytest.raises(ValueError, match="extra"):
+        convert.lm_params_from_numpy(cfg, tree, device="cpu")
+
+
+def test_common_ops_match_reference():
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 3, 5, 16)).astype(np.float32)
+    pos = rng.integers(0, 3000, (2, 5)).astype(np.int32)
+    np.testing.assert_allclose(
+        common.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 1e6).numpy(),
+        np.asarray(ref_common.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e6)),
+        rtol=1e-5, atol=1e-5)
+    w = rng.standard_normal(16).astype(np.float32)
+    bias = rng.standard_normal(16).astype(np.float32)
+    tx, tw, tb = map(torch.from_numpy, (x, w, bias))
+    np.testing.assert_allclose(common.rmsnorm(tx, tw, 1e-6).numpy(),
+                               ref_common.rmsnorm(x, w, 1e-6), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(common.layernorm(tx, tw, tb, 1e-6).numpy(),
+                               ref_common.layernorm(x, w, bias, 1e-6),
+                               rtol=1e-5, atol=1e-5)
+    for name in ("silu", "gelu", "relu"):
+        np.testing.assert_allclose(common.act_fn(name)(tx).numpy(),
+                                   ref_common.act_fn(name)(x), rtol=1e-5, atol=1e-6)
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    cfg = get_config("qwen2-0.5b", smoke=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init_cache(cfg, 1, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "qwen2-0.5b", "--smoke"])
+
+
+def test_launch_counter_untouched_on_cpu():
+    cfg, _, model = _port("qwen2-0.5b")
+    fa.reset_launches()
+    cache = lm.init_cache(cfg, 1, 6, device="cpu")
+    _, cache = lm.prefill(model, cfg, tokens=torch.zeros(1, 5, dtype=torch.int32),
+                          cache=cache)
+    lm.decode_step(model, cfg, torch.zeros(1, dtype=torch.int32), cache, 5)
+    assert fa.launches == {"flash_attention": 0}
+
+
+def test_golden_fixture_matches_recipe():
+    """The full-width golden was made from ``numpy_lm_params(cfg, seed)``:
+    each leaf's path, shape and float64 sum must still come out of the
+    recipe (leaf by leaf: ~10 s, at most one leaf of 545 MB at a time)."""
+    g = np.load(GOLDEN)
+    assert str(g["arch"]) == "qwen2-0.5b" and int(g["seed"]) == 0
+    steps, b = 4, 2
+    assert g["tokens"].shape == (b, int(g["prompt_len"]) + steps - 1)
+    assert g["top_idx"].shape == g["top_val"].shape == (steps, b, 40)
+    assert int(g["topk"]) == 32 and g["lse"].shape == (steps, b)
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), dtype="float32")
+    leaves = list(zip(g["leaf_paths"], g["leaf_shapes"], g["leaf_sums"]))
+    recipe = convert.numpy_lm_leaves(cfg, int(g["seed"]))
+    for (path, shape, total), (rpath, x) in zip(leaves, recipe, strict=True):
+        assert path == "/".join(map(str, rpath))
+        assert shape == ",".join(map(str, x.shape))
+        assert x.sum(dtype=np.float64) == total, path

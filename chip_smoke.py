@@ -110,10 +110,10 @@ Phases, each of which fails the run on any error (each prints its seconds):
      share, device ops per step and top kernels.
 
 Each graph is built once (numpy set-up) and shared by the phases. The
-second-to-last line is a JSON object describing each kernel; the last line
-is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
-rest of the repository beside this file, the script exits non-zero before
-printing any result.
+card's line is printed again before the JSON object describing each kernel
+(the second-to-last line); the last line is ``{"ok": true, "device":
+{...}}``. Without a CUDA device, or without the rest of the repository
+beside this file, the script exits non-zero before printing any result.
 """
 from __future__ import annotations
 
@@ -1549,6 +1549,8 @@ def main() -> int:
         bound_ms=bt["bytes"] / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=None, call_ms=bt["call_ms"], shape=bt["shape"], K=MEGA_K))
     line.append(flash)
+    # Again at the end, where a reader of the output's tail finds it.
+    print(card_line(), flush=True)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -82,25 +82,32 @@ Phases, each of which fails the run on any error (each prints its seconds):
      ``ooo`` select run and over the whole n15072 ``ooo`` megakernel run,
      each with its device busy share, device ops per cycle and top kernels;
  14. flash-attention kernel: against its plain version on the card, in
-     float32 (within 1e-4) and bfloat16 (within 2e-2), max error printed:
-     the reference's five kernel-test shapes (in the Pallas kernel's
+     float32 (within 1e-4) and bfloat16 (within 2e-2), max error printed,
+     each case on the body ``plan`` must give it (``mma``, ``split`` with
+     its ``combine``, ``simt``; the launch counts are checked): the
+     reference's five kernel-test shapes (in the Pallas kernel's
      [B, H, T, D] layout), qwen2-0.5b's prefill (batch 8 x 2048 tokens, 14
      over 2 heads, head_dim 64) and decode (one query over a 2080-key cache,
      kv_len per row from 1 to 2080), gemma-2b's head_dim 256 under MQA
-     (prefill and decode);
+     (prefill and decode), and awkward shapes (Tq 33 and 2047, Tkv 70 and
+     2049, head_dim 80, 128 and 256, non-causal, kv_len 1, 64, 65, 2080);
  15. flash-attention time: device time at the prefill and decode shapes in
-     bfloat16 (CUDA-graph replay) beside the plain version's, SDPA's (the
-     yardstick, with an explicit mask and without one), the host time per
-     call and the bound (FLOPs at 989 TFLOP/s or bytes at 3.35 TB/s,
-     whichever is larger);
+     bfloat16 (CUDA-graph replay), in turns with the CUDA-core (simt) body
+     on the same inputs, each body kernel's time by the profiler, beside the
+     plain version's, SDPA's (the yardstick, with an explicit mask and
+     without one), the host time per call and the bound (FLOPs at 989
+     TFLOP/s or bytes at 3.35 TB/s, whichever is larger); then the design
+     variants in turns (the mma body with two and one warpgroups; 9, 17
+     and 33 decode key chunks);
  16. serve main path: ``repro_torch.launch.serve.main`` for qwen2-0.5b at
      full width in bfloat16, batch 8 x 2048 prompt tokens, 32 new tokens
      (after a warm-up run of 2 new tokens): prefill and decode tok/s, and
-     the flash kernel launched exactly 24 x 32 times in the counted run;
- 17. serve consistency: full width in float32 (TF32 off), prefill and 16
-     teacher-forced decode steps through the kernel against ``forward``'s
-     logits, and against the same steps with the plain attention on the
-     card, at 3e-4;
+     the flash kernel called exactly 24 x 32 times in the counted run: 24
+     ``mma`` launches, 744 ``split`` and 744 ``combine``, no ``simt``;
+ 17. serve consistency: full width in float32 (TF32 off), prefill (on the
+     ``simt`` body) and 16 teacher-forced decode steps (``split``) through
+     the kernel against ``forward``'s logits, and against the same steps
+     with the plain attention on the card, at 3e-4;
  18. against the reference: the numpy recipe's weights in float32, a
      prefill and three decode steps at full width; top-32 logits (indices
      and values) and logsumexp against the golden the JAX package made
@@ -114,6 +121,10 @@ card's line is printed again before the JSON object describing each kernel
 (the second-to-last line); the last line is ``{"ok": true, "device":
 {...}}``. Without a CUDA device, or without the rest of the repository
 beside this file, the script exits non-zero before printing any result.
+``--lm-only`` builds ``flash_attention.cu`` and runs phases 14-19 alone;
+``--compare DIR`` first times the attention wrapper's host cost at decode
+against the checkout in DIR (e.g. the parent commit, unpacked with ``git
+archive``), one process each, in turns.
 """
 from __future__ import annotations
 
@@ -1060,23 +1071,50 @@ BF16_FLOPS_PER_S = 989e12
 SERVE_ARGS = ["--arch", "qwen2-0.5b", "--batch", "8", "--prompt-len", "2048",
               "--gen", "32"]
 SERVE_LAUNCHES = 24 * 32
-#: Kernel checks: name -> (b, hq, hkv, tq, tkv, d, causal, kv_len, layout).
-#: The reference's five kernel-test shapes (tests/test_kernels.py, in the
-#: Pallas kernel's [B, H, T, D] layout), the main path's prefill and decode
-#: (ragged cache fill levels, 1 and Tkv among them) and gemma-2b's
-#: head_dim 256 under MQA. Each runs in float32 and bfloat16.
+#: Launches of each body of the kernel in the counted serve run: the
+#: prefill's 24 layers on the tensor cores, 31 decode steps x 24 layers
+#: split over the keys, each followed by its combine.
+SERVE_BODIES = {"flash_attention_mma": 24, "flash_attention_split": 24 * 31,
+                "flash_attention_combine": 24 * 31, "flash_attention_simt": 0}
+#: Kernel checks: name -> (b, hq, hkv, tq, tkv, d, causal, kv_len, layout,
+#: (body in float32, body in bfloat16)). The reference's five kernel-test
+#: shapes (tests/test_kernels.py, in the Pallas kernel's [B, H, T, D]
+#: layout), the main path's prefill and decode (ragged cache fill levels, 1,
+#: 64, 65 and Tkv among them), gemma-2b's head_dim 256 under MQA, and the
+#: tensor-core body at awkward shapes: Tq not a multiple of 64 (33, 2047),
+#: Tkv not a multiple of the key tile (70, 2049), head_dim 80, 128 and 256,
+#: non-causal (whisper's cross-attention form), Tq < Tkv, ragged kv_len.
+#: Each runs in float32 and bfloat16 and must take the body named.
+PREFILL, DECODE = ("simt", "mma"), ("split", "split")
 FLASH_CASES = {
-    "test_kernels_1": (2, 4, 2, 128, 128, 64, True, None, "heads"),
-    "test_kernels_2": (1, 2, 1, 64, 256, 128, True, None, "heads"),
-    "test_kernels_3": (1, 4, 4, 128, 128, 80, False, None, "heads"),
-    "test_kernels_4": (2, 2, 2, 96, 160, 64, True, None, "heads"),
-    "test_kernels_5": (1, 2, 2, 128, 128, 64, True, None, "heads"),
-    "qwen2_prefill": (8, 14, 2, 2048, 2048, 64, True, None, "tokens"),
+    "test_kernels_1": (2, 4, 2, 128, 128, 64, True, None, "heads", PREFILL),
+    "test_kernels_2": (1, 2, 1, 64, 256, 128, True, None, "heads", PREFILL),
+    "test_kernels_3": (1, 4, 4, 128, 128, 80, False, None, "heads", PREFILL),
+    "test_kernels_4": (2, 2, 2, 96, 160, 64, True, None, "heads", PREFILL),
+    "test_kernels_5": (1, 2, 2, 128, 128, 64, True, None, "heads", PREFILL),
+    "qwen2_prefill": (8, 14, 2, 2048, 2048, 64, True, None, "tokens", PREFILL),
     "qwen2_decode": (8, 14, 2, 1, 2080, 64, True,
-                     [1, 2080, 2049, 1500, 777, 64, 65, 2079], "tokens"),
-    "gemma_mqa_prefill": (2, 8, 1, 256, 256, 256, True, None, "tokens"),
+                     [1, 2080, 2049, 1500, 777, 64, 65, 2079], "tokens",
+                     DECODE),
+    "gemma_mqa_prefill": (2, 8, 1, 256, 256, 256, True, None, "tokens",
+                          PREFILL),
     "gemma_mqa_decode": (4, 8, 1, 1, 300, 256, True, [1, 300, 129, 64],
-                         "tokens"),
+                         "tokens", DECODE),
+    "tq33_tkv70": (2, 14, 2, 33, 70, 64, True, None, "tokens", PREFILL),
+    "tq2047_tkv2049": (1, 14, 2, 2047, 2049, 64, True, None, "tokens",
+                       PREFILL),
+    "d80_noncausal_ragged": (2, 6, 2, 100, 70, 80, False, [70, 33], "tokens",
+                             PREFILL),
+    "d128_ragged": (3, 8, 2, 70, 2049, 128, True, [70, 2049, 1000], "tokens",
+                    PREFILL),
+    "d256_gqa": (1, 4, 2, 130, 200, 256, True, None, "heads", PREFILL),
+    "whisper_cross": (1, 20, 20, 64, 1500, 64, False, None, "tokens",
+                      PREFILL),
+    "decode_kv_edges": (4, 14, 2, 1, 2080, 64, True, [1, 64, 65, 2080],
+                        "tokens", DECODE),
+    "decode_tq2": (2, 14, 2, 2, 300, 64, True, [2, 300], "tokens", DECODE),
+    "decode_mqa_d80": (3, 8, 1, 1, 129, 80, True, [1, 65, 129], "tokens",
+                       DECODE),
 }
 #: Tolerances against the plain version: in float32 the two differ only in
 #: the order of f32 sums; bfloat16 is the reference's kernel-test tolerance
@@ -1097,30 +1135,44 @@ GOLDEN_TOL = 1e-4
 
 
 def flash_inputs(torch, case, dtype, seed):
-    b, hq, hkv, tq, tkv, d, _, _, _ = FLASH_CASES[case]
+    b, hq, hkv, tq, tkv, d = FLASH_CASES[case][:6]
     g = torch.Generator("cuda").manual_seed(seed)
     return [torch.randn(shape, generator=g, device="cuda").to(dtype)
             for shape in ((b, tq, hq, d), (b, tkv, hkv, d), (b, tkv, hkv, d))]
 
 
+def body_launches(body):
+    """The launch counts of one call that takes ``body``."""
+    want = {k: 0 for k in ("flash_attention_mma", "flash_attention_split",
+                           "flash_attention_combine", "flash_attention_simt")}
+    want["flash_attention"] = 1
+    want[f"flash_attention_{body}"] = 1
+    if body == "split":
+        want["flash_attention_combine"] = 1
+    return want
+
+
 def check_flash(torch, fa):
-    """The kernel against its plain version on every case, both dtypes.
-    Returns the largest error over the cases."""
-    worst = 0.0
-    for i, (case, (b, hq, hkv, tq, tkv, d, causal, kv_len, layout)) in \
-            enumerate(FLASH_CASES.items()):
-        for dtype in (torch.float32, torch.bfloat16):
+    """The kernel against its plain version on every case, both dtypes, and
+    the body each case must take. Returns the largest error over the cases
+    and that of each body."""
+    worst, by_body = 0.0, {}
+    for i, (case, (b, hq, hkv, tq, tkv, d, causal, kv_len, layout, bodies)) \
+            in enumerate(FLASH_CASES.items()):
+        for dtype, body in zip((torch.float32, torch.bfloat16), bodies):
             q, k, v = flash_inputs(torch, case, dtype, seed=i)
             want = fa.attention_plain(q, k, v, causal=causal, kv_len=kv_len)
+            fa.reset_launches()
             if layout == "heads":       # the Pallas kernel's [B, H, T, D]
                 heads = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
-                got = fa.flash_attention(*heads, causal=causal).transpose(1, 2)
+                got = fa.flash_attention(*heads, causal=causal,
+                                         kv_len=kv_len).transpose(1, 2)
             else:
                 got = fa.attention(q, k, v, causal=causal, kv_len=kv_len)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             tol = FLASH_TOL[str(dtype).split(".")[-1]]
-            print(f"flash_attention {case} {str(dtype)[6:]} "
+            print(f"flash_attention {case} {str(dtype)[6:]} {body} "
                   f"b={b} hq={hq} hkv={hkv} tq={tq} tkv={tkv} d={d} "
                   f"causal={causal} kv_len={kv_len}: max abs error vs plain "
                   f"{err:.3e} (tol {tol})", flush=True)
@@ -1129,14 +1181,20 @@ def check_flash(torch, fa):
             if got.dtype != dtype or got.shape != q.shape:
                 raise AssertionError(f"{case}: output {got.dtype} "
                                      f"{tuple(got.shape)}")
+            if fa.launches != body_launches(body):
+                raise AssertionError(f"{case} {dtype}: launches "
+                                     f"{fa.launches}, want the {body} body")
             worst = max(worst, err)
-    return worst
+            key = f"{body}_{str(dtype)[6:]}"
+            by_body[key] = max(by_body.get(key, 0.0), err)
+    print(f"flash_attention max abs error by body: {by_body}", flush=True)
+    return worst, by_body
 
 
 def flash_work(case, kv_len, elem):
     """(FLOPs, bytes) the function needs: 4 * D per visible (row, key)
     pair and q head; q, k, v read once and o written once."""
-    b, hq, hkv, tq, tkv, d, causal, _, _ = FLASH_CASES[case]
+    b, hq, hkv, tq, tkv, d, causal = FLASH_CASES[case][:7]
     lens = [kv_len] * b if isinstance(kv_len, int) else kv_len
     pairs = 0
     for n in lens:
@@ -1161,22 +1219,80 @@ def sdpa_inputs(torch, q, k, v, causal, lens):
             mask[:, None])                                  # [B, 1, Tq, Tkv]
 
 
+#: Kernel names of the bodies, as the profiler shows them.
+FLASH_KERNELS = ("mma_kernel", "split_kernel", "combine_kernel", "simt_kernel")
+
+
+def kernel_us(torch, fn, n=20):
+    """Device us per launch of each body's kernel that ``fn`` launches, from
+    ``torch.profiler`` over ``n`` calls (averaged over the launches the
+    profiler recorded, which may be fewer than ``n``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total, count = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name in FLASH_KERNELS:
+            if name in e.key:
+                total[name] = total.get(name, 0.0) + e.self_device_time_total
+                count[name] = count.get(name, 0) + e.count
+    return {name: total[name] / count[name] for name in total}
+
+
+def host_ms(torch, fn, n=100, rounds=7):
+    """Host ms per call: ``n`` calls enqueued without a synchronisation
+    (the card keeps up), median over ``rounds``."""
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t) / n * 1e3)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def in_turns(torch, fns, order, reps):
+    """Device ms of each of ``fns`` (name -> callable), timed in ``order``
+    (e.g. "ABBA"); the mean of each one's turns, and the turns."""
+    turns = {k: [] for k in fns}
+    for k in order:
+        turns[k].append(device_ms(torch, fns[k], reps=reps, rounds=5))
+    return {k: sum(v) / len(v) for k, v in turns.items()}, turns
+
+
 def flash_times(torch, fa):
     """Device ms of the kernel, its plain version and SDPA (one PyTorch call
     computing the same function, the yardstick; the port never calls it) at
     the main path's prefill and decode shapes in bfloat16, beside the
-    bound. The kernel and SDPA are replayed from a CUDA graph; the plain
-    version (which copies kv_len to the card, so it cannot be captured) is
-    timed call by call from the host. Host ms per kernel call too."""
+    bound. The planned body is timed in turns with the CUDA-core body
+    (simt) on the same inputs (A B B A); then the design variants: at
+    prefill the mma body with two and one warpgroups (A B B A), at decode
+    three split plans (A B C C B A). The kernel and SDPA are replayed from a CUDA graph; the
+    plain version (which copies kv_len to the card, so it cannot be
+    captured) is timed call by call from the host. Host ms per kernel call
+    too, and each body kernel's device us from the profiler."""
     import torch.nn.functional as F
 
     out = {}
     for label, case in FLASH_TIMED.items():
-        b, hq, hkv, tq, tkv, d, causal, _, _ = FLASH_CASES[case]
+        b, hq, hkv, tq, tkv, d, causal = FLASH_CASES[case][:7]
         kv_len = tkv if label == "prefill" else DECODE_TIMED_KV_LEN
+        lens = [kv_len] * b
         q, k, v = flash_inputs(torch, case, torch.bfloat16, seed=99)
-        (qh, kh, vh), mask = sdpa_inputs(torch, q, k, v, causal, [kv_len] * b)
+        (qh, kh, vh), mask = sdpa_inputs(torch, q, k, v, causal, lens)
+        pl = fa.plan(b, tq, tkv, hq, hkv, d, q.dtype, lens)
         kernel = lambda: fa.attention(q, k, v, causal=causal, kv_len=kv_len)
+        forced = lambda p: (lambda: fa.launch(q, k, v, p, causal=causal,
+                                              scale=None, lens=lens))
         plain = lambda: fa.attention_plain(q, k, v, causal=causal,
                                            kv_len=kv_len)
         sdpa = lambda: F.scaled_dot_product_attention(
@@ -1188,12 +1304,19 @@ def flash_times(torch, fa):
             qh, kh, vh, is_causal=tq == tkv, enable_gqa=True)
         big = label == "prefill"
         reps = 20 if big else 100
+        ab, turns = in_turns(torch, {"A": kernel,
+                                     "B": forced(fa.Plan("simt"))},
+                             "ABBA", reps)
         n = dict(
-            ms=device_ms(torch, kernel, reps=reps, rounds=5),
+            ms=ab["A"], simt_ms=ab["B"],
             library_ms=device_ms(torch, sdpa, reps=reps, rounds=5),
             library_fast_ms=device_ms(torch, sdpa_fast, reps=reps, rounds=5),
             plain_ms=call_ms(torch, plain, reps=3 if big else 20, warmup=1),
-            call_ms=call_ms(torch, kernel, reps=20 if big else 100))
+            call_ms=call_ms(torch, kernel, reps=20 if big else 100),
+            host_ms=host_ms(torch, kernel),
+            body=pl.body, plan=list(pl),
+            kernels_us=kernel_us(torch, kernel),
+            simt_kernels_us=kernel_us(torch, forced(fa.Plan("simt")), n=5))
         flops, nbytes = flash_work(case, kv_len, 2)
         n["flops"], n["bytes"] = flops, nbytes
         n["ops_ms"] = flops / BF16_FLOPS_PER_S * 1e3
@@ -1201,23 +1324,107 @@ def flash_times(torch, fa):
         n["bound_ms"] = max(n["ops_ms"], n["bytes_ms"])
         n["bound_by"] = "operations" if n["ops_ms"] >= n["bytes_ms"] else "bytes"
         n["shape"] = [b, tq, tkv, hq, hkv, d]
-        out[label] = n
         print(f"flash_attention time {label} bf16 b={b} tq={tq} tkv={tkv} "
-              f"hq={hq} hkv={hkv} d={d} kv_len={kv_len}: device "
-              f"{n['ms'] * 1e3:.1f} us, host {n['call_ms'] * 1e3:.1f} us per "
-              f"call; plain {n['plain_ms'] * 1e3:.1f} us; SDPA (explicit mask, "
-              f"enable_gqa) {n['library_ms'] * 1e3:.1f} us, without the mask "
+              f"hq={hq} hkv={hkv} d={d} kv_len={kv_len}: {pl} device "
+              f"{n['ms'] * 1e3:.1f} us (turns "
+              f"{[round(x * 1e3, 1) for x in turns['A']]}), the simt body "
+              f"{n['simt_ms'] * 1e3:.1f} us (turns "
+              f"{[round(x * 1e3, 1) for x in turns['B']]}); by kernel "
+              f"{ {k: round(x, 2) for k, x in n['kernels_us'].items()} } us; "
+              f"{n['call_ms'] * 1e3:.1f} us per call from the host (host work "
+              f"alone {n['host_ms'] * 1e3:.1f} us); plain "
+              f"{n['plain_ms'] * 1e3:.1f} us; SDPA (explicit mask, enable_gqa) {n['library_ms'] * 1e3:.1f} us, without the mask "
               f"{n['library_fast_ms'] * 1e3:.1f} us; bound "
               f"{n['bound_ms'] * 1e3:.3f} us by {n['bound_by']} ({flops} FLOP "
               f"at 989 TFLOP/s = {n['ops_ms'] * 1e3:.3f} us, {nbytes} bytes "
               f"at 3.35 TB/s = {n['bytes_ms'] * 1e3:.3f} us)", flush=True)
+        # Design variants in turns: at decode 9, 17 and 33 (the plan's) key
+        # chunks, 144, 272 and 528 CTAs; at prefill the mma body with two
+        # and with one (the plan's) warpgroup per CTA.
+        if label == "decode":
+            plans = [fa.Plan("split", n, c) for n, c in ((9, 256), (17, 128),
+                                                         (33, 64))]
+            order = "ABCCBA"
+        else:
+            plans = [fa.Plan("mma", warpgroups=w) for w in (2, 1)]
+            order = "ABBA"
+        names = dict(zip("ABC", plans))
+        var, vturns = in_turns(
+            torch, {x: forced(p) for x, p in names.items()}, order, reps)
+        n["variants"] = [dict(plan=list(p), ms=var[x], turns=vturns[x])
+                         for x, p in names.items()]
+        for x, p in names.items():
+            print(f"flash_attention {label} variant {x}: {p}: "
+                  f"{var[x] * 1e3:.2f} us (turns "
+                  f"{[round(y * 1e3, 2) for y in vturns[x]]})", flush=True)
+        out[label] = n
+    return out
+
+
+#: One process times the attention wrapper of the checkout on its
+#: PYTHONPATH at the decode shape (bf16, one query over a full 2080-key
+#: cache): call ms (CUDA events around one call: host work plus device
+#: time) and host ms (100 calls enqueued without a synchronisation).
+HOST_SNIPPET = r"""
+import json, statistics, time, torch
+from repro_torch.kernels import flash_attention as fa
+b, tq, tkv, hq, hkv, d = 8, 1, 2080, 14, 2, 64
+g = torch.Generator("cuda").manual_seed(99)
+q, k, v = [torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
+           for s in ((b, tq, hq, d), (b, tkv, hkv, d), (b, tkv, hkv, d))]
+call = lambda: fa.attention(q, k, v, causal=True, kv_len=tkv)
+for _ in range(20):
+    call()
+torch.cuda.synchronize()
+times = []
+for _ in range(200):
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record(); call(); e.record(); e.synchronize()
+    times.append(s.elapsed_time(e))
+enq = []
+for _ in range(7):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(100):
+        call()
+    enq.append((time.perf_counter() - t) / 100 * 1e3)
+    torch.cuda.synchronize()
+print(json.dumps({"call_ms": statistics.median(times),
+                  "host_ms": statistics.median(enq)}))
+"""
+
+
+def host_compare(other):
+    """The wrapper's host cost at decode, this checkout against ``other``
+    (e.g. the parent commit unpacked with ``git archive``), one process
+    each, in turns: other, this, this, other."""
+    import os
+
+    out = {"other": [], "this": []}
+    for who in ("other", "this", "this", "other"):
+        root = Path(other).resolve() if who == "other" else ROOT
+        env = dict(os.environ, PYTHONPATH=str(root / "src"))
+        proc = subprocess.run([sys.executable, "-c", HOST_SNIPPET], cwd=root,
+                              env=env, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"host timing of {root} failed:\n"
+                               f"{proc.stderr[-3000:]}")
+        out[who].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    for who, runs in out.items():
+        print(f"host compare decode bf16 {who} "
+              f"({Path(other).resolve() if who == 'other' else ROOT}): "
+              f"call {[round(r['call_ms'] * 1e3, 1) for r in runs]} us, "
+              f"host {[round(r['host_ms'] * 1e3, 1) for r in runs]} us per "
+              f"call", flush=True)
     return out
 
 
 def serve_main_path(torch, np, fa):
     """``repro_torch.launch.serve.main`` at full width in bf16, once with
     two new tokens as a warm-up, then counted: the flash kernel must launch
-    exactly 24 x 32 times. Returns (launches, prefill tok/s, decode tok/s)."""
+    exactly 24 x 32 times: the prefill's 24 on the mma body, the decode
+    steps' on the split body and its combine, none on simt. Returns (calls,
+    the launches by body, prefill tok/s, decode tok/s)."""
     import contextlib
     import io
     import re
@@ -1236,6 +1443,7 @@ def serve_main_path(torch, np, fa):
         seq = serve.main(SERVE_ARGS)
     wall = time.perf_counter() - t
     launches = fa.launches["flash_attention"]
+    bodies = {k: fa.launches[k] for k in SERVE_BODIES}
     text = buf.getvalue()
     print(text.rstrip(), flush=True)
     rates = [float(x.replace(",", "")) for x in
@@ -1243,16 +1451,17 @@ def serve_main_path(torch, np, fa):
     print(f"serve {' '.join(SERVE_ARGS)}: wall {wall:.2f} s (weights drawn "
           f"on the card included), peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-          f"flash_attention launches {launches} (want {SERVE_LAUNCHES})",
-          flush=True)
-    if launches != SERVE_LAUNCHES:
+          f"flash_attention launches {launches} (want {SERVE_LAUNCHES}), by "
+          f"body {bodies} (want {SERVE_BODIES})", flush=True)
+    if launches != SERVE_LAUNCHES or bodies != SERVE_BODIES:
         raise AssertionError(f"serve launched flash_attention {launches} "
-                             f"times, want {SERVE_LAUNCHES}")
+                             f"times, {bodies}, want {SERVE_LAUNCHES}, "
+                             f"{SERVE_BODIES}")
     if seq.shape != (8, 32) or not ((seq >= 0) & (seq < 151936)).all():
         raise AssertionError(f"serve returned tokens {seq.shape} out of range")
     if len(rates) != 2:
         raise AssertionError(f"serve printed no rates: {text!r}")
-    return launches, rates[0], rates[1]
+    return launches, bodies, rates[0], rates[1]
 
 
 def full_width_f32(torch):
@@ -1300,16 +1509,21 @@ def consistency(torch, np, fa):
     full = lm.logits_fn(model, cfg, h)[:, p - 1:].transpose(0, 1)  # [steps, B, V]
     fa.reset_launches()
     kern = teacher_forced(torch, model, cfg, tokens, p)
-    used = fa.launches["flash_attention"]
+    used = dict(fa.launches)
     with mock.patch.object(fa, "attention", fa.attention_plain):
         plain = teacher_forced(torch, model, cfg, tokens, p)
-    if fa.launches["flash_attention"] != used or used != 24 * (n + 1):
-        raise AssertionError(f"kernel launches {used}, then "
-                             f"{fa.launches['flash_attention']}")
+    # f32: the prefill on the CUDA-core body, the decode steps split.
+    want = {"flash_attention": 24 * (n + 1), "flash_attention_simt": 24,
+            "flash_attention_split": 24 * n,
+            "flash_attention_combine": 24 * n, "flash_attention_mma": 0}
+    if fa.launches != used or used != want:
+        raise AssertionError(f"kernel launches {used}, then {fa.launches}, "
+                             f"want {want}")
     e_full = (kern - full).abs().max().item()
     e_plain = (kern - plain).abs().max().item()
     print(f"consistency qwen2-0.5b f32 full width, batch {b}, prompt {p}, "
-          f"{n} decode steps: prefill+decode vs forward max abs error "
+          f"{n} decode steps ({used}): prefill+decode vs forward max abs "
+          f"error "
           f"{e_full:.3e}, vs the plain attention on the card {e_plain:.3e} "
           f"(tol {CONSIST_TOL}; |logits| up to "
           f"{full[..., :cfg.vocab_size].abs().max().item():.3f})",
@@ -1398,24 +1612,43 @@ def lm_phases(torch, np):
     profiles. Returns the ``flash_attention`` entry of the kernels line."""
     from repro_torch.kernels import flash_attention as fa
 
-    err = phase("flash_attention check", check_flash, torch, fa)
+    err, err_by_body = phase("flash_attention check", check_flash, torch, fa)
     timed = phase("flash_attention time", flash_times, torch, fa)
-    launches, prefill_tps, decode_tps = phase("serve main path",
-                                              serve_main_path, torch, np, fa)
+    launches, bodies, prefill_tps, decode_tps = phase(
+        "serve main path", serve_main_path, torch, np, fa)
     phase("serve consistency", consistency, torch, np, fa)
     phase("serve against the golden", against_golden, torch, np)
     phase("serve profiles", serve_profiles, torch)
     pre, dec = timed["prefill"], timed["decode"]
+    us = {**pre["kernels_us"], **dec["kernels_us"]}
     return dict(
         name="flash_attention", route="cuda", source=FLASH_SOURCE,
         replaces=FLASH_REPLACES, launches=launches, max_abs_err=err,
         ms=pre["ms"], plain_ms=pre["plain_ms"], bound_ms=pre["bound_ms"],
         bound_by=pre["bound_by"], library_ms=pre["library_ms"],
-        call_ms=pre["call_ms"], shape=pre["shape"], dtype="bfloat16",
+        call_ms=pre["call_ms"], host_ms=pre["host_ms"], shape=pre["shape"],
+        dtype="bfloat16",
         decode=dict((k, dec[k]) for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "library_fast_ms", "call_ms", "shape")),
-        library_fast_ms=pre["library_fast_ms"],
+            "library_fast_ms", "call_ms", "host_ms", "shape", "simt_ms",
+            "plan", "variants")),
+        library_fast_ms=pre["library_fast_ms"], simt_ms=pre["simt_ms"],
+        plan=pre["plan"], variants=pre["variants"],
+        bodies={
+            "mma": dict(launches=bodies["flash_attention_mma"],
+                        ms=us.get("mma_kernel", 0.0) / 1e3, at="prefill",
+                        max_abs_err=err_by_body.get("mma_bfloat16")),
+            "split": dict(launches=bodies["flash_attention_split"],
+                          ms=us.get("split_kernel", 0.0) / 1e3, at="decode",
+                          max_abs_err=max(err_by_body.get("split_bfloat16", 0),
+                                          err_by_body.get("split_float32", 0))),
+            "combine": dict(launches=bodies["flash_attention_combine"],
+                            ms=us.get("combine_kernel", 0.0) / 1e3,
+                            at="decode"),
+            "simt": dict(launches=bodies["flash_attention_simt"],
+                         ms=pre["simt_kernels_us"].get("simt_kernel", 0.0) / 1e3,
+                         at="prefill (bf16)",
+                         max_abs_err=err_by_body.get("simt_float32"))},
         serve_prefill_tok_s=prefill_tps, serve_decode_tok_s=decode_tps)
 
 
@@ -1450,6 +1683,13 @@ def main() -> int:
                     choices=list(ROWS),
                     help="rows of the megakernel main paths, solo and "
                          "batched (default: %(default)s)")
+    ap.add_argument("--lm-only", action="store_true",
+                    help="build flash_attention.cu and run only phases 14-19 "
+                         "(the kernels line then holds flash_attention alone)")
+    ap.add_argument("--compare", metavar="DIR",
+                    help="first time the attention wrapper's host cost at "
+                         "decode against the checkout in DIR (e.g. the "
+                         "parent commit, unpacked with git archive)")
     args = ap.parse_args()
 
     import numpy as np
@@ -1466,6 +1706,11 @@ def main() -> int:
     print(card_line(), flush=True)   # name, power limit as nvidia-smi gives them
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
+    if args.compare:
+        phase("host compare", host_compare, args.compare)
+    if args.lm_only:
+        phase("build", build_all, _build, [fa.SOURCE])
+        return finish(torch, [lm_phases(torch, np)])
     phase("build", build_all, _build, [lod.SOURCE, mk.SOURCE, fa.SOURCE])
 
     t = time.perf_counter()
@@ -1549,7 +1794,12 @@ def main() -> int:
         bound_ms=bt["bytes"] / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=None, call_ms=bt["call_ms"], shape=bt["shape"], K=MEGA_K))
     line.append(flash)
-    # Again at the end, where a reader of the output's tail finds it.
+    return finish(torch, line)
+
+
+def finish(torch, line):
+    """The card's line again (at the end, where a reader of the output's
+    tail finds it), the kernels line and the last line."""
     print(card_line(), flush=True)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -37,9 +37,10 @@ SIGNATURES = {
     "megakernel.cu": {
         "mega_chunk": (_P, _I, _P),
     },
-    # flash_attention_fwd(const FlashArgs* args, void* stream)
+    # flash_attention_fwd / _combine(const FlashArgs* args, void* stream)
     "flash_attention.cu": {
         "flash_attention_fwd": (_P, _P),
+        "flash_attention_combine": (_P, _P),
     },
 }
 

@@ -247,17 +247,27 @@ def test_policy_sweep_goldens_through_batch(cuda):
     assert megakernel.launches["mega_chunk_batched"] > 0
 
 
-# (b, tq, tkv, hq, hkv, d, causal, kv_len): a causal prefill with Tq < Tkv
-# over a ragged tile, and a rep-7 GQA decode step with ragged cache lengths.
-FLASH_CASES = [(2, 33, 70, 4, 2, 64, True, None),
-               (3, 1, 90, 14, 2, 64, True, [1, 90, 45])]
+# (b, tq, tkv, hq, hkv, d, causal, kv_len, (body in float32, in bfloat16)):
+# causal prefills with Tq < Tkv over ragged tiles (Tq 33 and 2047, Tkv 70
+# and 2049), head_dim 80 non-causal with ragged kv_len (whisper's
+# cross-attention form), 128 with ragged kv_len and 256 under GQA; rep-7
+# decode steps with ragged cache lengths (1, 64, 65 and the full 2080).
+PREFILL, DECODE = ("simt", "mma"), ("split", "split")
+FLASH_CASES = [(2, 33, 70, 4, 2, 64, True, None, PREFILL),
+               (3, 1, 90, 14, 2, 64, True, [1, 90, 45], DECODE),
+               (1, 2047, 2049, 14, 2, 64, True, None, PREFILL),
+               (2, 100, 70, 6, 2, 80, False, [70, 33], PREFILL),
+               (3, 70, 2049, 8, 2, 128, True, [70, 2049, 1000], PREFILL),
+               (1, 130, 200, 4, 2, 256, True, None, PREFILL),
+               (4, 1, 2080, 14, 2, 64, True, [1, 64, 65, 2080], DECODE)]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("case", FLASH_CASES)
 def test_flash_attention_matches_plain(cuda, case, dtype, tol):
-    b, tq, tkv, hq, hkv, d, causal, kv_len = case
+    b, tq, tkv, hq, hkv, d, causal, kv_len, bodies = case
+    body = bodies[dtype == torch.bfloat16]
     g = torch.Generator(cuda).manual_seed(tq)
     q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
                for shape in ((b, tq, hq, d), (b, tkv, hkv, d), (b, tkv, hkv, d)))
@@ -267,4 +277,8 @@ def test_flash_attention_matches_plain(cuda, case, dtype, tol):
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.device.type == "cuda"
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-    assert fa.launches == {"flash_attention": 1}
+    expect = {k_: 0 for k_ in fa.launches}
+    expect["flash_attention"] = expect[f"flash_attention_{body}"] = 1
+    if body == "split":
+        expect["flash_attention_combine"] = 1
+    assert fa.launches == expect

@@ -116,3 +116,101 @@ def test_wrapper_checks():
         blockwise_attention(q, k, k, differentiable=True)
     with pytest.raises(NotImplementedError, match="backward"):
         fa.attention(q.requires_grad_(), k, k)
+
+
+# (b, tq, tkv, hq, hkv, d, causal, kv_len, chunk): the split body's
+# arithmetic with ragged kv_len at 1 and at chunk edges (64, 65, 128, 129),
+# rep-7 GQA, MQA, two causal rows per position, and non-causal.
+SPLIT_CASES = {
+    "decode_edges_rep7": (4, 1, 200, 14, 2, 64, True, [1, 64, 65, 200], 64),
+    "decode_chunk128": (3, 1, 300, 14, 2, 32, True, [1, 128, 129], 128),
+    "mqa_decode_d80": (2, 1, 150, 8, 1, 80, True, [64, 150], 64),
+    "tq2_rep7": (2, 2, 140, 14, 2, 16, True, [2, 140], 64),
+    "noncausal": (2, 3, 130, 4, 2, 16, False, [1, 130], 64),
+}
+
+
+@pytest.mark.parametrize("dtype", [np.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_plain_matches_reference(case, dtype):
+    """Partial (m, l, acc) per key range, then the combine, against the
+    reference's blockwise attention with kv_len and the unsplit plain
+    version."""
+    b, tq, tkv, hq, hkv, d, causal, kv_len, chunk = SPLIT_CASES[case]
+    rng = np.random.default_rng(17)
+    q = rng.standard_normal((b, tq, hq, d)).astype(dtype)
+    k = rng.standard_normal((b, tkv, hkv, d)).astype(dtype)
+    v = rng.standard_normal((b, tkv, hkv, d)).astype(dtype)
+    want = ref_blockwise(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         causal=causal, q_chunk=16, kv_chunk=32,
+                         kv_len=jnp.asarray(kv_len, jnp.int32))
+    got = fa.attention_split_plain(_t(q), _t(k), _t(v), causal=causal,
+                                   kv_len=kv_len, chunk=chunk)
+    unsplit = fa.attention_plain(_t(q), _t(k), _t(v), causal=causal,
+                                 kv_len=kv_len)
+    assert got.dtype == _t(q).dtype and got.shape == (b, tq, hq, d)
+    tol = 2e-5 if dtype == np.float32 else 2e-2
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+    np.testing.assert_allclose(_np(got), _np(unsplit), rtol=tol, atol=tol)
+
+
+# (b, tq, tkv, hq, hkv, d, dtype, lens) -> the plan. qwen2-0.5b's serve
+# shapes (batch 8, 14 over 2 heads of 64: prefill of 2048 tokens, decode
+# over the 2080-key cache at its first and last fill levels: 33 chunks of
+# 64 keys, 528 CTAs) in both dtypes, one sequence's decode, a short cache
+# of a 4-sequence batch, the 16-row edge and head_dim 256 (two warpgroups).
+PLAN_CASES = {
+    "qwen2_prefill_bf16": ((8, 2048, 2048, 14, 2, 64, "bf16", None),
+                           ("mma", 1, 0, 1)),
+    "qwen2_decode_bf16": ((8, 1, 2080, 14, 2, 64, "bf16", [2080] * 8),
+                          ("split", 33, 64, 0)),
+    "qwen2_decode_first_step": ((8, 1, 2080, 14, 2, 64, "bf16", [2049] * 8),
+                                ("split", 33, 64, 0)),
+    "qwen2_prefill_f32": ((8, 2048, 2048, 14, 2, 64, "f32", None),
+                          ("simt", 1, 0, 0)),
+    "qwen2_decode_f32": ((8, 1, 2080, 14, 2, 64, "f32", [2080] * 8),
+                         ("split", 33, 64, 0)),
+    "one_sequence_decode": ((1, 1, 2080, 14, 2, 64, "bf16", [2080]),
+                            ("split", 33, 64, 0)),
+    "short_cache": ((4, 1, 1000, 14, 2, 64, "bf16", [1000] * 4),
+                    ("split", 16, 64, 0)),
+    "rows_16_split": ((2, 2, 300, 16, 2, 64, "bf16", [2, 300]),
+                      ("split", 5, 64, 0)),
+    "rows_21_mma": ((2, 3, 300, 14, 2, 64, "bf16", [3, 300]),
+                    ("mma", 1, 0, 1)),
+    "gemma_prefill_d256": ((2, 256, 256, 8, 1, 256, "bf16", None),
+                           ("mma", 1, 0, 2)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_plan(case):
+    (b, tq, tkv, hq, hkv, d, dt, lens), want = PLAN_CASES[case]
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    got = fa.plan(b, tq, tkv, hq, hkv, d, dtype, lens)
+    assert tuple(got) == want
+    if got.body == "split":     # every key covered; the card filled where
+        assert got.chunk % 64 == 0 and got.splits * got.chunk >= max(lens)
+        assert (got.splits - 1) * got.chunk < max(lens)   # the keys allow
+        assert b * hkv * got.splits >= 132 or got.chunk == 64
+
+
+def test_launch_rejects_bad_plans():
+    q = torch.zeros(2, 5, 4, 16)
+    k = torch.zeros(2, 40, 2, 16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.launch(q, k, k, fa.Plan("mma", warpgroups=2), causal=True,
+                  scale=None, lens=[40, 40])
+    with pytest.raises(ValueError, match="warpgroups"):
+        fa.launch(q.bfloat16(), k.bfloat16(), k.bfloat16(), fa.Plan("mma"),
+                  causal=True, scale=None, lens=[40, 40])
+    with pytest.raises(ValueError, match="no split plan"):   # chunk of 32
+        fa.launch(q, k, k, fa.Plan("split", 2, 32), causal=True, scale=None,
+                  lens=[40, 40])
+    with pytest.raises(ValueError, match="no split plan"):   # keys past the chunks
+        fa.launch(q[:, :1], k, k, fa.Plan("split", 1, 0), causal=True,
+                  scale=None, lens=[40, 40])
+    with pytest.raises(ValueError, match="no split plan"):   # 20 rows
+        fa.launch(torch.zeros(2, 10, 4, 16), k, k, fa.Plan("split", 1, 64),
+                  causal=True, scale=None, lens=[40, 40])

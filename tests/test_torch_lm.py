@@ -218,7 +218,10 @@ def test_launch_counter_untouched_on_cpu():
     _, cache = lm.prefill(model, cfg, tokens=torch.zeros(1, 5, dtype=torch.int32),
                           cache=cache)
     lm.decode_step(model, cfg, torch.zeros(1, dtype=torch.int32), cache, 5)
-    assert fa.launches == {"flash_attention": 0}
+    assert fa.launches == {"flash_attention": 0, "flash_attention_mma": 0,
+                           "flash_attention_split": 0,
+                           "flash_attention_combine": 0,
+                           "flash_attention_simt": 0}
 
 
 def test_golden_fixture_matches_recipe():

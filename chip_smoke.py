@@ -82,23 +82,24 @@ Phases, each of which fails the run on any error (each prints its seconds):
      ``ooo`` select run and over the whole n15072 ``ooo`` megakernel run,
      each with its device busy share, device ops per cycle and top kernels;
  14. flash-attention kernel: against its plain version on the card, in
-     float32 (within 1e-4) and bfloat16 (within 2e-2), max error printed,
-     each case on the body ``plan`` must give it (``mma``, ``split`` with
-     its ``combine``, ``simt``; the launch counts are checked): the
-     reference's five kernel-test shapes (in the Pallas kernel's
-     [B, H, T, D] layout), qwen2-0.5b's prefill (batch 8 x 2048 tokens, 14
-     over 2 heads, head_dim 64) and decode (one query over a 2080-key cache,
-     kv_len per row from 1 to 2080), gemma-2b's head_dim 256 under MQA
-     (prefill and decode), and awkward shapes (Tq 33 and 2047, Tkv 70 and
-     2049, head_dim 80, 128 and 256, non-causal, kv_len 1, 64, 65, 2080);
+     float32 (within 1e-4) and bfloat16 (within 2e-2), and per output row
+     within that tolerance of |want| plus the row's RMS, max error
+     printed, each case on the body ``plan`` must give it (``mma``,
+     ``split`` with its ``combine``, ``simt``; the launch counts are
+     checked): the reference's five kernel-test shapes (in the Pallas
+     kernel's [B, H, T, D] layout), qwen2-0.5b's prefill (batch 8 x 2048
+     tokens, 14 over 2 heads, head_dim 64) and decode (one query over a
+     2080-key cache, kv_len per row from 1 to 2080), gemma-2b's head_dim 256
+     under MQA (prefill and decode), and awkward shapes (Tq 33 and 2047, Tkv
+     70 and 2049, head_dim 80, 128 and 256, non-causal, kv_len 1, 64, 65,
+     2080); then the mma body's exponential (ex2.approx) against expf on
+     the prefill case's scores, within half a bf16 step;
  15. flash-attention time: device time at the prefill and decode shapes in
-     bfloat16 (CUDA-graph replay), in turns with the CUDA-core (simt) body
-     on the same inputs, each body kernel's time by the profiler, beside the
-     plain version's, SDPA's (the yardstick, with an explicit mask and
-     without one), the host time per call and the bound (FLOPs at 989
-     TFLOP/s or bytes at 3.35 TB/s, whichever is larger); then the design
-     variants in turns (the mma body with two and one warpgroups; 9, 17
-     and 33 decode key chunks);
+     bfloat16 (CUDA-graph replay), each body kernel's time by the profiler
+     (the simt body's at the prefill shape in float32), beside the plain
+     version's, SDPA's (the yardstick, with an explicit mask and without
+     one), the host time per call and the bound (FLOPs at 989 TFLOP/s or
+     bytes at 3.35 TB/s, whichever is larger);
  16. serve main path: ``repro_torch.launch.serve.main`` for qwen2-0.5b at
      full width in bfloat16, batch 8 x 2048 prompt tokens, 32 new tokens
      (after a warm-up run of 2 new tokens): prefill and decode tok/s, and
@@ -121,16 +122,13 @@ card's line is printed again before the JSON object describing each kernel
 (the second-to-last line); the last line is ``{"ok": true, "device":
 {...}}``. Without a CUDA device, or without the rest of the repository
 beside this file, the script exits non-zero before printing any result.
-``--lm-only`` builds ``flash_attention.cu`` and runs phases 14-19 alone;
-``--compare DIR`` first times the attention wrapper's host cost at decode
-against the checkout in DIR (e.g. the parent commit, unpacked with ``git
-archive``), one process each, in turns.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1118,7 +1116,10 @@ FLASH_CASES = {
 }
 #: Tolerances against the plain version: in float32 the two differ only in
 #: the order of f32 sums; bfloat16 is the reference's kernel-test tolerance
-#: (tests/test_kernels.py:135).
+#: (tests/test_kernels.py:135). Each holds twice: as rtol = atol, and per
+#: output row (one (b, t, h) over D) as |got - want| <= tol * (|want| +
+#: the row's RMS), which a row averaging over ~1000 keys (RMS ~ 0.03) would
+#: fail if a key tile went missing.
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: Timed shapes (bfloat16, the serve path's type): name -> case.
 FLASH_TIMED = {"prefill": "qwen2_prefill", "decode": "qwen2_decode"}
@@ -1170,14 +1171,21 @@ def check_flash(torch, fa):
             else:
                 got = fa.attention(q, k, v, causal=causal, kv_len=kv_len)
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
+            diff = (got.float() - want.float()).abs()
+            err = diff.max().item()
+            rms = want.float().pow(2).mean(-1, keepdim=True).sqrt()
+            row_err = (diff / (want.float().abs() + rms)).max().item()
             tol = FLASH_TOL[str(dtype).split(".")[-1]]
             print(f"flash_attention {case} {str(dtype)[6:]} {body} "
                   f"b={b} hq={hq} hkv={hkv} tq={tq} tkv={tkv} d={d} "
                   f"causal={causal} kv_len={kv_len}: max abs error vs plain "
-                  f"{err:.3e} (tol {tol})", flush=True)
+                  f"{err:.3e}, row-scaled {row_err:.3e} (tol {tol})",
+                  flush=True)
             torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                        atol=tol)
+            if not row_err <= tol:
+                raise AssertionError(f"{case} {dtype}: error {row_err} of "
+                                     f"|want| + the row's RMS above {tol}")
             if got.dtype != dtype or got.shape != q.shape:
                 raise AssertionError(f"{case}: output {got.dtype} "
                                      f"{tuple(got.shape)}")
@@ -1189,6 +1197,44 @@ def check_flash(torch, fa):
             by_body[key] = max(by_body.get(key, 0.0), err)
     print(f"flash_attention max abs error by body: {by_body}", flush=True)
     return worst, by_body
+
+
+def ex2_error(torch, fa):
+    """The mma body's exponential (ex2.approx of scores times scale * log2 e)
+    against expf on the scores of the main path's prefill case (batch row
+    0, every q head, the causal pairs; raw q . k in f32 from the bf16
+    inputs): the largest absolute and relative error of p = exp(scale * (s
+    - row max)), which the body then rounds to bf16 (a relative step of
+    2^-8). Fails above half that step."""
+    from repro_torch.kernels import _build
+
+    case = FLASH_TIMED["prefill"]
+    _, hq, hkv, tq, tkv, d = FLASH_CASES[case][:6]
+    q, k, _ = flash_inputs(torch, case, torch.bfloat16, seed=99)
+    qf = q[0].float().transpose(0, 1)                           # [Hq, Tq, D]
+    kf = k[0].float().transpose(0, 1).repeat_interleave(hq // hkv, 0)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    s = torch.matmul(qf, kf.transpose(1, 2))                    # [Hq, Tq, Tkv]
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    s.masked_fill_(torch.ones(tq, tkv, dtype=torch.bool, device="cuda")
+                   .triu(tkv - tq + 1), float("-inf"))
+    mx = s.amax(-1).contiguous()
+    out = torch.zeros(2, dtype=torch.int32, device="cuda")
+    rc = _build.library(fa.SOURCE).flash_attention_ex2_error(
+        s.data_ptr(), mx.data_ptr(), tkv, s.numel(), 1.0 / math.sqrt(d),
+        out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_ex2_error failed: CUDA error {rc}")
+    abs_err, rel_err = out.cpu().view(torch.float32).tolist()
+    pairs = int(torch.isfinite(s).sum().item())
+    print(f"flash_attention ex2 vs expf on {case}'s scores (batch row 0, "
+          f"{pairs} causal pairs): p max abs error {abs_err:.3e}, max "
+          f"relative error {rel_err:.3e} (bf16 P's relative step 2^-8 = "
+          f"{2 ** -8:.3e})", flush=True)
+    if not rel_err <= 2 ** -9:
+        raise AssertionError(f"ex2 relative error {rel_err} above 2^-9")
+    return abs_err, rel_err
 
 
 def flash_work(case, kv_len, elem):
@@ -1260,26 +1306,15 @@ def host_ms(torch, fn, n=100, rounds=7):
     return statistics.median(times)
 
 
-def in_turns(torch, fns, order, reps):
-    """Device ms of each of ``fns`` (name -> callable), timed in ``order``
-    (e.g. "ABBA"); the mean of each one's turns, and the turns."""
-    turns = {k: [] for k in fns}
-    for k in order:
-        turns[k].append(device_ms(torch, fns[k], reps=reps, rounds=5))
-    return {k: sum(v) / len(v) for k, v in turns.items()}, turns
-
-
 def flash_times(torch, fa):
     """Device ms of the kernel, its plain version and SDPA (one PyTorch call
     computing the same function, the yardstick; the port never calls it) at
     the main path's prefill and decode shapes in bfloat16, beside the
-    bound. The planned body is timed in turns with the CUDA-core body
-    (simt) on the same inputs (A B B A); then the design variants: at
-    prefill the mma body with two and one warpgroups (A B B A), at decode
-    three split plans (A B C C B A). The kernel and SDPA are replayed from a CUDA graph; the
-    plain version (which copies kv_len to the card, so it cannot be
-    captured) is timed call by call from the host. Host ms per kernel call
-    too, and each body kernel's device us from the profiler."""
+    bound. The kernel and SDPA are replayed from a CUDA graph; the plain
+    version (which copies kv_len to the card, so it cannot be captured) is
+    timed call by call from the host. Host ms per kernel call too, and each
+    body kernel's device us from the profiler; at the prefill shape also in
+    float32, where the plan takes the simt body."""
     import torch.nn.functional as F
 
     out = {}
@@ -1291,8 +1326,6 @@ def flash_times(torch, fa):
         (qh, kh, vh), mask = sdpa_inputs(torch, q, k, v, causal, lens)
         pl = fa.plan(b, tq, tkv, hq, hkv, d, q.dtype, lens)
         kernel = lambda: fa.attention(q, k, v, causal=causal, kv_len=kv_len)
-        forced = lambda p: (lambda: fa.launch(q, k, v, p, causal=causal,
-                                              scale=None, lens=lens))
         plain = lambda: fa.attention_plain(q, k, v, causal=causal,
                                            kv_len=kv_len)
         sdpa = lambda: F.scaled_dot_product_attention(
@@ -1304,19 +1337,15 @@ def flash_times(torch, fa):
             qh, kh, vh, is_causal=tq == tkv, enable_gqa=True)
         big = label == "prefill"
         reps = 20 if big else 100
-        ab, turns = in_turns(torch, {"A": kernel,
-                                     "B": forced(fa.Plan("simt"))},
-                             "ABBA", reps)
         n = dict(
-            ms=ab["A"], simt_ms=ab["B"],
+            ms=device_ms(torch, kernel, reps=reps, rounds=5),
             library_ms=device_ms(torch, sdpa, reps=reps, rounds=5),
             library_fast_ms=device_ms(torch, sdpa_fast, reps=reps, rounds=5),
             plain_ms=call_ms(torch, plain, reps=3 if big else 20, warmup=1),
             call_ms=call_ms(torch, kernel, reps=20 if big else 100),
             host_ms=host_ms(torch, kernel),
             body=pl.body, plan=list(pl),
-            kernels_us=kernel_us(torch, kernel),
-            simt_kernels_us=kernel_us(torch, forced(fa.Plan("simt")), n=5))
+            kernels_us=kernel_us(torch, kernel))
         flops, nbytes = flash_work(case, kv_len, 2)
         n["flops"], n["bytes"] = flops, nbytes
         n["ops_ms"] = flops / BF16_FLOPS_PER_S * 1e3
@@ -1326,96 +1355,26 @@ def flash_times(torch, fa):
         n["shape"] = [b, tq, tkv, hq, hkv, d]
         print(f"flash_attention time {label} bf16 b={b} tq={tq} tkv={tkv} "
               f"hq={hq} hkv={hkv} d={d} kv_len={kv_len}: {pl} device "
-              f"{n['ms'] * 1e3:.1f} us (turns "
-              f"{[round(x * 1e3, 1) for x in turns['A']]}), the simt body "
-              f"{n['simt_ms'] * 1e3:.1f} us (turns "
-              f"{[round(x * 1e3, 1) for x in turns['B']]}); by kernel "
+              f"{n['ms'] * 1e3:.1f} us; by kernel "
               f"{ {k: round(x, 2) for k, x in n['kernels_us'].items()} } us; "
               f"{n['call_ms'] * 1e3:.1f} us per call from the host (host work "
               f"alone {n['host_ms'] * 1e3:.1f} us); plain "
-              f"{n['plain_ms'] * 1e3:.1f} us; SDPA (explicit mask, enable_gqa) {n['library_ms'] * 1e3:.1f} us, without the mask "
+              f"{n['plain_ms'] * 1e3:.1f} us; SDPA (explicit mask, enable_gqa) "
+              f"{n['library_ms'] * 1e3:.1f} us, without the mask "
               f"{n['library_fast_ms'] * 1e3:.1f} us; bound "
               f"{n['bound_ms'] * 1e3:.3f} us by {n['bound_by']} ({flops} FLOP "
               f"at 989 TFLOP/s = {n['ops_ms'] * 1e3:.3f} us, {nbytes} bytes "
               f"at 3.35 TB/s = {n['bytes_ms'] * 1e3:.3f} us)", flush=True)
-        # Design variants in turns: at decode 9, 17 and 33 (the plan's) key
-        # chunks, 144, 272 and 528 CTAs; at prefill the mma body with two
-        # and with one (the plan's) warpgroup per CTA.
-        if label == "decode":
-            plans = [fa.Plan("split", n, c) for n, c in ((9, 256), (17, 128),
-                                                         (33, 64))]
-            order = "ABCCBA"
-        else:
-            plans = [fa.Plan("mma", warpgroups=w) for w in (2, 1)]
-            order = "ABBA"
-        names = dict(zip("ABC", plans))
-        var, vturns = in_turns(
-            torch, {x: forced(p) for x, p in names.items()}, order, reps)
-        n["variants"] = [dict(plan=list(p), ms=var[x], turns=vturns[x])
-                         for x, p in names.items()]
-        for x, p in names.items():
-            print(f"flash_attention {label} variant {x}: {p}: "
-                  f"{var[x] * 1e3:.2f} us (turns "
-                  f"{[round(y * 1e3, 2) for y in vturns[x]]})", flush=True)
+        if big:
+            q32, k32, v32 = (x.float() for x in (q, k, v))
+            n["f32_plan"] = list(fa.plan(b, tq, tkv, hq, hkv, d, q32.dtype,
+                                         lens))
+            n["f32_kernels_us"] = kernel_us(torch, lambda: fa.attention(
+                q32, k32, v32, causal=causal, kv_len=kv_len), n=5)
+            print(f"flash_attention time {label} f32: {n['f32_plan']} by "
+                  f"kernel { {k: round(x, 1) for k, x in n['f32_kernels_us'].items()} }"
+                  f" us", flush=True)
         out[label] = n
-    return out
-
-
-#: One process times the attention wrapper of the checkout on its
-#: PYTHONPATH at the decode shape (bf16, one query over a full 2080-key
-#: cache): call ms (CUDA events around one call: host work plus device
-#: time) and host ms (100 calls enqueued without a synchronisation).
-HOST_SNIPPET = r"""
-import json, statistics, time, torch
-from repro_torch.kernels import flash_attention as fa
-b, tq, tkv, hq, hkv, d = 8, 1, 2080, 14, 2, 64
-g = torch.Generator("cuda").manual_seed(99)
-q, k, v = [torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
-           for s in ((b, tq, hq, d), (b, tkv, hkv, d), (b, tkv, hkv, d))]
-call = lambda: fa.attention(q, k, v, causal=True, kv_len=tkv)
-for _ in range(20):
-    call()
-torch.cuda.synchronize()
-times = []
-for _ in range(200):
-    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    s.record(); call(); e.record(); e.synchronize()
-    times.append(s.elapsed_time(e))
-enq = []
-for _ in range(7):
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(100):
-        call()
-    enq.append((time.perf_counter() - t) / 100 * 1e3)
-    torch.cuda.synchronize()
-print(json.dumps({"call_ms": statistics.median(times),
-                  "host_ms": statistics.median(enq)}))
-"""
-
-
-def host_compare(other):
-    """The wrapper's host cost at decode, this checkout against ``other``
-    (e.g. the parent commit unpacked with ``git archive``), one process
-    each, in turns: other, this, this, other."""
-    import os
-
-    out = {"other": [], "this": []}
-    for who in ("other", "this", "this", "other"):
-        root = Path(other).resolve() if who == "other" else ROOT
-        env = dict(os.environ, PYTHONPATH=str(root / "src"))
-        proc = subprocess.run([sys.executable, "-c", HOST_SNIPPET], cwd=root,
-                              env=env, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"host timing of {root} failed:\n"
-                               f"{proc.stderr[-3000:]}")
-        out[who].append(json.loads(proc.stdout.strip().splitlines()[-1]))
-    for who, runs in out.items():
-        print(f"host compare decode bf16 {who} "
-              f"({Path(other).resolve() if who == 'other' else ROOT}): "
-              f"call {[round(r['call_ms'] * 1e3, 1) for r in runs]} us, "
-              f"host {[round(r['host_ms'] * 1e3, 1) for r in runs]} us per "
-              f"call", flush=True)
     return out
 
 
@@ -1613,6 +1572,7 @@ def lm_phases(torch, np):
     from repro_torch.kernels import flash_attention as fa
 
     err, err_by_body = phase("flash_attention check", check_flash, torch, fa)
+    ex2_abs, ex2_rel = phase("flash_attention ex2 error", ex2_error, torch, fa)
     timed = phase("flash_attention time", flash_times, torch, fa)
     launches, bodies, prefill_tps, decode_tps = phase(
         "serve main path", serve_main_path, torch, np, fa)
@@ -1630,10 +1590,9 @@ def lm_phases(torch, np):
         dtype="bfloat16",
         decode=dict((k, dec[k]) for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "library_fast_ms", "call_ms", "host_ms", "shape", "simt_ms",
-            "plan", "variants")),
-        library_fast_ms=pre["library_fast_ms"], simt_ms=pre["simt_ms"],
-        plan=pre["plan"], variants=pre["variants"],
+            "library_fast_ms", "call_ms", "host_ms", "shape", "plan")),
+        library_fast_ms=pre["library_fast_ms"], plan=pre["plan"],
+        ex2_max_abs_err=ex2_abs, ex2_max_rel_err=ex2_rel,
         bodies={
             "mma": dict(launches=bodies["flash_attention_mma"],
                         ms=us.get("mma_kernel", 0.0) / 1e3, at="prefill",
@@ -1646,8 +1605,8 @@ def lm_phases(torch, np):
                             ms=us.get("combine_kernel", 0.0) / 1e3,
                             at="decode"),
             "simt": dict(launches=bodies["flash_attention_simt"],
-                         ms=pre["simt_kernels_us"].get("simt_kernel", 0.0) / 1e3,
-                         at="prefill (bf16)",
+                         ms=pre["f32_kernels_us"].get("simt_kernel", 0.0) / 1e3,
+                         at="prefill (f32)",
                          max_abs_err=err_by_body.get("simt_float32"))},
         serve_prefill_tok_s=prefill_tps, serve_decode_tok_s=decode_tps)
 
@@ -1683,13 +1642,6 @@ def main() -> int:
                     choices=list(ROWS),
                     help="rows of the megakernel main paths, solo and "
                          "batched (default: %(default)s)")
-    ap.add_argument("--lm-only", action="store_true",
-                    help="build flash_attention.cu and run only phases 14-19 "
-                         "(the kernels line then holds flash_attention alone)")
-    ap.add_argument("--compare", metavar="DIR",
-                    help="first time the attention wrapper's host cost at "
-                         "decode against the checkout in DIR (e.g. the "
-                         "parent commit, unpacked with git archive)")
     args = ap.parse_args()
 
     import numpy as np
@@ -1706,11 +1658,6 @@ def main() -> int:
     print(card_line(), flush=True)   # name, power limit as nvidia-smi gives them
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
-    if args.compare:
-        phase("host compare", host_compare, args.compare)
-    if args.lm_only:
-        phase("build", build_all, _build, [fa.SOURCE])
-        return finish(torch, [lm_phases(torch, np)])
     phase("build", build_all, _build, [lod.SOURCE, mk.SOURCE, fa.SOURCE])
 
     t = time.perf_counter()
@@ -1794,12 +1741,7 @@ def main() -> int:
         bound_ms=bt["bytes"] / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=None, call_ms=bt["call_ms"], shape=bt["shape"], K=MEGA_K))
     line.append(flash)
-    return finish(torch, line)
-
-
-def finish(torch, line):
-    """The card's line again (at the end, where a reader of the output's
-    tail finds it), the kernels line and the last line."""
+    # The card's line again, where a reader of the output's tail finds it.
     print(card_line(), flush=True)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
 #: C signature of every entry point, by source: name -> argument types.
 SIGNATURES = {
@@ -37,10 +37,12 @@ SIGNATURES = {
     "megakernel.cu": {
         "mega_chunk": (_P, _I, _P),
     },
-    # flash_attention_fwd / _combine(const FlashArgs* args, void* stream)
+    # flash_attention_fwd / _combine(const FlashArgs* args, void* stream);
+    # flash_attention_ex2_error(s, mx, cols, n, scale, out, stream)
     "flash_attention.cu": {
         "flash_attention_fwd": (_P, _P),
         "flash_attention_combine": (_P, _P),
+        "flash_attention_ex2_error": (_P, _P, _L, _L, ctypes.c_float, _P, _P),
     },
 }
 

@@ -32,19 +32,20 @@
 //  * mma (bf16, more than 16 rows per (b, g): prefill). Bound by
 //    operations: 4 * D flops per visible (row, key) pair, ~60 GFLOP per
 //    layer of qwen2-0.5b at batch 8 x 2048 tokens, ~61 us at the H100's 989
-//    TFLOP/s in bf16, a rate only the tensor cores reach. A CTA of one or
-//    two warpgroups (the plan says which) takes 64 rows per warpgroup, one
-//    wgmma M tile. Q and a ring of two K/V stages are bf16 in shared memory
+//    TFLOP/s in bf16, a rate only the tensor cores reach. A CTA takes 64
+//    rows per warpgroup, one wgmma M tile: one warpgroup and K/V tiles of 64
+//    keys at head_dim 64, two warpgroups above (tiles of 128 keys at 128,
+//    of 64 at 256). Q and a ring of two K/V stages are bf16 in shared memory
 //    in the 128-byte swizzled layout that wgmma's descriptors read;
 //    asynchronous copies (cp.async, 16 bytes a thread) fill the next stage
 //    while the current one is multiplied. S = Q K^T is one wgmma chain per
 //    warpgroup (A and B from shared memory, K-major); the online softmax
 //    runs on S in registers in f32 (scale in f32, -1e30 masks; the
-//    exponential is ex2.approx on scores scaled by scale * log2 e: against
-//    expf it changed no case's largest error, which the bf16 rounding of P
-//    and o sets; PERF.md); P is rounded to bf16 in registers and is
-//    wgmma's A operand for O += P V, with V read from shared memory through
-//    the transpose bit (V stays [keys][D]). That rounding of P is where
+//    exponential is ex2.approx on scores scaled by scale * log2 e; its
+//    departure from expf is measured by flash_attention_ex2_error below and
+//    lies far under the bf16 rounding of P; PERF.md); P is rounded to bf16
+//    in registers and is wgmma's A operand for O += P V, with V read from
+//    shared memory through the transpose bit (V stays [keys][D]). That rounding of P is where
 //    this body departs from the reference's f32 P V (the row sums l stay
 //    in f32). Row tiles run heaviest first (the last causal tile of a
 //    sequence is scheduled first), so the last wave is short.
@@ -64,7 +65,7 @@
 //  * simt (f32, more than 16 rows: prefill in f32). The CUDA-core body of
 //    the first port: both products in f32 on the CUDA cores (67 TFLOP/s at
 //    most), which the f32 reference's 1e-4 tolerances need (TF32 would
-//    break them). It takes bf16 too, but the plan never sends it there.
+//    break them). It takes f32 only.
 //
 // The exponential is expf in the simt and split bodies and the combine
 // (the build never uses fast math), ex2.approx in the mma body.
@@ -92,7 +93,6 @@ struct FlashArgs {
   int32_t dtype;                // 0 = float32, 1 = bfloat16
   int32_t body;                 // 0 = simt, 1 = mma, 2 = split
   int32_t splits, chunk;        // split body: `splits` chunks of `chunk` keys
-  int32_t warpgroups;           // mma body: 64-row warpgroups per CTA (1, 2)
   float scale;
 };
 
@@ -248,7 +248,7 @@ struct Tile {
   static constexpr int SMEM_FLOATS = R * DP + BK * KS + BK * DP + R * BK;
 };
 
-template <typename T, int DL>
+template <int DL>
 __global__ void __launch_bounds__(kThreads)
 simt_kernel(FlashArgs a) {
   using TL = Tile<DL>;
@@ -266,12 +266,12 @@ simt_kernel(FlashArgs a) {
   const int r0 = blockIdx.x * R;
   const int D = a.D;
 
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  T* o = static_cast<T*>(a.o);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  float* o = static_cast<float*>(a.o);
 
-  // Q rows of this CTA, f32, zero-padded to DP (inactive rows all zero).
+  // Q rows of this CTA, zero-padded to DP (inactive rows all zero).
   for (int idx = tid; idx < R * (DP / 8); idx += kThreads) {
     int r = idx / (DP / 8), c = (idx % (DP / 8)) * 8;
     int fr = r0 + r;
@@ -305,8 +305,8 @@ simt_kernel(FlashArgs a) {
     for (int t = 0; t < DL; ++t) acc[rr][t] = 0.f;
   }
 
-  const T* kb = k + b * a.k_sb + g * a.k_sh;
-  const T* vb = v + b * a.v_sb + g * a.v_sh;
+  const float* kb = k + b * a.k_sb + g * a.k_sh;
+  const float* vb = v + b * a.v_sb + g * a.v_sh;
 
   for (int tile = 0; tile < ntiles; ++tile) {
     const int k0 = tile * BK;
@@ -390,12 +390,12 @@ simt_kernel(FlashArgs a) {
     if (row >= active) break;
     int fr = r0 + row * kWarps + warp;
     int i = fr / rep, h = g * rep + fr % rep;
-    T* orow = o + b * a.o_sb + i * a.o_st + h * a.o_sh;
+    float* orow = o + b * a.o_sb + i * a.o_st + h * a.o_sh;
     float inv = 1.f / fmaxf(l[row], 1e-30f);
 #pragma unroll
     for (int t = 0; t < DL; ++t) {
       int d = lane + 32 * t;
-      if (d < D) store1(orow + d, acc[row][t] * inv);
+      if (d < D) orow[d] = acc[row][t] * inv;
     }
   }
 }
@@ -843,9 +843,16 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint3
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
 }
 
-template <int DP, int WG>
+// Warpgroups per CTA and keys per K/V tile by padded head dim. At 64 one
+// warpgroup lets two CTAs share an SM and drift apart, so one's softmax can
+// overlap the other's products (two warpgroups sharing each K/V tile meet
+// at every tile's barrier and were 5% slower at qwen2-0.5b's prefill), and
+// tiles of 64 keys beat 128 there; above 64 one warpgroup's CTA would fill
+// an SM's shared memory alone (PERF.md).
+template <int DP>
 struct MmaTile {
-  static constexpr int BKM = DP <= 128 ? 128 : 64;      // keys per tile
+  static constexpr int WG = DP == 64 ? 1 : 2;
+  static constexpr int BKM = DP == 128 ? 128 : 64;      // keys per tile
   static constexpr int M = 64 * WG;                     // rows per CTA
   static constexpr int THREADS = 128 * WG;
   static constexpr int Q_BYTES = M * DP * 2;
@@ -855,14 +862,11 @@ struct MmaTile {
 
 // Grid: one CTA per (row tile, b, g), the last row tile of every (b, g)
 // first. Each of the WG warpgroups owns 64 rows; thread (warp w, lane)
-// holds rows 16 w + lane / 4 and that + 8 of them. With one warpgroup two
-// CTAs share an SM and drift apart, so one's softmax can overlap the
-// other's products; two share each K/V tile but meet at every tile's
-// barrier (one was 5% faster at qwen2-0.5b's prefill; PERF.md).
-template <int DP, int WG>
-__global__ void __launch_bounds__(MmaTile<DP, WG>::THREADS, 3 - WG)
+// holds rows 16 w + lane / 4 and that + 8 of them.
+template <int DP>
+__global__ void __launch_bounds__(MmaTile<DP>::THREADS, 3 - MmaTile<DP>::WG)
 mma_kernel(FlashArgs a) {
-  using TL = MmaTile<DP, WG>;
+  using TL = MmaTile<DP>;
   constexpr int BKM = TL::BKM, M = TL::M, THREADS = TL::THREADS;
   constexpr int C = DP / 8;                             // 16-byte chunks per row
   extern __shared__ uint8_t smem_raw[];
@@ -1038,6 +1042,38 @@ mma_kernel(FlashArgs a) {
 }
 
 // ---------------------------------------------------------------------------
+// A measurement, not a body: the mma body's exponential against expf.
+// ---------------------------------------------------------------------------
+//
+// For scores s [rows][cols] (raw q . k in f32; -inf where masked, skipped)
+// and each row's largest score mx, p = exp(scale * s - scale * mx) as the
+// reference computes it (expf of f32 products) and as the mma body does
+// (ex2 of products by scale * log2 e). out[0] and out[1] receive, as float
+// bits, the largest |p_body - p_ref| and the largest |p_body - p_ref| / p_ref
+// where p_ref is a normal float.
+__global__ void ex2_error_kernel(const float* s, const float* mx, int64_t cols,
+                                 int64_t n, float scale, unsigned* out) {
+  const float sl2 = scale * 1.4426950408889634f;        // as in mma_kernel
+  float worst = 0.f, worst_rel = 0.f;
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const float x = s[i], m = mx[i / cols];
+    if (x == -INFINITY) continue;
+    const float ref = expf(__fsub_rn(__fmul_rn(x, scale), __fmul_rn(m, scale)));
+    const float got = ex2(__fsub_rn(__fmul_rn(x, sl2), __fmul_rn(m, sl2)));
+    const float err = fabsf(got - ref);
+    worst = fmaxf(worst, err);
+    if (ref >= 1.17549435e-38f) worst_rel = fmaxf(worst_rel, err / ref);
+  }
+  worst = warp_max(worst);
+  worst_rel = warp_max(worst_rel);
+  if ((threadIdx.x & 31) == 0) {                        // >= 0: bits order
+    atomicMax(out, __float_as_uint(worst));
+    atomicMax(out + 1, __float_as_uint(worst_rel));
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launches.
 // ---------------------------------------------------------------------------
 
@@ -1061,13 +1097,13 @@ int launch_kernel(Kernel kernel, bool* opted_in, dim3 grid, int threads,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DL>
+template <int DL>
 int launch_simt(const FlashArgs& a, cudaStream_t s) {
   using TL = Tile<DL>;
   static bool opted_in[64] = {};
   const int rows = a.Tq * (a.Hq / a.Hkv);
   dim3 grid((rows + TL::R - 1) / TL::R, a.Hkv, a.B);
-  return launch_kernel(simt_kernel<T, DL>, opted_in, grid, kThreads,
+  return launch_kernel(simt_kernel<DL>, opted_in, grid, kThreads,
                        sizeof(float) * TL::SMEM_FLOATS, s, a);
 }
 
@@ -1079,29 +1115,28 @@ int launch_split(const FlashArgs& a, cudaStream_t s) {
                        SplitTile<T, DL>::SMEM, s, a);
 }
 
-template <int DP, int WG>
+template <int DP>
 int launch_mma(const FlashArgs& a, cudaStream_t s) {
-  using TL = MmaTile<DP, WG>;
+  using TL = MmaTile<DP>;
   static bool opted_in[64] = {};
   const int rows = a.Tq * (a.Hq / a.Hkv);
   const long long ctas = (long long)((rows + TL::M - 1) / TL::M) * a.B * a.Hkv;
   if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  return launch_kernel(mma_kernel<DP, WG>, opted_in, dim3((unsigned)ctas), TL::THREADS,
+  return launch_kernel(mma_kernel<DP>, opted_in, dim3((unsigned)ctas), TL::THREADS,
                        TL::SMEM, s, a);
 }
 
 // Head-dim dispatch of the CUDA-core bodies: DL = ceil(D / 32).
-template <typename T>
 int dispatch_simt(const FlashArgs& a, cudaStream_t s) {
   switch ((a.D + 31) / 32) {
-    case 1: return launch_simt<T, 1>(a, s);
-    case 2: return launch_simt<T, 2>(a, s);
-    case 3: return launch_simt<T, 3>(a, s);
-    case 4: return launch_simt<T, 4>(a, s);
-    case 5: return launch_simt<T, 5>(a, s);
-    case 6: return launch_simt<T, 6>(a, s);
-    case 7: return launch_simt<T, 7>(a, s);
-    case 8: return launch_simt<T, 8>(a, s);
+    case 1: return launch_simt<1>(a, s);
+    case 2: return launch_simt<2>(a, s);
+    case 3: return launch_simt<3>(a, s);
+    case 4: return launch_simt<4>(a, s);
+    case 5: return launch_simt<5>(a, s);
+    case 6: return launch_simt<6>(a, s);
+    case 7: return launch_simt<7>(a, s);
+    case 8: return launch_simt<8>(a, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1121,11 +1156,10 @@ int dispatch_split(const FlashArgs& a, cudaStream_t s) {
   return (int)cudaErrorInvalidValue;
 }
 
-template <int WG>
 int dispatch_mma(const FlashArgs& a, cudaStream_t s) {
-  if (a.D <= 64) return launch_mma<64, WG>(a, s);
-  if (a.D <= 128) return launch_mma<128, WG>(a, s);
-  return launch_mma<256, WG>(a, s);
+  if (a.D <= 64) return launch_mma<64>(a, s);
+  if (a.D <= 128) return launch_mma<128>(a, s);
+  return launch_mma<256>(a, s);
 }
 
 bool valid(const FlashArgs* a) {
@@ -1142,7 +1176,7 @@ bool valid_split(const FlashArgs* a) {
 
 }  // namespace
 
-// Runs the body that a->body names: 0 simt, 1 mma (bf16 only), 2 split
+// Runs the body that a->body names: 0 simt (f32 only), 1 mma (bf16 only), 2 split
 // (partials into a->scratch; flash_attention_combine finishes it). Returns
 // 0 or the CUDA error of the launch. The wrapper
 // (repro_torch/kernels/flash_attention.py) checks shapes, types, strides,
@@ -1153,13 +1187,11 @@ extern "C" int flash_attention_fwd(const FlashArgs* a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (a->body) {
     case 0:
-      return a->dtype == 0 ? dispatch_simt<float>(*a, s)
-                           : dispatch_simt<__nv_bfloat16>(*a, s);
+      if (a->dtype != 0) return (int)cudaErrorInvalidValue;
+      return dispatch_simt(*a, s);
     case 1:
       if (a->dtype != 1) return (int)cudaErrorInvalidValue;
-      if (a->warpgroups == 1) return dispatch_mma<1>(*a, s);
-      if (a->warpgroups == 2) return dispatch_mma<2>(*a, s);
-      return (int)cudaErrorInvalidValue;
+      return dispatch_mma(*a, s);
     case 2:
       if (!valid_split(a)) return (int)cudaErrorInvalidValue;
       return a->dtype == 0 ? dispatch_split<float>(*a, s)
@@ -1177,5 +1209,15 @@ extern "C" int flash_attention_combine(const FlashArgs* a, void* stream) {
   const size_t smem = sizeof(float) * a->splits;
   if (a->dtype == 0) combine_kernel<float><<<grid, kCombineThreads, smem, s>>>(*a);
   else combine_kernel<__nv_bfloat16><<<grid, kCombineThreads, smem, s>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+// ex2_error_kernel over n scores (out: two zeroed unsigned ints).
+extern "C" int flash_attention_ex2_error(const float* s, const float* mx,
+                                         int64_t cols, int64_t n, float scale,
+                                         unsigned* out, void* stream) {
+  if (cols <= 0 || n <= 0 || n % cols) return (int)cudaErrorInvalidValue;
+  ex2_error_kernel<<<1024, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      s, mx, cols, n, scale, out);
   return (int)cudaGetLastError();
 }

@@ -65,12 +65,10 @@ SPLIT_TARGET_CTAS = 528
 
 class Plan(NamedTuple):
     """Which body runs: ``"mma"``, ``"split"`` or ``"simt"``; the split
-    body's key chunks (``splits`` of ``chunk`` keys); the mma body's
-    warpgroups per CTA."""
+    body's key chunks (``splits`` of ``chunk`` keys)."""
     body: str
     splits: int = 1
     chunk: int = 0
-    warpgroups: int = 0
 
 
 def plan(b: int, tq: int, tkv: int, hq: int, hkv: int, d: int, dtype,
@@ -81,11 +79,7 @@ def plan(b: int, tq: int, tkv: int, hq: int, hkv: int, d: int, dtype,
     (up to the largest of ``lens``) cut into about
     ceil(:data:`SPLIT_TARGET_CTAS` / (B x Hkv)) chunks of whole 64-key
     tiles, so that B x Hkv x splits CTAs fill the card; more rows take
-    ``"mma"`` in bfloat16 and ``"simt"`` in float32. The mma body has one
-    warpgroup (64 rows) per CTA up to head_dim 64, so two CTAs share an SM
-    (faster than two warpgroups sharing each K/V tile; PERF.md);
-    above 64 one such CTA's tiles fill an SM's shared memory, so it has
-    two."""
+    ``"mma"`` in bfloat16 and ``"simt"`` in float32."""
     if tq * (hq // hkv) <= SPLIT_ROWS:
         hi = max(lens) if lens else tkv
         tiles = -(-hi // SPLIT_KEYS)
@@ -93,7 +87,7 @@ def plan(b: int, tq: int, tkv: int, hq: int, hkv: int, d: int, dtype,
         per = -(-tiles // want)
         return Plan("split", -(-tiles // per), per * SPLIT_KEYS)
     if dtype == torch.bfloat16:
-        return Plan("mma", warpgroups=1 if d <= 64 else 2)
+        return Plan("mma")
     return Plan("simt")
 
 
@@ -213,7 +207,7 @@ class _Args(ctypes.Structure):
                 + [(n, ctypes.c_int32) for n in ("B", "Tq", "Tkv", "Hq", "Hkv",
                                                  "D", "kv_len_all", "causal",
                                                  "dtype", "body", "splits",
-                                                 "chunk", "warpgroups")]
+                                                 "chunk")]
                 + [("scale", ctypes.c_float)])
 
 
@@ -296,10 +290,9 @@ def launch(q, k, v, pl: Plan, *, causal, scale, lens):
     if d % 8 or d > 256:
         raise ValueError(f"the kernel takes head_dim a multiple of 8 up to "
                          f"256, got {d}")
-    if pl.body == "mma" and (q.dtype != torch.bfloat16
-                             or pl.warpgroups not in (1, 2)):
-        raise ValueError(f"the mma body takes bfloat16 and 1 or 2 "
-                         f"warpgroups, got {q.dtype}, {pl.warpgroups}")
+    if (pl.body, q.dtype) in (("mma", torch.float32),
+                              ("simt", torch.bfloat16)):
+        raise ValueError(f"the {pl.body} body does not take {q.dtype}")
     _check_layout(q, k, v)
     dev = q.device
     out = torch.empty(q.shape, dtype=q.dtype, device=dev)
@@ -320,7 +313,7 @@ def launch(q, k, v, pl: Plan, *, causal, scale, lens):
         None if scratch is None else scratch.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         b, tq, tkv, hq, hkv, d, lens[0], int(causal), _DTYPES[q.dtype],
-        _BODIES[pl.body], pl.splits, pl.chunk, pl.warpgroups,
+        _BODIES[pl.body], pl.splits, pl.chunk,
         scale if scale is not None else 1.0 / math.sqrt(d))
     if dev.index == torch.cuda.current_device():
         _run(args, pl.body, dev)

@@ -159,28 +159,28 @@ def test_split_plain_matches_reference(case, dtype):
 # shapes (batch 8, 14 over 2 heads of 64: prefill of 2048 tokens, decode
 # over the 2080-key cache at its first and last fill levels: 33 chunks of
 # 64 keys, 528 CTAs) in both dtypes, one sequence's decode, a short cache
-# of a 4-sequence batch, the 16-row edge and head_dim 256 (two warpgroups).
+# of a 4-sequence batch, the 16-row edge and head_dim 256.
 PLAN_CASES = {
     "qwen2_prefill_bf16": ((8, 2048, 2048, 14, 2, 64, "bf16", None),
-                           ("mma", 1, 0, 1)),
+                           ("mma", 1, 0)),
     "qwen2_decode_bf16": ((8, 1, 2080, 14, 2, 64, "bf16", [2080] * 8),
-                          ("split", 33, 64, 0)),
+                          ("split", 33, 64)),
     "qwen2_decode_first_step": ((8, 1, 2080, 14, 2, 64, "bf16", [2049] * 8),
-                                ("split", 33, 64, 0)),
+                                ("split", 33, 64)),
     "qwen2_prefill_f32": ((8, 2048, 2048, 14, 2, 64, "f32", None),
-                          ("simt", 1, 0, 0)),
+                          ("simt", 1, 0)),
     "qwen2_decode_f32": ((8, 1, 2080, 14, 2, 64, "f32", [2080] * 8),
-                         ("split", 33, 64, 0)),
+                         ("split", 33, 64)),
     "one_sequence_decode": ((1, 1, 2080, 14, 2, 64, "bf16", [2080]),
-                            ("split", 33, 64, 0)),
+                            ("split", 33, 64)),
     "short_cache": ((4, 1, 1000, 14, 2, 64, "bf16", [1000] * 4),
-                    ("split", 16, 64, 0)),
+                    ("split", 16, 64)),
     "rows_16_split": ((2, 2, 300, 16, 2, 64, "bf16", [2, 300]),
-                      ("split", 5, 64, 0)),
+                      ("split", 5, 64)),
     "rows_21_mma": ((2, 3, 300, 14, 2, 64, "bf16", [3, 300]),
-                    ("mma", 1, 0, 1)),
+                    ("mma", 1, 0)),
     "gemma_prefill_d256": ((2, 256, 256, 8, 1, 256, "bf16", None),
-                           ("mma", 1, 0, 2)),
+                           ("mma", 1, 0)),
 }
 
 
@@ -199,11 +199,11 @@ def test_plan(case):
 def test_launch_rejects_bad_plans():
     q = torch.zeros(2, 5, 4, 16)
     k = torch.zeros(2, 40, 2, 16)
-    with pytest.raises(ValueError, match="bfloat16"):
-        fa.launch(q, k, k, fa.Plan("mma", warpgroups=2), causal=True,
-                  scale=None, lens=[40, 40])
-    with pytest.raises(ValueError, match="warpgroups"):
-        fa.launch(q.bfloat16(), k.bfloat16(), k.bfloat16(), fa.Plan("mma"),
+    with pytest.raises(ValueError, match="mma body does not take"):
+        fa.launch(q, k, k, fa.Plan("mma"), causal=True, scale=None,
+                  lens=[40, 40])
+    with pytest.raises(ValueError, match="simt body does not take"):
+        fa.launch(q.bfloat16(), k.bfloat16(), k.bfloat16(), fa.Plan("simt"),
                   causal=True, scale=None, lens=[40, 40])
     with pytest.raises(ValueError, match="no split plan"):   # chunk of 32
         fa.launch(q, k, k, fa.Plan("split", 2, 32), causal=True, scale=None,

@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py                   # everything, as the check runs it
     python3 chip_smoke.py --rows n15072 --mega-rows n15072   # smallest rows
+    python3 chip_smoke.py --times-only [--src OTHER/src]  # megakernel timings
+                                            # (of another checkout's package)
 
 Phases, each of which fails the run on any error (each prints its seconds):
   1. the card: its name and power limit from ``nvidia-smi``;
@@ -24,15 +26,19 @@ Phases, each of which fails the run on any error (each prints its seconds):
      cycles before completion; the mid-run state with every zero of the
      float planes made -0.0), at K = 1, 7 and 32, on clones of one state:
      every state leaf and the done trace must be equal as bit patterns.
-     Also the matrix graph on 36x36 and 42x42 (above 512 PEs: each
-     thread loops over more than one PE), and
-     each larger megakernel row's policies (``--mega-rows`` beyond n15072)
-     from three states (cycle 40, made by the plain chunk; half-way to the
-     golden; three cycles before it) at K = 1 and 32;
-  5. batched megakernel: the batched chunk (one CTA per config) against its
-     plain version (each element through the tensor engine's chunk) on a
-     mixed batch (all four policies, ``ooo`` at select latency 4, ``scan``
-     with a budget of 100) on the matrix graph and on n15072, every eject
+     Also n15072 on 2x2 for every policy (118 RDY words a PE: four summary
+     words), the matrix graph on 36x36 and 42x42 (four PEs a thread) and on
+     48x48 (whose links and RDY rows exceed shared memory: the plan must
+     give the ``global`` body), and each larger megakernel row's policies
+     (``--mega-rows`` beyond n15072) from three states (cycle 40, made by
+     the plain chunk; half-way to the golden; three cycles before it) at
+     K = 1 and 32. Each case runs the body the plan picks and, where that is
+     ``shared``, the ``global`` body too;
+  5. batched megakernel: the batched chunk (one CTA per config; each body,
+     as in phase 4) against its plain version (each element through the
+     tensor engine's chunk) on a mixed batch (all four policies, ``ooo`` at
+     select latency 4, ``scan`` with a budget of 100) on the matrix graph
+     and on n15072, every eject
      configuration, from four states (cycle 0; mid-run; each element three
      cycles before its own end; signed zeros) at K = 1, 7 and 32, plus a
      one-cycle tail launch that freezes elements at their budgets; then
@@ -52,25 +58,32 @@ Phases, each of which fails the run on any error (each prints its seconds):
      been launched during this phase;
   7. main path, ``engine="megakernel"``: the same checks on rows n15072,
      n29772, n117972 and n470772 (``--mega-rows``), each result bit-identical
-     to the select engine's where that phase ran the row too, and the
-     megakernel launched during this phase;
+     to the select engine's where that phase ran the row too, the megakernel
+     launched during this phase, and every chunk on the ``shared`` body (the
+     per-body launch counts);
   8. batched main path: the same rows through ``repro_torch.run(gm,
      batch=...)`` with the megakernel, one batch per memory layout (as the
      reference's Fig. 1 benchmark groups them; at n29772 this is the
      reference's ``policy_sweep``): goldens, values, every element
-     bit-identical to phase 7's solo run, the batched kernel launched;
+     bit-identical to phase 7's solo run, the batched kernel launched, every
+     chunk on the ``shared`` body;
   9. full-card sweeps at n29772, one batch each: ``sweep_ooo`` (``ooo`` x
      select latency 1..128, B = 128) and ``sweep_mixed`` (inorder,
      lru_flat, scan x 1..42, B = 126); every element bit-identical to a solo
-     megakernel run of its config, and the goldens at each policy's default
-     latency;
+     megakernel run of its config, the goldens at each policy's default
+     latency, every chunk (batched and solo) on the ``shared`` body;
  10. batched select: a small mixed batch under ``engine="select"`` (the
      leading-one kernels element by element) equal to the same batch under
      the megakernel;
  11. megakernel time: device time per K=32 chunk by CUDA events between
-     chunks enqueued back to back (median over chunks) at n15072 and
-     n117972, beside the plain chunk's, the host time per call and the
-     bytes bound;
+     chunks enqueued back to back (median over chunks) at n15072, n117972
+     and n470772 for ``ooo`` and ``inorder``, the plain chunk's at n15072
+     ``ooo``, the host time per call and the bytes bound; then at n15072
+     ``ooo`` the ``global`` body and the latency floor (the chunk with every
+     PE's cycle left out: its loads, stores, barriers and reductions; by
+     CUDA-graph replay), and at n15072 and n470772 the engine's chunk loop
+     with one chunk in flight against two (queued), beside the chunks
+     launched back to back;
  12. batch scaling: the first B = 1, 8, 32, 64 and 128 configs of ``sweep_ooo``:
      wall, simulated cycles summed over the elements per second, device
      time per K=32 batched chunk, the same B solo runs' summed wall, the
@@ -79,8 +92,10 @@ Phases, each of which fails the run on any error (each prints its seconds):
      chunk of two batches with three member policies at n29772,
      ``policy_sweep`` (B = 3) and ``sweep_mixed`` (B = 126);
  13. profiles: ``torch.profiler`` over the first 300 cycles of the n15072
-     ``ooo`` select run and over the whole n15072 ``ooo`` megakernel run,
-     each with its device busy share, device ops per cycle and top kernels;
+     ``ooo`` select run, over the whole n15072 ``ooo`` megakernel run, over
+     its chunk loop alone (``run_state`` on a state built beforehand) and
+     over the whole n470772 ``ooo`` megakernel run, each with its device busy
+     share, device ops per cycle and top kernels;
  14. flash-attention kernel: against its plain version on the card, in
      float32 (within 1e-4) and bfloat16 (within 2e-2), and per output row
      within that tolerance of |want| plus the row's RMS, max error
@@ -154,8 +169,9 @@ ROWS = {
 #: its default stops at n29772; the megakernel runs the larger rows.
 SELECT_ROWS = ("n15072", "n29772")
 MEGA_ROWS = ("n15072", "n29772", "n117972", "n470772")
-#: Rows at which a megakernel chunk is timed (K = 32, ``ooo``).
-MEGA_TIMED_ROWS = ("n15072", "n117972")
+#: Rows and policies at which a megakernel chunk is timed (K = 32).
+MEGA_TIMED_ROWS = ("n15072", "n117972", "n470772")
+MEGA_TIMED_POLICIES = ("ooo", "inorder")
 MEGA_K = 32
 
 #: Row whose GPU results are also checked bit for bit against a CPU run.
@@ -198,6 +214,12 @@ EJECTS = {"n_first_cap1": (1, "n_first"), "priority_cap1": (1, "priority"),
           "cap2": (2, "n_first")}
 #: The small matrix graph of the CPU parity tests.
 MATRIX_GRAPH = (3, 6, 4, 5)
+#: The megakernel body the plan must give a phase 4 grid: n15072 on 2x2 has
+#: 118 RDY words a PE (four summary words); 48x48's links and rows exceed
+#: a CTA's shared memory.
+PLANNED_BODIES = {"n15072 16x16": "shared", "n15072 2x2": "shared",
+                  "matrix 36x36": "shared", "matrix 42x42": "shared",
+                  "matrix 48x48": "global"}
 
 
 def card_line() -> str:
@@ -438,12 +460,23 @@ def select_main_path(torch, np, graphs, rows, lod):
     return results, counts
 
 
+def assert_shared_body(counts, label):
+    """Every chunk of a main path, solo and batched, took the shared-memory
+    body (by the per-body launch counts)."""
+    chunks = counts["mega_chunk"] + counts["mega_chunk_batched"]
+    if counts["mega_chunk_shared"] != chunks or counts["mega_chunk_global"]:
+        raise AssertionError(f"{label}: {chunks} chunks, body launches "
+                             f"{counts}")
+    print(f"{label}: all {chunks} chunks took the shared body", flush=True)
+
+
 def mega_main_path(torch, np, graphs, rows, mk, select_results):
     results, counts = run_main_path(
         torch, np, graphs, rows, "megakernel", lambda: dict(mk.launches),
         mk.reset_launches)
     if counts["mega_chunk"] == 0:
         raise AssertionError("the main path never launched mega_chunk")
+    assert_shared_body(counts, "main path megakernel")
     for key, r in results.items():
         if key in select_results:
             same = same_result(np, r, select_results[key])
@@ -509,6 +542,7 @@ def batched_main_path(torch, np, graphs, rows, mk, solo_results):
     if counts["mega_chunk_batched"] == 0:
         raise AssertionError("the batched main path never launched "
                              "mega_chunk_batched")
+    assert_shared_body(counts, "batched main path")
     return counts
 
 
@@ -520,16 +554,20 @@ def sweep_configs(sweep):
             for p in policies for lat in lats]
 
 
-def full_card_sweeps(torch, np, graphs):
+def full_card_sweeps(torch, np, graphs, mk):
     """Each sweep as one batch at SWEEP_ROW; every element bit-identical to
     a solo megakernel run of its config, the goldens at each policy's
-    default latency. Returns {sweep: [solo wall s per config]}."""
+    default latency, every chunk on the shared body. Returns {sweep: [solo
+    wall s per config]}."""
     import repro_torch
     from repro_torch.core import schedulers
     from repro_torch.core.overlay import OverlayConfig
 
     goldens = ROWS[SWEEP_ROW][1]
     solo_walls = {}
+    for sweep, (layout, _, _) in SWEEPS.items():
+        graphs.memory(SWEEP_ROW, layout)
+    mk.reset_launches()
     for sweep, (layout, _, _) in SWEEPS.items():
         gm = graphs.memory(SWEEP_ROW, layout)
         cfgs = sweep_configs(sweep)
@@ -567,6 +605,7 @@ def full_card_sweeps(torch, np, graphs):
               f"bit-identical to its solo run; {at_default} elements at "
               f"their default latency equal the goldens", flush=True)
         solo_walls[sweep] = walls
+    assert_shared_body(dict(mk.launches), "full-card sweeps")
     return solo_walls
 
 
@@ -634,23 +673,34 @@ def state_err(torch, got, want, path=""):
     return err
 
 
+def bodies(mk, g, members):
+    """The kernel bodies a check runs on ``g``: the one the plan picks, and
+    the ``global`` body where the plan picks ``shared`` (it runs any grid
+    the plan takes, so both are held to the plain chunk)."""
+    nx, ny, L = g["opcode"].shape
+    picked = mk.plan(nx, ny, L, members).body
+    return [picked] + (["global"] if picked == "shared" else [])
+
+
 def compare_chunks(torch, mk, g, cfg, states, ks, label):
-    """For each start state and K: the kernel chunk and the plain chunk on
-    clones of the state; every leaf and the done trace must be equal as bit
-    patterns. Returns the largest abs error and the number of cases."""
+    """For each start state and K: the plain chunk and the kernel chunk of
+    each body (``bodies``) on clones of the state; every leaf and the done
+    trace must be equal as bit patterns. Returns the largest abs error and
+    the number of cases."""
     err, cases = 0.0, 0
     for sname, st in states.items():
         for K in ks:
             want, want_tr = mk.mega_chunk_plain(
                 g, cfg, K, with_trace=True)(clone_state(st))
-            got, got_tr = mk.make_mega_chunk_fn(
-                g, cfg, K, with_trace=True)(clone_state(st))
-            torch.cuda.synchronize()
-            err = max(err, state_err(torch, got, want))
-            if not torch.equal(got_tr, want_tr):
-                raise AssertionError(f"megakernel done trace differs: "
-                                     f"{label} {sname} K={K}")
-            cases += 1
+            for body in bodies(mk, g, (cfg.scheduler,)):
+                got, got_tr = mk.make_mega_chunk_fn(
+                    g, cfg, K, with_trace=True, body=body)(clone_state(st))
+                torch.cuda.synchronize()
+                err = max(err, state_err(torch, got, want))
+                if not torch.equal(got_tr, want_tr):
+                    raise AssertionError(f"megakernel done trace differs: "
+                                         f"{label} {sname} K={K} {body}")
+                cases += 1
     return err, cases
 
 
@@ -671,15 +721,23 @@ def check_megakernel(torch, np, graphs, mk, rows):
     n15072, _ = graphs.graph("n15072")
     grids = [("matrix 2x2", matrix, 2, 2, POLICIES, EJECTS),
              ("n15072 16x16", n15072, 16, 16, POLICIES, EJECTS),
+             ("n15072 2x2", n15072, 2, 2, POLICIES, ("n_first_cap1",)),
              ("matrix 36x36", matrix, 36, 36, ("ooo",), ("n_first_cap1",)),
-             ("matrix 42x42", matrix, 42, 42, ("inorder",), ("cap2",))]
+             ("matrix 42x42", matrix, 42, 42, ("inorder",), ("cap2",)),
+             ("matrix 48x48", matrix, 48, 48, ("ooo",), ("n_first_cap1",))]
     err, cases = 0.0, 0
     for label, graph, nx, ny, policies, ejects in grids:
         for sched in policies:
-            gm = (graphs.memory("n15072", sched) if label.startswith("n15072")
+            gm = (graphs.memory("n15072", sched) if label == "n15072 16x16"
                   else build_graph_memory(graph, nx, ny,
                                           criticality_order=sched == "ooo"))
             g = device_graph(gm)
+            if label in PLANNED_BODIES:
+                got = mk.plan(nx, ny, gm.lmax, (sched,))
+                if got.body != PLANNED_BODIES[label]:
+                    raise AssertionError(f"{label}: the plan gives {got}, "
+                                         f"not the {PLANNED_BODIES[label]} "
+                                         f"body")
             for eject in ejects:
                 cap, pol = EJECTS[eject]
                 cfg = OverlayConfig(scheduler=sched, eject_capacity=cap,
@@ -700,8 +758,9 @@ def check_megakernel(torch, np, graphs, mk, rows):
                                       f"{label} {sched} {eject}")
                 err, cases = max(err, e), cases + n
                 print(f"megakernel equals its plain version: {label} {sched} "
-                      f"{eject} (run ends at cycle {end}; 4 states x K in 1, "
-                      f"7, 32)", flush=True)
+                      f"{eject}, W = {gm.lmax // 32}, bodies "
+                      f"{bodies(mk, g, (sched,))} (run ends at cycle {end}; 4 "
+                      f"states x K in 1, 7, 32)", flush=True)
     # The larger main-path rows, at the main path's eject configuration:
     # states made by the plain chunk (40 cycles from cycle 0) and by the
     # engine (half-way to the golden, and 3 cycles before it).
@@ -761,9 +820,11 @@ def chunk_bytes(g, state, mk, K):
             - nbytes(read_only) + K * state["done"].numel())
 
 
-def mega_times(torch, graphs, mk, name, plain_chunks=5):
-    """Per K=32 ``ooo`` chunk from cycle 0: device ms of the kernel and of
-    its plain version, host ms per kernel call, and the bytes bound.
+def mega_times(torch, graphs, mk, name, policy="ooo", plain_chunks=5, **kw):
+    """Per K=32 chunk of ``policy`` from cycle 64: device ms of the kernel
+    (``kw`` to ``make_mega_chunk_fn``: a body, or the latency floor) and,
+    with ``plain_chunks``, of its plain version; host ms per kernel call,
+    and the bytes bound.
 
     The chunks are enqueued back to back with a CUDA event between two
     chunks, and a chunk's time is the median interval between its events.
@@ -773,17 +834,93 @@ def mega_times(torch, graphs, mk, name, plain_chunks=5):
     host-bound time the card spends on one chunk."""
     from repro_torch.core import overlay
 
-    cfg = overlay.OverlayConfig(scheduler="ooo", engine="megakernel")
-    g = overlay.device_graph(graphs.memory(name, "ooo"))
-    kernel = mk.make_mega_chunk_fn(g, cfg, MEGA_K)
+    cfg = overlay.OverlayConfig(scheduler=policy, engine="megakernel")
+    g = overlay.device_graph(graphs.memory(name, policy))
+    kernel = mk.make_mega_chunk_fn(g, cfg, MEGA_K, **kw)
     s = kernel(kernel(overlay.init_state(g, cfg)))     # warm-up
     ms, call_ms = timed_chunks(torch, kernel, s, 40)
-    plain = mk.mega_chunk_plain(g, cfg, MEGA_K)
-    s = plain(overlay.init_state(g, cfg))
-    plain_ms, _ = timed_chunks(torch, plain, s, plain_chunks)
+    plain_ms = None
+    if plain_chunks:
+        plain = mk.mega_chunk_plain(g, cfg, MEGA_K)
+        s = plain(overlay.init_state(g, cfg))
+        plain_ms, _ = timed_chunks(torch, plain, s, plain_chunks)
     total = chunk_bytes(g, overlay.init_state(g, cfg), mk, MEGA_K)
     return dict(ms=ms, plain_ms=plain_ms, call_ms=call_ms, bytes=total,
                 shape=list(g["opcode"].shape))
+
+
+def megakernel_times(torch, graphs, mk, ours=True):
+    """Phase 11: the chunk times of MEGA_TIMED_ROWS x MEGA_TIMED_POLICIES
+    (the plain chunk's at the first row's ``ooo``); with ``ours`` (this
+    checkout's kernel) also the ``global`` body and the latency floor (the
+    shared body with every PE's cycle left out; its device time by CUDA-graph
+    replay) at the first row's ``ooo``. Returns {(row, policy, variant):
+    numbers}."""
+    out = {}
+    first = MEGA_TIMED_ROWS[0]
+    runs = [(name, pol, "", {}) for name in MEGA_TIMED_ROWS
+            for pol in MEGA_TIMED_POLICIES]
+    if ours:
+        runs.append((first, "ooo", "global body", dict(body="global")))
+    for name, pol, variant, kw in runs:
+        plain = 5 if (name, pol, variant) == (first, "ooo", "") else 0
+        mt = mega_times(torch, graphs, mk, name, pol, plain, **kw)
+        out[name, pol, variant] = mt
+        print(f"megakernel time {name} {pol}{' ' + variant if variant else ''} "
+              f"{mt['shape']} K={MEGA_K}: device {mt['ms'] * 1e3:.1f} us per "
+              f"chunk ({mt['ms'] * 1e3 / MEGA_K:.2f} us per cycle)"
+              + (f", plain {mt['plain_ms'] * 1e3:.1f} us per chunk"
+                 if mt["plain_ms"] is not None else "")
+              + f", host {mt['call_ms'] * 1e3:.1f} us per call, bytes bound "
+              f"{mt['bytes'] / HBM_BYTES_PER_S * 1e6:.3f} us "
+              f"({mt['bytes']} bytes)", flush=True)
+    if ours:
+        # The floor runs faster than the host enqueues chunks, so its device
+        # time is taken by CUDA-graph replay (its state is no simulation's).
+        from repro_torch.core import overlay
+
+        cfg = overlay.OverlayConfig(scheduler="ooo", engine="megakernel")
+        g = overlay.device_graph(graphs.memory(first, "ooo"))
+        s = overlay.init_state(g, cfg)
+        floor = mk.make_mega_chunk_fn(g, cfg, MEGA_K, floor_only=True)
+        ms = device_ms(torch, lambda: floor(s), reps=20, rounds=5)
+        out[first, "ooo", "latency floor"] = dict(ms=ms)
+        print(f"megakernel time {first} ooo latency floor K={MEGA_K}: device "
+              f"{ms * 1e3:.1f} us per chunk by CUDA-graph replay "
+              f"({ms * 1e3 / MEGA_K:.3f} us per cycle)", flush=True)
+        for name in (first, MEGA_TIMED_ROWS[-1]):
+            chunk_loop_times(torch, graphs, mk, name)
+    return out
+
+
+def chunk_loop_times(torch, graphs, mk, name, n=60):
+    """The engine's chunk loop (``overlay._run_chunks``) over ``n`` ``ooo``
+    chunks with one chunk in flight (the host reads ``done`` after each) and
+    with two (the next chunk queued first), in turns, against the same
+    chunks launched back to back with no read: wall per chunk."""
+    from repro_torch.core import overlay
+
+    cfg = overlay.OverlayConfig(scheduler="ooo", engine="megakernel")
+    g = overlay.device_graph(graphs.memory(name, "ooo"))
+    chunk = mk.make_mega_chunk_fn(g, cfg, MEGA_K)
+    got = {}
+    for depth in (1, 2, 2, 1, 0):
+        s = chunk(overlay.init_state(g, cfg))   # the leaf check, once
+        torch.cuda.synchronize()
+        c0 = int(s["cycle"])
+        t = time.perf_counter()
+        if depth:
+            overlay._run_chunks(chunk, s, [c0], [False], [c0 + MEGA_K * n],
+                                MEGA_K, depth)
+        else:
+            for _ in range(n):
+                s = chunk(s)
+        torch.cuda.synchronize()
+        got.setdefault(depth, []).append((time.perf_counter() - t) / n * 1e6)
+    print(f"megakernel chunk loop {name} ooo, {n} chunks: one in flight "
+          f"{got[1][0]:.1f} / {got[1][1]:.1f} us per chunk, two (queued) "
+          f"{got[2][0]:.1f} / {got[2][1]:.1f}, launches alone "
+          f"{got[0][0]:.1f}", flush=True)
 
 
 def batch_state(g, cfgs):
@@ -815,23 +952,26 @@ def mixed_batch(cap, pol, budget=100):
 
 def compare_batch_chunks(torch, mk, g, base, names, states, ks, label,
                          max_cycles=None):
-    """The batched kernel chunk against its plain version on clones of each
-    state: every leaf and the [K, B] trace equal as bit patterns."""
+    """The batched kernel chunk of each body (``bodies``) against its plain
+    version on clones of each state: every leaf and the [K, B] trace equal
+    as bit patterns."""
     err, cases = 0.0, 0
     for sname, st in states.items():
         for K in ks:
             want, want_tr = mk.mega_batch_chunk_plain(
                 g, base, K, names, with_trace=True,
                 max_cycles=max_cycles)(clone_state(st))
-            got, got_tr = mk.make_mega_chunk_fn(
-                g, base, K, names=names, with_trace=True,
-                max_cycles=max_cycles)(clone_state(st))
-            torch.cuda.synchronize()
-            err = max(err, state_err(torch, got, want))
-            if not torch.equal(got_tr, want_tr):
-                raise AssertionError(f"batched megakernel done trace "
-                                     f"differs: {label} {sname} K={K}")
-            cases += 1
+            for body in bodies(mk, g, names):
+                got, got_tr = mk.make_mega_chunk_fn(
+                    g, base, K, names=names, with_trace=True,
+                    max_cycles=max_cycles, body=body)(clone_state(st))
+                torch.cuda.synchronize()
+                err = max(err, state_err(torch, got, want))
+                if not torch.equal(got_tr, want_tr):
+                    raise AssertionError(f"batched megakernel done trace "
+                                         f"differs: {label} {sname} K={K} "
+                                         f"{body}")
+                cases += 1
     return err, cases
 
 
@@ -951,14 +1091,15 @@ def batch_chunk_ms(torch, mk, g, cfgs):
     return ms, call_ms, total
 
 
-def batch_scaling(torch, graphs, mk, solo_walls):
+def batch_scaling(torch, graphs, mk, solo_walls=None):
     """The first B configs of sweep_ooo for B in SCALING_B: wall and summed
     simulated cycles per second of ``run(batch=)``, the same B solo runs'
-    summed wall, device and host ms per K=32 batched chunk from cycle 0,
-    its bytes bound and the run's kernel launches; at BATCH_TIMED_B the plain
-    batched chunk too. Then the same chunk times of two batches with three
-    member policies at n29772: ``policy_sweep`` (B = 3) and ``sweep_mixed``
-    (B = 126). Returns {B: numbers}."""
+    summed wall (where ``solo_walls`` has them), device and host ms per K=32
+    batched chunk from cycle 0, its bytes bound and the run's kernel
+    launches; at BATCH_TIMED_B the plain batched chunk too. Then the same
+    chunk times of two batches with three member policies at n29772:
+    ``policy_sweep`` (B = 3) and ``sweep_mixed`` (B = 126). Returns {B:
+    numbers}."""
     import repro_torch
     from repro_torch.core.overlay import OverlayConfig, device_graph
 
@@ -977,8 +1118,9 @@ def batch_scaling(torch, graphs, mk, solo_walls):
         launches = mk.launches["mega_chunk_batched"]
         ms, call_ms, total = batch_chunk_ms(torch, mk, g, cfgs)
         n = dict(B=B, wall=wall, cycles=sum(r.cycles for r in rs),
-                 solo_wall=sum(solo_walls[:B]), ms=ms, call_ms=call_ms,
-                 bytes=total, launches=launches, shape=[B, *g["opcode"].shape])
+                 solo_wall=sum(solo_walls[:B]) if solo_walls else None, ms=ms,
+                 call_ms=call_ms, bytes=total, launches=launches,
+                 shape=[B, *g["opcode"].shape])
         if B == BATCH_TIMED_B:
             base, names, s0 = batch_state(g, cfgs)
             plain = mk.mega_batch_chunk_plain(g, base, MEGA_K, names)
@@ -986,8 +1128,10 @@ def batch_scaling(torch, graphs, mk, solo_walls):
         out[B] = n
         print(f"batch scaling {SWEEP_ROW} sweep_ooo B = {B}: wall "
               f"{wall:.3f} s, {n['cycles'] / wall:.0f} simulated cycles/s "
-              f"summed over elements ({n['cycles']} cycles); {B} solo runs "
-              f"{n['solo_wall']:.3f} s; device {ms * 1e3:.1f} us per K="
+              f"summed over elements ({n['cycles']} cycles); "
+              + (f"{B} solo runs {n['solo_wall']:.3f} s; "
+                 if solo_walls else "")
+              + f"device {ms * 1e3:.1f} us per K="
               f"{MEGA_K} chunk, host {call_ms * 1e3:.1f} us per call, bytes "
               f"bound {n['bytes'] / HBM_BYTES_PER_S * 1e6:.3f} us "
               f"({n['bytes']} bytes); {launches} mega_chunk_batched launches"
@@ -1042,18 +1186,33 @@ def profile_run(torch, run, cycles, label, unit="cycle"):
               f"{e.key[:100]}", flush=True)
 
 
-def profiles(torch, graphs):
+def profiles(torch, graphs, select=True):
     import repro_torch
+    from repro_torch.core import overlay
     from repro_torch.core.overlay import OverlayConfig
 
     gm = graphs.memory("n15072", "ooo")
-    select = OverlayConfig(scheduler="ooo", engine="select", max_cycles=300)
-    profile_run(torch, lambda: repro_torch.run(gm, select), 300,
-                "n15072 ooo select (first 300 cycles)")
+    if select:
+        cfg = OverlayConfig(scheduler="ooo", engine="select", max_cycles=300)
+        profile_run(torch, lambda: repro_torch.run(gm, cfg), 300,
+                    "n15072 ooo select (first 300 cycles)")
     golden = ROWS["n15072"][1]["ooo"]
     mega = OverlayConfig(scheduler="ooo", engine="megakernel")
     profile_run(torch, lambda: repro_torch.run(gm, mega), golden,
                 "n15072 ooo megakernel (whole run)")
+    # The chunk loop alone (run_state on a state built beforehand): the
+    # queued chunks without the run's set-up (graph upload, init_state,
+    # result unpacking).
+    g = overlay.device_graph(gm)
+    states = [overlay.init_state(g, mega) for _ in range(3)]
+    torch.cuda.synchronize()
+    profile_run(torch, lambda: overlay.run_state(g, mega, states.pop()),
+                golden, "n15072 ooo megakernel (chunk loop: run_state on a "
+                "built state)")
+    # The largest row, where the run's set-up is a small share of its wall.
+    big = "n470772"
+    profile_run(torch, lambda: repro_torch.run(graphs.memory(big, "ooo"), mega),
+                ROWS[big][1]["ooo"], f"{big} ooo megakernel (whole run)")
 
 
 # ---------------------------------------------------------------------------
@@ -1633,6 +1792,25 @@ def phase(name, fn, *args):
     return out
 
 
+def times_only(torch, np, mk, _build, args):
+    """``--times-only``: the megakernel's timings alone, for the package on
+    ``sys.path`` (this checkout's, or another's via ``--src``): the
+    megakernel main path's cycles/s and goldens on ``--mega-rows``, phase
+    11, the batch scaling without solo runs and the megakernel profile.
+    Uses only what every checkout's megakernel offers."""
+    print(f"times only: package {args.src}", flush=True)
+    phase("build", build_all, _build, [mk.SOURCE])
+    graphs = Graphs()
+    phase("main path megakernel", run_main_path, torch, np, graphs,
+          args.mega_rows, "megakernel", lambda: dict(mk.launches),
+          mk.reset_launches)
+    ours = Path(args.src).resolve() == (ROOT / "src").resolve()
+    phase("megakernel time", megakernel_times, torch, graphs, mk, ours)
+    phase("batch scaling", batch_scaling, torch, graphs, mk)
+    phase("profiles", profiles, torch, graphs, False)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", nargs="+", default=list(SELECT_ROWS),
@@ -1642,6 +1820,14 @@ def main() -> int:
                     choices=list(ROWS),
                     help="rows of the megakernel main paths, solo and "
                          "batched (default: %(default)s)")
+    ap.add_argument("--times-only", action="store_true",
+                    help="only the megakernel's timings: the main path's "
+                         "cycles/s, phase 11, the batch scaling and the "
+                         "megakernel profile (no JSON lines)")
+    ap.add_argument("--src", type=Path, default=ROOT / "src",
+                    help="with --times-only, the package to time: another "
+                         "checkout's src, to compare two commits in one run "
+                         "(default: this checkout's)")
     args = ap.parse_args()
 
     import numpy as np
@@ -1650,7 +1836,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    if args.src != ROOT / "src" and not args.times_only:
+        ap.error("--src needs --times-only")
+    sys.path.insert(0, str(args.src))
     from repro_torch.kernels import _build, lod
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import megakernel as mk
@@ -1658,6 +1846,8 @@ def main() -> int:
     print(card_line(), flush=True)   # name, power limit as nvidia-smi gives them
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
+    if args.times_only:
+        return times_only(torch, np, mk, _build, args)
     phase("build", build_all, _build, [lod.SOURCE, mk.SOURCE, fa.SOURCE])
 
     t = time.perf_counter()
@@ -1693,22 +1883,11 @@ def main() -> int:
                                       select_results)
     batch_counts = phase("batched main path", batched_main_path, torch, np,
                          graphs, args.mega_rows, mk, mega_results)
-    solo_walls = phase("full-card sweeps", full_card_sweeps, torch, np, graphs)
+    solo_walls = phase("full-card sweeps", full_card_sweeps, torch, np, graphs,
+                       mk)
     phase("batched select", batched_select, torch, np, lod)
 
-    mega_timed = {}
-    t = time.perf_counter()
-    for name in MEGA_TIMED_ROWS:
-        mt = mega_times(torch, graphs, mk, name)
-        mega_timed[name] = mt
-        print(f"megakernel time {name} {mt['shape']} K={MEGA_K}: device "
-              f"{mt['ms'] * 1e3:.1f} us per chunk "
-              f"({mt['ms'] * 1e3 / MEGA_K:.2f} us per cycle), plain "
-              f"{mt['plain_ms'] * 1e3:.1f} us per chunk, host "
-              f"{mt['call_ms'] * 1e3:.1f} us per call, bytes bound "
-              f"{mt['bytes'] / HBM_BYTES_PER_S * 1e6:.3f} us "
-              f"({mt['bytes']} bytes)", flush=True)
-    print(f"phase megakernel time: {time.perf_counter() - t:.1f} s", flush=True)
+    mega_timed = phase("megakernel time", megakernel_times, torch, graphs, mk)
     scaling = phase("batch scaling", batch_scaling, torch, graphs, mk,
                     solo_walls["sweep_ooo"])
     phase("profiles", profiles, torch, graphs)
@@ -1724,14 +1903,28 @@ def main() -> int:
             plain_ms=t_["plain_ms"], bound_ms=t_["bytes"] / HBM_BYTES_PER_S * 1e3,
             bound_by="bytes", library_ms=None, call_ms=t_["call_ms"],
             shape=list(TIMED_SHAPE)))
-    mt = mega_timed[MEGA_TIMED_ROWS[0]]
+    first = MEGA_TIMED_ROWS[0]
+    mt = mega_timed[first, "ooo", ""]
     line.append(dict(
         name="mega_chunk", route="cuda", source=MEGA_SOURCE,
         replaces=MEGA_REPLACES, launches=mega_counts["mega_chunk"],
         max_abs_err=mega_err, equal=mega_err == 0, ms=mt["ms"],
         plain_ms=mt["plain_ms"], bound_ms=mt["bytes"] / HBM_BYTES_PER_S * 1e3,
         bound_by="bytes", library_ms=None, call_ms=mt["call_ms"],
-        shape=mt["shape"], K=MEGA_K))
+        shape=mt["shape"], K=MEGA_K, body="shared",
+        body_launches=mega_counts["mega_chunk_shared"],
+        floor_ms=mega_timed[first, "ooo", "latency floor"]["ms"]))
+    gt = mega_timed[first, "ooo", "global body"]
+    line.append(dict(
+        name="mega_chunk_global", route="cuda", source=MEGA_SOURCE,
+        replaces=MEGA_REPLACES + " (grids whose links and RDY rows exceed "
+        "shared memory)", launches=mega_counts["mega_chunk_global"]
+        + batch_counts["mega_chunk_global"], max_abs_err=max(mega_err,
+                                                             batch_err),
+        equal=max(mega_err, batch_err) == 0, ms=gt["ms"],
+        plain_ms=mt["plain_ms"], bound_ms=gt["bytes"] / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes", library_ms=None, call_ms=gt["call_ms"],
+        shape=gt["shape"], K=MEGA_K, body="global"))
     bt = scaling[BATCH_TIMED_B]
     line.append(dict(
         name="mega_chunk_batched", route="cuda", source=MEGA_SOURCE,
@@ -1739,7 +1932,8 @@ def main() -> int:
         launches=batch_counts["mega_chunk_batched"], max_abs_err=batch_err,
         equal=batch_err == 0, ms=bt["ms"], plain_ms=bt["plain_ms"],
         bound_ms=bt["bytes"] / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=None, call_ms=bt["call_ms"], shape=bt["shape"], K=MEGA_K))
+        library_ms=None, call_ms=bt["call_ms"], shape=bt["shape"], K=MEGA_K,
+        body="shared", body_launches=batch_counts["mega_chunk_shared"]))
     line.append(flash)
     # The card's line again, where a reader of the output's tail finds it.
     print(card_line(), flush=True)

@@ -18,7 +18,7 @@ Engines (``OverlayConfig.engine``), identical in what they compute:
   * ``"select"`` (default): the scheduler pick and RDY clear go through the
     hand-written leading-one kernels of :mod:`repro_torch.kernels.lod`;
   * ``"tensor"``: the same cycle with the pick as plain tensor ops (the
-    counterpart of the reference's ``"jnp"`` engine);
+    reference's ``"jnp"`` engine; ``engine="jnp"`` names it too);
   * ``"megakernel"``: each K-cycle chunk is one launch of the hand-written
     kernel of :mod:`repro_torch.kernels.megakernel` on a CUDA state, the
     ``"tensor"`` chunk on a CPU state.
@@ -28,6 +28,9 @@ of ``done`` by the host. A completed overlay is a fixed point of the cycle
 function, so cycles simulated past completion change nothing but the cycle
 counter, which is repaired from the chunk's per-cycle done trace
 (:func:`make_chunk_fn`). Results are bit-identical for every ``check_every``.
+Under ``"megakernel"`` the host enqueues the next chunk before it reads the
+last one's ``done``, where the budget allows both, so the card need not wait
+on the host between chunks; a chunk on a done state is that fixed point.
 
 The cycle updates the state's slot planes (``pending``, ``operands``,
 ``value``, ``computed``) in place, and the megakernel every state tensor;
@@ -49,6 +52,8 @@ from .schedulers import row_gather as _row_gather
 
 #: Chunk execution engines (cycle-exact by construction, see OverlayConfig).
 ENGINES = ("tensor", "select", "megakernel")
+#: Other names of the engines: the reference's name of the ``"tensor"`` cycle.
+ENGINE_ALIASES = {"jnp": "tensor"}
 
 
 def alu(opcode, a, b):
@@ -81,8 +86,9 @@ class OverlayConfig:
     (1 | 2) ARE model knobs: see :func:`repro_torch.core.noc.router_cycle`.
 
     ``placement`` and ``telemetry`` exist for signature parity with the
-    reference; this port supports only their ``None`` defaults (identity
-    placement, no tracing) so far.
+    reference; this port supports only the identity placement (``None`` or
+    ``"identity"``, stored as ``None``) and no tracing so far. ``engine``
+    also takes the reference's ``"jnp"``, stored as ``"tensor"``.
     """
 
     scheduler: str = "ooo"           # any name in schedulers.REGISTRY
@@ -91,23 +97,29 @@ class OverlayConfig:
     max_cycles: int = 1_000_000
     check_every: int | None = None   # cycles per termination check; None=auto
     eject_policy: str = "n_first"    # NoC eject arbitration (see noc.py)
-    placement: Any = None            # only None (identity placement) so far
+    placement: Any = None            # None or "identity" so far
     #: "select" (leading-one kernels per cycle), "tensor" (plain tensor
-    #: ops) or "megakernel" (one kernel launch per K-cycle chunk).
+    #: ops; "jnp" names it too) or "megakernel" (one kernel launch per
+    #: K-cycle chunk).
     engine: str = "select"
     telemetry: Any = None            # only None (tracing off) so far
 
     def __post_init__(self):
-        if self.engine not in ENGINES:
+        engine = ENGINE_ALIASES.get(self.engine, self.engine)
+        if engine not in ENGINES:
             raise ValueError(
-                f"engine must be one of {ENGINES}, got {self.engine!r}")
-        if self.placement is not None:
+                f"engine must be one of {ENGINES} (or {tuple(ENGINE_ALIASES)}"
+                f"), got {self.engine!r}")
+        object.__setattr__(self, "engine", engine)
+        if self.placement is not None and self.placement != "identity":
             raise NotImplementedError(
-                "only identity placement is ported so far; placement "
-                "strategies come with ROADMAP queue 1, item 9")
+                f"only the identity placement (None or 'identity') is ported "
+                f"so far, got {self.placement!r}; placement strategies come "
+                f"with ROADMAP queue 1, item 3")
+        object.__setattr__(self, "placement", None)
         if self.telemetry is not None:
             raise NotImplementedError(
-                "telemetry is not ported yet (ROADMAP queue 1, item 7)")
+                "telemetry is not ported yet (ROADMAP queue 1, item 2)")
         if self.select_latency is not None and self.select_latency < 1:
             raise ValueError(
                 f"select_latency must be >= 1 exposed cycle (or None for the "
@@ -484,6 +496,81 @@ def make_engine_chunk_fn(g: DeviceGraph, cfg: OverlayConfig, check_every: int,
         check_every, max_cycles=max_cycles)
 
 
+class _DoneReader:
+    """The ``done`` flags after each chunk in flight, read in order. On the
+    card each lands in a pinned host slot behind a CUDA event, so the host
+    reads chunk n's flags while chunk n+1 runs: written there by the chunk
+    itself where it takes ``done_to`` (the megakernel), else copied; on the
+    CPU a clone."""
+
+    def __init__(self, done: torch.Tensor, depth: int, direct: bool):
+        self.device = done.device
+        self.queue = []
+        self.direct = direct and self.device.type == "cuda"
+        if self.device.type == "cuda":
+            self.slots = []
+            for _ in range(depth):
+                host = torch.empty(done.shape, dtype=done.dtype,
+                                   pin_memory=True)
+                self.slots.append((host, host.numpy().reshape(-1),
+                                   torch.cuda.Event()))
+            self.next = 0
+
+    def target(self):
+        """The pinned slot the next chunk writes its flags into, or None."""
+        return self.slots[self.next][0] if self.direct else None
+
+    def push(self, done: torch.Tensor) -> None:
+        if self.device.type != "cuda":
+            self.queue.append(done.clone())
+            return
+        host, view, event = self.slots[self.next]
+        self.next = (self.next + 1) % len(self.slots)
+        if not self.direct:
+            host.copy_(done, non_blocking=True)
+        if torch.cuda.current_device() == self.device.index:
+            event.record()
+        else:
+            event.record(torch.cuda.current_stream(self.device))
+        self.queue.append((view, event))
+
+    def pop(self) -> list:
+        item = self.queue.pop(0)
+        if self.device.type != "cuda":
+            return item.reshape(-1).tolist()
+        view, event = item
+        event.synchronize()
+        return view.tolist()
+
+
+def _run_chunks(chunk, state, cycle, done, budget, K: int, depth: int):
+    """Whole chunks while some element runs (not done, under its budget) and
+    every element that is not done has a full chunk of budget left. With
+    ``depth`` 2 the next chunk is enqueued before the host reads the last
+    one's ``done``, where every such element's budget allows both; a chunk
+    on a done state leaves it as it is (the fixed point, its cycle kept), so
+    the results are those of ``depth`` 1. ``cycle``, ``done`` and ``budget``
+    are lists, one entry per element; returns (state, cycle, done)."""
+    reader = _DoneReader(state["done"], depth,
+                         getattr(chunk, "writes_done", False))
+    inflight = 0
+    while True:
+        while (inflight < depth
+               and any(not d and c < m for c, d, m in zip(cycle, done, budget))
+               and all(d or c + (inflight + 1) * K <= m
+                       for c, d, m in zip(cycle, done, budget))):
+            target = reader.target()
+            state = chunk(state) if target is None else chunk(state, target)
+            reader.push(state["done"])
+            inflight += 1
+        if not inflight:
+            return state, cycle, done
+        now = reader.pop()
+        inflight -= 1
+        cycle = [c if d else c + K for c, d in zip(cycle, done)]
+        done = now
+
+
 @dataclasses.dataclass
 class SimResult:
     cycles: int
@@ -502,9 +589,11 @@ def run_state(g: DeviceGraph, cfg: OverlayConfig, state: dict) -> dict:
     one fits the budget, then cycle by cycle. The host reads ``done`` once
     per chunk (and once per tail cycle).
 
-    The megakernel engine chunks even at K=1 and runs its tail as chunks of
-    one cycle, so every cycle of its run goes through its kernel on the
-    card; a chunk of one cycle is that cycle, bit for bit."""
+    The megakernel engine keeps one chunk queued: it enqueues chunk n+1
+    before it reads chunk n's ``done``, while ``cycle + 2K`` fits the budget
+    (see :func:`_run_chunks`). It chunks even at K=1 and runs its tail as
+    chunks of one cycle, so every cycle of its run goes through its kernel
+    on the card; a chunk of one cycle is that cycle, bit for bit."""
     nx, ny, L = g["opcode"].shape
     K = resolve_check_every(cfg, nx, ny, L, device_type=g["opcode"].device.type)
     mega = cfg.engine == "megakernel"
@@ -512,10 +601,9 @@ def run_state(g: DeviceGraph, cfg: OverlayConfig, state: dict) -> dict:
     cycle, done = int(state["cycle"]), bool(state["done"])
     if K > 1 or mega:
         chunk = make_engine_chunk_fn(g, cfg, K, cycle_fn=cycle_fn)
-        while not done and cycle + K <= cfg.max_cycles:
-            state = chunk(state)
-            done = bool(state["done"])
-            cycle += K      # exact while not done
+        state, (cycle,), (done,) = _run_chunks(
+            chunk, state, [cycle], [done], [cfg.max_cycles], K,
+            2 if mega else 1)
     step = make_engine_chunk_fn(g, cfg, 1) if mega else cycle_fn
     while not done and cycle < cfg.max_cycles:
         state = step(state)
@@ -612,8 +700,10 @@ def run_batch_state(g: DeviceGraph, cfg: OverlayConfig, names, state: dict,
     runs cycle by cycle and freezes each element that is done or at its
     budget. The host reads ``done`` [B] once per chunk and tail cycle.
 
-    As in :func:`run_state`, the megakernel engine runs its tail as chunks
-    of one cycle, so every cycle of its batch goes through its kernel."""
+    As in :func:`run_state`, the megakernel engine keeps one chunk queued
+    while every running element's budget allows it, and runs its tail as
+    chunks of one cycle, so every cycle of its batch goes through its
+    kernel."""
     nx, ny, L = g["opcode"].shape
     dev = g["opcode"].device
     K = resolve_check_every(cfg, nx, ny, L, device_type=dev.type)
@@ -626,15 +716,10 @@ def run_batch_state(g: DeviceGraph, cfg: OverlayConfig, names, state: dict,
     def running():
         return [not d and c < m for c, d, m in zip(cycle, done, budget)]
 
-    def overruns():
-        return any(not d and c + K > m for c, d, m in zip(cycle, done, budget))
-
     if K > 1 or mega:
         chunk = make_engine_chunk_fn(g, cfg, K, cycle_fn=cycle_fn, names=names)
-        while any(running()) and not overruns():
-            state = chunk(state)
-            cycle = [c if d else c + K for c, d in zip(cycle, done)]
-            done = state["done"].tolist()
+        state, cycle, done = _run_chunks(chunk, state, cycle, done, budget, K,
+                                         2 if mega else 1)
     step = make_engine_chunk_fn(
         g, cfg, 1, cycle_fn=cycle_fn, names=names,
         max_cycles=torch.tensor(budget, dtype=torch.int32, device=dev))

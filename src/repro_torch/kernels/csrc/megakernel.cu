@@ -12,51 +12,82 @@
 // state leaf has a leading [B] axis, the trace is [K, B] and the repair runs
 // per element.
 //
+// What bounds it. A chunk moves ~1.3 MB at 16x16 x 64 slots (0.39 us at
+// 3.35 TB/s), but a simulated cycle is a serial step: every PE's cycle needs
+// its neighbours' links of the cycle before, so one CTA steps one simulation
+// with a barrier per cycle. Within a cycle each thread touches its own PE's
+// rows, so every lane of a global load or store hits its own cache line and
+// costs the SM's L1 one wavefront: the number of such accesses a cycle, and
+// the chain of dependent instructions between two barriers, set the pace
+// (PERF.md). The design cuts both.
+//
 // Design. One CTA per simulation (blockIdx.x = batch element b; the solo
-// form is B = 1 with one member policy), one thread per PE. Nearly every
-// update of a cycle is local to one PE: inject reads the PE's own edge
-// records and value, ejects land in the PE's own slot planes, on_ready and
-// step touch the PE's own scheduler row. Only two things cross PEs: the
-// Hoplite link registers (read from the west and north neighbour's previous
-// cycle) and the termination predicate and stat counters (grid-wide sums).
-// So the K cycles run as a loop inside one block: the links are
-// double-buffered by cycle parity in the element's own global scratch
-// (L1/L2 resident), and one __syncthreads ends each cycle, after each warp
-// has written its partial sums; warp 0 reduces them and thread 0 keeps the
-// counters and writes the done trace. Each thread loops over its PEs (one
-// up to 512 PEs) and loads and stores a PE's own registers (active, cursor,
-// scheduler head/size/pointer) around its cycle. Keeping those registers in
-// the thread and the links in shared memory was timed at 16x16: no faster.
-// The graph memory is shared by the batch and read only, so B CTAs read it
-// from HBM into L2 once.
+// form is B = 1), one PE a thread up to 512 PEs (four above), one barrier
+// per cycle. Everything a cycle touches is local to one PE except the
+// Hoplite links (read from the west and north neighbours of the cycle
+// before) and the termination predicate.
+//  * The PE's registers stay in registers for the whole chunk: active,
+//    {cursor, cursor_end}, sel_wait, the inorder head/size with the FIFO's
+//    head entry (and an inactive inorder member's head/size) or the rotating
+//    pointer, the active node's value (the injection packet's payload) and
+//    the edge record at the cursor. The injection packet and the router start
+//    from registers and shared memory alone. What changes is reloaded at the
+//    end of the cycle by predicated loads straight into the registers, only
+//    in the lanes that need it, so nothing waits before the barrier.
+//  * Links live in shared memory, double-buffered by cycle parity, a packet
+//    as two int4, read from link_e/link_s at the start of the chunk and
+//    written back at its end.
+//  * The active member's RDY rows live in shared memory for the chunk (at an
+//    odd stride, copied in and out coalesced), with a per-PE summary of the
+//    non-zero words (the paper's OuterLOD) and a top word over the summary
+//    words in a register. The ooo pick is the paper's two-level leading-one
+//    detect: __clz of the top word, of one summary word and of one RDY word,
+//    never a loop over the row. The rotating pick (scan, lru_flat) masks the
+//    word at its pointer, then the summary and the top word past it, and
+//    falls back to the first set slot. An inactive member's on_ready sets its
+//    bit with an atomicOr that returns nothing.
+//  * At eject capacity 1 the ejected packet is known from the link packets
+//    before the router runs (unless the PE's own packet takes a free port),
+//    so its cell is loaded then. An invalid packet only adds +0.0 to its
+//    operand cell and to the slot's value: its lane loads those two (none
+//    while it repeats a cell it already normalized) and stores only where the
+//    bits change; a valid packet's lane loads the rest of the cell (pending,
+//    computed, the other operand, and the slot's record of a graph table
+//    packing fo_base, fo_base + fo_count, opcode and fo_count with the first
+//    edge record, so a pick needs one record). Capacity 2 loads both ports'
+//    cells whole and resolves a shared slot in registers. Graph tables go
+//    through the read-only path.
+//  * The termination predicate rides on the barrier (__syncthreads_or over
+//    "this PE is busy"). A quiet overlay is a fixed point: nothing fires
+//    after its first quiet cycle, so the cycle is done iff it is quiet and
+//    the chunk's fired total leaves no node uncomputed. The stat counters
+//    are summed in registers and reduced once per chunk. Thread 0 can also
+//    write each element's done flag into pinned host memory (done_host), so
+//    the host loop reads it behind an event with no copy.
+// Where links, RDY rows and summaries do not fit in 227 KB of shared memory
+// (e.g. 2,304 PEs at 48x48), the plan of kernels/megakernel.py (a function
+// of the shapes alone) takes the `global` body: the same code with links in
+// device scratch, RDY rows in the member's state tensor and the summaries in
+// device scratch. Each body is its own instantiation.
 //
 // Batched state. Each element's slice of a leaf is contiguous, at the
 // element strides the wrapper passes (s_plane, s_pe, s_words, s_links);
 // offsets are size_t. The scheduler state is a composite of member
 // policies (repro_torch/core/schedulers.py BatchedScheduler): each CTA
 // reads its element's policy_id and runs that member's pick, a CTA-uniform
-// switch over the Policy template bodies, so nothing diverges inside a CTA;
-// on_ready updates every member's state (set bits in each RDY row, push
-// into each FIFO), step commits only the active member. With max_cycles
-// set (the tail), a CTA whose element is done or at its own budget leaves
-// every leaf untouched and writes its done flag into its trace column.
-//
-// Bound. A solo chunk's bytes are the graph leaves it reads (opcode, fanout
-// ranges, edge records) read once and the state leaves read and written
-// once: ~1.3 MB at 16x16 x 64 slots, 0.39 us at 3.35 TB/s; a batched chunk
-// reads the graph once and B elements' state. The kernel is bound instead
-// by the latency of one SM's dependent loads of graph memory and slot
-// planes (L2-resident at these sizes) and its per-cycle barrier; a batch
-// runs its B simulations on B SMs side by side. The design keeps all K
-// cycles in one launch, so the ~175 host launches per cycle of the eager
-// engine become one launch per chunk.
+// switch, so nothing diverges inside a CTA; on_ready updates every member's
+// state (set bits in each RDY row, push into each FIFO), step commits only
+// the active member. With max_cycles set (the tail), a CTA whose element is
+// done or at its own budget leaves every leaf untouched and writes its done
+// flag into its trace column.
 //
 // Exactness. Every state leaf matches the eager engine bit for bit,
 // including fields of invalid packets on the links and the sign of zero in
 // the float planes (each eject port adds +0.0 at its clamped cell even when
 // invalid, as the eager scatter does). Floats use __fadd_rn/__fmul_rn/
 // __fdiv_rn, which are never contracted into FMAs. RDY words are int32
-// storage of the uint32 pattern; slot s is bit 31 - s%32 of word s/32.
+// storage of the uint32 pattern; slot s is bit 31 - s%32 of word s/32, and
+// summary word j's bit 31 - w%32 marks RDY word w = 32 j + w%32.
 //
 // Interface. A plain C entry point for ctypes: mega_chunk(args, eject,
 // stream) takes the tensors' pointers in one struct (MegaArgs), launches B
@@ -71,15 +102,26 @@ namespace {
 
 enum Policy { kOoo = 0, kInorder = 1, kRotating = 2 };
 enum Eject { kNFirst = 0, kPriority = 1, kCap2 = 2 };
+enum Body { kShared = 0, kGlobal = 1 };
 enum Field { kValid = 0, kDstX, kDstY, kDstSlot, kOpidx, kValue, kFields };
-enum Stat { kFired = 0, kDelivered, kDNoc, kDEj, kBusyPes, kStats };
+enum Stat { kFired = 0, kDelivered, kDNoc, kDEj, kStats };
 
-// 512 threads a CTA leave a thread 128 registers (at 1024, 64 spilled);
-// larger grids loop over PEs.
-constexpr int kMaxThreads = 512;
+// One PE a thread up to 512 threads (128 registers a thread, the cycle's
+// state without spills); above, 4 PEs a thread on up to 576 threads cover
+// 2,304 PEs (48x48).
+constexpr int kMaxThreads = 576;
+constexpr int kMaxThreadsPpt1 = 512;
 constexpr int kMaxMembers = 4;  // the registered policies
 constexpr int kMaxWarps = kMaxThreads / 32;
-constexpr unsigned kAllLanes = 0xFFFFFFFFu;
+// A packet in shared memory (or the global body's scratch) is 8 ints, two
+// int4: {valid, dst_x, dst_y, dst_slot}, {opidx, value, 0, 0}. Links are
+// [2 parities][2 (E, S)][Pp][8]: 32 ints a PE.
+constexpr int kPktInts = 8;
+constexpr int kLinkInts = 2 * 2 * kPktInts;
+constexpr int kMaxSummaryWords = 32;    // the top word's bits
+constexpr int kSharedBytes = 232448;    // a CTA's shared memory on sm_90
+constexpr unsigned kAll = 0xFFFFFFFFu;
+constexpr unsigned kTop = 0x80000000u;
 
 constexpr int OP_ADD = 1, OP_SUB = 2, OP_MUL = 3, OP_DIV = 4;
 constexpr float kDivEps = 1e-3f;
@@ -101,13 +143,12 @@ struct Member {
 // Field order mirrors kernels/megakernel.py::_Args. Every state leaf has a
 // leading [B] axis (B = 1 in the solo form); scalars are [B].
 struct MegaArgs {
-  // graph memory, read only, shared by the batch
-  const int32_t* opcode;       // [P, L]
-  const int32_t* fo_base;      // [P, L]
-  const int32_t* fo_count;     // [P, L]
-  const int32_t* e_dst_pe;     // [P, emax]
-  const int32_t* e_dst_slot;   // [P, emax]
-  const int32_t* e_dst_opidx;  // [P, emax]
+  // graph tables the wrapper builds from the graph leaves, read only,
+  // shared by the batch
+  const int4* slot_info;  // [P, L, 2]: {fo_base, fo_base + fo_count,
+                          // opcode, fo_count}, then the edge record at
+                          // clamp(fo_base, 0, emax - 1)
+  const int4* edges;      // [P, emax]: {dst_x, dst_y, dst_slot, dst_opidx}
   // state, updated in place
   int32_t* pending;    // [B, P, L]
   float* operands;     // [B, P, L, 2]
@@ -132,11 +173,24 @@ struct MegaArgs {
   const int32_t* max_cycles;  // [B] budgets, or null: no freeze
   // scratch from the wrapper
   uint8_t* trace;          // [K, B] bool
-  int32_t* link_scratch;   // [B, 2, 2, 6, P] links of the cycle's two parities
+  int32_t* link_scratch;   // global body: [B, 2, 2, Pp, 8] links by parity
+  uint32_t* sum_scratch;   // global body: [B, S, Pp] RDY summaries
+  // [B] pinned host memory that also receives each element's done flag at
+  // the end of the chunk (the host loop reads it without a copy), or null
+  uint8_t* done_host;
   Member members[kMaxMembers];
   // element strides of the [B, ...] leaves, in elements
   int64_t s_plane, s_pe, s_words, s_links;
   int32_t nx, ny, L, W, emax, K, B, n_members;
+  // the plan: body, PEs a thread, threads a CTA, PE stride of the link,
+  // RDY and summary rows (P rounded up to 32), summary words a PE, and the
+  // dynamic shared memory of the shared body
+  int32_t body, ppt, threads, Pp, S, smem_bytes;
+  // 1: leave out every PE's cycle, keeping the chunk's loads and stores,
+  // its barriers and its reductions (a latency floor for measurement; the
+  // state it leaves is not a simulation's)
+  int32_t floor_only;
+  int32_t eject;  // Eject; set by the entry point
 };
 
 namespace {
@@ -145,14 +199,18 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
 
-// Floor division and modulo, as torch's // and % compute them on ints.
-__device__ __forceinline__ int floordiv(int a, int b) {
-  int q = a / b;
-  if ((a % b != 0) && ((a < 0) != (b < 0))) --q;
-  return q;
-}
+// Floor modulo, as torch's % computes it on ints.
 __device__ __forceinline__ int floormod(int a, int b) {
-  return a - floordiv(a, b) * b;
+  const int r = a % b;
+  return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
+}
+
+// floormod(v, L) without a division where v is in [0, 2L), as it is in
+// every state a run reaches (head, size and pointers stay in [0, L]).
+__device__ __forceinline__ int wrap(int v, int L) {
+  if (static_cast<unsigned>(v) < static_cast<unsigned>(2 * L))
+    return v >= L ? v - L : v;
+  return floormod(v, L);
 }
 
 __device__ __forceinline__ float alu(int op, float a, float b) {
@@ -169,158 +227,278 @@ struct Pkt {
   int f[kFields];
 };
 
+__device__ __forceinline__ Pkt link_read(const int* buf, int p) {
+  const int4 lo = reinterpret_cast<const int4*>(buf)[2 * p];
+  const int4 hi = reinterpret_cast<const int4*>(buf)[2 * p + 1];
+  return Pkt{{lo.x, lo.y, lo.z, lo.w, hi.x, hi.y}};
+}
+
+__device__ __forceinline__ void link_write(int* buf, int p, const Pkt& k) {
+  reinterpret_cast<int4*>(buf)[2 * p] =
+      make_int4(k.f[kValid], k.f[kDstX], k.f[kDstY], k.f[kDstSlot]);
+  reinterpret_cast<int4*>(buf)[2 * p + 1] =
+      make_int4(k.f[kOpidx], k.f[kValue], 0, 0);
+}
+
 // pk_invalidate: only `valid` changes; every other field is kept.
 __device__ __forceinline__ Pkt invalidated(Pkt p, bool keep) {
   if (!keep) p.f[kValid] = 0;
   return p;
 }
 
-// A PE's own registers, carried across cycles.
-struct PeRegs {
-  int active, cursor, cursor_end, sel_wait;
-  int head, size, ptr;  // the active member's inorder head/size or pointer
+// A PE's registers for the chunk.
+struct Pe {
+  int p;             // the PE's index, or -1: this thread has no such PE
+  int nb;            // west neighbour << 16 | north neighbour
+  int xy;            // x << 16 | y
+  int active, sel_wait;
+  int4 fo;           // {cursor, cursor_end, -, -}
+  int hs;            // inorder head, or the rotating pointer
+  int size;          // inorder FIFO size
+  int fhead;         // inorder: the FIFO entry at clamp(head, 0, L - 1)
+  int ihead, isize;  // an inactive inorder member's FIFO head and size
+  int clean;         // 2 slot + opidx of the cell an invalid packet last
+                     // normalized (neither it nor the slot's value is -0.0
+                     // or NaN since), or -1
+  uint32_t top;      // bit j: summary word j is non-zero
+  float aval;        // value at clamp(active, 0, L - 1)
+  int4 cur;          // the edge record at clamp(cursor, 0, emax - 1)
 };
 
-// gp: the PE's index in the [B, P] leaves.
-template <int POLICY>
-__device__ __forceinline__ PeRegs load_regs(const MegaArgs& a,
-                                            const Member& m, size_t gp) {
-  PeRegs r;
-  r.active = a.active[gp];
-  r.cursor = a.cursor[gp];
-  r.cursor_end = a.cursor_end[gp];
-  r.sel_wait = a.sel_wait[gp];
-  r.head = POLICY == kInorder ? m.head[gp] : 0;
-  r.size = POLICY == kInorder ? m.size[gp] : 0;
-  r.ptr = POLICY == kRotating ? m.ptr[gp] : 0;
-  return r;
+// One eject cell's data: the operand pair, pending, computed, value and the
+// slot's first table record.
+struct Cell {
+  float2 opnd;
+  int pend;
+  int was;
+  float val;
+  int4 info;
+};
+
+// The element's view of the state, the active member's RDY rows and
+// summaries (in shared memory or device memory by body) and the chunk's
+// per-thread sums.
+struct Elem {
+  int32_t* pending;
+  float* operands;
+  uint8_t* computed;
+  float* value;
+  const int4* info;
+  const int4* edges;
+  uint32_t* rdy;      // word w of PE p at rdy[w * rws + p * rps]
+  uint32_t* sum;      // word j of PE p at sum[j * Pp + p]
+  int32_t* fifo;      // the active member's FIFO (inorder)
+  int rws, rps;
+  int L, W, emax, Pp;
+  int b, act, sel_lat;
+  bool prio;          // eject arbitration at capacity 1: priority
+  bool others;        // the batch has members besides the active one
+  int32_t* ififo;     // an inactive inorder member's FIFO (element's), or null
+  int st[kStats];
+};
+
+__device__ __forceinline__ int4 ldg4(const int4* p) { return __ldg(p); }
+
+// Loads straight into a live register where `p` holds, in the lanes where
+// it holds: a lane that keeps its register issues no access, and nothing
+// waits until the register is next read. ldg_if reads a graph table
+// (read-only path); ld_if a state leaf this kernel writes (ordered after
+// the thread's stores).
+__device__ __forceinline__ void ldg_if(bool p, int4& dst, const int4* src) {
+  asm volatile(
+      "{ .reg .pred q; setp.ne.b32 q, %5, 0; "
+      "@q ld.global.nc.v4.s32 {%0, %1, %2, %3}, [%4]; }"
+      : "+r"(dst.x), "+r"(dst.y), "+r"(dst.z), "+r"(dst.w)
+      : "l"(src), "r"(static_cast<int>(p)));
+}
+__device__ __forceinline__ void ld_if(bool p, float& dst, const float* src) {
+  asm volatile(
+      "{ .reg .pred q; setp.ne.b32 q, %2, 0; @q ld.global.f32 %0, [%1]; }"
+      : "+f"(dst)
+      : "l"(src), "r"(static_cast<int>(p))
+      : "memory");
+}
+__device__ __forceinline__ void ld_if(bool p, int& dst, const int* src) {
+  asm volatile(
+      "{ .reg .pred q; setp.ne.b32 q, %2, 0; @q ld.global.s32 %0, [%1]; }"
+      : "+r"(dst)
+      : "l"(src), "r"(static_cast<int>(p))
+      : "memory");
+}
+__device__ __forceinline__ void ld_if(bool p, int& dst, const uint8_t* src) {
+  asm volatile(
+      "{ .reg .pred q; setp.ne.b32 q, %2, 0; @q ld.global.u8 %0, [%1]; }"
+      : "+r"(dst)
+      : "l"(src), "r"(static_cast<int>(p))
+      : "memory");
 }
 
-template <int POLICY>
-__device__ __forceinline__ void store_regs(const MegaArgs& a, const Member& m,
-                                           size_t gp, const PeRegs& r) {
-  a.active[gp] = r.active;
-  a.cursor[gp] = r.cursor;
-  a.cursor_end[gp] = r.cursor_end;
-  a.sel_wait[gp] = r.sel_wait;
-  if (POLICY == kInorder) {
-    m.head[gp] = r.head;
-    m.size[gp] = r.size;
+// The leading one of a word: its count of leading zeros (32 for 0).
+__device__ __forceinline__ int clz(uint32_t v) {
+  return __clz(static_cast<int>(v));
+}
+
+// c: the cell's index in the element's [P, L] planes (P * L < 2^31).
+__device__ __forceinline__ Cell load_cell(const Elem& el, int c) {
+  Cell d;
+  d.opnd = reinterpret_cast<const float2*>(el.operands)[c];
+  d.pend = el.pending[c];
+  d.was = el.computed[c];
+  d.val = el.value[c];
+  d.info = ldg4(el.info + 2 * c);
+  return d;
+}
+
+// on_ready of an RDY member that is not the element's active policy: the
+// slot's bit is or-ed into its row in device memory, with no value
+// returned, so nothing waits on it.
+__device__ __forceinline__ void member_set(const Member& m, size_t wrow,
+                                          int slot) {
+  atomicOr(m.rdy + wrow + (slot >> 5), kTop >> (slot & 31));
+}
+
+// Set slot s of PE p's RDY row, its summary bit and its top bit.
+__device__ __forceinline__ void rdy_set(const Elem& el, int Pp, int p, int s,
+                                        uint32_t& top) {
+  const int w = s >> 5, j = w >> 5;
+  el.rdy[w * el.rws + p * el.rps] |= kTop >> (s & 31);
+  el.sum[j * Pp + p] |= kTop >> (w & 31);
+  top |= kTop >> j;
+}
+
+// Clear slot s, whose RDY word is `word`; empty words leave the summary,
+// empty summary words the top word.
+__device__ __forceinline__ void rdy_clear(const Elem& el, int Pp, int p, int s,
+                                          uint32_t word, uint32_t& top) {
+  const int w = s >> 5, j = w >> 5;
+  const uint32_t nw = word & ~(kTop >> (s & 31));
+  el.rdy[w * el.rws + p * el.rps] = nw;
+  if (nw == 0) {
+    const uint32_t ns = el.sum[j * Pp + p] & ~(kTop >> (w & 31));
+    el.sum[j * Pp + p] = ns;
+    if (ns == 0) top &= ~(kTop >> j);
   }
-  if (POLICY == kRotating) m.ptr[gp] = r.ptr;
 }
 
-// on_ready of a member that is not the element's active policy: its state
-// lives in device memory only. A FIFO takes the push at head + size; an RDY
-// row gets the slot's bit.
-__device__ __forceinline__ void member_on_ready(const Member& m, size_t gp,
-                                                size_t row, size_t wrow,
-                                                int L, int slot) {
-  if (m.kind == kInorder) {
-    const int size = m.size[gp];
-    m.fifo[row + floormod(m.head[gp] + size, L)] = slot;
-    m.size[gp] = size + 1;
-  } else {
-    m.rdy[wrow + (slot >> 5)] |= 0x80000000u >> (slot & 31);
-  }
+// The first set slot of a non-empty row (top != 0): three leading-one
+// detects. Returns the slot and its RDY word.
+__device__ __forceinline__ int rdy_first(const Elem& el, int Pp, int p,
+                                         uint32_t top, uint32_t* word) {
+  const int j = clz(top);
+  const int w = j * 32 + clz(el.sum[j * Pp + p]);
+  *word = el.rdy[w * el.rws + p * el.rps];
+  return w * 32 + clz(*word);
 }
 
-// Leading-one picks over one PE's RDY row. `nonzero` counts the row's
-// nonzero words, for the scheduler-empty test.
-__device__ __forceinline__ int lod_row(const uint32_t* row, int W,
-                                       int* nonzero) {
-  int best = -1, nz = 0;
-  for (int w = 0; w < W; ++w) {
-    const uint32_t v = row[w];
-    if (v) {
-      ++nz;
-      if (best < 0) best = w * 32 + __clz(static_cast<int>(v));
+// The first set slot at or after ptr, wrapping: the word at ptr masked to
+// the slots from ptr on, then the words after it through the summary and
+// the top word; else the first set slot of the row.
+__device__ __forceinline__ int rdy_rotating(const Elem& el, int Pp, int p,
+                                            int L, int ptr, uint32_t top,
+                                            uint32_t* word) {
+  if (static_cast<unsigned>(ptr) < static_cast<unsigned>(L)) {
+    const int pw = ptr >> 5, pj = pw >> 5;
+    const uint32_t wv = el.rdy[pw * el.rws + p * el.rps];
+    const uint32_t m = wv & (kAll >> (ptr & 31));
+    if (m) {
+      *word = wv;
+      return pw * 32 + clz(m);
+    }
+    int w = -1;
+    const uint32_t sv =
+        (pw & 31) == 31 ? 0u : el.sum[pj * Pp + p] & (kAll >> ((pw & 31) + 1));
+    if (sv) {
+      w = pj * 32 + clz(sv);
+    } else {
+      const uint32_t tv = pj == 31 ? 0u : top & (kAll >> (pj + 1));
+      if (tv) {
+        const int j = clz(tv);
+        w = j * 32 + clz(el.sum[j * Pp + p]);
+      }
+    }
+    if (w >= 0) {
+      *word = el.rdy[w * el.rws + p * el.rps];
+      return w * 32 + clz(*word);
     }
   }
-  *nonzero = nz;
-  return best;
+  return rdy_first(el, Pp, p, top, word);
 }
 
-__device__ __forceinline__ int rotating_lod_row(const uint32_t* row, int W,
-                                                int ptr, int* nonzero) {
-  const int pw = ptr >> 5;
-  const uint32_t at_ptr_word = kAllLanes >> (ptr & 31);
-  int best_all = -1, best_hi = -1, nz = 0;
-  for (int w = 0; w < W; ++w) {
-    const uint32_t v = row[w];
-    if (v) {
-      ++nz;
-      if (best_all < 0) best_all = w * 32 + __clz(static_cast<int>(v));
-    }
-    const uint32_t m = v & (w > pw ? kAllLanes : (w < pw ? 0u : at_ptr_word));
-    if (m && best_hi < 0) best_hi = w * 32 + __clz(static_cast<int>(m));
-  }
-  *nonzero = nz;
-  return best_hi >= 0 ? best_hi : best_all;
-}
+// One cycle of PE r.p. `in` holds the previous cycle's links, `out`
+// receives this cycle's; both are [2 (E, S)][Pp][8]. Returns whether the PE
+// is busy (not quiet) at the end of the cycle.
+template <int POLICY, bool CAP2>
+__device__ __forceinline__ bool pe_cycle(const MegaArgs& a, Elem& el, Pe& r,
+                                         const int* in, int* out) {
+  constexpr int E = CAP2 ? 2 : 1;
+  const int L = el.L, Pp = el.Pp, p = r.p;
+  const int x = r.xy >> 16, y = r.xy & 0xFFFF;
+  const int pw = r.nb >> 16, pn = r.nb & 0xFFFF;
+  const int row = p * L;  // the PE's first cell in the element's planes
 
-// One cycle of PE p of element b, whose active member is `am` (index act).
-// `in` holds the previous cycle's links, `out` receives this cycle's; both
-// are the element's [2 (E, S), 6, P]. Adds this PE's terms to `st`.
-template <int POLICY, int EJECT>
-__device__ __forceinline__ void pe_cycle(const MegaArgs& a, const Member& am,
-                                         int act, int b, int p, PeRegs& r,
-                                         const int* in, int* out, int sel_lat,
-                                         int st[kStats]) {
-  constexpr int E = EJECT == kCap2 ? 2 : 1;
-  const int nx = a.nx, ny = a.ny, L = a.L, P = nx * ny;
-  const int x = p / ny, y = p - (p / ny) * ny;
-  const size_t grow = static_cast<size_t>(p) * L;             // graph planes
-  const size_t row = static_cast<size_t>(b) * a.s_plane + grow;  // state
-  const size_t wrow = static_cast<size_t>(b) * a.s_words +
-                      static_cast<size_t>(p) * a.W;           // RDY rows
-
-  // ---- 1. the injection packet from the active node's fanout cursor
-  const bool inj_valid = r.active >= 0 && r.cursor < r.cursor_end;
-  const size_t eb = static_cast<size_t>(p) * a.emax + clampi(r.cursor, 0, a.emax - 1);
-  Pkt inj;
-  const int dst_pe = a.e_dst_pe[eb];
-  inj.f[kValid] = inj_valid ? 1 : 0;
-  inj.f[kDstX] = floordiv(dst_pe, ny);
-  inj.f[kDstY] = floormod(dst_pe, ny);
-  inj.f[kDstSlot] = a.e_dst_slot[eb];
-  inj.f[kOpidx] = a.e_dst_opidx[eb];
-  inj.f[kValue] = __float_as_int(a.value[row + clampi(r.active, 0, L - 1)]);
-
-  // ---- 2. the Hoplite router
-  const int pw = (x == 0 ? nx - 1 : x - 1) * ny + y;   // west neighbour
-  const int pn = x * ny + (y == 0 ? ny - 1 : y - 1);   // north neighbour
-  Pkt w, n;
-#pragma unroll
-  for (int f = 0; f < kFields; ++f) {
-    w.f[f] = in[f * P + pw];
-    n.f[f] = in[(kFields + f) * P + pn];
-  }
+  // ---- 1. the packets on the links and the eject arbitration between
+  // them, then the injection packet from the active node's fanout cursor
+  // (in registers)
+  const Pkt w = link_read(in, pw), n = link_read(in + kPktInts * Pp, pn);
   const bool w_v = w.f[kValid] != 0, n_v = n.f[kValid] != 0;
-  const bool w_xeq = w.f[kDstX] == x, n_xeq = n.f[kDstX] == x,
-             i_xeq = inj.f[kDstX] == x;
+  const bool w_xeq = w.f[kDstX] == x, n_xeq = n.f[kDstX] == x;
   const bool w_at = w_v && w_xeq && w.f[kDstY] == y;
   const bool n_at = n_v && n_xeq && n.f[kDstY] == y;
-  const bool inj_local = inj_valid && i_xeq && inj.f[kDstY] == y;
-  const bool w_wants_e = w_v && !w_xeq, i_wants_e = inj_valid && !i_xeq;
-  const bool w_wants_s = w_v && w_xeq && w.f[kDstY] != y;
-  const bool i_wants_s = inj_valid && i_xeq && inj.f[kDstY] != y;
-
   bool n_ej, w_ej;
-  if constexpr (EJECT == kCap2) {
+  if constexpr (CAP2) {
     n_ej = n_at;
     w_ej = w_at;
-  } else if constexpr (EJECT == kPriority) {
-    const bool w_wins = w_at && n_at && w.f[kDstSlot] < n.f[kDstSlot];
+  } else {
+    // n_first: north wins; priority: the lower destination slot wins.
+    const bool w_wins =
+        el.prio && w_at && n_at && w.f[kDstSlot] < n.f[kDstSlot];
     n_ej = n_at && !w_wins;
     w_ej = w_at && (!n_at || w_wins);
-  } else {
-    n_ej = n_at;
-    w_ej = w_at && !n_ej;
   }
   Pkt ej[E];
   ej[0] = n_ej ? n : invalidated(w, w_ej && !n_ej);
   if constexpr (E == 2) ej[1] = invalidated(w, w_ej && n_ej);
+
+  // At capacity 1 the port's packet is known now unless the PE's own
+  // packet takes a free port (below), so its cell is loaded while the
+  // router runs. Each lane's loads hit their own cache lines, so a cycle
+  // is paced by the number of loads and stores: an invalid packet only adds
+  // +0.0 to its operand cell and to the slot's value (which changes a -0.0
+  // to +0.0), so every lane loads those two and a valid packet's lane the
+  // rest of the cell.
+  bool valid = ej[0].f[kValid] != 0;
+  int s = clampi(ej[0].f[kDstSlot], 0, L - 1), c = row + s;
+  int opi = clampi(ej[0].f[kOpidx], 0, 1);
+  float xo = 0.0f, v = 0.0f, other = 0.0f;
+  int pend = 1, was = 1;
+  int4 info = make_int4(0, 0, 0, 0);
+  // An invalid packet on a link keeps its cell while its sender's cursor
+  // stands still: once normalized, the cell needs nothing more.
+  const bool known_clean = !valid && 2 * s + opi == r.clean;
+  if constexpr (E == 1) {
+    ld_if(!known_clean, xo, el.operands + 2 * c + opi);
+    ld_if(!known_clean, v, el.value + c);
+    ld_if(valid, other, el.operands + 2 * c + 1 - opi);
+    ld_if(valid, pend, el.pending + c);
+    ld_if(valid, was, el.computed + c);
+    ldg_if(valid, info, el.info + 2 * c);
+  }
+
+  const bool inj_valid = r.active >= 0 && r.fo.x < r.fo.y;
+  Pkt inj;
+  inj.f[kValid] = inj_valid ? 1 : 0;
+  inj.f[kDstX] = r.cur.x;
+  inj.f[kDstY] = r.cur.y;
+  inj.f[kDstSlot] = r.cur.z;
+  inj.f[kOpidx] = r.cur.w;
+  inj.f[kValue] = __float_as_int(r.aval);
+
+  // ---- 2. the Hoplite router
+  const bool i_xeq = inj.f[kDstX] == x;
+  const bool inj_local = inj_valid && i_xeq && inj.f[kDstY] == y;
+  const bool w_wants_e = w_v && !w_xeq, i_wants_e = inj_valid && !i_xeq;
+  const bool w_wants_s = w_v && w_xeq && w.f[kDstY] != y;
+  const bool i_wants_s = inj_valid && i_xeq && inj.f[kDstY] != y;
 
   const bool n_takes_s = n_v && !n_ej;
   const bool w_takes_s = w_wants_s && !n_takes_s;
@@ -345,83 +523,150 @@ __device__ __forceinline__ void pe_cycle(const MegaArgs& a, const Member& am,
 
   const Pkt new_e = w_takes_e ? w : invalidated(inj, inj_e);
   const Pkt new_s = n_takes_s ? n : (w_takes_s ? w : invalidated(inj, inj_s));
-#pragma unroll
-  for (int f = 0; f < kFields; ++f) {
-    out[f * P + p] = new_e.f[f];
-    out[(kFields + f) * P + p] = new_s.f[f];
-  }
-  st[kDNoc] += (w_s_lost ? 1 : 0) + (inj_valid && !accepted ? 1 : 0);
-  st[kDEj] += (w_lost_ej ? 1 : 0) + (n_at && !n_ej ? 1 : 0);
+  link_write(out, p, new_e);
+  link_write(out + kPktInts * Pp, p, new_s);
+  el.st[kDNoc] += (w_s_lost ? 1 : 0) + (inj_valid && !accepted ? 1 : 0);
+  el.st[kDEj] += (w_lost_ej ? 1 : 0) + (n_at && !n_ej ? 1 : 0);
 
   // ---- 3. advance the fanout cursor; retire a drained node
-  r.cursor += accepted ? 1 : 0;
-  if (r.active >= 0 && r.cursor >= r.cursor_end) {
+  if (accepted) r.fo.x += 1;
+  const int vslot = clampi(r.active, 0, L - 1);  // the injected payload's slot
+  if (r.active >= 0 && r.fo.x >= r.fo.y) {
     r.active = -1;
-    r.sel_wait = sel_lat - 1;
+    r.sel_wait = el.sel_lat - 1;
   }
 
-  // ---- 4. apply the ejected packets: every port adds to its clamped cells,
-  // all adds and decrements before any fire test (both ports see the count
-  // after both decrements; the ALU reads operands after both adds).
-  int slot[E];
-  bool valid[E];
-  float* opnd = a.operands + 2 * row;
+  // ---- 4. apply the ejected packets, as the eager engine does: every port
+  // adds to its clamped cell, all adds and decrements before any fire test
+  // (both ports see the count after both decrements; the ALU reads operands
+  // after both adds).
+  int slot[E], fo_count[E];
+  bool fired[E];
+  if constexpr (E == 1) {
+    bool skip = known_clean;
+    if (inj_ej) {  // the PE's own packet, to its own slot
+      skip = false;
+      valid = true;
+      s = clampi(ej[0].f[kDstSlot], 0, L - 1);
+      c = row + s;
+      opi = clampi(ej[0].f[kOpidx], 0, 1);
+      xo = el.operands[2 * c + opi];
+      v = el.value[c];
+      other = el.operands[2 * c + 1 - opi];
+      pend = el.pending[c];
+      was = el.computed[c];
+      info = ldg4(el.info + 2 * c);
+    }
+    // A cell is stored only where its bits change.
+    float* const cell = el.operands + 2 * c + opi;
+    const float xn =
+        __fadd_rn(xo, valid ? __int_as_float(ej[0].f[kValue]) : 0.0f);
+    const bool f = valid && pend == 1 && !was;
+    const float fv = f ? alu(info.z, opi ? other : xn, opi ? xn : other)
+                       : 0.0f;
+    const float vn = __fadd_rn(v, fv);
+    if (!skip) {
+      if (valid || __float_as_int(xn) != __float_as_int(xo)) *cell = xn;
+      if (__float_as_int(vn) != __float_as_int(v)) el.value[c] = vn;
+    }
+    if (valid) el.pending[c] = pend - 1;
+    if (f) el.computed[c] = 1;
+    if (!valid) r.clean = 2 * s + opi;
+    else if (s == r.clean >> 1) r.clean = -1;
+    el.st[kDelivered] += valid ? 1 : 0;
+    el.st[kFired] += f ? 1 : 0;
+    if (s == vslot && !skip) r.aval = vn;
+    slot[0] = s;
+    fired[0] = f;
+    fo_count[0] = info.w;
+  } else {
+    // Capacity 2: both ports' cells whole; ports that share a slot are
+    // resolved in registers.
+    int opi[E];
+    bool valid[E];
+    float pay[E];
+    Cell d[E];
 #pragma unroll
-  for (int e = 0; e < E; ++e) {
-    valid[e] = ej[e].f[kValid] != 0;
-    slot[e] = clampi(ej[e].f[kDstSlot], 0, L - 1);
-    float* cell = opnd + 2 * slot[e] + clampi(ej[e].f[kOpidx], 0, 1);
-    *cell = __fadd_rn(*cell, valid[e] ? __int_as_float(ej[e].f[kValue]) : 0.0f);
-    if (valid[e]) a.pending[row + slot[e]] -= 1;
-  }
-  bool fired[E], was[E];
+    for (int e = 0; e < E; ++e) {
+      valid[e] = ej[e].f[kValid] != 0;
+      slot[e] = clampi(ej[e].f[kDstSlot], 0, L - 1);
+      opi[e] = clampi(ej[e].f[kOpidx], 0, 1);
+      pay[e] = valid[e] ? __int_as_float(ej[e].f[kValue]) : 0.0f;
+      d[e] = load_cell(el, row + slot[e]);
+    }
+    const bool same = slot[0] == slot[1];
+    // port 0 adds first; a port 1 on the same slot adds to port 0's result
+    // and both see the final pair and count
 #pragma unroll
-  for (int e = 0; e < E; ++e) {
-    was[e] = a.computed[row + slot[e]] != 0;
-    fired[e] = valid[e] && a.pending[row + slot[e]] == 0 && !was[e];
-  }
-  bool same = false;
-  if constexpr (E == 2) {
-    same = slot[0] == slot[1];
+    for (int e = 0; e < E; ++e) {
+      if (e == 1 && same) {
+        d[1].opnd = d[0].opnd;
+        d[1].pend = d[0].pend;
+      }
+      if (opi[e]) d[e].opnd.y = __fadd_rn(d[e].opnd.y, pay[e]);
+      else d[e].opnd.x = __fadd_rn(d[e].opnd.x, pay[e]);
+      d[e].pend -= valid[e] ? 1 : 0;
+    }
+    if (same) {
+      d[0].opnd = d[1].opnd;
+      d[0].pend = d[1].pend;
+    }
+    float fval[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      fired[e] = valid[e] && d[e].pend == 0 && !d[e].was;
+      fval[e] = fired[e] ? alu(d[e].info.z, d[e].opnd.x, d[e].opnd.y) : 0.0f;
+    }
     fired[1] = fired[1] && !(fired[0] && same);
-  }
-  float fval[E];
 #pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const float* c = opnd + 2 * slot[e];
-    fval[e] = alu(a.opcode[grow + slot[e]], c[0], c[1]);
-  }
+    for (int e = 0; e < E; ++e) {
+      if (e == 1 && same) d[1].val = d[0].val;
+      d[e].val = __fadd_rn(d[e].val, fval[e]);
+    }
+    if (same) d[0].val = d[1].val;
 #pragma unroll
-  for (int e = 0; e < E; ++e) {
-    float* v = a.value + row + slot[e];
-    *v = __fadd_rn(*v, fired[e] ? fval[e] : 0.0f);
-    st[kDelivered] += valid[e] ? 1 : 0;
-    st[kFired] += fired[e] ? 1 : 0;
-  }
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    // Both ports write the same flag when they share a slot.
-    if (fired[e] || (fired[E - 1 - e] && same)) a.computed[row + slot[e]] = 1;
+    for (int e = 0; e < E; ++e) {
+      const int c = row + slot[e];
+      reinterpret_cast<float2*>(el.operands)[c] = d[e].opnd;
+      el.pending[c] = d[e].pend;
+      el.value[c] = d[e].val;
+      // Both ports write the same flag when they share a slot.
+      if (fired[e] || (fired[E - 1 - e] && same)) el.computed[c] = 1;
+      el.st[kDelivered] += valid[e] ? 1 : 0;
+      el.st[kFired] += fired[e] ? 1 : 0;
+      if (slot[e] == vslot) r.aval = d[e].val;
+      fo_count[e] = d[e].info.w;
+    }
   }
   // on_ready, port 0 then port 1 (the inorder FIFO's arrival order), to
-  // every member: the active one through the PE's registers, the others in
+  // every member: the active one in registers and its rows, the others in
   // device memory.
-  uint32_t* rdy = POLICY == kInorder ? nullptr : am.rdy + wrow;
 #pragma unroll
   for (int e = 0; e < E; ++e) {
-    if (!(fired[e] && a.fo_count[grow + slot[e]] > 0)) continue;
+    if (!(fired[e] && fo_count[e] > 0)) continue;
     if constexpr (POLICY == kInorder) {
-      am.fifo[row + floormod(r.head + r.size, L)] = slot[e];
+      const int pos = wrap(r.hs + r.size, L);
+      el.fifo[row + pos] = slot[e];
+      if (pos == clampi(r.hs, 0, L - 1)) r.fhead = slot[e];
       r.size += 1;
     } else {
-      rdy[slot[e] >> 5] |= 0x80000000u >> (slot[e] & 31);
+      rdy_set(el, Pp, p, slot[e], r.top);
     }
+    if (el.others) {
+      // The inactive members: an inorder FIFO takes the push at head + size
+      // (both in registers), an RDY row the slot's bit.
+      if (el.ififo != nullptr) {
+        el.ififo[row + wrap(r.ihead + r.isize, L)] = slot[e];
+        r.isize += 1;
+      }
 #pragma unroll
-    for (int m = 0; m < kMaxMembers; ++m) {
-      if (m < a.n_members && m != act)
-        member_on_ready(a.members[m],
-                        static_cast<size_t>(b) * a.s_pe + p, row, wrow, L,
-                        slot[e]);
+      for (int m = 0; m < kMaxMembers; ++m) {
+        if (m < a.n_members && m != el.act && a.members[m].kind != kInorder)
+          member_set(a.members[m],
+                     static_cast<size_t>(el.b) * a.s_words +
+                         static_cast<size_t>(p) * el.W,
+                     slot[e]);
+      }
     }
   }
 
@@ -429,154 +674,268 @@ __device__ __forceinline__ void pe_cycle(const MegaArgs& a, const Member& am,
   // only the active member commits.
   const bool idle = r.active < 0;
   const bool gate = idle && r.sel_wait == 0;
-  int cand;
-  bool have, empty;
-  if constexpr (POLICY == kInorder) {
-    cand = am.fifo[row + clampi(r.head, 0, L - 1)];
-    have = r.size > 0;
-    if (gate && have) {
-      r.head = floormod(r.head + 1, L);
-      r.size -= 1;
-    }
-    empty = r.size == 0;
-  } else {
-    int nonzero;
-    cand = POLICY == kOoo ? lod_row(rdy, a.W, &nonzero)
-                          : rotating_lod_row(rdy, a.W, r.ptr, &nonzero);
-    have = cand >= 0;
-    if (gate && have) {
-      rdy[cand >> 5] &= ~(0x80000000u >> (cand & 31));
-      if (POLICY == kRotating) r.ptr = floormod(cand + 1, L);
-    }
-    // Counted before the clear: a PE that clears a bit takes the node and
-    // is busy this cycle whatever is left in its row.
-    empty = nonzero == 0;
-  }
+  const bool have = POLICY == kInorder ? r.size > 0 : r.top != 0;
   if (idle && have && r.sel_wait > 0) r.sel_wait -= 1;
-  if (gate && have) {
-    const int c = clampi(cand, 0, L - 1);
-    const int base = a.fo_base[grow + c];
+  const bool picked = gate && have;
+  if (picked) {
+    int cand;
+    if constexpr (POLICY == kInorder) {
+      cand = r.fhead;
+      r.hs = wrap(r.hs + 1, L);
+      r.size -= 1;
+    } else {
+      uint32_t word;
+      cand = POLICY == kOoo
+                 ? rdy_first(el, Pp, p, r.top, &word)
+                 : rdy_rotating(el, Pp, p, L, r.hs, r.top, &word);
+      rdy_clear(el, Pp, p, cand, word, r.top);
+      if (POLICY == kRotating) r.hs = wrap(cand + 1, L);
+    }
     r.active = cand;
-    r.cursor = base;
-    r.cursor_end = base + a.fo_count[grow + c];
   }
+  // The next cycle's inputs that changed, each loaded straight into its
+  // register by the lanes that need it: the edge record at the cursor
+  // (after an accept, or the picked node's first), the picked node's
+  // {cursor, cursor_end}, the payload where its slot moved, and the FIFO's
+  // new head entry. They land during the barrier.
+  const int4* rec = el.info + 2 * (row + clampi(r.active, 0, L - 1));
+  const int4* cur = picked ? rec + 1
+                           : el.edges + p * el.emax +
+                                 clampi(r.fo.x, 0, el.emax - 1);
+  ldg_if(picked || accepted, r.cur, cur);
+  ldg_if(picked, r.fo, rec);
+  const int vnew = clampi(r.active, 0, L - 1);
+  ld_if(vnew != vslot, r.aval, el.value + row + vnew);
+  if constexpr (POLICY == kInorder)
+    ld_if(picked, r.fhead, el.fifo + row + clampi(r.hs, 0, L - 1));
 
   // ---- 6. this PE's share of the termination predicate
-  const bool quiet = empty && r.active < 0 && new_e.f[kValid] == 0 &&
-                     new_s.f[kValid] == 0;
-  st[kBusyPes] += quiet ? 0 : 1;
+  const bool empty = POLICY == kInorder ? r.size == 0 : r.top == 0;
+  return !(empty && r.active < 0 && new_e.f[kValid] == 0 &&
+           new_s.f[kValid] == 0);
 }
 
 // K cycles of element b under its active member `am` (a CTA-uniform
 // policy), then the element's chunk repair.
-template <int POLICY, int EJECT>
-__device__ __forceinline__ void run_element(
-    const MegaArgs& a, int b, int act, const Member& am,
-    int (*partial)[kMaxWarps][kStats]) {
-  const int P = a.nx * a.ny;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  int* links = a.link_scratch + static_cast<size_t>(b) * 4 * kFields * P;
-  int* link_e = a.link_e + static_cast<size_t>(b) * a.s_links;
-  int* link_s = a.link_s + static_cast<size_t>(b) * a.s_links;
-  const int sel_lat = a.sel_lat[b];
+template <int POLICY, bool CAP2, bool SHARED, int PPT>
+__device__ __forceinline__ void run_element(const MegaArgs& a, int b, int act,
+                                            const Member& am, uint32_t* smem,
+                                            int (*partial)[kStats]) {
+  const int nx = a.nx, ny = a.ny, P = nx * ny, L = a.L, W = a.W, Pp = a.Pp;
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = T >> 5;
+  constexpr bool RDY = POLICY != kInorder;
 
-  for (int p = tid; p < P; p += blockDim.x) {
+  Elem el;
+  const size_t plane0 = static_cast<size_t>(b) * a.s_plane;
+  el.pending = a.pending + plane0;
+  el.operands = a.operands + 2 * plane0;
+  el.computed = a.computed + plane0;
+  el.value = a.value + plane0;
+  el.info = a.slot_info;
+  el.edges = a.edges;
+  el.fifo = POLICY == kInorder ? am.fifo + plane0 : nullptr;
+  el.L = L;
+  el.W = W;
+  el.emax = a.emax;
+  el.Pp = Pp;
+  el.b = b;
+  el.act = act;
+  el.others = a.n_members > 1;
+  el.ififo = nullptr;
+  Member im = am;  // the inactive inorder member, if any
 #pragma unroll
-    for (int f = 0; f < kFields; ++f) {
-      links[f * P + p] = link_e[f * P + p];
-      links[(kFields + f) * P + p] = link_s[f * P + p];
+  for (int m = 0; m < kMaxMembers; ++m) {
+    if (m < a.n_members && m != act && a.members[m].kind == kInorder) {
+      im = a.members[m];
+      el.ififo = im.fifo + plane0;
     }
   }
-  // Thread 0 keeps the element's scalars.
-  int remaining = 0, delivered = 0, d_noc = 0, d_ej = 0, deflections = 0,
-      busy = 0, first = -1;
-  if (tid == 0) {
-    remaining = a.remaining[b];
-    delivered = a.delivered[b];
-    d_noc = a.noc_deflections[b];
-    d_ej = a.eject_deflections[b];
-    deflections = a.deflections[b];
-    busy = a.busy_cycles[b];
+  el.sel_lat = a.sel_lat[b];
+  el.prio = a.eject == kPriority;
+#pragma unroll
+  for (int i = 0; i < kStats; ++i) el.st[i] = 0;
+
+  // Links [2 parities][2 (E, S)][Pp][8], RDY rows [W][Pp + 1] (the odd
+  // stride keeps both the coalesced copies and each PE's own accesses free
+  // of bank conflicts) and summaries [S][Pp]: in shared memory (the shared
+  // body) or device memory.
+  uint32_t* const grdy = RDY ? am.rdy + static_cast<size_t>(b) * a.s_words
+                             : nullptr;
+  int* links;
+  if constexpr (SHARED) {
+    links = reinterpret_cast<int*>(smem);
+    el.rdy = smem + kLinkInts * Pp;
+    el.sum = el.rdy + static_cast<size_t>(W) * (Pp + 1);
+    el.rws = Pp + 1;
+    el.rps = 1;
+  } else {
+    links = a.link_scratch + static_cast<size_t>(b) * kLinkInts * Pp;
+    el.rdy = grdy;
+    el.sum = a.sum_scratch + static_cast<size_t>(b) * a.S * Pp;
+    el.rws = 1;
+    el.rps = W;
+  }
+  int* const link_e = a.link_e + static_cast<size_t>(b) * a.s_links;
+  int* const link_s = a.link_s + static_cast<size_t>(b) * a.s_links;
+
+  // ---- chunk start: links, the RDY rows (coalesced), then each PE's
+  // registers and summaries.
+  for (int i = tid; i < kFields * P; i += T) {
+    const int f = i / P, p = i - f * P;
+    links[p * kPktInts + f] = link_e[i];
+    links[(Pp + p) * kPktInts + f] = link_s[i];
+  }
+  if (SHARED && RDY) {
+    for (int i = tid; i < P * W; i += T) {
+      const int p = i / W, w = i - p * W;
+      el.rdy[w * el.rws + p] = grdy[i];
+    }
   }
   __syncthreads();
 
-  for (int k = 0; k < a.K; ++k) {
-    const int* in = links + (k & 1) * 2 * kFields * P;
-    int* out = links + ((k + 1) & 1) * 2 * kFields * P;
-    int st[kStats] = {0, 0, 0, 0, 0};
-    for (int p = tid; p < P; p += blockDim.x) {
-      const size_t gp = static_cast<size_t>(b) * a.s_pe + p;
-      PeRegs r = load_regs<POLICY>(a, am, gp);
-      pe_cycle<POLICY, EJECT>(a, am, act, b, p, r, in, out, sel_lat, st);
-      store_regs<POLICY>(a, am, gp, r);
-    }
+  Pe pe[PPT];
 #pragma unroll
-    for (int i = 0; i < kStats; ++i) {
-      const int s = __reduce_add_sync(kAllLanes, st[i]);
-      if (lane == 0) partial[k & 1][warp][i] = s;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      int tot[kStats];
-#pragma unroll
-      for (int i = 0; i < kStats; ++i)
-        tot[i] = __reduce_add_sync(
-            kAllLanes, lane < nwarps ? partial[k & 1][lane][i] : 0);
-      if (lane == 0) {
-        remaining -= tot[kFired];
-        delivered += tot[kDelivered];
-        d_noc += tot[kDNoc];
-        d_ej += tot[kDEj];
-        deflections += tot[kDNoc] + tot[kDEj];
-        busy += tot[kFired];
-        const bool done = remaining == 0 && tot[kBusyPes] == 0;
-        a.trace[static_cast<size_t>(k) * a.B + b] = done ? 1 : 0;
-        if (done && first < 0) first = k;
+  for (int i = 0; i < PPT; ++i) {
+    Pe& r = pe[i];
+    const int p = tid + i * T;
+    r.p = p < P ? p : -1;
+    if (r.p < 0) continue;
+    const int x = p / ny, y = p - x * ny;
+    const int pw = (x == 0 ? nx - 1 : x - 1) * ny + y;   // west neighbour
+    const int pn = x * ny + (y == 0 ? ny - 1 : y - 1);   // north neighbour
+    r.xy = x << 16 | y;
+    r.nb = pw << 16 | pn;
+    const size_t gp = static_cast<size_t>(b) * a.s_pe + p;
+    const int row = p * L;
+    r.active = a.active[gp];
+    r.fo = make_int4(a.cursor[gp], a.cursor_end[gp], 0, 0);
+    r.sel_wait = a.sel_wait[gp];
+    r.hs = POLICY == kInorder ? am.head[gp]
+                              : (POLICY == kRotating ? am.ptr[gp] : 0);
+    r.size = POLICY == kInorder ? am.size[gp] : 0;
+    r.fhead = POLICY == kInorder ? el.fifo[row + clampi(r.hs, 0, L - 1)] : 0;
+    r.clean = -1;
+    r.ihead = el.ififo != nullptr ? im.head[gp] : 0;
+    r.isize = el.ififo != nullptr ? im.size[gp] : 0;
+    r.aval = el.value[row + clampi(r.active, 0, L - 1)];
+    r.cur = ldg4(el.edges + p * el.emax + clampi(r.fo.x, 0, el.emax - 1));
+    r.top = 0;
+    if constexpr (RDY) {
+      for (int j = 0; j < a.S; ++j) {
+        uint32_t s = 0;
+        const int hi = min(W, 32 * j + 32);
+        for (int w = 32 * j; w < hi; ++w)
+          if (el.rdy[w * el.rws + p * el.rps]) s |= kTop >> (w & 31);
+        el.sum[j * Pp + p] = s;
+        if (s) r.top |= kTop >> j;
       }
     }
   }
 
-  const int* last = links + (a.K & 1) * 2 * kFields * P;
-  for (int p = tid; p < P; p += blockDim.x) {
+  // ---- K cycles, one barrier each
+  int first_quiet = -1;
+  for (int k = 0; k < a.K; ++k) {
+    const int* in = links + (k & 1) * (kLinkInts / 2) * Pp;
+    int* out = links + ((k + 1) & 1) * (kLinkInts / 2) * Pp;
+    bool busy = false;
+#pragma unroll
+    for (int i = 0; i < PPT; ++i)
+      if (pe[i].p >= 0 && !a.floor_only)
+        busy |= pe_cycle<POLICY, CAP2>(a, el, pe[i], in, out);
+    if (!__syncthreads_or(busy) && first_quiet < 0) first_quiet = k;
+  }
+
+  // ---- chunk end: each PE's registers, links and RDY row back to the
+  // state (a PE's entries were written by its own thread), then the sums.
+  const int* last = links + (a.K & 1) * (kLinkInts / 2) * Pp;
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    const Pe& r = pe[i];
+    if (r.p < 0) continue;
+    const int p = r.p;
+    const size_t gp = static_cast<size_t>(b) * a.s_pe + p;
+    a.active[gp] = r.active;
+    a.cursor[gp] = r.fo.x;
+    a.cursor_end[gp] = r.fo.y;
+    a.sel_wait[gp] = r.sel_wait;
+    if (POLICY == kInorder) {
+      am.head[gp] = r.hs;
+      am.size[gp] = r.size;
+    }
+    if (POLICY == kRotating) am.ptr[gp] = r.hs;
+    if (el.ififo != nullptr) im.size[gp] = r.isize;
 #pragma unroll
     for (int f = 0; f < kFields; ++f) {
-      link_e[f * P + p] = last[f * P + p];
-      link_s[f * P + p] = last[(kFields + f) * P + p];
+      link_e[f * P + p] = last[p * kPktInts + f];
+      link_s[f * P + p] = last[(Pp + p) * kPktInts + f];
     }
   }
-  if (tid == 0) {
-    // Chunk repair (make_chunk_fn): the exact completion cycle from the
-    // first done entry of the trace; a chunk started done keeps its cycle.
-    const int start_cycle = a.cycle[b];
-    const bool start_done = a.done[b] != 0;
-    const int end_cycle = static_cast<int>(
-        static_cast<unsigned>(start_cycle) + static_cast<unsigned>(a.K));
-    a.cycle[b] = start_done ? start_cycle
-                            : (first >= 0 ? start_cycle + first + 1 : end_cycle);
-    a.done[b] = first >= 0 ? 1 : 0;
-    a.remaining[b] = remaining;
-    a.delivered[b] = delivered;
-    a.noc_deflections[b] = d_noc;
-    a.eject_deflections[b] = d_ej;
-    a.deflections[b] = deflections;
-    a.busy_cycles[b] = busy;
+  // Every thread has passed the last cycle's barrier, so the RDY rows are
+  // final: back to the state, coalesced.
+  if (SHARED && RDY) {
+    for (int i = tid; i < P * W; i += T) {
+      const int p = i / W, w = i - p * W;
+      grdy[i] = el.rdy[w * el.rws + p];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kStats; ++i) {
+    const int s = __reduce_add_sync(kAll, el.st[i]);
+    if (lane == 0) partial[warp][i] = s;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int tot[kStats];
+#pragma unroll
+    for (int i = 0; i < kStats; ++i)
+      tot[i] = __reduce_add_sync(kAll, lane < nwarps ? partial[lane][i] : 0);
+    if (lane == 0) {
+      // A quiet overlay stays quiet and fires nothing more, so cycle k is
+      // done iff it is at or after the first quiet cycle and the chunk left
+      // no node uncomputed.
+      const int remaining = a.remaining[b] - tot[kFired];
+      const int first = remaining == 0 ? first_quiet : -1;
+      for (int k = 0; k < a.K; ++k)
+        a.trace[static_cast<size_t>(k) * a.B + b] =
+            first >= 0 && k >= first ? 1 : 0;
+      // Chunk repair (make_chunk_fn): the exact completion cycle from the
+      // first done entry of the trace; a chunk started done keeps its cycle.
+      const int start_cycle = a.cycle[b];
+      const bool start_done = a.done[b] != 0;
+      const int end_cycle = static_cast<int>(
+          static_cast<unsigned>(start_cycle) + static_cast<unsigned>(a.K));
+      a.cycle[b] = start_done ? start_cycle
+                              : (first >= 0 ? start_cycle + first + 1
+                                            : end_cycle);
+      a.done[b] = first >= 0 ? 1 : 0;
+      if (a.done_host != nullptr) a.done_host[b] = first >= 0 ? 1 : 0;
+      a.remaining[b] = remaining;
+      a.delivered[b] += tot[kDelivered];
+      a.noc_deflections[b] += tot[kDNoc];
+      a.eject_deflections[b] += tot[kDEj];
+      a.deflections[b] += tot[kDNoc] + tot[kDEj];
+      a.busy_cycles[b] += tot[kFired];
+    }
   }
 }
 
 // One CTA per batch element.
-template <int EJECT>
-__global__ void __launch_bounds__(kMaxThreads, 1)
+template <bool CAP2, bool SHARED, int PPT>
+__global__ void __launch_bounds__(PPT == 1 ? kMaxThreadsPpt1 : kMaxThreads, 1)
 mega_chunk_kernel(const MegaArgs a) {
-  __shared__ int partial[2][kMaxWarps][kStats];
+  extern __shared__ uint32_t smem[];
+  __shared__ int partial[kMaxWarps][kStats];
   const int b = blockIdx.x;
   if (a.max_cycles != nullptr) {
     // The tail's freeze: a halted element stays as it is, leaf for leaf.
     const bool done = a.done[b] != 0;
     if (done || a.cycle[b] >= a.max_cycles[b]) {
-      if (threadIdx.x == 0)
+      if (threadIdx.x == 0) {
         for (int k = 0; k < a.K; ++k)
           a.trace[static_cast<size_t>(k) * a.B + b] = done ? 1 : 0;
+        if (a.done_host != nullptr) a.done_host[b] = done ? 1 : 0;
+      }
       return;
     }
   }
@@ -588,18 +947,42 @@ mega_chunk_kernel(const MegaArgs a) {
   for (int m = 1; m < kMaxMembers; ++m)
     if (m == act) am = a.members[m];
   switch (am.kind) {
-    case kOoo: run_element<kOoo, EJECT>(a, b, act, am, partial); break;
-    case kInorder: run_element<kInorder, EJECT>(a, b, act, am, partial); break;
-    default: run_element<kRotating, EJECT>(a, b, act, am, partial); break;
+    case kOoo:
+      run_element<kOoo, CAP2, SHARED, PPT>(a, b, act, am, smem, partial);
+      break;
+    case kInorder:
+      run_element<kInorder, CAP2, SHARED, PPT>(a, b, act, am, smem, partial);
+      break;
+    default:
+      run_element<kRotating, CAP2, SHARED, PPT>(a, b, act, am, smem, partial);
+      break;
   }
 }
 
-template <int EJECT>
+template <bool CAP2, bool SHARED, int PPT>
 int launch(const MegaArgs& a, cudaStream_t stream) {
-  const int P = a.nx * a.ny;
-  const int threads = min((P + 31) / 32 * 32, kMaxThreads);
-  mega_chunk_kernel<EJECT><<<a.B, threads, 0, stream>>>(a);
+  auto* kernel = mega_chunk_kernel<CAP2, SHARED, PPT>;
+  // Above 48 KB (static and dynamic together) a kernel must opt in to its
+  // dynamic shared memory: once, to the most a CTA may have beside the
+  // kernel's own partial sums.
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSharedBytes - static_cast<int>(sizeof(int) * kMaxWarps * kStats));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in = true;
+  }
+  kernel<<<a.B, a.threads, a.smem_bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool CAP2>
+int launch_body(const MegaArgs& a, cudaStream_t s) {
+  if (a.body == kShared && a.ppt == 1) return launch<CAP2, true, 1>(a, s);
+  if (a.body == kShared && a.ppt == 4) return launch<CAP2, true, 4>(a, s);
+  if (a.body == kGlobal && a.ppt == 4) return launch<CAP2, false, 4>(a, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -607,22 +990,39 @@ int launch(const MegaArgs& a, cudaStream_t stream) {
 extern "C" {
 
 // eject: 0 n_first at capacity 1, 1 priority at capacity 1, 2 capacity 2.
-// Each member's kind: 0 ooo, 1 inorder, 2 rotating (scan, lru_flat).
+// Each member's kind: 0 ooo, 1 inorder, 2 rotating (scan, lru_flat). The
+// plan's fields (body, ppt, threads, Pp, S, smem_bytes) come from
+// kernels/megakernel.py::plan.
 int mega_chunk(const MegaArgs* args, int eject, void* stream) {
-  const MegaArgs& a = *args;
-  if (a.K < 1 || a.nx < 1 || a.ny < 1 || a.L < 32 || a.emax < 1 || a.B < 1 ||
-      a.n_members < 1 || a.n_members > kMaxMembers)
-    return static_cast<int>(cudaErrorInvalidValue);
-  for (int m = 0; m < a.n_members; ++m)
+  MegaArgs a = *args;
+  const int P = a.nx * a.ny;
+  bool rdy = false;
+  for (int m = 0; m < a.n_members && m < kMaxMembers; ++m) {
     if (a.members[m].kind < kOoo || a.members[m].kind > kRotating)
       return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (eject) {
-    case kNFirst: return launch<kNFirst>(a, s);
-    case kPriority: return launch<kPriority>(a, s);
-    case kCap2: return launch<kCap2>(a, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    rdy = rdy || a.members[m].kind != kInorder;
   }
+  // The shared body holds both link buffers and, for RDY policies, the RDY
+  // rows and summaries in shared memory; the global body keeps them in the
+  // scratch.
+  const bool body_ok =
+      a.body == kShared
+          ? a.smem_bytes ==
+                4LL * (a.Pp * kLinkInts +
+                       (rdy ? a.Pp * a.S + a.W * (a.Pp + 1LL) : 0))
+          : (a.body == kGlobal && a.smem_bytes == 0 &&
+             a.link_scratch != nullptr && a.sum_scratch != nullptr);
+  if (a.K < 1 || a.nx < 1 || a.ny < 1 || a.L < 32 || a.W * 32 != a.L ||
+      a.emax < 1 || a.B < 1 || a.n_members < 1 ||
+      a.n_members > kMaxMembers || a.threads < 32 || a.threads % 32 != 0 ||
+      a.threads > (a.ppt == 1 ? kMaxThreadsPpt1 : kMaxThreads) ||
+      a.threads * a.ppt < P || a.Pp < P ||
+      a.Pp % 32 != 0 || a.S * 32 < a.W || a.S > kMaxSummaryWords ||
+      P > 0xFFFF || !body_ok || eject < kNFirst || eject > kCap2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.eject = eject;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return eject == kCap2 ? launch_body<true>(a, s) : launch_body<false>(a, s);
 }
 
 }  // extern "C"

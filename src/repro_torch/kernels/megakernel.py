@@ -26,14 +26,23 @@ it) before the dispatch, so a malformed state raises ``ValueError`` on
 either device. A state whose tensors are the last call's (the kernel
 updates them in place) is not checked again.
 
+The kernel has two bodies, and :func:`plan` alone picks one from the
+shapes: ``"shared"`` keeps the Hoplite links, the active member's RDY rows
+and their summaries in shared memory for the chunk; ``"global"`` keeps them
+in device memory, for grids whose links and rows do not fit in a CTA's
+227 KB. Grids above 2,304 PEs or 32,768 slots a PE raise.
+
 :data:`launches` counts kernel launches (``"mega_chunk"`` solo,
-``"mega_chunk_batched"`` batched), so a run can show that its main path went
-through the kernel.
+``"mega_chunk_batched"`` batched) and each body's (``"mega_chunk_shared"``,
+``"mega_chunk_global"``), so a run can show that its main path went through
+the kernel, and through which body.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import operator
+from typing import NamedTuple
 
 import torch
 
@@ -42,8 +51,10 @@ from . import _build
 
 SOURCE = "megakernel.cu"
 
-#: Kernel launches since the last :func:`reset_launches`.
-launches: dict[str, int] = {"mega_chunk": 0, "mega_chunk_batched": 0}
+#: Kernel launches since the last :func:`reset_launches`: by form, and by
+#: body.
+launches: dict[str, int] = {"mega_chunk": 0, "mega_chunk_batched": 0,
+                            "mega_chunk_shared": 0, "mega_chunk_global": 0}
 
 #: The kernel's pick of each policy (``csrc/megakernel.cu``'s ``Policy``)
 #: and its eject arbitration variants (``Eject``).
@@ -52,6 +63,93 @@ _EJECT_CAP1 = {"n_first": 0, "priority": 1}
 _EJECT_CAP2 = 2
 #: Member policies one state may hold (``kMaxMembers``).
 MAX_MEMBERS = 4
+_BODIES = {"shared": 0, "global": 1}
+
+#: Threads a CTA with one PE a thread (``kMaxThreadsPpt1``; 128 registers
+#: a thread) and with four (``kMaxThreads``; 112).
+MAX_THREADS_PPT1 = 512
+MAX_THREADS = 576
+#: Largest grid: one CTA of MAX_THREADS threads of four PEs (48x48).
+MAX_PES = MAX_THREADS * 4
+#: RDY summary words a PE: the top word has one bit for each, so a row holds
+#: at most 32 x 32 words (32,768 slots).
+MAX_SUMMARY_WORDS = 32
+#: Shared memory a CTA may use on the H100 (227 KB), less the kernel's own
+#: per-warp partial sums.
+SHARED_BYTES = 232_448 - (MAX_THREADS // 32) * 4 * 4
+#: int32s of a PE's links: two cycle parities x (E, S) x a packet padded to
+#: 8 ints (``kLinkInts``).
+LINK_INTS = 2 * 2 * 8
+
+
+class Plan(NamedTuple):
+    """How the kernel runs a chunk: ``body`` (``"shared"`` or
+    ``"global"``), PEs a thread, threads a CTA, the PE stride ``pp`` of the
+    link, RDY and summary rows (P rounded up to 32), summary words a PE and
+    the dynamic shared memory in bytes (0 for ``"global"``)."""
+    body: str
+    ppt: int
+    threads: int
+    pp: int
+    summary_words: int
+    smem_bytes: int
+
+
+def plan(nx: int, ny: int, L: int, members, body: str | None = None) -> Plan:
+    """The body for a grid of ``nx`` x ``ny`` PEs of ``L`` slots under the
+    member policies ``members``, from the shapes alone: ``"shared"`` where
+    the links, and for RDY policies the RDY rows and their summaries, fit in
+    :data:`SHARED_BYTES`, else ``"global"``. ``body`` forces one (a check
+    runs both on one state); a ``"shared"`` body that does not fit raises.
+    Grids above :data:`MAX_PES` PEs or rows above :data:`MAX_SUMMARY_WORDS`
+    summary words raise ``ValueError``."""
+    P, W = nx * ny, L // bitvec.FLAGS_PER_WORD
+    S = -(-W // 32)
+    if P > MAX_PES:
+        raise ValueError(f"the megakernel runs one CTA of at most "
+                         f"{MAX_THREADS} threads of 4 PEs: at most {MAX_PES} "
+                         f"PEs, got {nx}x{ny} = {P}")
+    if S > MAX_SUMMARY_WORDS:
+        raise ValueError(f"the megakernel's pick covers at most "
+                         f"{MAX_SUMMARY_WORDS * 32 * 32} slots a PE, got {L}")
+    pp = -(-P // 32) * 32
+    rdy = any(POLICIES[m] != POLICIES["inorder"] for m in members)
+    shared = 4 * (pp * LINK_INTS + (pp * S + W * (pp + 1) if rdy else 0))
+    if body is None:
+        body = "shared" if shared <= SHARED_BYTES else "global"
+    if body not in _BODIES:
+        raise ValueError(f"body must be one of {sorted(_BODIES)}, got {body!r}")
+    if body == "shared" and shared > SHARED_BYTES:
+        raise ValueError(f"the shared body needs {shared} bytes of shared "
+                         f"memory, above the {SHARED_BYTES} a CTA has")
+    ppt = 1 if body == "shared" and P <= MAX_THREADS_PPT1 else 4
+    threads = -(-P // (32 * ppt)) * 32
+    return Plan(body, ppt, threads, pp, S,
+                shared if body == "shared" else 0)
+
+
+def graph_tables(g: overlay.DeviceGraph):
+    """The kernel's read-only graph tables, built from the graph leaves:
+    ``slot_info`` ``[nx, ny, L, 2, 4]`` int32, for each slot
+    ``{fo_base, fo_base + fo_count, opcode, fo_count}`` and the edge record
+    at ``clamp(fo_base, 0, emax - 1)`` (what a pick reads, by address
+    alone); ``edges`` ``[nx, ny, emax, 4]`` int32, each edge record as the
+    routing fields of its packet, ``{dst_pe // ny, dst_pe % ny, dst_slot,
+    dst_opidx}``."""
+    ny = g["opcode"].shape[1]
+    dst = g["e_dst_pe"]
+    edges = torch.stack((dst // ny, dst % ny, g["e_dst_slot"],
+                         g["e_dst_opidx"]), dim=-1).contiguous()
+    emax = edges.shape[2]
+    base, count = g["fo_base"], g["fo_count"]
+
+    def record(at):
+        idx = at.clamp(0, emax - 1).to(torch.int64)
+        return torch.gather(edges, 2, idx[..., None].expand(*idx.shape, 4))
+
+    info = torch.stack((base, base + count, g["opcode"], count), dim=-1)
+    slot_info = torch.stack((info, record(base)), dim=3)
+    return slot_info.contiguous(), edges
 
 
 def reset_launches() -> None:
@@ -172,19 +270,24 @@ def _check_tree(tree, spec, device, path):
 # The kernel's argument struct (``MegaArgs`` in ``csrc/megakernel.cu``).
 # ---------------------------------------------------------------------------
 
-#: The graph leaves the kernel reads (``fanin``, ``init_value`` and ``valid``
-#: are read only by ``init_state``).
+#: The graph leaves a chunk depends on (``fanin``, ``init_value`` and
+#: ``valid`` are read only by ``init_state``); the kernel reads them through
+#: :func:`graph_tables`.
 GRAPH_LEAVES = ("opcode", "fo_base", "fo_count", "e_dst_pe", "e_dst_slot",
                 "e_dst_opidx")
-_POINTERS = GRAPH_LEAVES + (
+_POINTERS = (
+    "slot_info", "edges",
     "pending", "operands", "computed", "value", "remaining",
     "active", "cursor", "cursor_end", "sel_lat", "sel_wait",
     "link_e", "link_s", "cycle", "done",
     "delivered", "noc_deflections", "eject_deflections", "deflections",
-    "busy_cycles", "policy_id", "max_cycles", "trace", "link_scratch")
+    "busy_cycles", "policy_id", "max_cycles", "trace", "link_scratch",
+    "sum_scratch", "done_host")
 _MEMBER_POINTERS = ("rdy", "ptr", "fifo", "head", "size")
 _STRIDES = ("s_plane", "s_pe", "s_words", "s_links")
-_INTS = ("nx", "ny", "L", "W", "emax", "K", "B", "n_members")
+_INTS = ("nx", "ny", "L", "W", "emax", "K", "B", "n_members",
+         "body", "ppt", "threads", "Pp", "S", "smem_bytes", "floor_only",
+         "eject")
 
 
 class _Member(ctypes.Structure):
@@ -222,7 +325,8 @@ def _batch_size(s) -> int:
 
 def make_mega_chunk_fn(g: overlay.DeviceGraph, cfg: overlay.OverlayConfig,
                        check_every: int, *, names=None, max_cycles=None,
-                       with_trace: bool = False):
+                       with_trace: bool = False, body: str | None = None,
+                       floor_only: bool = False):
     """Build ``chunk(state) -> state`` running ``check_every`` cycles in one
     kernel launch on a CUDA state, or the plain version on a CPU state (see
     the module docstring). ``with_trace`` makes the chunk return
@@ -233,7 +337,16 @@ def make_mega_chunk_fn(g: overlay.DeviceGraph, cfg: overlay.OverlayConfig,
     batched form for a state of :func:`overlay.init_batch_state`; with
     ``max_cycles`` (``[B]`` int32 budgets on the state's device) the chunk
     leaves each element that is done or at its budget untouched, the tail's
-    freeze."""
+    freeze. ``body`` forces the kernel's body (see :func:`plan`); by default
+    the plan picks it from the shapes. ``floor_only`` (the card only) leaves
+    out every PE's cycle and keeps the chunk's loads, stores, barriers and
+    reductions: a latency floor to time, whose state is no simulation's.
+
+    On the card, ``chunk(state, done_to=host)`` also has the kernel write
+    the chunk's ``done`` flags (``[B]``, or one solo) into ``host``, a
+    pinned CPU bool tensor, where the host can read them once the launch
+    has completed (behind a CUDA event) with no copy; the chunk's
+    ``writes_done`` attribute says it takes ``done_to``."""
     K = int(check_every)
     if K < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
@@ -249,10 +362,17 @@ def make_mega_chunk_fn(g: overlay.DeviceGraph, cfg: overlay.OverlayConfig,
                          f"policies, got {members}")
     if max_cycles is not None and not batched:
         raise ValueError("max_cycles freezes elements of a batch: pass names")
+    if floor_only and g["opcode"].device.type != "cuda":
+        raise ValueError("floor_only times the kernel: it needs a CUDA state")
     eject = eject_variant(cfg)
     device = _check_tree(dict(g), _graph_spec(g), None, "graph")
     nx, ny, L = g["opcode"].shape
     P, W = nx * ny, L // bitvec.FLAGS_PER_WORD
+    how = tables = body_key = None
+    if device.type == "cuda":
+        how = plan(nx, ny, L, members, body)
+        tables = graph_tables(g)
+        body_key = f"mega_chunk_{how.body}"
     plain = None
     # The kernel updates a state in place, so chunk after chunk of one run
     # passes the same tensors: their check, the argument struct and the
@@ -277,19 +397,28 @@ def make_mega_chunk_fn(g: overlay.DeviceGraph, cfg: overlay.OverlayConfig,
                                  f"members {members}")
         trace = torch.empty((K, B) if batched else (K,), dtype=torch.bool,
                             device=device)
-        # each element's links of both cycle parities: [B, 2, 2 (E, S), 6, P]
-        scratch = torch.empty(B * 2 * 2 * len(noc.PKT_FIELDS) * P,
-                              dtype=torch.int32, device=device)
+        scratch = {}
+        if how.body == "global":
+            # each element's links of both cycle parities,
+            # [B, 2, 2 (E, S), 6, Pp], and its RDY summaries, [B, S, Pp]
+            scratch = dict(
+                link_scratch=torch.empty(B * LINK_INTS * how.pp,
+                                         dtype=torch.int32, device=device),
+                sum_scratch=torch.empty(B * how.summary_words * how.pp,
+                                        dtype=torch.int32, device=device))
         subs = ([s["sched"][n] for n in members] if batched
                 else [s["sched"]])
-        tensors = dict(g, **{k: v for k, v in s.items() if k != "sched"},
+        tensors = dict(**{k: v for k, v in s.items() if k != "sched"},
+                       slot_info=tables[0], edges=tables[1],
                        policy_id=s["sched"]["policy_id"] if batched else None,
-                       max_cycles=max_cycles, trace=trace,
-                       link_scratch=scratch)
+                       max_cycles=max_cycles, trace=trace, **scratch)
         args = _Args(**{n: None if tensors.get(n) is None
                         else tensors[n].data_ptr() for n in _POINTERS},
                      nx=nx, ny=ny, L=L, W=W, emax=g["e_dst_pe"].shape[-1],
-                     K=K, B=B, n_members=len(members))
+                     K=K, B=B, n_members=len(members),
+                     body=_BODIES[how.body], ppt=how.ppt,
+                     threads=how.threads, Pp=how.pp, S=how.summary_words,
+                     smem_bytes=how.smem_bytes, floor_only=int(floor_only))
         for m, (name, sub) in enumerate(zip(members, subs)):
             args.members[m] = _Member(
                 kind=POLICIES[name],
@@ -301,14 +430,15 @@ def make_mega_chunk_fn(g: overlay.DeviceGraph, cfg: overlay.OverlayConfig,
             args.s_pe = s["active"].stride(0)
             args.s_words = P * W
             args.s_links = s["link_e"].stride(0)
-        last.update(args=args, trace=trace, scratch=scratch)
+        last.update(args=args, addr=ctypes.addressof(args), trace=trace,
+                    scratch=scratch)
 
-    def chunk(s):
+    def chunk(s, done_to=None):
         nonlocal plain
         leaves = _leaves(s)
         prev = last["leaves"]
         if (leaves is None or prev is None or len(leaves) != len(prev)
-                or any(a is not b for a, b in zip(leaves, prev))):
+                or not all(map(operator.is_, leaves, prev))):
             last["leaves"] = None
             prepare(s)
             last["leaves"] = leaves
@@ -327,16 +457,33 @@ def make_mega_chunk_fn(g: overlay.DeviceGraph, cfg: overlay.OverlayConfig,
         if with_trace:        # the caller keeps it: a fresh one per call
             trace = torch.empty_like(trace)
             args.trace = trace.data_ptr()
+        if done_to is not None:
+            if (done_to.device.type != "cpu" or not done_to.is_pinned()
+                    or done_to.dtype != torch.bool
+                    or done_to.numel() != last["B"]):
+                raise ValueError(f"done_to must be a pinned CPU bool tensor "
+                                 f"of {last['B']} elements")
+            args.done_host = done_to.data_ptr()
         key = "mega_chunk_batched" if batched else "mega_chunk"
-        with torch.cuda.device(device):
-            fn = _build.library(SOURCE).mega_chunk
-            launches[key] += 1
-            rc = fn(ctypes.addressof(args), eject,
-                    torch.cuda.current_stream(device).cuda_stream)
-        # The launch copied the struct; later calls write the wrapper's own.
-        args.trace = last["trace"].data_ptr()
+        fn = _build.library(SOURCE).mega_chunk
+        launches[key] += 1
+        launches[body_key] += 1
+        # The launch goes to the current stream of the state's device (the
+        # raw handle, as torch's own generated code reads it).
+        if torch.cuda.current_device() == device.index:
+            rc = fn(last["addr"], eject,
+                    torch._C._cuda_getCurrentRawStream(device.index))
+        else:
+            with torch.cuda.device(device):
+                rc = fn(last["addr"], eject,
+                        torch._C._cuda_getCurrentRawStream(device.index))
+        # The launch copied the struct; later calls set their own.
+        if with_trace:
+            args.trace = last["trace"].data_ptr()
+        args.done_host = None
         if rc != 0:
             raise RuntimeError(f"{key} kernel launch failed: CUDA error {rc}")
         return (s, trace) if with_trace else s
 
+    chunk.writes_done = True
     return chunk

@@ -111,7 +111,8 @@ def _assert_bits_equal(got, want, path=""):
 def test_megakernel_matches_plain_chunk(cuda, policy, eject):
     """The kernel's chunk equals the plain chunk bit for bit, every state
     leaf and the done trace, from cycle 0, mid-run, near the end and a
-    state whose float planes hold -0.0, at K = 1, 7 and 32."""
+    state whose float planes hold -0.0, at K = 1, 7 and 32, on both bodies
+    (the plan's ``shared`` and the forced ``global``)."""
     cap, pol = EJECTS[eject]
     gm = build_graph_memory(wl.arrow_lu_graph(3, 6, 4, seed=5), 2, 2,
                             criticality_order=policy == "ooo")
@@ -133,13 +134,34 @@ def test_megakernel_matches_plain_chunk(cuda, policy, eject):
         for k in (1, 7, 32):
             want, want_trace = megakernel.mega_chunk_plain(
                 g, cfg, k, with_trace=True)(_clone(state))
-            megakernel.reset_launches()
-            got, got_trace = megakernel.make_mega_chunk_fn(
-                g, cfg, k, with_trace=True)(_clone(state))
-            torch.cuda.synchronize()
-            assert megakernel.launches["mega_chunk"] == 1
-            _assert_bits_equal(got, want)
-            assert torch.equal(got_trace, want_trace)
+            for body in ("shared", "global"):
+                megakernel.reset_launches()
+                got, got_trace = megakernel.make_mega_chunk_fn(
+                    g, cfg, k, with_trace=True, body=body)(_clone(state))
+                torch.cuda.synchronize()
+                assert megakernel.launches["mega_chunk"] == 1
+                assert megakernel.launches[f"mega_chunk_{body}"] == 1
+                _assert_bits_equal(got, want)
+                assert torch.equal(got_trace, want_trace)
+
+
+@pytest.mark.parametrize("offset", (-9, -8, -1, 0, 8))
+def test_queued_chunks_equal_the_per_cycle_engine(cuda, offset):
+    """The megakernel engine's host loop (chunk n + 1 queued before chunk
+    n's done flags, read from pinned memory the kernel writes) against the
+    tensor engine at check_every=1, at budgets around the chunk edges."""
+    gm = build_graph_memory(wl.arrow_lu_graph(3, 6, 4, seed=5), 2, 2,
+                            criticality_order=True)
+    g = device_graph(gm, device=cuda)
+    end = GOLDENS["ooo"][0]
+    finals = {}
+    for engine, every in (("megakernel", 8), ("tensor", 1)):
+        cfg = OverlayConfig(scheduler="ooo", engine=engine, check_every=every,
+                            max_cycles=end + offset)
+        finals[engine] = run_state(g, cfg, init_state(g, cfg))
+    torch.cuda.synchronize()
+    _assert_bits_equal(finals["megakernel"], finals["tensor"])
+    assert int(finals["tensor"]["cycle"]) == min(end, end + offset)
 
 
 @pytest.mark.parametrize("policy", sorted(GOLDENS))

@@ -84,7 +84,8 @@ def test_resolve_check_every():
 def test_engine_accepted_and_unknown_engines_raise():
     assert OverlayConfig(engine="megakernel").engine == "megakernel"
     assert overlay.ENGINES == ("tensor", "select", "megakernel")
-    for bad in ("jnp", "turbo"):
+    assert OverlayConfig(engine="jnp").engine == "tensor"
+    for bad in ("xla", "turbo"):
         with pytest.raises(ValueError, match="engine"):
             OverlayConfig(engine=bad)
 
@@ -94,7 +95,9 @@ def test_no_kernel_launch_on_cpu():
     r = repro_torch.run(_graph(), OverlayConfig(engine="megakernel"),
                         nx=2, ny=2, device="cpu")
     assert r.done and (r.cycles, r.deflections) == GOLDENS["ooo"]
-    assert megakernel.launches == {"mega_chunk": 0, "mega_chunk_batched": 0}
+    assert megakernel.launches == {"mega_chunk": 0, "mega_chunk_batched": 0,
+                                   "mega_chunk_shared": 0,
+                                   "mega_chunk_global": 0}
 
 
 def test_tail_runs_as_chunks_of_one(monkeypatch):

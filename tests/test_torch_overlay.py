@@ -148,12 +148,35 @@ def test_parts_not_ported_yet_raise():
     g = wl.layered_dag(3, 4, seed=1)
     with pytest.raises(NotImplementedError, match="placement"):
         OverlayConfig(placement="anneal")
+    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+        OverlayConfig(placement="random")
     with pytest.raises(NotImplementedError, match="telemetry"):
         OverlayConfig(telemetry=object())
     with pytest.raises(ValueError, match="engine"):
-        OverlayConfig(engine="jnp")
+        OverlayConfig(engine="xla")
     with pytest.raises(NotImplementedError, match="mesh"):
         repro_torch.run(g, mesh=object(), nx=2, ny=2, device="cpu")
+
+
+def test_reference_spellings_run_as_the_defaults():
+    """``placement="identity"`` is the identity placement (``None``) and
+    ``engine="jnp"`` the ``"tensor"`` engine, as the reference names them:
+    the same results, leaf for leaf, on the matrix graph."""
+    assert OverlayConfig(placement="identity") == OverlayConfig()
+    assert OverlayConfig(engine="jnp") == OverlayConfig(engine="tensor")
+    g = GRAPHS["arrow"]()
+    want = repro_torch.run(g, OverlayConfig(engine="tensor"), nx=4, ny=4,
+                           device="cpu")
+    got = repro_torch.run(g, OverlayConfig(placement="identity",
+                                           engine="jnp"), nx=4, ny=4,
+                          device="cpu")
+    assert got.done
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(b, np.ndarray):
+            assert np.array_equal(a.view(np.int32), b.view(np.int32)), f.name
+        else:
+            assert a == b, f.name
 
 
 def test_values_match_reference_evaluate_on_small_graphs():

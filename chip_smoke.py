@@ -3,8 +3,6 @@
 
     python3 chip_smoke.py                   # everything, as the check runs it
     python3 chip_smoke.py --rows n15072 --mega-rows n15072   # smallest rows
-    python3 chip_smoke.py --times-only [--src OTHER/src]  # megakernel timings
-                                            # (of another checkout's package)
 
 Phases, each of which fails the run on any error (each prints its seconds):
   1. the card: its name and power limit from ``nvidia-smi``;
@@ -27,9 +25,13 @@ Phases, each of which fails the run on any error (each prints its seconds):
      float planes made -0.0), at K = 1, 7 and 32, on clones of one state:
      every state leaf and the done trace must be equal as bit patterns.
      Also n15072 on 2x2 for every policy (118 RDY words a PE: four summary
-     words), the matrix graph on 36x36 and 42x42 (four PEs a thread) and on
+     words), the matrix graph on 36x36 and 42x42 (four PEs a thread), on
      48x48 (whose links and RDY rows exceed shared memory: the plan must
-     give the ``global`` body), and each larger megakernel row's policies
+     give the ``global`` body) and on 64x64 (4,096 PEs, a loop a thread),
+     n470772 on 2x2 for ``ooo`` and ``lru_flat`` where ``--mega-rows`` has
+     it (3,678 RDY words a PE: the ``global`` body's three-level pick; from
+     three states at K = 1, 7 and 32), and each larger megakernel row's
+     policies
      (``--mega-rows`` beyond n15072) from three states (cycle 40, made by
      the plain chunk; half-way to the golden; three cycles before it) at
      K = 1 and 32. Each case runs the body the plan picks and, where that is
@@ -79,9 +81,8 @@ Phases, each of which fails the run on any error (each prints its seconds):
      chunks enqueued back to back (median over chunks) at n15072, n117972
      and n470772 for ``ooo`` and ``inorder``, the plain chunk's at n15072
      ``ooo``, the host time per call and the bytes bound; then at n15072
-     ``ooo`` the ``global`` body and the latency floor (the chunk with every
-     PE's cycle left out: its loads, stores, barriers and reductions; by
-     CUDA-graph replay), and at n15072 and n470772 the engine's chunk loop
+     ``ooo`` the ``global`` body, and at n15072 and n470772 the engine's
+     chunk loop
      with one chunk in flight against two (queued), beside the chunks
      launched back to back;
  12. batch scaling: the first B = 1, 8, 32, 64 and 128 configs of ``sweep_ooo``:
@@ -216,10 +217,12 @@ EJECTS = {"n_first_cap1": (1, "n_first"), "priority_cap1": (1, "priority"),
 MATRIX_GRAPH = (3, 6, 4, 5)
 #: The megakernel body the plan must give a phase 4 grid: n15072 on 2x2 has
 #: 118 RDY words a PE (four summary words); 48x48's links and rows exceed
-#: a CTA's shared memory.
+#: a CTA's shared memory; 64x64 has 4,096 PEs; n470772 on 2x2 has 3,678 RDY
+#: words a PE (115 summary words).
 PLANNED_BODIES = {"n15072 16x16": "shared", "n15072 2x2": "shared",
                   "matrix 36x36": "shared", "matrix 42x42": "shared",
-                  "matrix 48x48": "global"}
+                  "matrix 48x48": "global", "matrix 64x64": "global",
+                  "n470772 2x2": "global"}
 
 
 def card_line() -> str:
@@ -724,7 +727,12 @@ def check_megakernel(torch, np, graphs, mk, rows):
              ("n15072 2x2", n15072, 2, 2, POLICIES, ("n_first_cap1",)),
              ("matrix 36x36", matrix, 36, 36, ("ooo",), ("n_first_cap1",)),
              ("matrix 42x42", matrix, 42, 42, ("inorder",), ("cap2",)),
-             ("matrix 48x48", matrix, 48, 48, ("ooo",), ("n_first_cap1",))]
+             ("matrix 48x48", matrix, 48, 48, ("ooo",), ("n_first_cap1",)),
+             ("matrix 64x64", matrix, 64, 64, POLICIES, ("n_first_cap1",
+                                                         "cap2"))]
+    if "n470772" in rows:
+        grids.append(("n470772 2x2", graphs.graph("n470772")[0], 2, 2,
+                      ("ooo", "lru_flat"), ("n_first_cap1",)))
     err, cases = 0.0, 0
     for label, graph, nx, ny, policies, ejects in grids:
         for sched in policies:
@@ -822,7 +830,7 @@ def chunk_bytes(g, state, mk, K):
 
 def mega_times(torch, graphs, mk, name, policy="ooo", plain_chunks=5, **kw):
     """Per K=32 chunk of ``policy`` from cycle 64: device ms of the kernel
-    (``kw`` to ``make_mega_chunk_fn``: a body, or the latency floor) and,
+    (``kw`` to ``make_mega_chunk_fn``: a body) and,
     with ``plain_chunks``, of its plain version; host ms per kernel call,
     and the bytes bound.
 
@@ -849,19 +857,16 @@ def mega_times(torch, graphs, mk, name, policy="ooo", plain_chunks=5, **kw):
                 shape=list(g["opcode"].shape))
 
 
-def megakernel_times(torch, graphs, mk, ours=True):
+def megakernel_times(torch, graphs, mk):
     """Phase 11: the chunk times of MEGA_TIMED_ROWS x MEGA_TIMED_POLICIES
-    (the plain chunk's at the first row's ``ooo``); with ``ours`` (this
-    checkout's kernel) also the ``global`` body and the latency floor (the
-    shared body with every PE's cycle left out; its device time by CUDA-graph
-    replay) at the first row's ``ooo``. Returns {(row, policy, variant):
-    numbers}."""
+    (the plain chunk's at the first row's ``ooo``) and of the ``global``
+    body at the first row's ``ooo``; then the chunk loop's times. Returns
+    {(row, policy, variant): numbers}."""
     out = {}
     first = MEGA_TIMED_ROWS[0]
     runs = [(name, pol, "", {}) for name in MEGA_TIMED_ROWS
             for pol in MEGA_TIMED_POLICIES]
-    if ours:
-        runs.append((first, "ooo", "global body", dict(body="global")))
+    runs.append((first, "ooo", "global body", dict(body="global")))
     for name, pol, variant, kw in runs:
         plain = 5 if (name, pol, variant) == (first, "ooo", "") else 0
         mt = mega_times(torch, graphs, mk, name, pol, plain, **kw)
@@ -874,22 +879,8 @@ def megakernel_times(torch, graphs, mk, ours=True):
               + f", host {mt['call_ms'] * 1e3:.1f} us per call, bytes bound "
               f"{mt['bytes'] / HBM_BYTES_PER_S * 1e6:.3f} us "
               f"({mt['bytes']} bytes)", flush=True)
-    if ours:
-        # The floor runs faster than the host enqueues chunks, so its device
-        # time is taken by CUDA-graph replay (its state is no simulation's).
-        from repro_torch.core import overlay
-
-        cfg = overlay.OverlayConfig(scheduler="ooo", engine="megakernel")
-        g = overlay.device_graph(graphs.memory(first, "ooo"))
-        s = overlay.init_state(g, cfg)
-        floor = mk.make_mega_chunk_fn(g, cfg, MEGA_K, floor_only=True)
-        ms = device_ms(torch, lambda: floor(s), reps=20, rounds=5)
-        out[first, "ooo", "latency floor"] = dict(ms=ms)
-        print(f"megakernel time {first} ooo latency floor K={MEGA_K}: device "
-              f"{ms * 1e3:.1f} us per chunk by CUDA-graph replay "
-              f"({ms * 1e3 / MEGA_K:.3f} us per cycle)", flush=True)
-        for name in (first, MEGA_TIMED_ROWS[-1]):
-            chunk_loop_times(torch, graphs, mk, name)
+    for name in (first, MEGA_TIMED_ROWS[-1]):
+        chunk_loop_times(torch, graphs, mk, name)
     return out
 
 
@@ -1792,25 +1783,6 @@ def phase(name, fn, *args):
     return out
 
 
-def times_only(torch, np, mk, _build, args):
-    """``--times-only``: the megakernel's timings alone, for the package on
-    ``sys.path`` (this checkout's, or another's via ``--src``): the
-    megakernel main path's cycles/s and goldens on ``--mega-rows``, phase
-    11, the batch scaling without solo runs and the megakernel profile.
-    Uses only what every checkout's megakernel offers."""
-    print(f"times only: package {args.src}", flush=True)
-    phase("build", build_all, _build, [mk.SOURCE])
-    graphs = Graphs()
-    phase("main path megakernel", run_main_path, torch, np, graphs,
-          args.mega_rows, "megakernel", lambda: dict(mk.launches),
-          mk.reset_launches)
-    ours = Path(args.src).resolve() == (ROOT / "src").resolve()
-    phase("megakernel time", megakernel_times, torch, graphs, mk, ours)
-    phase("batch scaling", batch_scaling, torch, graphs, mk)
-    phase("profiles", profiles, torch, graphs, False)
-    return 0
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", nargs="+", default=list(SELECT_ROWS),
@@ -1820,14 +1792,6 @@ def main() -> int:
                     choices=list(ROWS),
                     help="rows of the megakernel main paths, solo and "
                          "batched (default: %(default)s)")
-    ap.add_argument("--times-only", action="store_true",
-                    help="only the megakernel's timings: the main path's "
-                         "cycles/s, phase 11, the batch scaling and the "
-                         "megakernel profile (no JSON lines)")
-    ap.add_argument("--src", type=Path, default=ROOT / "src",
-                    help="with --times-only, the package to time: another "
-                         "checkout's src, to compare two commits in one run "
-                         "(default: this checkout's)")
     args = ap.parse_args()
 
     import numpy as np
@@ -1836,9 +1800,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
-    if args.src != ROOT / "src" and not args.times_only:
-        ap.error("--src needs --times-only")
-    sys.path.insert(0, str(args.src))
+    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build, lod
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import megakernel as mk
@@ -1846,8 +1808,6 @@ def main() -> int:
     print(card_line(), flush=True)   # name, power limit as nvidia-smi gives them
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
-    if args.times_only:
-        return times_only(torch, np, mk, _build, args)
     phase("build", build_all, _build, [lod.SOURCE, mk.SOURCE, fa.SOURCE])
 
     t = time.perf_counter()
@@ -1912,13 +1872,12 @@ def main() -> int:
         plain_ms=mt["plain_ms"], bound_ms=mt["bytes"] / HBM_BYTES_PER_S * 1e3,
         bound_by="bytes", library_ms=None, call_ms=mt["call_ms"],
         shape=mt["shape"], K=MEGA_K, body="shared",
-        body_launches=mega_counts["mega_chunk_shared"],
-        floor_ms=mega_timed[first, "ooo", "latency floor"]["ms"]))
+        body_launches=mega_counts["mega_chunk_shared"]))
     gt = mega_timed[first, "ooo", "global body"]
     line.append(dict(
         name="mega_chunk_global", route="cuda", source=MEGA_SOURCE,
-        replaces=MEGA_REPLACES + " (grids whose links and RDY rows exceed "
-        "shared memory)", launches=mega_counts["mega_chunk_global"]
+        replaces=MEGA_REPLACES + " (grids the shared body does not take)",
+        launches=mega_counts["mega_chunk_global"]
         + batch_counts["mega_chunk_global"], max_abs_err=max(mega_err,
                                                              batch_err),
         equal=max(mega_err, batch_err) == 0, ms=gt["ms"],

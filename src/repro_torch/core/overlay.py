@@ -30,7 +30,8 @@ counter, which is repaired from the chunk's per-cycle done trace
 (:func:`make_chunk_fn`). Results are bit-identical for every ``check_every``.
 Under ``"megakernel"`` the host enqueues the next chunk before it reads the
 last one's ``done``, where the budget allows both, so the card need not wait
-on the host between chunks; a chunk on a done state is that fixed point.
+on the host between chunks; such a queued chunk leaves the state as it is
+where it finds every element done, as no chunk would have run there.
 
 The cycle updates the state's slot planes (``pending``, ``operands``,
 ``value``, ``computed``) in place, and the megakernel every state tensor;
@@ -547,10 +548,13 @@ def _run_chunks(chunk, state, cycle, done, budget, K: int, depth: int):
     """Whole chunks while some element runs (not done, under its budget) and
     every element that is not done has a full chunk of budget left. With
     ``depth`` 2 the next chunk is enqueued before the host reads the last
-    one's ``done``, where every such element's budget allows both; a chunk
-    on a done state leaves it as it is (the fixed point, its cycle kept), so
-    the results are those of ``depth`` 1. ``cycle``, ``done`` and ``budget``
-    are lists, one entry per element; returns (state, cycle, done)."""
+    one's ``done``, where every such element's budget allows both. A chunk
+    so queued (``queued=True``) leaves the state as it is where it finds
+    every element done, where ``depth`` 1 would have stopped: a cycle past
+    completion can still turn a -0.0 into +0.0 (each eject port adds +0.0
+    to its cell). So the results are those of ``depth`` 1. ``cycle``,
+    ``done`` and ``budget`` are lists, one entry per element; returns
+    (state, cycle, done)."""
     reader = _DoneReader(state["done"], depth,
                          getattr(chunk, "writes_done", False))
     inflight = 0
@@ -560,7 +564,11 @@ def _run_chunks(chunk, state, cycle, done, budget, K: int, depth: int):
                and all(d or c + (inflight + 1) * K <= m
                        for c, d, m in zip(cycle, done, budget))):
             target = reader.target()
-            state = chunk(state) if target is None else chunk(state, target)
+            if inflight:      # behind a chunk whose done is not read yet
+                state = chunk(state, target, queued=True)
+            else:
+                state = chunk(state) if target is None else chunk(state,
+                                                                  target)
             reader.push(state["done"])
             inflight += 1
         if not inflight:

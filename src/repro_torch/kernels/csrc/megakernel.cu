@@ -64,11 +64,19 @@
 //    are summed in registers and reduced once per chunk. Thread 0 can also
 //    write each element's done flag into pinned host memory (done_host), so
 //    the host loop reads it behind an event with no copy.
+//  * A chunk the host queued before it read the last chunk's done flags
+//    (done_in, which that chunk wrote to done_out) leaves every leaf as it is
+//    where every element was done: the host would not have launched it, and
+//    a cycle past completion can still turn a -0.0 into +0.0.
 // Where links, RDY rows and summaries do not fit in 227 KB of shared memory
-// (e.g. 2,304 PEs at 48x48), the plan of kernels/megakernel.py (a function
-// of the shapes alone) takes the `global` body: the same code with links in
-// device scratch, RDY rows in the member's state tensor and the summaries in
-// device scratch. Each body is its own instantiation.
+// (e.g. 2,304 PEs at 48x48), or a row has more than 32 summary words (above
+// 32,768 slots), the plan of kernels/megakernel.py (a function of the shapes
+// alone) takes the `global` body: the same cycle with links in device
+// scratch, RDY rows in the member's state tensor, the summaries and a level
+// of words above them (one bit a summary word, so the top word covers 2^20
+// slots) in device scratch, and each thread looping over PEs at the CTA's
+// stride, a PE's registers kept in device scratch between cycles, so it runs
+// any grid. Each body is its own instantiation.
 //
 // Batched state. Each element's slice of a leaf is contiguous, at the
 // element strides the wrapper passes (s_plane, s_pe, s_words, s_links);
@@ -106,9 +114,9 @@ enum Body { kShared = 0, kGlobal = 1 };
 enum Field { kValid = 0, kDstX, kDstY, kDstSlot, kOpidx, kValue, kFields };
 enum Stat { kFired = 0, kDelivered, kDNoc, kDEj, kStats };
 
-// One PE a thread up to 512 threads (128 registers a thread, the cycle's
-// state without spills); above, 4 PEs a thread on up to 576 threads cover
-// 2,304 PEs (48x48).
+// The shared body: one PE a thread up to 512 threads (128 registers a
+// thread, the cycle's state without spills); above, 4 PEs a thread on up to
+// 576 threads. The global body loops over PEs on up to 576 threads.
 constexpr int kMaxThreads = 576;
 constexpr int kMaxThreadsPpt1 = 512;
 constexpr int kMaxMembers = 4;  // the registered policies
@@ -119,6 +127,7 @@ constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kPktInts = 8;
 constexpr int kLinkInts = 2 * 2 * kPktInts;
 constexpr int kMaxSummaryWords = 32;    // the top word's bits
+constexpr int kPeInts = 32;             // a PE's registers in pe_scratch
 constexpr int kSharedBytes = 232448;    // a CTA's shared memory on sm_90
 constexpr unsigned kAll = 0xFFFFFFFFu;
 constexpr unsigned kTop = 0x80000000u;
@@ -174,22 +183,25 @@ struct MegaArgs {
   // scratch from the wrapper
   uint8_t* trace;          // [K, B] bool
   int32_t* link_scratch;   // global body: [B, 2, 2, Pp, 8] links by parity
-  uint32_t* sum_scratch;   // global body: [B, S, Pp] RDY summaries
+  uint32_t* sum_scratch;   // global body: [B, S + ceil(S / 32), Pp] RDY
+                           // summaries, then the level above them
+  int32_t* pe_scratch;     // global body: [B, Pp, kPeInts] PE registers
   // [B] pinned host memory that also receives each element's done flag at
   // the end of the chunk (the host loop reads it without a copy), or null
   uint8_t* done_host;
+  // [B] each element's done flag after the chunk before this one, which this
+  // chunk was queued behind (every element done: the chunk changes nothing),
+  // or null; and [B] this chunk's flags for the chunk queued behind it
+  const uint8_t* done_in;
+  uint8_t* done_out;
   Member members[kMaxMembers];
   // element strides of the [B, ...] leaves, in elements
   int64_t s_plane, s_pe, s_words, s_links;
   int32_t nx, ny, L, W, emax, K, B, n_members;
-  // the plan: body, PEs a thread, threads a CTA, PE stride of the link,
-  // RDY and summary rows (P rounded up to 32), summary words a PE, and the
-  // dynamic shared memory of the shared body
+  // the plan: body, PEs a thread (0: a loop, the global body), threads a
+  // CTA, PE stride of the link, RDY and summary rows (P rounded up to 32),
+  // summary words a PE, and the dynamic shared memory of the shared body
   int32_t body, ppt, threads, Pp, S, smem_bytes;
-  // 1: leave out every PE's cycle, keeping the chunk's loads and stores,
-  // its barriers and its reductions (a latency floor for measurement; the
-  // state it leaves is not a simulation's)
-  int32_t floor_only;
   int32_t eject;  // Eject; set by the entry point
 };
 
@@ -249,7 +261,6 @@ __device__ __forceinline__ Pkt invalidated(Pkt p, bool keep) {
 // A PE's registers for the chunk.
 struct Pe {
   int p;             // the PE's index, or -1: this thread has no such PE
-  int nb;            // west neighbour << 16 | north neighbour
   int xy;            // x << 16 | y
   int active, sel_wait;
   int4 fo;           // {cursor, cursor_end, -, -}
@@ -260,7 +271,8 @@ struct Pe {
   int clean;         // 2 slot + opidx of the cell an invalid packet last
                      // normalized (neither it nor the slot's value is -0.0
                      // or NaN since), or -1
-  uint32_t top;      // bit j: summary word j is non-zero
+  uint32_t top;      // bit j: summary word j (deep rows: level-2 word j) is
+                     // non-zero
   float aval;        // value at clamp(active, 0, L - 1)
   int4 cur;          // the edge record at clamp(cursor, 0, emax - 1)
 };
@@ -287,9 +299,10 @@ struct Elem {
   const int4* edges;
   uint32_t* rdy;      // word w of PE p at rdy[w * rws + p * rps]
   uint32_t* sum;      // word j of PE p at sum[j * Pp + p]
+  uint32_t* top2;     // deep rows: level-2 word t of PE p at top2[t * Pp + p]
   int32_t* fifo;      // the active member's FIFO (inorder)
   int rws, rps;
-  int L, W, emax, Pp;
+  int nx, ny, L, W, emax, Pp;
   int b, act, sel_lat;
   bool prio;          // eject arbitration at capacity 1: priority
   bool others;        // the batch has members besides the active one
@@ -357,17 +370,30 @@ __device__ __forceinline__ void member_set(const Member& m, size_t wrow,
   atomicOr(m.rdy + wrow + (slot >> 5), kTop >> (slot & 31));
 }
 
-// Set slot s of PE p's RDY row, its summary bit and its top bit.
+// The levels above a row: summary word j has bit w % 32 for each non-empty
+// RDY word w of 32 j .. 32 j + 31; with DEEP (the global body), level-2 word
+// t has bit j % 32 for each non-empty summary word of 32 t .. 32 t + 31, and
+// the top word (a register) one bit for each non-empty level-2 word;
+// otherwise the top word has one bit for each non-empty summary word.
+
+// Set slot s of PE p's RDY row and its bits in the levels above.
+template <bool DEEP>
 __device__ __forceinline__ void rdy_set(const Elem& el, int Pp, int p, int s,
                                         uint32_t& top) {
   const int w = s >> 5, j = w >> 5;
   el.rdy[w * el.rws + p * el.rps] |= kTop >> (s & 31);
   el.sum[j * Pp + p] |= kTop >> (w & 31);
-  top |= kTop >> j;
+  if constexpr (DEEP) {
+    el.top2[(j >> 5) * Pp + p] |= kTop >> (j & 31);
+    top |= kTop >> (j >> 5);
+  } else {
+    top |= kTop >> j;
+  }
 }
 
-// Clear slot s, whose RDY word is `word`; empty words leave the summary,
-// empty summary words the top word.
+// Clear slot s, whose RDY word is `word`; an empty word leaves its summary
+// word, an empty summary word the level above.
+template <bool DEEP>
 __device__ __forceinline__ void rdy_clear(const Elem& el, int Pp, int p, int s,
                                           uint32_t word, uint32_t& top) {
   const int w = s >> 5, j = w >> 5;
@@ -376,23 +402,35 @@ __device__ __forceinline__ void rdy_clear(const Elem& el, int Pp, int p, int s,
   if (nw == 0) {
     const uint32_t ns = el.sum[j * Pp + p] & ~(kTop >> (w & 31));
     el.sum[j * Pp + p] = ns;
-    if (ns == 0) top &= ~(kTop >> j);
+    if (ns == 0) {
+      if constexpr (DEEP) {
+        const int t = j >> 5;
+        const uint32_t nt = el.top2[t * Pp + p] & ~(kTop >> (j & 31));
+        el.top2[t * Pp + p] = nt;
+        if (nt == 0) top &= ~(kTop >> t);
+      } else {
+        top &= ~(kTop >> j);
+      }
+    }
   }
 }
 
-// The first set slot of a non-empty row (top != 0): three leading-one
-// detects. Returns the slot and its RDY word.
+// The first set slot of a non-empty row (top != 0): a leading-one detect a
+// level. Returns the slot and its RDY word.
+template <bool DEEP>
 __device__ __forceinline__ int rdy_first(const Elem& el, int Pp, int p,
                                          uint32_t top, uint32_t* word) {
-  const int j = clz(top);
+  int j = clz(top);
+  if constexpr (DEEP) j = j * 32 + clz(el.top2[j * Pp + p]);
   const int w = j * 32 + clz(el.sum[j * Pp + p]);
   *word = el.rdy[w * el.rws + p * el.rps];
   return w * 32 + clz(*word);
 }
 
 // The first set slot at or after ptr, wrapping: the word at ptr masked to
-// the slots from ptr on, then the words after it through the summary and
-// the top word; else the first set slot of the row.
+// the slots from ptr on, then the words after it through each level masked
+// past ptr's bit; else the first set slot of the row.
+template <bool DEEP>
 __device__ __forceinline__ int rdy_rotating(const Elem& el, int Pp, int p,
                                             int L, int ptr, uint32_t top,
                                             uint32_t* word) {
@@ -410,30 +448,47 @@ __device__ __forceinline__ int rdy_rotating(const Elem& el, int Pp, int p,
     if (sv) {
       w = pj * 32 + clz(sv);
     } else {
-      const uint32_t tv = pj == 31 ? 0u : top & (kAll >> (pj + 1));
-      if (tv) {
-        const int j = clz(tv);
-        w = j * 32 + clz(el.sum[j * Pp + p]);
+      int j = -1;  // the first non-empty summary word after pj
+      if constexpr (DEEP) {
+        const int pt = pj >> 5;
+        const uint32_t t2 = (pj & 31) == 31
+                                ? 0u
+                                : el.top2[pt * Pp + p] & (kAll >> ((pj & 31) + 1));
+        if (t2) {
+          j = pt * 32 + clz(t2);
+        } else {
+          const uint32_t tv = pt == 31 ? 0u : top & (kAll >> (pt + 1));
+          if (tv) {
+            const int t = clz(tv);
+            j = t * 32 + clz(el.top2[t * Pp + p]);
+          }
+        }
+      } else {
+        const uint32_t tv = pj == 31 ? 0u : top & (kAll >> (pj + 1));
+        if (tv) j = clz(tv);
       }
+      if (j >= 0) w = j * 32 + clz(el.sum[j * Pp + p]);
     }
     if (w >= 0) {
       *word = el.rdy[w * el.rws + p * el.rps];
       return w * 32 + clz(*word);
     }
   }
-  return rdy_first(el, Pp, p, top, word);
+  return rdy_first<DEEP>(el, Pp, p, top, word);
 }
 
 // One cycle of PE r.p. `in` holds the previous cycle's links, `out`
 // receives this cycle's; both are [2 (E, S)][Pp][8]. Returns whether the PE
 // is busy (not quiet) at the end of the cycle.
-template <int POLICY, bool CAP2>
+template <int POLICY, bool CAP2, bool DEEP>
 __device__ __forceinline__ bool pe_cycle(const MegaArgs& a, Elem& el, Pe& r,
                                          const int* in, int* out) {
   constexpr int E = CAP2 ? 2 : 1;
   const int L = el.L, Pp = el.Pp, p = r.p;
   const int x = r.xy >> 16, y = r.xy & 0xFFFF;
-  const int pw = r.nb >> 16, pn = r.nb & 0xFFFF;
+  // the west and north neighbours on the torus (p = x ny + y)
+  const int pw = x == 0 ? p + (el.nx - 1) * el.ny : p - el.ny;
+  const int pn = y == 0 ? p + el.ny - 1 : p - 1;
   const int row = p * L;  // the PE's first cell in the element's planes
 
   // ---- 1. the packets on the links and the eject arbitration between
@@ -650,7 +705,7 @@ __device__ __forceinline__ bool pe_cycle(const MegaArgs& a, Elem& el, Pe& r,
       if (pos == clampi(r.hs, 0, L - 1)) r.fhead = slot[e];
       r.size += 1;
     } else {
-      rdy_set(el, Pp, p, slot[e], r.top);
+      rdy_set<DEEP>(el, Pp, p, slot[e], r.top);
     }
     if (el.others) {
       // The inactive members: an inorder FIFO takes the push at head + size
@@ -686,9 +741,9 @@ __device__ __forceinline__ bool pe_cycle(const MegaArgs& a, Elem& el, Pe& r,
     } else {
       uint32_t word;
       cand = POLICY == kOoo
-                 ? rdy_first(el, Pp, p, r.top, &word)
-                 : rdy_rotating(el, Pp, p, L, r.hs, r.top, &word);
-      rdy_clear(el, Pp, p, cand, word, r.top);
+                 ? rdy_first<DEEP>(el, Pp, p, r.top, &word)
+                 : rdy_rotating<DEEP>(el, Pp, p, L, r.hs, r.top, &word);
+      rdy_clear<DEEP>(el, Pp, p, cand, word, r.top);
       if (POLICY == kRotating) r.hs = wrap(cand + 1, L);
     }
     r.active = cand;
@@ -715,12 +770,100 @@ __device__ __forceinline__ bool pe_cycle(const MegaArgs& a, Elem& el, Pe& r,
            new_s.f[kValid] == 0);
 }
 
+// PE p's registers from the state at the start of the chunk, and its
+// summaries (and, DEEP, the level above them) from its RDY row.
+template <int POLICY, bool DEEP>
+__device__ __forceinline__ Pe pe_load(const MegaArgs& a, Elem& el,
+                                      const Member& am, const Member& im,
+                                      int p) {
+  constexpr bool RDY = POLICY != kInorder;
+  const int ny = el.ny, L = el.L, W = el.W, Pp = el.Pp;
+  Pe r;
+  r.p = p;
+  const int x = p / ny, y = p - x * ny;
+  r.xy = x << 16 | y;
+  const size_t gp = static_cast<size_t>(el.b) * a.s_pe + p;
+  const int row = p * L;
+  r.active = a.active[gp];
+  r.fo = make_int4(a.cursor[gp], a.cursor_end[gp], 0, 0);
+  r.sel_wait = a.sel_wait[gp];
+  r.hs = POLICY == kInorder ? am.head[gp]
+                            : (POLICY == kRotating ? am.ptr[gp] : 0);
+  r.size = POLICY == kInorder ? am.size[gp] : 0;
+  r.fhead = POLICY == kInorder ? el.fifo[row + clampi(r.hs, 0, L - 1)] : 0;
+  r.clean = -1;
+  r.ihead = el.ififo != nullptr ? im.head[gp] : 0;
+  r.isize = el.ififo != nullptr ? im.size[gp] : 0;
+  r.aval = el.value[row + clampi(r.active, 0, L - 1)];
+  r.cur = ldg4(el.edges + p * el.emax + clampi(r.fo.x, 0, el.emax - 1));
+  r.top = 0;
+  if constexpr (RDY) {
+    const int S = a.S, groups = DEEP ? (S + 31) >> 5 : 1;
+    for (int t = 0; t < groups; ++t) {
+      uint32_t tw = 0;
+      for (int j = 32 * t; j < min(S, 32 * t + 32); ++j) {
+        uint32_t sw = 0;
+        for (int w = 32 * j; w < min(W, 32 * j + 32); ++w)
+          if (el.rdy[w * el.rws + p * el.rps]) sw |= kTop >> (w & 31);
+        el.sum[j * Pp + p] = sw;
+        if (sw) tw |= kTop >> (j & 31);
+      }
+      if constexpr (DEEP) {
+        el.top2[t * Pp + p] = tw;
+        if (tw) r.top |= kTop >> t;
+      } else {
+        r.top = tw;
+      }
+    }
+  }
+  return r;
+}
+
+// PE r.p's registers and links back to the state at the end of the chunk
+// (`last` holds the last cycle's links).
+template <int POLICY>
+__device__ __forceinline__ void pe_store(const MegaArgs& a, const Elem& el,
+                                         const Member& am, const Member& im,
+                                         const Pe& r, const int* last,
+                                         int* link_e, int* link_s) {
+  const int p = r.p, P = el.nx * el.ny, Pp = el.Pp;
+  const size_t gp = static_cast<size_t>(el.b) * a.s_pe + p;
+  a.active[gp] = r.active;
+  a.cursor[gp] = r.fo.x;
+  a.cursor_end[gp] = r.fo.y;
+  a.sel_wait[gp] = r.sel_wait;
+  if (POLICY == kInorder) {
+    am.head[gp] = r.hs;
+    am.size[gp] = r.size;
+  }
+  if (POLICY == kRotating) am.ptr[gp] = r.hs;
+  if (el.ififo != nullptr) im.size[gp] = r.isize;
+#pragma unroll
+  for (int f = 0; f < kFields; ++f) {
+    link_e[f * P + p] = last[p * kPktInts + f];
+    link_s[f * P + p] = last[(Pp + p) * kPktInts + f];
+  }
+}
+
+// The chunk's done flags of a CTA that changes no leaf (the tail's freeze,
+// or a queued chunk behind a chunk that left every element done).
+__device__ __forceinline__ void write_frozen(const MegaArgs& a, int b,
+                                             bool done) {
+  for (int k = 0; k < a.K; ++k)
+    a.trace[static_cast<size_t>(k) * a.B + b] = done ? 1 : 0;
+  if (a.done_host != nullptr) a.done_host[b] = done ? 1 : 0;
+  if (a.done_out != nullptr) a.done_out[b] = done ? 1 : 0;
+}
+
 // K cycles of element b under its active member `am` (a CTA-uniform
-// policy), then the element's chunk repair.
+// policy), then the element's chunk repair. PPT PEs a thread in registers
+// (the shared body), or PPT = 0: a loop over PEs at the CTA's stride, each
+// PE's registers in device scratch between cycles (the global body).
 template <int POLICY, bool CAP2, bool SHARED, int PPT>
 __device__ __forceinline__ void run_element(const MegaArgs& a, int b, int act,
                                             const Member& am, uint32_t* smem,
                                             int (*partial)[kStats]) {
+  constexpr bool DEEP = !SHARED;
   const int nx = a.nx, ny = a.ny, P = nx * ny, L = a.L, W = a.W, Pp = a.Pp;
   const int tid = threadIdx.x, T = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = T >> 5;
@@ -735,6 +878,8 @@ __device__ __forceinline__ void run_element(const MegaArgs& a, int b, int act,
   el.info = a.slot_info;
   el.edges = a.edges;
   el.fifo = POLICY == kInorder ? am.fifo + plane0 : nullptr;
+  el.nx = nx;
+  el.ny = ny;
   el.L = L;
   el.W = W;
   el.emax = a.emax;
@@ -759,10 +904,11 @@ __device__ __forceinline__ void run_element(const MegaArgs& a, int b, int act,
   // Links [2 parities][2 (E, S)][Pp][8], RDY rows [W][Pp + 1] (the odd
   // stride keeps both the coalesced copies and each PE's own accesses free
   // of bank conflicts) and summaries [S][Pp]: in shared memory (the shared
-  // body) or device memory.
+  // body) or device memory, with the level-2 words [ceil(S / 32)][Pp].
   uint32_t* const grdy = RDY ? am.rdy + static_cast<size_t>(b) * a.s_words
                              : nullptr;
   int* links;
+  el.top2 = nullptr;
   if constexpr (SHARED) {
     links = reinterpret_cast<int*>(smem);
     el.rdy = smem + kLinkInts * Pp;
@@ -772,12 +918,20 @@ __device__ __forceinline__ void run_element(const MegaArgs& a, int b, int act,
   } else {
     links = a.link_scratch + static_cast<size_t>(b) * kLinkInts * Pp;
     el.rdy = grdy;
-    el.sum = a.sum_scratch + static_cast<size_t>(b) * a.S * Pp;
+    el.sum = a.sum_scratch +
+             static_cast<size_t>(b) * (a.S + ((a.S + 31) >> 5)) * Pp;
+    el.top2 = el.sum + static_cast<size_t>(a.S) * Pp;
     el.rws = 1;
     el.rps = W;
   }
   int* const link_e = a.link_e + static_cast<size_t>(b) * a.s_links;
   int* const link_s = a.link_s + static_cast<size_t>(b) * a.s_links;
+  // the global body's PE registers, kPeInts ints a PE
+  static_assert(sizeof(Pe) <= sizeof(int32_t) * kPeInts, "Pe > kPeInts");
+  int32_t* const pes = a.pe_scratch + static_cast<size_t>(b) * Pp * kPeInts;
+  auto pe_at = [pes](int p) {
+    return reinterpret_cast<Pe*>(pes + static_cast<size_t>(p) * kPeInts);
+  };
 
   // ---- chunk start: links, the RDY rows (coalesced), then each PE's
   // registers and summaries.
@@ -794,43 +948,18 @@ __device__ __forceinline__ void run_element(const MegaArgs& a, int b, int act,
   }
   __syncthreads();
 
-  Pe pe[PPT];
+  constexpr int kRegs = PPT > 0 ? PPT : 1;
+  Pe pe[kRegs];
+  if constexpr (PPT > 0) {
 #pragma unroll
-  for (int i = 0; i < PPT; ++i) {
-    Pe& r = pe[i];
-    const int p = tid + i * T;
-    r.p = p < P ? p : -1;
-    if (r.p < 0) continue;
-    const int x = p / ny, y = p - x * ny;
-    const int pw = (x == 0 ? nx - 1 : x - 1) * ny + y;   // west neighbour
-    const int pn = x * ny + (y == 0 ? ny - 1 : y - 1);   // north neighbour
-    r.xy = x << 16 | y;
-    r.nb = pw << 16 | pn;
-    const size_t gp = static_cast<size_t>(b) * a.s_pe + p;
-    const int row = p * L;
-    r.active = a.active[gp];
-    r.fo = make_int4(a.cursor[gp], a.cursor_end[gp], 0, 0);
-    r.sel_wait = a.sel_wait[gp];
-    r.hs = POLICY == kInorder ? am.head[gp]
-                              : (POLICY == kRotating ? am.ptr[gp] : 0);
-    r.size = POLICY == kInorder ? am.size[gp] : 0;
-    r.fhead = POLICY == kInorder ? el.fifo[row + clampi(r.hs, 0, L - 1)] : 0;
-    r.clean = -1;
-    r.ihead = el.ififo != nullptr ? im.head[gp] : 0;
-    r.isize = el.ififo != nullptr ? im.size[gp] : 0;
-    r.aval = el.value[row + clampi(r.active, 0, L - 1)];
-    r.cur = ldg4(el.edges + p * el.emax + clampi(r.fo.x, 0, el.emax - 1));
-    r.top = 0;
-    if constexpr (RDY) {
-      for (int j = 0; j < a.S; ++j) {
-        uint32_t s = 0;
-        const int hi = min(W, 32 * j + 32);
-        for (int w = 32 * j; w < hi; ++w)
-          if (el.rdy[w * el.rws + p * el.rps]) s |= kTop >> (w & 31);
-        el.sum[j * Pp + p] = s;
-        if (s) r.top |= kTop >> j;
-      }
+    for (int i = 0; i < PPT; ++i) {
+      const int p = tid + i * T;
+      if (p < P) pe[i] = pe_load<POLICY, DEEP>(a, el, am, im, p);
+      else pe[i].p = -1;
     }
+  } else {
+    for (int p = tid; p < P; p += T)
+      *pe_at(p) = pe_load<POLICY, DEEP>(a, el, am, im, p);
   }
 
   // ---- K cycles, one barrier each
@@ -839,37 +968,32 @@ __device__ __forceinline__ void run_element(const MegaArgs& a, int b, int act,
     const int* in = links + (k & 1) * (kLinkInts / 2) * Pp;
     int* out = links + ((k + 1) & 1) * (kLinkInts / 2) * Pp;
     bool busy = false;
+    if constexpr (PPT > 0) {
 #pragma unroll
-    for (int i = 0; i < PPT; ++i)
-      if (pe[i].p >= 0 && !a.floor_only)
-        busy |= pe_cycle<POLICY, CAP2>(a, el, pe[i], in, out);
+      for (int i = 0; i < PPT; ++i)
+        if (pe[i].p >= 0)
+          busy |= pe_cycle<POLICY, CAP2, DEEP>(a, el, pe[i], in, out);
+    } else {
+      for (int p = tid; p < P; p += T) {
+        pe[0] = *pe_at(p);
+        busy |= pe_cycle<POLICY, CAP2, DEEP>(a, el, pe[0], in, out);
+        *pe_at(p) = pe[0];
+      }
+    }
     if (!__syncthreads_or(busy) && first_quiet < 0) first_quiet = k;
   }
 
   // ---- chunk end: each PE's registers, links and RDY row back to the
   // state (a PE's entries were written by its own thread), then the sums.
   const int* last = links + (a.K & 1) * (kLinkInts / 2) * Pp;
+  if constexpr (PPT > 0) {
 #pragma unroll
-  for (int i = 0; i < PPT; ++i) {
-    const Pe& r = pe[i];
-    if (r.p < 0) continue;
-    const int p = r.p;
-    const size_t gp = static_cast<size_t>(b) * a.s_pe + p;
-    a.active[gp] = r.active;
-    a.cursor[gp] = r.fo.x;
-    a.cursor_end[gp] = r.fo.y;
-    a.sel_wait[gp] = r.sel_wait;
-    if (POLICY == kInorder) {
-      am.head[gp] = r.hs;
-      am.size[gp] = r.size;
-    }
-    if (POLICY == kRotating) am.ptr[gp] = r.hs;
-    if (el.ififo != nullptr) im.size[gp] = r.isize;
-#pragma unroll
-    for (int f = 0; f < kFields; ++f) {
-      link_e[f * P + p] = last[p * kPktInts + f];
-      link_s[f * P + p] = last[(Pp + p) * kPktInts + f];
-    }
+    for (int i = 0; i < PPT; ++i)
+      if (pe[i].p >= 0)
+        pe_store<POLICY>(a, el, am, im, pe[i], last, link_e, link_s);
+  } else {
+    for (int p = tid; p < P; p += T)
+      pe_store<POLICY>(a, el, am, im, *pe_at(p), last, link_e, link_s);
   }
   // Every thread has passed the last cycle's barrier, so the RDY rows are
   // final: back to the state, coalesced.
@@ -910,6 +1034,7 @@ __device__ __forceinline__ void run_element(const MegaArgs& a, int b, int act,
                                             : end_cycle);
       a.done[b] = first >= 0 ? 1 : 0;
       if (a.done_host != nullptr) a.done_host[b] = first >= 0 ? 1 : 0;
+      if (a.done_out != nullptr) a.done_out[b] = first >= 0 ? 1 : 0;
       a.remaining[b] = remaining;
       a.delivered[b] += tot[kDelivered];
       a.noc_deflections[b] += tot[kDNoc];
@@ -927,15 +1052,23 @@ mega_chunk_kernel(const MegaArgs a) {
   extern __shared__ uint32_t smem[];
   __shared__ int partial[kMaxWarps][kStats];
   const int b = blockIdx.x;
+  if (a.done_in != nullptr) {
+    // Queued behind a chunk whose flags the host has not read: where that
+    // chunk left every element done, the host would not have launched this
+    // one.
+    int all = 1;
+    for (int i = threadIdx.x; i < a.B; i += blockDim.x)
+      all &= a.done_in[i] != 0 ? 1 : 0;
+    if (__syncthreads_and(all)) {
+      if (threadIdx.x == 0) write_frozen(a, b, true);
+      return;
+    }
+  }
   if (a.max_cycles != nullptr) {
     // The tail's freeze: a halted element stays as it is, leaf for leaf.
     const bool done = a.done[b] != 0;
     if (done || a.cycle[b] >= a.max_cycles[b]) {
-      if (threadIdx.x == 0) {
-        for (int k = 0; k < a.K; ++k)
-          a.trace[static_cast<size_t>(k) * a.B + b] = done ? 1 : 0;
-        if (a.done_host != nullptr) a.done_host[b] = done ? 1 : 0;
-      }
+      if (threadIdx.x == 0) write_frozen(a, b, done);
       return;
     }
   }
@@ -963,15 +1096,13 @@ template <bool CAP2, bool SHARED, int PPT>
 int launch(const MegaArgs& a, cudaStream_t stream) {
   auto* kernel = mega_chunk_kernel<CAP2, SHARED, PPT>;
   // Above 48 KB (static and dynamic together) a kernel must opt in to its
-  // dynamic shared memory: once, to the most a CTA may have beside the
-  // kernel's own partial sums.
-  static bool opted_in = false;
-  if (!opted_in) {
+  // dynamic shared memory. The attribute holds for the device current at
+  // the call, so it is set at every such launch.
+  constexpr int kStaticBytes = sizeof(int) * kMaxWarps * kStats;
+  if (a.smem_bytes + kStaticBytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSharedBytes - static_cast<int>(sizeof(int) * kMaxWarps * kStats));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in = true;
   }
   kernel<<<a.B, a.threads, a.smem_bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
@@ -981,7 +1112,7 @@ template <bool CAP2>
 int launch_body(const MegaArgs& a, cudaStream_t s) {
   if (a.body == kShared && a.ppt == 1) return launch<CAP2, true, 1>(a, s);
   if (a.body == kShared && a.ppt == 4) return launch<CAP2, true, 4>(a, s);
-  if (a.body == kGlobal && a.ppt == 4) return launch<CAP2, false, 4>(a, s);
+  if (a.body == kGlobal && a.ppt == 0) return launch<CAP2, false, 0>(a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -995,7 +1126,7 @@ extern "C" {
 // kernels/megakernel.py::plan.
 int mega_chunk(const MegaArgs* args, int eject, void* stream) {
   MegaArgs a = *args;
-  const int P = a.nx * a.ny;
+  const long long P = static_cast<long long>(a.nx) * a.ny;
   bool rdy = false;
   for (int m = 0; m < a.n_members && m < kMaxMembers; ++m) {
     if (a.members[m].kind < kOoo || a.members[m].kind > kRotating)
@@ -1003,22 +1134,28 @@ int mega_chunk(const MegaArgs* args, int eject, void* stream) {
     rdy = rdy || a.members[m].kind != kInorder;
   }
   // The shared body holds both link buffers and, for RDY policies, the RDY
-  // rows and summaries in shared memory; the global body keeps them in the
-  // scratch.
+  // rows and summaries in shared memory, each PE in a thread's registers;
+  // the global body keeps them in the scratch and loops over the PEs.
   const bool body_ok =
       a.body == kShared
-          ? a.smem_bytes ==
-                4LL * (a.Pp * kLinkInts +
-                       (rdy ? a.Pp * a.S + a.W * (a.Pp + 1LL) : 0))
-          : (a.body == kGlobal && a.smem_bytes == 0 &&
-             a.link_scratch != nullptr && a.sum_scratch != nullptr);
-  if (a.K < 1 || a.nx < 1 || a.ny < 1 || a.L < 32 || a.W * 32 != a.L ||
-      a.emax < 1 || a.B < 1 || a.n_members < 1 ||
+          ? ((a.ppt == 1 || a.ppt == 4) &&
+             a.threads <= (a.ppt == 1 ? kMaxThreadsPpt1 : kMaxThreads) &&
+             static_cast<long long>(a.threads) * a.ppt >= P &&
+             a.S <= kMaxSummaryWords &&
+             a.smem_bytes ==
+                 4LL * (a.Pp * kLinkInts +
+                        (rdy ? a.Pp * a.S + a.W * (a.Pp + 1LL) : 0)))
+          : (a.body == kGlobal && a.ppt == 0 && a.threads <= kMaxThreads &&
+             a.S <= 32 * kMaxSummaryWords && a.smem_bytes == 0 &&
+             a.link_scratch != nullptr && a.sum_scratch != nullptr &&
+             a.pe_scratch != nullptr);
+  if (a.K < 1 || a.nx < 1 || a.ny < 1 || a.nx >= (1 << 15) ||
+      a.ny >= (1 << 15) || a.L < 32 || a.W * 32 != a.L ||
+      2 * P * a.L >= (1LL << 31) || a.emax < 1 ||
+      P * a.emax >= (1LL << 31) || a.B < 1 || a.n_members < 1 ||
       a.n_members > kMaxMembers || a.threads < 32 || a.threads % 32 != 0 ||
-      a.threads > (a.ppt == 1 ? kMaxThreadsPpt1 : kMaxThreads) ||
-      a.threads * a.ppt < P || a.Pp < P ||
-      a.Pp % 32 != 0 || a.S * 32 < a.W || a.S > kMaxSummaryWords ||
-      P > 0xFFFF || !body_ok || eject < kNFirst || eject > kCap2)
+      a.Pp < P || a.Pp % 32 != 0 || a.S * 32 < a.W || !body_ok ||
+      eject < kNFirst || eject > kCap2)
     return static_cast<int>(cudaErrorInvalidValue);
   a.eject = eject;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

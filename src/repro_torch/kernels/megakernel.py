@@ -28,9 +28,10 @@ updates them in place) is not checked again.
 
 The kernel has two bodies, and :func:`plan` alone picks one from the
 shapes: ``"shared"`` keeps the Hoplite links, the active member's RDY rows
-and their summaries in shared memory for the chunk; ``"global"`` keeps them
-in device memory, for grids whose links and rows do not fit in a CTA's
-227 KB. Grids above 2,304 PEs or 32,768 slots a PE raise.
+and their summaries in shared memory for the chunk and each PE's registers
+in a thread's registers; ``"global"`` keeps them in device memory, a thread
+looping over PEs, for any other grid (links and rows above a CTA's 227 KB,
+or rows above 32,768 slots, whose pick takes a third level).
 
 :data:`launches` counts kernel launches (``"mega_chunk"`` solo,
 ``"mega_chunk_batched"`` batched) and each body's (``"mega_chunk_shared"``,
@@ -66,14 +67,15 @@ MAX_MEMBERS = 4
 _BODIES = {"shared": 0, "global": 1}
 
 #: Threads a CTA with one PE a thread (``kMaxThreadsPpt1``; 128 registers
-#: a thread) and with four (``kMaxThreads``; 112).
+#: a thread) and otherwise (``kMaxThreads``; 112).
 MAX_THREADS_PPT1 = 512
 MAX_THREADS = 576
-#: Largest grid: one CTA of MAX_THREADS threads of four PEs (48x48).
-MAX_PES = MAX_THREADS * 4
-#: RDY summary words a PE: the top word has one bit for each, so a row holds
-#: at most 32 x 32 words (32,768 slots).
+#: RDY summary words a PE of the ``shared`` body, whose top word has one bit
+#: for each: a row of at most 32 x 32 words (32,768 slots). The ``global``
+#: body has a level between them: 32 times as many.
 MAX_SUMMARY_WORDS = 32
+#: int32s of a PE's registers in the ``global`` body's scratch (``kPeInts``).
+PE_INTS = 32
 #: Shared memory a CTA may use on the H100 (227 KB), less the kernel's own
 #: per-warp partial sums.
 SHARED_BYTES = 232_448 - (MAX_THREADS // 32) * 4 * 4
@@ -84,9 +86,10 @@ LINK_INTS = 2 * 2 * 8
 
 class Plan(NamedTuple):
     """How the kernel runs a chunk: ``body`` (``"shared"`` or
-    ``"global"``), PEs a thread, threads a CTA, the PE stride ``pp`` of the
-    link, RDY and summary rows (P rounded up to 32), summary words a PE and
-    the dynamic shared memory in bytes (0 for ``"global"``)."""
+    ``"global"``), PEs a thread (0: a loop at the CTA's stride, the
+    ``global`` body), threads a CTA, the PE stride ``pp`` of the link, RDY
+    and summary rows (P rounded up to 32), summary words a PE and the
+    dynamic shared memory in bytes (0 for ``"global"``)."""
     body: str
     ppt: int
     threads: int
@@ -99,33 +102,39 @@ def plan(nx: int, ny: int, L: int, members, body: str | None = None) -> Plan:
     """The body for a grid of ``nx`` x ``ny`` PEs of ``L`` slots under the
     member policies ``members``, from the shapes alone: ``"shared"`` where
     the links, and for RDY policies the RDY rows and their summaries, fit in
-    :data:`SHARED_BYTES`, else ``"global"``. ``body`` forces one (a check
-    runs both on one state); a ``"shared"`` body that does not fit raises.
-    Grids above :data:`MAX_PES` PEs or rows above :data:`MAX_SUMMARY_WORDS`
-    summary words raise ``ValueError``."""
+    :data:`SHARED_BYTES` and a row has at most :data:`MAX_SUMMARY_WORDS`
+    summary words, else ``"global"``. ``body`` forces one (a check runs
+    both on one state); a ``"shared"`` body that does not fit raises. The
+    kernel's offsets within an element are 32-bit: grids of ``2 * P * L``
+    cells from 2**31 on (32 GB of graph tables an element), sides from
+    2**15 on, and rows above 2**20 slots raise ``ValueError``."""
     P, W = nx * ny, L // bitvec.FLAGS_PER_WORD
     S = -(-W // 32)
-    if P > MAX_PES:
-        raise ValueError(f"the megakernel runs one CTA of at most "
-                         f"{MAX_THREADS} threads of 4 PEs: at most {MAX_PES} "
-                         f"PEs, got {nx}x{ny} = {P}")
-    if S > MAX_SUMMARY_WORDS:
+    if 2 * P * L >= 2**31 or max(nx, ny) >= 2**15:
+        raise ValueError(f"the megakernel's offsets are 32-bit: a grid of "
+                         f"fewer than 2**30 cells and sides below 2**15, got "
+                         f"{nx}x{ny} PEs of {L} slots")
+    if S > 32 * MAX_SUMMARY_WORDS:
         raise ValueError(f"the megakernel's pick covers at most "
-                         f"{MAX_SUMMARY_WORDS * 32 * 32} slots a PE, got {L}")
+                         f"{32 * MAX_SUMMARY_WORDS * 32 * 32} slots a PE, "
+                         f"got {L}")
     pp = -(-P // 32) * 32
     rdy = any(POLICIES[m] != POLICIES["inorder"] for m in members)
     shared = 4 * (pp * LINK_INTS + (pp * S + W * (pp + 1) if rdy else 0))
+    fits = shared <= SHARED_BYTES and S <= MAX_SUMMARY_WORDS
     if body is None:
-        body = "shared" if shared <= SHARED_BYTES else "global"
+        body = "shared" if fits else "global"
     if body not in _BODIES:
         raise ValueError(f"body must be one of {sorted(_BODIES)}, got {body!r}")
-    if body == "shared" and shared > SHARED_BYTES:
+    if body == "shared" and not fits:
         raise ValueError(f"the shared body needs {shared} bytes of shared "
-                         f"memory, above the {SHARED_BYTES} a CTA has")
-    ppt = 1 if body == "shared" and P <= MAX_THREADS_PPT1 else 4
-    threads = -(-P // (32 * ppt)) * 32
-    return Plan(body, ppt, threads, pp, S,
-                shared if body == "shared" else 0)
+                         f"memory (a CTA has {SHARED_BYTES}) and "
+                         f"{S} summary words a PE (at most "
+                         f"{MAX_SUMMARY_WORDS})")
+    if body == "global":
+        return Plan(body, 0, min(pp, MAX_THREADS), pp, S, 0)
+    ppt = 1 if P <= MAX_THREADS_PPT1 else 4
+    return Plan(body, ppt, -(-P // (32 * ppt)) * 32, pp, S, shared)
 
 
 def graph_tables(g: overlay.DeviceGraph):
@@ -282,12 +291,11 @@ _POINTERS = (
     "link_e", "link_s", "cycle", "done",
     "delivered", "noc_deflections", "eject_deflections", "deflections",
     "busy_cycles", "policy_id", "max_cycles", "trace", "link_scratch",
-    "sum_scratch", "done_host")
+    "sum_scratch", "pe_scratch", "done_host", "done_in", "done_out")
 _MEMBER_POINTERS = ("rdy", "ptr", "fifo", "head", "size")
 _STRIDES = ("s_plane", "s_pe", "s_words", "s_links")
 _INTS = ("nx", "ny", "L", "W", "emax", "K", "B", "n_members",
-         "body", "ppt", "threads", "Pp", "S", "smem_bytes", "floor_only",
-         "eject")
+         "body", "ppt", "threads", "Pp", "S", "smem_bytes", "eject")
 
 
 class _Member(ctypes.Structure):
@@ -325,8 +333,7 @@ def _batch_size(s) -> int:
 
 def make_mega_chunk_fn(g: overlay.DeviceGraph, cfg: overlay.OverlayConfig,
                        check_every: int, *, names=None, max_cycles=None,
-                       with_trace: bool = False, body: str | None = None,
-                       floor_only: bool = False):
+                       with_trace: bool = False, body: str | None = None):
     """Build ``chunk(state) -> state`` running ``check_every`` cycles in one
     kernel launch on a CUDA state, or the plain version on a CPU state (see
     the module docstring). ``with_trace`` makes the chunk return
@@ -338,15 +345,18 @@ def make_mega_chunk_fn(g: overlay.DeviceGraph, cfg: overlay.OverlayConfig,
     ``max_cycles`` (``[B]`` int32 budgets on the state's device) the chunk
     leaves each element that is done or at its budget untouched, the tail's
     freeze. ``body`` forces the kernel's body (see :func:`plan`); by default
-    the plan picks it from the shapes. ``floor_only`` (the card only) leaves
-    out every PE's cycle and keeps the chunk's loads, stores, barriers and
-    reductions: a latency floor to time, whose state is no simulation's.
+    the plan picks it from the shapes.
 
     On the card, ``chunk(state, done_to=host)`` also has the kernel write
     the chunk's ``done`` flags (``[B]``, or one solo) into ``host``, a
     pinned CPU bool tensor, where the host can read them once the launch
     has completed (behind a CUDA event) with no copy; the chunk's
-    ``writes_done`` attribute says it takes ``done_to``."""
+    ``writes_done`` attribute says it takes ``done_to``.
+    ``chunk(state, queued=True)`` is a chunk the host enqueued before it
+    read the last chunk's ``done``: where every element was done after the
+    last chunk (on the card, as that chunk's kernel left its flags in
+    device memory), it leaves the state as it is, as a host reading
+    ``done`` first would not have run it."""
     K = int(check_every)
     if K < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
@@ -362,8 +372,6 @@ def make_mega_chunk_fn(g: overlay.DeviceGraph, cfg: overlay.OverlayConfig,
                          f"policies, got {members}")
     if max_cycles is not None and not batched:
         raise ValueError("max_cycles freezes elements of a batch: pass names")
-    if floor_only and g["opcode"].device.type != "cuda":
-        raise ValueError("floor_only times the kernel: it needs a CUDA state")
     eject = eject_variant(cfg)
     device = _check_tree(dict(g), _graph_spec(g), None, "graph")
     nx, ny, L = g["opcode"].shape
@@ -371,13 +379,19 @@ def make_mega_chunk_fn(g: overlay.DeviceGraph, cfg: overlay.OverlayConfig,
     how = tables = body_key = None
     if device.type == "cuda":
         how = plan(nx, ny, L, members, body)
+        if P * g["e_dst_pe"].shape[-1] >= 2**31:
+            raise ValueError("the megakernel's edge offsets are 32-bit: "
+                             "fewer than 2**31 edge records a grid")
         tables = graph_tables(g)
         body_key = f"mega_chunk_{how.body}"
     plain = None
     # The kernel updates a state in place, so chunk after chunk of one run
     # passes the same tensors: their check, the argument struct and the
     # scratch are made once, when the leaves differ from the last call's.
-    last = dict(leaves=None, args=None, trace=None, scratch=None, B=1)
+    # ``flags`` holds each launch's done flags, by the parity of its launch,
+    # for the launch queued behind it.
+    last = dict(leaves=None, args=None, trace=None, scratch=None, B=1,
+                flags=None, parity=0, launched=False)
 
     def prepare(s):
         B = _batch_size(s) if batched else None
@@ -397,15 +411,20 @@ def make_mega_chunk_fn(g: overlay.DeviceGraph, cfg: overlay.OverlayConfig,
                                  f"members {members}")
         trace = torch.empty((K, B) if batched else (K,), dtype=torch.bool,
                             device=device)
+        flags = torch.zeros((2, B), dtype=torch.bool, device=device)
         scratch = {}
         if how.body == "global":
             # each element's links of both cycle parities,
-            # [B, 2, 2 (E, S), 6, Pp], and its RDY summaries, [B, S, Pp]
-            scratch = dict(
-                link_scratch=torch.empty(B * LINK_INTS * how.pp,
-                                         dtype=torch.int32, device=device),
-                sum_scratch=torch.empty(B * how.summary_words * how.pp,
-                                        dtype=torch.int32, device=device))
+            # [B, 2, 2 (E, S), Pp, 8], its RDY summaries and the level above
+            # them, [B, S + ceil(S / 32), Pp], and its PEs' registers,
+            # [B, Pp, PE_INTS]
+            levels = how.summary_words + -(-how.summary_words // 32)
+            scratch = {
+                name: torch.empty(B * n * how.pp, dtype=torch.int32,
+                                  device=device)
+                for name, n in (("link_scratch", LINK_INTS),
+                                ("sum_scratch", levels),
+                                ("pe_scratch", PE_INTS))}
         subs = ([s["sched"][n] for n in members] if batched
                 else [s["sched"]])
         tensors = dict(**{k: v for k, v in s.items() if k != "sched"},
@@ -418,7 +437,7 @@ def make_mega_chunk_fn(g: overlay.DeviceGraph, cfg: overlay.OverlayConfig,
                      K=K, B=B, n_members=len(members),
                      body=_BODIES[how.body], ppt=how.ppt,
                      threads=how.threads, Pp=how.pp, S=how.summary_words,
-                     smem_bytes=how.smem_bytes, floor_only=int(floor_only))
+                     smem_bytes=how.smem_bytes)
         for m, (name, sub) in enumerate(zip(members, subs)):
             args.members[m] = _Member(
                 kind=POLICIES[name],
@@ -431,9 +450,9 @@ def make_mega_chunk_fn(g: overlay.DeviceGraph, cfg: overlay.OverlayConfig,
             args.s_words = P * W
             args.s_links = s["link_e"].stride(0)
         last.update(args=args, addr=ctypes.addressof(args), trace=trace,
-                    scratch=scratch)
+                    scratch=scratch, flags=flags, parity=0, launched=False)
 
-    def chunk(s, done_to=None):
+    def chunk(s, done_to=None, queued=False):
         nonlocal plain
         leaves = _leaves(s)
         prev = last["leaves"]
@@ -443,6 +462,9 @@ def make_mega_chunk_fn(g: overlay.DeviceGraph, cfg: overlay.OverlayConfig,
             prepare(s)
             last["leaves"] = leaves
         if device.type == "cpu":
+            if queued and bool(s["done"].all()):
+                return ((s, s["done"].expand(K, *s["done"].shape).clone())
+                        if with_trace else s)
             if plain is None:
                 plain = (mega_batch_chunk_plain(g, cfg, K, members,
                                                 with_trace=True,
@@ -464,6 +486,12 @@ def make_mega_chunk_fn(g: overlay.DeviceGraph, cfg: overlay.OverlayConfig,
                 raise ValueError(f"done_to must be a pinned CPU bool tensor "
                                  f"of {last['B']} elements")
             args.done_host = done_to.data_ptr()
+        if queued and not last["launched"]:
+            raise ValueError("a queued chunk follows a chunk on the same "
+                             "state")
+        q = last["parity"]
+        args.done_out = last["flags"][q].data_ptr()
+        args.done_in = last["flags"][1 - q].data_ptr() if queued else None
         key = "mega_chunk_batched" if batched else "mega_chunk"
         fn = _build.library(SOURCE).mega_chunk
         launches[key] += 1
@@ -480,9 +508,10 @@ def make_mega_chunk_fn(g: overlay.DeviceGraph, cfg: overlay.OverlayConfig,
         # The launch copied the struct; later calls set their own.
         if with_trace:
             args.trace = last["trace"].data_ptr()
-        args.done_host = None
+        args.done_host = args.done_in = None
         if rc != 0:
             raise RuntimeError(f"{key} kernel launch failed: CUDA error {rc}")
+        last.update(parity=1 - q, launched=True)
         return (s, trace) if with_trace else s
 
     chunk.writes_done = True

@@ -145,6 +145,102 @@ def test_megakernel_matches_plain_chunk(cuda, policy, eject):
                 assert torch.equal(got_trace, want_trace)
 
 
+@pytest.mark.parametrize("policy", ("ooo", "lru_flat", "scan"))
+def test_global_body_on_deep_rows_and_large_grids(cuda, policy):
+    """The global body against the plain chunk where the shared body does
+    not go: rows of 40,960 slots (1,280 RDY words, 40 summary words: the
+    three-level pick) with RDY bits scattered over the whole row and the
+    rotating pointers anywhere, and the matrix graph on 64x64 (4,096 PEs, a
+    loop over PEs a thread)."""
+    rng = np.random.default_rng(7)
+    cases = []
+    gm = build_graph_memory(wl.arrow_lu_graph(3, 6, 4, seed=5), 2, 2,
+                            criticality_order=policy == "ooo",
+                            min_lmax=40960)
+    g = device_graph(gm, device=cuda)
+    cfg = OverlayConfig(scheduler=policy, engine="megakernel")
+    mid = megakernel.mega_chunk_plain(g, cfg, 40)(init_state(g, cfg))
+    rdy = mid["sched"]["rdy"]
+    bits = rng.integers(0, 2**32, size=rdy.shape, dtype=np.uint32)
+    bits[rng.random(rdy.shape) < 0.97] = 0
+    rdy |= torch.from_numpy(bits.view(np.int32)).to(cuda)
+    if "ptr" in mid["sched"]:
+        mid["sched"]["ptr"].copy_(torch.from_numpy(rng.integers(
+            0, 40960, size=mid["sched"]["ptr"].shape).astype(np.int32)))
+    cases.append((g, cfg, mid))
+    gm = build_graph_memory(wl.arrow_lu_graph(3, 6, 4, seed=5), 64, 64,
+                            criticality_order=policy == "ooo")
+    g = device_graph(gm, device=cuda)
+    cases.append((g, cfg, megakernel.mega_chunk_plain(g, cfg, 40)(
+        init_state(g, cfg))))
+    for g, cfg, state in cases:
+        nx, ny, L = g["opcode"].shape
+        assert megakernel.plan(nx, ny, L, (policy,)).body == "global"
+        for k in (1, 7, 32):
+            want, want_trace = megakernel.mega_chunk_plain(
+                g, cfg, k, with_trace=True)(_clone(state))
+            megakernel.reset_launches()
+            got, got_trace = megakernel.make_mega_chunk_fn(
+                g, cfg, k, with_trace=True)(_clone(state))
+            torch.cuda.synchronize()
+            assert megakernel.launches["mega_chunk_global"] == 1
+            _assert_bits_equal(got, want)
+            assert torch.equal(got_trace, want_trace)
+
+
+def test_queued_chunk_after_done_leaves_the_state(cuda):
+    """From a state with signed zeros one cycle before completion, in
+    chunks of one cycle, solo and batched: the chunk queued behind the one
+    that completes changes nothing (the kernel reads the flags the chunk
+    before it left in device memory), as the loop that reads ``done`` after
+    every chunk would have it."""
+    from repro_torch.core import overlay
+
+    def signed_zeros(s):
+        for leaf in ("operands", "value"):
+            s[leaf] = torch.where(s[leaf] == 0,
+                                  torch.full_like(s[leaf], -0.0), s[leaf])
+        return s
+
+    gm = build_graph_memory(wl.arrow_lu_graph(3, 6, 4, seed=5), 2, 2,
+                            criticality_order=True)
+    g = device_graph(gm, device=cuda)
+    end = GOLDENS["ooo"][0]
+    cfg = OverlayConfig(scheduler="ooo", engine="megakernel", check_every=1,
+                        max_cycles=end - 1)
+    edge = signed_zeros(run_state(g, cfg, init_state(g, cfg)))
+    finals = {}
+    for engine in ("megakernel", "tensor"):
+        run = OverlayConfig(scheduler="ooo", engine=engine, check_every=1,
+                            max_cycles=end + 2)
+        finals[engine] = run_state(g, run, _clone(edge))
+    torch.cuda.synchronize()
+    _assert_bits_equal(finals["megakernel"], finals["tensor"])
+    # Batched, the others done before the last and riding along.
+    from repro_torch.core import schedulers
+
+    names = ("ooo", "inorder", "lru_flat")
+    one = OverlayConfig(scheduler=names[0], engine="megakernel",
+                        check_every=1)
+    state = overlay.init_batch_state(
+        g, one, names, [0, 1, 2],
+        [schedulers.get(n).sel_lat(OverlayConfig(scheduler=n),
+                                   g["opcode"].shape[2] // 32)
+         for n in names])
+    last = max(overlay.run_batch_state(g, one, names, _clone(state),
+                                       [10**6] * 3)["cycle"].tolist())
+    edge = signed_zeros(overlay.run_batch_state(g, one, names, state,
+                                                [last - 1] * 3))
+    budgets = [last + 2] * 3
+    got = overlay.run_batch_state(g, one, names, _clone(edge), budgets)
+    want = _clone(edge)
+    want, _, _ = overlay._run_chunks(
+        megakernel.make_mega_chunk_fn(g, one, 1, names=names), want,
+        want["cycle"].tolist(), want["done"].tolist(), budgets, 1, 1)
+    torch.cuda.synchronize()
+    _assert_bits_equal(got, want)
+
+
 @pytest.mark.parametrize("offset", (-9, -8, -1, 0, 8))
 def test_queued_chunks_equal_the_per_cycle_engine(cuda, offset):
     """The megakernel engine's host loop (chunk n + 1 queued before chunk

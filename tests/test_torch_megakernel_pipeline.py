@@ -95,9 +95,9 @@ def test_a_chunk_is_queued_past_done(solo_starts, monkeypatch):
     def spy(g, cfg, check_every, **kw):
         fn = make(g, cfg, check_every, **kw)
 
-        def chunk(s):
+        def chunk(s, *args, **kwargs):
             chunks.append(check_every)
-            return fn(s)
+            return fn(s, *args, **kwargs)
         return chunk
 
     monkeypatch.setattr(megakernel, "make_mega_chunk_fn", spy)
@@ -150,3 +150,59 @@ def test_batch_queued_chunks_equal_the_per_cycle_engine(batch_start, offset):
         min(e, m) for e, m in zip(ends, budgets)]
     assert np.array_equal(finals["tensor"]["done"].numpy(),
                           np.array([m >= e for e, m in zip(ends, budgets)]))
+
+
+
+def _signed_zeros(s):
+    """``s`` with every zero of the float planes made -0.0. A cycle past
+    completion still adds +0.0 at the cell of each eject port's (invalid)
+    packet, which turns such a -0.0 into +0.0: a state on which a chunk
+    after completion changes bits."""
+    s = _clone(s)
+    for leaf in ("operands", "value"):
+        s[leaf] = torch.where(s[leaf] == 0, torch.full_like(s[leaf], -0.0),
+                              s[leaf])
+    return s
+
+
+@pytest.mark.parametrize("n,policy,end", SOLO)
+def test_solo_queued_chunk_after_done_at_a_chunk_edge(solo_starts, n, policy,
+                                                      end):
+    """From a state with signed zeros one cycle before completion, in
+    chunks of one cycle: the chunk queued behind the one that completes
+    must leave the state as the loop that reads ``done`` after every chunk
+    (the tensor engine at the same K) leaves it."""
+    g, start = solo_starts[policy]
+    cfg = OverlayConfig(scheduler=policy, engine="tensor",
+                        max_cycles=end - 1)
+    edge = _signed_zeros(overlay.run_state(g, cfg, _clone(start)))
+    finals = {}
+    for engine in ("megakernel", "tensor"):
+        run = dataclasses.replace(cfg, engine=engine, check_every=1,
+                                  max_cycles=end + 2)
+        finals[engine] = overlay.run_state(g, run, _clone(edge))
+    _assert_leaves_equal(finals["megakernel"], finals["tensor"])
+    assert int(finals["tensor"]["cycle"]) == end
+
+
+def test_batch_queued_chunk_after_done_at_a_chunk_edge(batch_start):
+    """The batched loop in chunks of one cycle from a state with signed
+    zeros one cycle before the last element completes (the others done
+    before, riding along): equal to the same chunks with the host reading
+    ``done`` after every chunk (``_run_chunks`` at depth 1; the tensor
+    engine at K = 1 freezes done elements cycle by cycle instead)."""
+    g, names, start = batch_start
+    last = max(e for _, _, e in BATCH)
+    base = OverlayConfig(scheduler=names[0], engine="megakernel",
+                         check_every=1)
+    edge = _signed_zeros(overlay.run_batch_state(
+        g, dataclasses.replace(base, engine="tensor", check_every=K), names,
+        _clone(start), [last - 1] * len(BATCH)))
+    budgets = [last + 2] * len(BATCH)
+    got = overlay.run_batch_state(g, base, names, _clone(edge), budgets)
+    want = _clone(edge)
+    want, cycle, done = overlay._run_chunks(
+        megakernel.make_mega_chunk_fn(g, base, 1, names=names), want,
+        want["cycle"].tolist(), want["done"].tolist(), budgets, 1, 1)
+    _assert_leaves_equal(got, want)
+    assert cycle == [e for _, _, e in BATCH] and all(done)

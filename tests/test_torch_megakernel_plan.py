@@ -45,7 +45,7 @@ def test_plan_takes_the_shared_body_where_it_fits(nx, ny, L, members, ppt,
 def test_plan_takes_the_global_body_where_shared_memory_runs_out():
     # 48x48 PEs: the links and RDY rows exceed a CTA's 227 KB.
     got = mk.plan(48, 48, 32, ("ooo",))
-    assert got == mk.Plan("global", 4, 576, 2304, 1, 0)
+    assert got == mk.Plan("global", 0, 576, 2304, 1, 0)
     # At 42x42 the links fit alone (inorder), not with the RDY rows.
     assert mk.plan(42, 42, 32, ("inorder",)).body == "shared"
     assert mk.plan(42, 42, 32, ("ooo",)).body == "global"
@@ -53,12 +53,19 @@ def test_plan_takes_the_global_body_where_shared_memory_runs_out():
     assert mk.plan(42, 42, 32, ("inorder", "scan")).body == "global"
     # Deep rows on a small grid.
     assert mk.plan(16, 16, 32 * 220, ("ooo",)).body == "global"
+    # n470772 on 2x2: 3,678 RDY words a PE, 115 summary words.
+    assert mk.plan(2, 2, 117696, ("ooo",)) == mk.Plan("global", 0, 32, 32,
+                                                      115, 0)
+    # Rows above 32 summary words that would fit in shared memory take the
+    # global body's three-level pick all the same.
+    assert _shared_bytes(4, 32 * 1025, True) <= mk.SHARED_BYTES
+    assert mk.plan(2, 2, 32 * 1025, ("ooo",)).body == "global"
 
 
 def test_plan_is_a_function_of_the_shapes_and_a_forced_body():
     assert mk.plan(16, 16, 64, ("ooo",)) == mk.plan(16, 16, 64, ("ooo",))
     forced = mk.plan(16, 16, 64, ("ooo",), body="global")
-    assert (forced.body, forced.ppt, forced.smem_bytes) == ("global", 4, 0)
+    assert (forced.body, forced.ppt, forced.smem_bytes) == ("global", 0, 0)
     with pytest.raises(ValueError, match="shared memory"):
         mk.plan(48, 48, 32, ("ooo",), body="shared")
     with pytest.raises(ValueError, match="body"):
@@ -66,11 +73,22 @@ def test_plan_is_a_function_of_the_shapes_and_a_forced_body():
 
 
 def test_plan_names_its_limits():
-    with pytest.raises(ValueError, match="2304 PEs"):
-        mk.plan(49, 48, 32, ("ooo",))
-    with pytest.raises(ValueError, match="32768 slots"):
-        mk.plan(2, 2, 32 * 1025, ("ooo",))
-    assert mk.plan(2, 2, 32 * 1024, ("ooo",)).summary_words == 32
+    # Any number of PEs: the global body loops over them (64x64: 4,096).
+    assert mk.plan(49, 48, 32, ("ooo",)) == mk.Plan("global", 0, 576, 2368,
+                                                    1, 0)
+    assert mk.plan(64, 64, 32, ("ooo",)).threads == mk.MAX_THREADS
+    # The shared body's top word covers 32,768 slots; the global body's
+    # pick has a level more, 2**20 slots a PE.
+    assert mk.plan(2, 2, 32 * 1024, ("ooo",)).body == "shared"
+    assert mk.plan(2, 2, 32 * 1025, ("ooo",)).body == "global"
+    assert mk.plan(1, 1, 2**20, ("ooo",)).summary_words == 1024
+    with pytest.raises(ValueError, match="1048576 slots"):
+        mk.plan(1, 1, 2**20 + 32, ("ooo",))
+    # 32-bit offsets within an element.
+    with pytest.raises(ValueError, match="32-bit"):
+        mk.plan(1024, 1024, 1024, ("inorder",))
+    with pytest.raises(ValueError, match="32-bit"):
+        mk.plan(2**15, 1, 32, ("inorder",))
 
 
 @pytest.mark.parametrize("n", [2, 4])

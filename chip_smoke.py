@@ -51,13 +51,24 @@ Phases, each of which fails the run on any error (each prints its seconds):
      K = 1 and 32 (1 and 7 above 8 elements), plus a tail launch that
      freezes every other element: every leaf (inactive members' states
      included) and the [K, B] trace equal as bit patterns;
+ 5b. replayed chunks: the ``tensor`` and ``select`` engines' K-cycle chunk
+     replayed from its captured CUDA graph (``overlay.ReplayedChunk``)
+     against the eager chunk (``make_chunk_fn``, ``make_batch_chunk_fn``)
+     on clones of one state, every leaf and the done trace equal as bit
+     patterns: both engines, every policy x eject configuration on the
+     matrix graph (2x2) and on n15072 (16x16) from phase 4's four states,
+     and phase 10's mixed batch (each eject configuration, four states), at
+     K = 7 and the engine's own K (one capture per K, the later states
+     copied into the captured tensors);
   6. main path, ``engine="select"``: ``repro_torch.run`` on the 16x16 PE
-     grid for the Fig. 1 arrow-LU graphs (default rows n15072 and n29772;
-     ``--rows`` adds n117972); every cycle count must equal the reference's
-     golden, values must match ``reference_evaluate`` (rtol = atol = 1e-5,
-     as the reference's own tests hold them), the n15072 results must equal
-     a CPU run of the port bit for bit, and the scheduler kernels must have
-     been launched during this phase;
+     grid for the Fig. 1 arrow-LU graphs (default rows n15072, n29772 and
+     n117972); every cycle count must equal the reference's golden, values
+     must match ``reference_evaluate`` (rtol = atol = 1e-5, as the
+     reference's own tests hold them), the n15072 results must equal a CPU
+     run of the port bit for bit, the scheduler kernels must have been
+     launched during this phase, and each kernel's count must be the
+     chunks' replays times the launches their captures recorded (every run
+     ends inside a chunk, so no cycle runs eagerly);
   7. main path, ``engine="megakernel"``: the same checks on rows n15072,
      n29772, n117972 and n470772 (``--mega-rows``), each result bit-identical
      to the select engine's where that phase ran the row too, the megakernel
@@ -92,8 +103,14 @@ Phases, each of which fails the run on any error (each prints its seconds):
      B = 8 the plain batched chunk's time; and the device time per K=32
      chunk of two batches with three member policies at n29772,
      ``policy_sweep`` (B = 3) and ``sweep_mixed`` (B = 126);
- 13. profiles: ``torch.profiler`` over the first 300 cycles of the n15072
-     ``ooo`` select run, over the whole n15072 ``ooo`` megakernel run, over
+ 13. profiles: ``torch.profiler`` over the first 320 cycles of the n15072
+     ``ooo`` select run (set-up, the capture and 20 replays); over 20
+     replays of the captured chunk back to back (n15072 ``ooo`` select,
+     n29772 ``lru_flat`` select, n15072 ``ooo`` tensor), each beside its
+     device and host time per chunk (CUDA events), with each leading-one
+     kernel's device us per launch inside the replay against an empty
+     kernel's (``lod_empty`` at the same launch geometry, in a captured
+     graph); over the whole n15072 ``ooo`` megakernel run, over
      its chunk loop alone (``run_state`` on a state built beforehand) and
      over the whole n470772 ``ooo`` megakernel run, each with its device busy
      share, device ops per cycle and top kernels;
@@ -129,6 +146,12 @@ Phases, each of which fails the run on any error (each prints its seconds):
      prefill and three decode steps at full width; top-32 logits (indices
      and values) and logsumexp against the golden the JAX package made
      (``tests/fixtures/qwen2_0_5b_golden.npz``), at 1e-4;
+ 18b. against the reference in bf16: the same recipe in bfloat16 (the
+     serve path's dtype; the prefill on the ``mma`` body, the decode steps
+     on ``split``) against the reference's bf16 golden
+     (``tests/fixtures/qwen2_0_5b_golden_bf16.npz``): per row, the logits
+     at the golden's top-32 indices, the top-32 values and the logsumexp
+     within 5e-2 x (|golden| + the row's RMS);
  19. serve profiles: ``torch.profiler`` over one prefill of phase 16's
      shape and over 8 decode steps after it, each with its device busy
      share, device ops per step and top kernels.
@@ -142,6 +165,7 @@ beside this file, the script exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -166,9 +190,10 @@ ROWS = {
     "n117972": ((32, 10, 8, 3), {"ooo": 14213, "inorder": 17004}),
     "n470772": ((128, 10, 8, 3), {"ooo": 54943, "inorder": 66669}),
 }
-#: Default rows of each main path. The select engine runs ~400 cycles/s, so
-#: its default stops at n29772; the megakernel runs the larger rows.
-SELECT_ROWS = ("n15072", "n29772")
+#: Default rows of each main path. The select engine replays its chunks
+#: from captured CUDA graphs, so its default reaches n117972 (W = 15, the
+#: timed kernel shape); the megakernel runs the larger rows too.
+SELECT_ROWS = ("n15072", "n29772", "n117972")
 MEGA_ROWS = ("n15072", "n29772", "n117972", "n470772")
 #: Rows and policies at which a megakernel chunk is timed (K = 32).
 MEGA_TIMED_ROWS = ("n15072", "n117972", "n470772")
@@ -434,13 +459,53 @@ def same_result(np, a, b) -> bool:
         np.array_equal(a.values.view(np.int32), b.values.view(np.int32)))
 
 
+@contextlib.contextmanager
+def replays_recorded():
+    """Every ``overlay.ReplayedChunk`` the engines make inside the block,
+    in a list (its ``replays`` and ``per_replay`` launches are read after)."""
+    from repro_torch.core import overlay
+
+    made, cls = [], overlay.ReplayedChunk
+
+    class Recorded(cls):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            made.append(self)
+
+    overlay.ReplayedChunk = Recorded
+    try:
+        yield made
+    finally:
+        overlay.ReplayedChunk = cls
+
+
+def replayed_launches(made, counts):
+    """Launches per kernel that the recorded replays made on the card."""
+    return {k: sum(c.replays * c.per_replay.get(k, 0) for c in made)
+            for k in counts}
+
+
 def select_main_path(torch, np, graphs, rows, lod):
+    """Phase 6. Every run ends inside a chunk, so no cycle runs eagerly:
+    each kernel's launches must be the replays times the launches its
+    capture recorded. Returns (results, counts, replays, launches per
+    replay of each kernel)."""
     import repro_torch
     from repro_torch.core.overlay import OverlayConfig
 
-    results, counts = run_main_path(
-        torch, np, graphs, rows, "select", lambda: dict(lod.launches),
-        lod.reset_launches)
+    with replays_recorded() as made:
+        results, counts = run_main_path(
+            torch, np, graphs, rows, "select", lambda: dict(lod.launches),
+            lod.reset_launches)
+    replays = sum(c.replays for c in made)
+    per_replay = {k: sorted({c.per_replay.get(k, 0) for c in made})
+                  for k in counts}
+    print(f"main path select: {len(made)} captured chunks, {replays} "
+          f"replays; launches per replay {per_replay}", flush=True)
+    if counts != replayed_launches(made, counts):
+        raise AssertionError(f"launches {counts} are not the replays x the "
+                             f"captured launches "
+                             f"{replayed_launches(made, counts)}")
     for name in rows:
         wanted = {"schedule_step": "ooo" in ROWS[name][1],
                   "rotating_schedule_step": bool(
@@ -460,7 +525,7 @@ def select_main_path(torch, np, graphs, rows, lod):
             if not same:
                 raise AssertionError(f"{CROSS_CHECK_ROW} {sched}: GPU and "
                                      f"CPU differ")
-    return results, counts
+    return results, counts, replays, per_replay
 
 
 def assert_shared_body(counts, label):
@@ -612,31 +677,39 @@ def full_card_sweeps(torch, np, graphs, mk):
     return solo_walls
 
 
+def select_batch(engine, cap=1, pol="n_first"):
+    """Phase 10's mixed batch: every policy plus ``ooo`` at select latency
+    4, each at a budget of 300 cycles, at one eject configuration."""
+    from repro_torch.core.overlay import OverlayConfig
+
+    kw = dict(max_cycles=300, engine=engine, eject_capacity=cap,
+              eject_policy=pol)
+    return [OverlayConfig(scheduler=p, **kw) for p in BATCH_POLICIES] + [
+        OverlayConfig(scheduler="ooo", select_latency=4, **kw)]
+
+
+def matrix_memory(nx, ny, criticality_order):
+    from repro_torch.core import workloads as wl
+    from repro_torch.core.partition import build_graph_memory
+
+    b, s, w, seed = MATRIX_GRAPH
+    return build_graph_memory(wl.arrow_lu_graph(b, s, w, seed=seed), nx, ny,
+                              criticality_order=criticality_order)
+
+
 def batched_select(torch, np, lod):
     """A small mixed batch under ``engine="select"`` (the leading-one
     kernels element by element) against the same batch under the
     megakernel: the matrix graph, every policy plus ``ooo`` at latency 4,
     each at a budget of 300 cycles."""
     import repro_torch
-    from repro_torch.core import workloads as wl
-    from repro_torch.core.overlay import OverlayConfig
-    from repro_torch.core.partition import build_graph_memory
 
-    b, s, w, seed = MATRIX_GRAPH
-    gm = build_graph_memory(wl.arrow_lu_graph(b, s, w, seed=seed), 2, 2,
-                            criticality_order=True)
-
-    def batch(engine):
-        return [OverlayConfig(scheduler=p, max_cycles=300, engine=engine)
-                for p in BATCH_POLICIES] + [OverlayConfig(
-                    scheduler="ooo", select_latency=4, max_cycles=300,
-                    engine=engine)]
-
+    gm = matrix_memory(2, 2, True)
     lod.reset_launches()
-    sel = repro_torch.run(gm, batch=batch("select"))
+    sel = repro_torch.run(gm, batch=select_batch("select"))
     counts = dict(lod.launches)
-    mega = repro_torch.run(gm, batch=batch("megakernel"))
-    for c, a, m in zip(batch("select"), sel, mega):
+    mega = repro_torch.run(gm, batch=select_batch("megakernel"))
+    for c, a, m in zip(select_batch("select"), sel, mega):
         if not same_result(np, a, m):
             raise AssertionError(f"batched select {c.scheduler} latency "
                                  f"{c.select_latency}: differs from the "
@@ -670,8 +743,8 @@ def state_err(torch, got, want, path=""):
             bits_equal = torch.equal(g, w)
         e = float(d.nan_to_num(nan=float("inf")).max()) if d.numel() else 0.0
         if not bits_equal:
-            raise AssertionError(f"megakernel state leaf {path}/{k} differs "
-                                 f"from the plain chunk (max abs error {e})")
+            raise AssertionError(f"state leaf {path}/{k} differs from the "
+                                 f"plain chunk (max abs error {e})")
         err = max(err, e)
     return err
 
@@ -705,6 +778,31 @@ def compare_chunks(torch, mk, g, cfg, states, ks, label):
                                          f"{label} {sname} K={K} {body}")
                 cases += 1
     return err, cases
+
+
+def signed_zeros(torch, state):
+    """A clone of ``state`` with every zero of its float planes made -0.0."""
+    out = clone_state(state)
+    for leaf in ("operands", "value"):
+        out[leaf] = torch.where(out[leaf] == 0,
+                                torch.full_like(out[leaf], -0.0), out[leaf])
+    return out
+
+
+def start_states(torch, mk, g, cfg):
+    """Phase 4's four start states of a solo run of ``cfg`` (a megakernel
+    config): cycle 0; mid-run (40 cycles of the plain chunk); three cycles
+    before completion (by the engine); the mid-run state with signed
+    zeros. Returns (states, the cycle the run ends at)."""
+    from repro_torch.core.overlay import init_state, run_state
+
+    s0 = init_state(g, cfg)
+    end = int(run_state(g, cfg, clone_state(s0))["cycle"])
+    late = run_state(g, dataclasses.replace(cfg, max_cycles=max(end - 3, 0)),
+                     clone_state(s0))
+    mid = mk.mega_chunk_plain(g, cfg, 40)(clone_state(s0))
+    return {"cycle 0": s0, "mid-run": mid, "3 before end": late,
+            "signed zeros": signed_zeros(torch, mid)}, end
 
 
 def check_megakernel(torch, np, graphs, mk, rows):
@@ -750,18 +848,7 @@ def check_megakernel(torch, np, graphs, mk, rows):
                 cap, pol = EJECTS[eject]
                 cfg = OverlayConfig(scheduler=sched, eject_capacity=cap,
                                     eject_policy=pol, engine="megakernel")
-                s0 = init_state(g, cfg)
-                end = int(run_state(g, cfg, clone_state(s0))["cycle"])
-                late = run_state(g, dataclasses.replace(
-                    cfg, max_cycles=max(end - 3, 0)), clone_state(s0))
-                mid = mk.mega_chunk_plain(g, cfg, 40)(clone_state(s0))
-                zeros = clone_state(mid)
-                for leaf in ("operands", "value"):
-                    zeros[leaf] = torch.where(
-                        zeros[leaf] == 0, torch.full_like(zeros[leaf], -0.0),
-                        zeros[leaf])
-                states = {"cycle 0": s0, "mid-run": mid, "3 before end": late,
-                          "signed zeros": zeros}
+                states, end = start_states(torch, mk, g, cfg)
                 e, n = compare_chunks(torch, mk, g, cfg, states, (1, 7, 32),
                                       f"{label} {sched} {eject}")
                 err, cases = max(err, e), cases + n
@@ -1000,15 +1087,10 @@ def check_batched_megakernel(torch, graphs, mk, rows):
     cycles before the last end with the other elements done, at K = 1 and
     32 (K = 1 and 7 above SMALL_B elements), and a tail launch that freezes
     every other element. Returns (max abs error, cases)."""
-    from repro_torch.core import workloads as wl
     from repro_torch.core.overlay import device_graph, run_batch_state
-    from repro_torch.core.partition import build_graph_memory
 
-    b, s, w, seed = MATRIX_GRAPH
-    memories = {
-        "matrix 2x2": build_graph_memory(wl.arrow_lu_graph(b, s, w, seed=seed),
-                                         2, 2, criticality_order=True),
-        "n15072 16x16": graphs.memory("n15072", "ooo")}
+    memories = {"matrix 2x2": matrix_memory(2, 2, True),
+                "n15072 16x16": graphs.memory("n15072", "ooo")}
     err, cases = 0.0, 0
     for label, gm in memories.items():
         g = device_graph(gm)
@@ -1023,13 +1105,8 @@ def check_batched_megakernel(torch, graphs, mk, rows):
                 [min(m, e - 3) for m, e in zip(budgets, ends)])
             mid = mk.mega_batch_chunk_plain(g, base, 40, names)(
                 clone_state(s0))
-            zeros = clone_state(mid)
-            for leaf in ("operands", "value"):
-                zeros[leaf] = torch.where(
-                    zeros[leaf] == 0, torch.full_like(zeros[leaf], -0.0),
-                    zeros[leaf])
             states = {"cycle 0": s0, "mid-run": mid, "3 before each end": late,
-                      "signed zeros": zeros}
+                      "signed zeros": signed_zeros(torch, mid)}
             e, n = compare_batch_chunks(torch, mk, g, base, names, states,
                                         (1, 7, 32), f"{label} {eject}")
             # The tail: elements at budgets 40 (= their cycle) freeze.
@@ -1069,6 +1146,96 @@ def check_batched_megakernel(torch, graphs, mk, rows):
               f"{len(cfgs)}, members {names} (elements end at cycles "
               f"{min(ends)}..{max(ends)}; {len(states)} states x K in {ks}, "
               f"and a tail launch)", flush=True)
+    return err, cases
+
+
+def compare_replayed(torch, make, states, ks, label):
+    """For each K: the chunk ``make(K)`` replayed from a captured CUDA graph
+    (``overlay.ReplayedChunk``; captured on a clone of the first state, each
+    later state's clone copied in) against the eager chunk ``make(K)`` on
+    another clone of each state: every leaf and the done trace equal as bit
+    patterns. Returns (largest abs error, cases)."""
+    from repro_torch.core import overlay
+
+    err, cases = 0.0, 0
+    for K in ks:
+        replayed = overlay.ReplayedChunk(make(K), label)
+        for sname, st in states.items():
+            want, want_tr = make(K)(clone_state(st))
+            got, got_tr = replayed(clone_state(st))
+            torch.cuda.synchronize()
+            err = max(err, state_err(torch, got, want))
+            if not torch.equal(got_tr, want_tr):
+                raise AssertionError(f"replayed chunk's done trace differs: "
+                                     f"{label} {sname} K={K}")
+            cases += 1
+    return err, cases
+
+
+def check_replayed_chunks(torch, graphs, mk):
+    """Phase 5b: the ``tensor`` and ``select`` engines' chunk replayed from
+    its captured CUDA graph against the eager chunk (``make_chunk_fn``,
+    ``make_batch_chunk_fn``) on clones of one state: both engines, every
+    policy x eject configuration on the matrix graph (2x2) and on n15072
+    (16x16) from phase 4's four states, and phase 10's mixed batch on the
+    matrix graph (each eject configuration; cycle 0, mid-run, three cycles
+    before each element's end, signed zeros), at K = 7 and the engine's own
+    K. Returns (largest abs error, cases)."""
+    from repro_torch.core import overlay, schedulers
+    from repro_torch.core.overlay import device_graph, resolve_check_every
+
+    def ks(g, cfg):
+        nx, ny, L = g["opcode"].shape
+        own = resolve_check_every(dataclasses.replace(cfg, engine="select"),
+                                  nx, ny, L, device_type="cuda")
+        return sorted({7, own})      # the tensor engine's K on the card too
+
+    err, cases = 0.0, 0
+    for label in ("matrix 2x2", "n15072 16x16"):
+        for sched in POLICIES:
+            gm = (graphs.memory("n15072", sched) if label == "n15072 16x16"
+                  else matrix_memory(2, 2, sched == "ooo"))
+            g = device_graph(gm)
+            for eject, (cap, pol) in EJECTS.items():
+                mega = overlay.OverlayConfig(
+                    scheduler=sched, eject_capacity=cap, eject_policy=pol,
+                    engine="megakernel")
+                states, _ = start_states(torch, mk, g, mega)
+                for engine in ("tensor", "select"):
+                    cfg = dataclasses.replace(mega, engine=engine)
+                    cycle = overlay.make_cycle_fn(g, cfg)
+                    e, n = compare_replayed(
+                        torch, lambda k: overlay.make_chunk_fn(
+                            cycle, k, with_trace=True),
+                        states, ks(g, cfg), f"{label} {sched} {eject} {engine}")
+                    err, cases = max(err, e), cases + n
+                print(f"replayed chunk equals the eager chunk: {label} "
+                      f"{sched} {eject}, tensor and select, 4 states x K in "
+                      f"{ks(g, mega)}", flush=True)
+    g = device_graph(matrix_memory(2, 2, True))
+    for eject, (cap, pol) in EJECTS.items():
+        base, names, s0 = batch_state(g, select_batch("megakernel", cap, pol))
+        budgets = [c.max_cycles for c in select_batch("megakernel")]
+        ends = overlay.run_batch_state(g, base, names, clone_state(s0),
+                                       budgets)["cycle"].tolist()
+        late = overlay.run_batch_state(
+            g, base, names, clone_state(s0),
+            [min(m, e - 3) for m, e in zip(budgets, ends)])
+        mid = mk.mega_batch_chunk_plain(g, base, 40, names)(clone_state(s0))
+        states = {"cycle 0": s0, "mid-run": mid, "3 before each end": late,
+                  "signed zeros": signed_zeros(torch, mid)}
+        for engine in ("tensor", "select"):
+            cfg = dataclasses.replace(base, engine=engine)
+            cycle = overlay.make_cycle_fn(
+                g, cfg, scheduler=schedulers.BatchedScheduler(names))
+            e, n = compare_replayed(
+                torch, lambda k: overlay.make_batch_chunk_fn(
+                    cycle, k, with_trace=True),
+                states, ks(g, cfg), f"mixed batch {eject} {engine}")
+            err, cases = max(err, e), cases + n
+        print(f"replayed batched chunk equals the eager chunk: matrix 2x2 "
+              f"{eject}, B = {len(budgets)} (elements end at cycles {ends}), "
+              f"tensor and select, 4 states x K in {ks(g, base)}", flush=True)
     return err, cases
 
 
@@ -1175,18 +1342,127 @@ def profile_run(torch, run, cycles, label, unit="cycle"):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:7d}x  "
               f"{e.key[:100]}", flush=True)
+    return {e.key: (e.self_device_time_total, e.count) for e in kernels}
 
 
-def profiles(torch, graphs, select=True):
+def kernel_node_us(kernels, name):
+    """Mean device us per launch of the kernels whose name holds ``name``,
+    from ``profile_run``'s table, and the launches it averaged."""
+    hits = [(us, n) for key, (us, n) in kernels.items() if name in key]
+    total, count = sum(u for u, _ in hits), sum(n for _, n in hits)
+    return (total / count if count else None), count
+
+
+#: Profiler names of the leading-one kernels (``csrc/lod.cu``).
+LOD_KERNELS = {"schedule_step": "lod_schedule_kernel",
+               "rotating_schedule_step": "lod_rotating_kernel"}
+#: The replayed chunk loops profiled: (row, policy, engine). ``ooo`` picks
+#: through kernel 2, ``lru_flat`` through kernel 3 (at n29772, where the
+#: main path runs it).
+REPLAY_PROFILES = (("n15072", "ooo", "select"), ("n29772", "lru_flat", "select"),
+                   ("n15072", "ooo", "tensor"))
+#: Chunks per profiled window of a replayed chunk loop.
+REPLAY_CHUNKS = 20
+
+
+def replay_profile(torch, graphs, name, policy, engine):
+    """The engine's chunk (``make_engine_chunk_fn``: a ``ReplayedChunk``)
+    captured once from cycle 0, then REPLAY_CHUNKS replays back to back
+    (the host's read of ``done`` left out): device and host time per chunk
+    (CUDA events between chunks; the host's time per call), and the
+    profile of such a window (busy share, ops per cycle, each leading-one
+    kernel's device us per launch). Returns the numbers."""
+    from repro_torch.core import overlay
+
+    cfg = overlay.OverlayConfig(scheduler=policy, engine=engine)
+    g = overlay.device_graph(graphs.memory(name, policy))
+    nx, ny, L = g["opcode"].shape
+    K = overlay.resolve_check_every(cfg, nx, ny, L, device_type="cuda")
+    chunk = overlay.make_engine_chunk_fn(g, cfg, K)
+    s = chunk(overlay.init_state(g, cfg))          # capture + first replay
+    torch.cuda.synchronize()
+    ms, host_ms = timed_chunks(torch, chunk, s, REPLAY_CHUNKS)
+    label = f"{name} {policy} {engine}, K={K}"
+    print(f"replayed chunk {label}: device {ms * 1e3:.1f} us per chunk "
+          f"({ms * 1e3 / K:.2f} us per cycle, {K / ms * 1e3:.0f} cycles/s), "
+          f"host {host_ms * 1e3:.1f} us per replay call; launches per replay "
+          f"{chunk.per_replay}", flush=True)
+    kernels = profile_run(torch, lambda: [chunk(s) for _ in range(REPLAY_CHUNKS)],
+                          REPLAY_CHUNKS * K,
+                          f"{label} chunk loop ({REPLAY_CHUNKS} replays)")
+    nodes = {k: kernel_node_us(kernels, v) for k, v in LOD_KERNELS.items()}
+    per_replay = sum(n for _, n in kernels.values()) / REPLAY_CHUNKS
+    print(f"replayed chunk {label}: {per_replay:.0f} device ops a replay, "
+          f"host {host_ms * 1e3 / per_replay:.3f} us per op", flush=True)
+    return dict(K=K, ms=ms, host_ms=host_ms, per_replay=chunk.per_replay,
+                nodes=nodes, ops_per_replay=per_replay)
+
+
+def empty_node_us(torch, lod, reps=100):
+    """The floor of a graph node: ``lod_empty`` (no work, at the pick's
+    launch geometry, 256 rows) ``reps`` times in a captured graph. Returns
+    (device us per launch by the profiler, us per node by CUDA events over
+    the replay: the launch's duration plus the gap to the next node)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import _build
+
+    fn = _build.library(lod.SOURCE).lod_empty
+
+    def launch():
+        rc = fn(256, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"lod_empty launch failed: CUDA error {rc}")
+
+    per_node = device_ms(torch, launch, reps=reps) * 1e3
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            graph.replay()
+        torch.cuda.synchronize()
+    kernels = {e.key: (e.self_device_time_total, e.count)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    us, count = kernel_node_us(kernels, "lod_empty_kernel")
+    print(f"empty kernel (lod_empty, 256 rows) in a graph of {reps}: "
+          + (f"{us:.3f} us per launch by the profiler ({count} launches)"
+             if us is not None else "no device time in the profile")
+          + f", {per_node:.3f} us per node by CUDA events", flush=True)
+    return us, per_node
+
+
+def profiles(torch, graphs, lod):
+    """Phase 13. Returns {kernel: (node us, profiled launches)} from the
+    replayed select chunk loops, the empty kernel's (profiler us, event
+    us per node), and each replay profile's numbers."""
     import repro_torch
     from repro_torch.core import overlay
     from repro_torch.core.overlay import OverlayConfig
 
     gm = graphs.memory("n15072", "ooo")
-    if select:
-        cfg = OverlayConfig(scheduler="ooo", engine="select", max_cycles=300)
-        profile_run(torch, lambda: repro_torch.run(gm, cfg), 300,
-                    "n15072 ooo select (first 300 cycles)")
+    nodes, replays = {}, {}
+    cycles = REPLAY_CHUNKS * 16
+    cfg = OverlayConfig(scheduler="ooo", engine="select", max_cycles=cycles)
+    profile_run(torch, lambda: repro_torch.run(gm, cfg), cycles,
+                f"n15072 ooo select (first {cycles} cycles: set-up, the "
+                f"capture and {REPLAY_CHUNKS} replays)")
+    for name, policy, engine in REPLAY_PROFILES:
+        out = replay_profile(torch, graphs, name, policy, engine)
+        replays[name, policy, engine] = out
+        for k, (us, count) in out["nodes"].items():
+            if count and k not in nodes:
+                nodes[k] = (us, count)
+    floor = empty_node_us(torch, lod)
+    for k, (us, count) in nodes.items():
+        print(f"{k} node in the replayed chunk: {us:.3f} us per launch "
+              f"({count} launches profiled) against the empty kernel's "
+              + (f"{floor[0]:.3f} us: {us / floor[0]:.2f}x" if floor[0]
+                 else "(not in the profile)"), flush=True)
     golden = ROWS["n15072"][1]["ooo"]
     mega = OverlayConfig(scheduler="ooo", engine="megakernel")
     profile_run(torch, lambda: repro_torch.run(gm, mega), golden,
@@ -1204,6 +1480,7 @@ def profiles(torch, graphs, select=True):
     big = "n470772"
     profile_run(torch, lambda: repro_torch.run(graphs.memory(big, "ooo"), mega),
                 ROWS[big][1]["ooo"], f"{big} ooo megakernel (whole run)")
+    return nodes, floor, replays
 
 
 # ---------------------------------------------------------------------------
@@ -1283,6 +1560,17 @@ GOLDEN = ROOT / "tests" / "fixtures" / "qwen2_0_5b_golden.npz"
 #: Port (f32 on the card, TF32 off) against the reference's golden logits
 #: (f32 on a CPU): rtol = atol. The port on the CPU is within 3.4e-6 of it.
 GOLDEN_TOL = 1e-4
+GOLDEN_BF16 = GOLDEN.with_name("qwen2_0_5b_golden_bf16.npz")
+#: Port in bf16 on the card against the reference in bf16 (XLA on a CPU),
+#: per row as a share of |golden| + the row's RMS over the vocabulary
+#: (~0.6). bf16 keeps 8 significant bits (a relative step of 2^-8 = 3.9e-3),
+#: and the two round at other places: cuBLAS and eager torch round each
+#: op's output, XLA rounds once per fused chain, the mma body rounds P to
+#: bf16. 24 layers of such differences move the residual stream by a few
+#: steps relative to its size, so the logits by ~1-3% of their RMS; 5e-2
+#: leaves room above that, and a fault of the attention (a mask or a key
+#: tile lost in one layer) moves a row by more.
+GOLDEN_BF16_TOL = 5e-2
 
 
 def flash_inputs(torch, case, dtype, seed):
@@ -1688,6 +1976,63 @@ def against_golden(torch, np):
     return max(err, lse_err)
 
 
+def against_golden_bf16(torch, np, fa):
+    """Full width in bfloat16, the serve path's dtype: the numpy recipe's
+    weights rounded to bf16, a prefill of 8 tokens (56 rows a kv head:
+    the ``mma`` body) and three decode steps (``split`` + ``combine``)
+    against the reference's bf16 golden (``GOLDEN_BF16``). Per row, the
+    card's logits at the golden's top-32 indices, its own top-32 values in
+    order, and its logsumexp, each within GOLDEN_BF16_TOL x (|golden| + the
+    row's RMS over the vocabulary) (the logsumexp, a softmax-weighted mean
+    of the logits, within the tolerance x the RMS). Returns the largest
+    such scaled error."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_numpy, numpy_lm_params
+
+    g = np.load(GOLDEN_BF16)
+    cfg = get_config("qwen2-0.5b")
+    if cfg.dtype != str(g["dtype"]):
+        raise AssertionError(f"config dtype {cfg.dtype}, golden {g['dtype']}")
+    model = lm_params_from_numpy(cfg, numpy_lm_params(cfg, int(g["seed"])),
+                                 device="cuda")
+    tokens = torch.from_numpy(g["tokens"]).cuda()
+    fa.reset_launches()
+    lg = teacher_forced(torch, model, cfg, tokens, int(g["prompt_len"]))
+    used = dict(fa.launches)
+    lg = lg.float().cpu().numpy()                            # [steps, B, V]
+    steps = lg.shape[0] - 1
+    want = {"flash_attention": 24 * (steps + 1), "flash_attention_mma": 24,
+            "flash_attention_split": 24 * steps,
+            "flash_attention_combine": 24 * steps, "flash_attention_simt": 0}
+    if used != want:
+        raise AssertionError(f"kernel launches {used}, want {want}")
+    k = int(g["topk"])
+    gold_idx, gold_val = g["top_idx"][..., :k], g["top_val"][..., :k]
+    rms = g["rms"][..., None]
+    scale = np.abs(gold_val) + rms
+    at = np.take_along_axis(lg, gold_idx, -1)
+    mine = -np.sort(-lg, -1)[..., :k]
+    m = lg.max(-1)
+    lse = m + np.log(np.exp(lg - m[..., None]).sum(-1))
+    errs = {"at the golden's top-32": float((np.abs(at - gold_val) / scale).max()),
+            "own top-32 values": float((np.abs(mine - gold_val) / scale).max()),
+            "logsumexp": float((np.abs(lse - g["lse"]) / g["rms"]).max())}
+    same = int((np.argsort(-lg, -1, kind="stable")[..., :k] == gold_idx).sum())
+    print(f"golden qwen2-0.5b bf16 full width vs the reference (CPU, bf16), "
+          f"prefill on the mma body, {steps} decode steps on split: scaled "
+          f"errors { {n: round(e, 5) for n, e in errs.items()} } (tol "
+          f"{GOLDEN_BF16_TOL} x (|golden| + row RMS)); max abs error at the "
+          f"golden's top-{k} {float(np.abs(at - gold_val).max()):.3e} (row "
+          f"RMS {float(g['rms'].min()):.3f}-{float(g['rms'].max()):.3f}); "
+          f"{same} of {gold_idx.size} top-{k} ranks hold the golden's index",
+          flush=True)
+    worst = max(errs.values())
+    if not worst <= GOLDEN_BF16_TOL:
+        raise AssertionError(f"bf16 logits off the reference's golden: "
+                             f"{errs}, tol {GOLDEN_BF16_TOL}")
+    return worst
+
+
 def serve_profiles(torch):
     """``torch.profiler`` over one prefill of the serve main path's shape
     (qwen2-0.5b, bf16, batch 8 x 2048) and over 8 decode steps after it:
@@ -1728,6 +2073,8 @@ def lm_phases(torch, np):
         "serve main path", serve_main_path, torch, np, fa)
     phase("serve consistency", consistency, torch, np, fa)
     phase("serve against the golden", against_golden, torch, np)
+    bf16_err = phase("serve against the bf16 golden", against_golden_bf16,
+                     torch, np, fa)
     phase("serve profiles", serve_profiles, torch)
     pre, dec = timed["prefill"], timed["decode"]
     us = {**pre["kernels_us"], **dec["kernels_us"]}
@@ -1758,7 +2105,8 @@ def lm_phases(torch, np):
                          ms=pre["f32_kernels_us"].get("simt_kernel", 0.0) / 1e3,
                          at="prefill (f32)",
                          max_abs_err=err_by_body.get("simt_float32"))},
-        serve_prefill_tok_s=prefill_tps, serve_decode_tok_s=decode_tps)
+        serve_prefill_tok_s=prefill_tps, serve_decode_tok_s=decode_tps,
+        golden_bf16_scaled_err=bf16_err, golden_bf16_tol=GOLDEN_BF16_TOL)
 
 
 def build_all(_build, sources):
@@ -1836,8 +2184,13 @@ def main() -> int:
     print(f"batched megakernel equals its plain version in {batch_cases} "
           f"cases, max abs error {batch_err}", flush=True)
 
-    select_results, counts = phase("main path select", select_main_path,
-                                   torch, np, graphs, args.rows, lod)
+    replay_err, replay_cases = phase("replayed chunk check",
+                                     check_replayed_chunks, torch, graphs, mk)
+    print(f"replayed chunks equal the eager chunks in {replay_cases} cases, "
+          f"max abs error {replay_err}", flush=True)
+    select_results, counts, replays, per_replay = phase(
+        "main path select", select_main_path, torch, np, graphs, args.rows,
+        lod)
     mega_results, mega_counts = phase("main path megakernel", mega_main_path,
                                       torch, np, graphs, args.mega_rows, mk,
                                       select_results)
@@ -1850,19 +2203,33 @@ def main() -> int:
     mega_timed = phase("megakernel time", megakernel_times, torch, graphs, mk)
     scaling = phase("batch scaling", batch_scaling, torch, graphs, mk,
                     solo_walls["sweep_ooo"])
-    phase("profiles", profiles, torch, graphs)
+    nodes, floor, replay_runs = phase("profiles", profiles, torch, graphs,
+                                      lod)
     flash = lm_phases(torch, np)
 
     line = []
     for name, replaces in KERNELS.items():
         t_ = timed[TIMED_SHAPE][name]
-        line.append(dict(
+        row = dict(
             name=name, route="cuda", source=SOURCE, replaces=replaces,
             launches=counts[name], max_abs_err=err[name],
             equal=err[name] == 0, ms=t_["ms"],
             plain_ms=t_["plain_ms"], bound_ms=t_["bytes"] / HBM_BYTES_PER_S * 1e3,
             bound_by="bytes", library_ms=None, call_ms=t_["call_ms"],
-            shape=list(TIMED_SHAPE)))
+            shape=list(TIMED_SHAPE))
+        if name in LOD_KERNELS:
+            # On the main path: launched from replays of captured chunks.
+            run = next(r for (_, p, e), r in replay_runs.items()
+                       if e == "select" and r["per_replay"].get(name))
+            us = nodes.get(name, (None, 0))[0]
+            row.update(
+                in_graph_ms=None if us is None else us / 1e3,
+                empty_node_ms=None if floor[0] is None else floor[0] / 1e3,
+                empty_node_event_ms=floor[1] / 1e3,
+                replays=replays, launches_per_replay=per_replay[name],
+                replay_call_ms=run["host_ms"],
+                main_path_host_ms=run["host_ms"] / run["ops_per_replay"])
+        line.append(row)
     first = MEGA_TIMED_ROWS[0]
     mt = mega_timed[first, "ooo", ""]
     line.append(dict(

@@ -28,6 +28,9 @@ of ``done`` by the host. A completed overlay is a fixed point of the cycle
 function, so cycles simulated past completion change nothing but the cycle
 counter, which is repaired from the chunk's per-cycle done trace
 (:func:`make_chunk_fn`). Results are bit-identical for every ``check_every``.
+On the card the ``"tensor"`` and ``"select"`` engines replay each whole
+chunk as one captured CUDA graph (:class:`ReplayedChunk`), the port's
+counterpart of the reference's jitted scan, and run their tail eagerly.
 Under ``"megakernel"`` the host enqueues the next chunk before it reads the
 last one's ``done``, where the budget allows both, so the card need not wait
 on the host between chunks; such a queued chunk leaves the state as it is
@@ -474,27 +477,142 @@ def make_batch_chunk_fn(cycle_fn, check_every: int, *,
     return batch_chunk
 
 
+def _into_state(chunk):
+    """``chunk`` as a step that leaves its result in the tensors of the
+    state it is given: it runs ``chunk(s)`` and copies every leaf that comes
+    back as a new tensor into the leaf of ``s`` (the cycle updates
+    ``pending``, ``operands``, ``computed`` and ``value`` in place already).
+    It returns ``s`` itself, with the done trace where ``chunk`` returns
+    one: the form a captured CUDA graph replays, since every tensor it
+    writes then has a fixed address."""
+
+    def step(s):
+        out = chunk(s)
+        new, trace = out if isinstance(out, tuple) else (out, None)
+        _copy_into(s, new)
+        return s if trace is None else (s, trace)
+
+    return step
+
+
+def _clone(tree: dict) -> dict:
+    return {k: _clone(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def _same_leaves(a: dict, b: dict) -> bool:
+    return all(_same_leaves(v, b[k]) if isinstance(v, dict) else v is b[k]
+               for k, v in a.items())
+
+
+class ReplayedChunk:
+    """A chunk of the ``"tensor"``/``"select"`` cycle on the card, captured
+    once as a CUDA graph and replayed at every call: the K cycles' ~175
+    device ops a cycle (the leading-one kernels among them) go to the card
+    as one graph launch, as the reference's chunk is one jitted scan.
+
+    The first call runs the chunk once eagerly on a clone of the state, on a
+    side stream (library set-up and kernel loading stay outside the
+    capture; the state itself does not advance), then captures
+    ``_into_state(chunk)`` over the state's own tensors (a capture records
+    and runs nothing) and replays it. Every call replays the graph. A call
+    whose state has other tensors than the captured ones copies its leaves
+    into the captured tensors first. The returned state *is* the captured
+    tensors, which the next call overwrites: a caller that keeps an older
+    state clones it. The graph, its memory pool and the tables it reads (in
+    the chunk's closure) live as long as this object.
+
+    The leading-one wrappers count a launch where they launch; the warm-up
+    (on a clone, discarded) and the capture (which launches nothing) leave
+    :data:`repro_torch.kernels.lod.launches` as they found it, and each
+    replay adds the launches the capture recorded, so the counts are the
+    launches that ran on the card for the run. A capture or replay that
+    fails raises ``RuntimeError`` naming the chunk; there is no eager
+    fallback.
+    """
+
+    def __init__(self, chunk, label: str):
+        self.step = _into_state(chunk)
+        self.label = label
+        self.graph = None
+        self.state = None
+        self.out = None
+        #: Launches of each leading-one kernel that one replay makes.
+        self.per_replay: dict[str, int] = {}
+        self.replays = 0
+
+    def _fail(self, what: str, err: Exception):
+        raise RuntimeError(f"{what} the {self.label} chunk as a CUDA graph "
+                           f"failed: {err}") from err
+
+    def _capture(self, s: dict) -> None:
+        from ..kernels import lod
+
+        before = dict(lod.launches)
+        try:
+            with torch.cuda.device(s["cycle"].device):
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    self.step(_clone(s))
+                torch.cuda.current_stream().wait_stream(side)
+                warm = dict(lod.launches)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    out = self.step(s)
+            self.per_replay = {k: n - warm[k] for k, n in lod.launches.items()
+                               if n > warm[k]}
+        except Exception as err:
+            self._fail("capturing", err)
+        finally:
+            lod.launches.update(before)
+        self.graph, self.state, self.out = graph, s, out
+
+    def __call__(self, s: dict):
+        from ..kernels import lod
+
+        if self.graph is None:
+            self._capture(s)
+        elif not _same_leaves(self.state, s):
+            _copy_into(self.state, s)
+        try:
+            self.graph.replay()
+        except Exception as err:
+            self._fail("replaying", err)
+        self.replays += 1
+        for k, n in self.per_replay.items():
+            lod.launches[k] += n
+        return self.out
+
+
 def make_engine_chunk_fn(g: DeviceGraph, cfg: OverlayConfig, check_every: int,
                          *, cycle_fn=None, names=None, max_cycles=None):
     """Chunk step for ``cfg.engine``, the one dispatch point of the
     engines: ``"megakernel"`` builds the one-launch chunk
     (:mod:`repro_torch.kernels.megakernel`); ``"tensor"`` and ``"select"``
-    chain ``cycle_fn`` (built here when not supplied).
+    chain ``cycle_fn`` (built here when not supplied), eagerly on the CPU
+    and as a :class:`ReplayedChunk` on the card.
 
     ``names`` (the member policies) makes the chunk batched: it steps a
     state with a leading config axis (:func:`init_batch_state`), and with
-    ``max_cycles`` freezes halted elements (see :func:`make_batch_chunk_fn`)."""
+    ``max_cycles`` freezes halted elements (see :func:`make_batch_chunk_fn`);
+    that tail step reads the halted flags on the host, so it stays eager."""
     if cfg.engine == "megakernel":
         from ..kernels import megakernel
 
         return megakernel.make_mega_chunk_fn(g, cfg, check_every, names=names,
                                              max_cycles=max_cycles)
     if names is None:
-        return make_chunk_fn(cycle_fn or make_cycle_fn(g, cfg), check_every)
-    return make_batch_chunk_fn(
-        cycle_fn or make_cycle_fn(
-            g, cfg, scheduler=schedulers.BatchedScheduler(names)),
-        check_every, max_cycles=max_cycles)
+        chunk = make_chunk_fn(cycle_fn or make_cycle_fn(g, cfg), check_every)
+    else:
+        chunk = make_batch_chunk_fn(
+            cycle_fn or make_cycle_fn(
+                g, cfg, scheduler=schedulers.BatchedScheduler(names)),
+            check_every, max_cycles=max_cycles)
+    if g["opcode"].device.type != "cuda" or max_cycles is not None:
+        return chunk
+    return ReplayedChunk(chunk, f"{cfg.engine} {check_every}-cycle"
+                         + (f" batched {'+'.join(names)}" if names else ""))
 
 
 class _DoneReader:
@@ -595,7 +713,9 @@ class SimResult:
 def run_state(g: DeviceGraph, cfg: OverlayConfig, state: dict) -> dict:
     """Advance ``state`` until done or ``cfg.max_cycles``: full chunks while
     one fits the budget, then cycle by cycle. The host reads ``done`` once
-    per chunk (and once per tail cycle).
+    per chunk (and once per tail cycle). On the card the ``"tensor"`` and
+    ``"select"`` chunks are replays of one captured graph
+    (:class:`ReplayedChunk`) that write into ``state``'s own tensors.
 
     The megakernel engine keeps one chunk queued: it enqueues chunk n+1
     before it reads chunk n's ``done``, while ``cycle + 2K`` fits the budget

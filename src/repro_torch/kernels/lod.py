@@ -13,7 +13,10 @@ pattern (see :mod:`repro_torch.core.bitvec`):
     stream, or raises. There is no fallback.
 
 :data:`launches` counts kernel launches per wrapper, so a run can show that
-its main path went through the kernels.
+its main path went through the kernels. On the card the engines replay each
+K-cycle chunk from a captured CUDA graph
+(:class:`repro_torch.core.overlay.ReplayedChunk`), which adds the launches
+its capture recorded at every replay.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels, its select and megakernel engines and its
-flash-attention kernel on a card.
+"""The port's CUDA kernels, its select and megakernel engines (the chunks of
+the tensor and select engines replayed from captured CUDA graphs among
+them) and its flash-attention kernel on a card.
 Every test here needs a CUDA device and skips without one; the file imports
 neither JAX nor the reference package, so it runs on a machine that has only
 torch:
@@ -64,6 +65,11 @@ def test_kernels_match_plain_versions(cuda, p, w):
                             "rotating_schedule_step": 4}
 
 
+#: The leading-one kernel each policy's pick launches under "select".
+KERNEL_OF = {"ooo": "schedule_step", "scan": "rotating_schedule_step",
+             "lru_flat": "rotating_schedule_step"}
+
+
 @pytest.mark.parametrize("policy", sorted(GOLDENS))
 def test_select_engine_reproduces_goldens(cuda, policy):
     g = wl.arrow_lu_graph(3, 6, 4, seed=5)
@@ -75,8 +81,7 @@ def test_select_engine_reproduces_goldens(cuda, policy):
     assert (r.busy_cycles, r.delivered) == (1777, 3554)
     np.testing.assert_allclose(r.values, reference_evaluate(g),
                                rtol=1e-5, atol=1e-5)
-    kernel = {"ooo": "schedule_step", "scan": "rotating_schedule_step",
-              "lru_flat": "rotating_schedule_step"}.get(policy)
+    kernel = KERNEL_OF.get(policy)
     if kernel is not None:
         assert lod.launches[kernel] > 0
     # The tensor engine on the card gives the same bits.
@@ -405,3 +410,189 @@ def test_flash_attention_matches_plain(cuda, case, dtype, tol):
     if body == "split":
         expect["flash_attention_combine"] = 1
     assert fa.launches == expect
+
+
+# ---------------------------------------------------------------------------
+# The tensor and select engines' chunks, replayed from captured CUDA graphs.
+# ---------------------------------------------------------------------------
+
+def _engine_case(cuda, engine, policy, eject):
+    """(graph, the eager chunk of K cycles with its done trace, start
+    states): cycle 0, mid-run, 3 cycles before the end (made by the
+    megakernel engine, which gives the same bits) and the mid-run state
+    with -0.0 for every zero of its float planes. ``policy="batch"`` is the
+    mixed batch of ``_mixed_batch``."""
+    from repro_torch.core import overlay, schedulers
+
+    cap, pol = EJECTS[eject]
+    batched = policy == "batch"
+    gm = build_graph_memory(wl.arrow_lu_graph(3, 6, 4, seed=5), 2, 2,
+                            criticality_order=policy in ("ooo", "batch"))
+    g = device_graph(gm, device=cuda)
+    if batched:
+        base, cfgs, s0 = _mixed_batch(g, cap, pol)
+        budgets = [c.max_cycles for c in cfgs]
+        ends = overlay.run_batch_state(g, base, BATCH_POLICIES, _clone(s0),
+                                       budgets)["cycle"].tolist()
+        late = overlay.run_batch_state(
+            g, base, BATCH_POLICIES, _clone(s0),
+            [min(m, e - 3) for m, e in zip(budgets, ends)])
+        cfg = OverlayConfig(scheduler=base.scheduler, eject_capacity=cap,
+                            eject_policy=pol, engine=engine)
+        cycle = overlay.make_cycle_fn(
+            g, cfg, scheduler=schedulers.BatchedScheduler(BATCH_POLICIES))
+        make = lambda k: overlay.make_batch_chunk_fn(cycle, k, with_trace=True)
+    else:
+        mega = OverlayConfig(scheduler=policy, eject_capacity=cap,
+                             eject_policy=pol, engine="megakernel")
+        s0 = init_state(g, mega)
+        end = int(run_state(g, mega, _clone(s0))["cycle"])
+        late = run_state(g, OverlayConfig(
+            scheduler=policy, eject_capacity=cap, eject_policy=pol,
+            engine="megakernel", max_cycles=end - 3), _clone(s0))
+        cfg = OverlayConfig(scheduler=policy, eject_capacity=cap,
+                            eject_policy=pol, engine=engine)
+        cycle = overlay.make_cycle_fn(g, cfg)
+        make = lambda k: overlay.make_chunk_fn(cycle, k, with_trace=True)
+    mid, _ = make(40)(_clone(s0))
+    zeros = _clone(mid)
+    for leaf in ("operands", "value"):
+        zeros[leaf] = torch.where(zeros[leaf] == 0,
+                                  torch.full_like(zeros[leaf], -0.0),
+                                  zeros[leaf])
+    return g, cfg, make, {"cycle 0": s0, "mid-run": mid, "late": late,
+                          "signed zeros": zeros}
+
+
+@pytest.mark.parametrize("engine", ("tensor", "select"))
+@pytest.mark.parametrize("policy", (*sorted(GOLDENS), "batch"))
+def test_eager_chunk_makes_no_host_sync(cuda, engine, policy):
+    """The eager chunk, solo and batched, runs under
+    ``set_sync_debug_mode("error")``: no op of the cycle waits on the card,
+    which a capture would refuse."""
+    _, _, make, states = _engine_case(cuda, engine, policy, "n_first_cap1")
+    chunk, s = make(7), _clone(states["mid-run"])
+    chunk(_clone(s))        # kernels built and loaded before the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        chunk(s)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("eject", sorted(EJECTS))
+@pytest.mark.parametrize("policy", (*sorted(GOLDENS), "batch"))
+@pytest.mark.parametrize("engine", ("tensor", "select"))
+def test_replayed_chunk_equals_the_eager_chunk(cuda, engine, policy, eject):
+    """The replayed chunk against the eager one on clones of four states,
+    at K = 7 and the engine's own K (16), every leaf and the done trace as
+    bit patterns; the replayed chunk returns the tensors of the state it
+    captured."""
+    from repro_torch.core import overlay
+
+    _, _, make, states = _engine_case(cuda, engine, policy, eject)
+    for k in (7, 16):
+        for name, st in states.items():
+            want, want_trace = make(k)(_clone(st))
+            s = _clone(st)
+            replayed = overlay.ReplayedChunk(make(k), f"{engine} {policy}")
+            got, got_trace = replayed(s)
+            torch.cuda.synchronize()
+            assert got is s, name
+            _assert_bits_equal(got, want)
+            assert torch.equal(got_trace, want_trace), (name, k)
+            # A second replay is the eager chunk applied twice.
+            want2, want2_trace = make(k)(_clone(want))
+            got2, got2_trace = replayed(got)
+            torch.cuda.synchronize()
+            _assert_bits_equal(got2, want2)
+            assert torch.equal(got2_trace, want2_trace), (name, k)
+
+
+def test_replayed_chunk_copies_a_foreign_state_in(cuda):
+    """A call with a state whose leaves are other tensors than the captured
+    ones copies them into the captured tensors first: the result is the
+    chunk of the new state, in the captured tensors; the state passed in is
+    left as it was."""
+    from repro_torch.core import overlay
+
+    _, _, make, states = _engine_case(cuda, "select", "ooo", "n_first_cap1")
+    replayed = overlay.ReplayedChunk(make(16), "select ooo")
+    captured = _clone(states["cycle 0"])
+    replayed(captured)
+    foreign = _clone(states["late"])
+    kept = _clone(foreign)
+    want, want_trace = make(16)(_clone(foreign))
+    got, got_trace = replayed(foreign)
+    torch.cuda.synchronize()
+    assert got is captured
+    _assert_bits_equal(got, want)
+    assert torch.equal(got_trace, want_trace)
+    _assert_bits_equal(foreign, kept)
+    assert replayed.replays == 2
+
+
+@pytest.mark.parametrize("policy", sorted(GOLDENS))
+def test_select_goldens_count_replayed_launches(cuda, policy, monkeypatch):
+    """``repro_torch.run`` under ``select`` and ``tensor`` replays its
+    chunks (the run ends within a chunk, so no cycle runs eagerly): the
+    goldens hold, and each leading-one kernel's count is the replays times
+    the launches the capture recorded, non-zero for the policies that pick
+    through one."""
+    from repro_torch.core import overlay
+
+    made = []
+
+    class Spy(overlay.ReplayedChunk):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            made.append(self)
+
+    monkeypatch.setattr(overlay, "ReplayedChunk", Spy)
+    g = wl.arrow_lu_graph(3, 6, 4, seed=5)
+    for engine in ("select", "tensor"):
+        made.clear()
+        lod.reset_launches()
+        r = repro_torch.run(g, OverlayConfig(scheduler=policy, engine=engine),
+                            nx=2, ny=2)
+        assert r.done and (r.cycles, r.deflections) == GOLDENS[policy]
+        assert len(made) == 1 and made[0].replays == -(-r.cycles // 16)
+        want = {k: made[0].replays * made[0].per_replay.get(k, 0)
+                for k in lod.launches}
+        assert lod.launches == want
+        kernel = KERNEL_OF.get(policy)
+        assert (engine == "select" and kernel is not None) == any(
+            want.values())
+        if engine == "select" and kernel is not None:
+            assert made[0].per_replay == {kernel: 16}
+
+
+def test_capture_failure_raises(cuda):
+    """A chunk that cannot be captured raises, naming the chunk: a Python
+    error during the capture, and an op that waits on the card (refused by
+    the capture); the card works on after both."""
+    from repro_torch.core import overlay
+
+    _, _, make, states = _engine_case(cuda, "select", "ooo", "n_first_cap1")
+    chunk = make(7)
+
+    def breaks_in_capture(s):
+        if torch.cuda.is_current_stream_capturing():
+            raise ValueError("not capturable")
+        return chunk(s)
+
+    with pytest.raises(RuntimeError, match="capturing the broken chunk"):
+        overlay.ReplayedChunk(breaks_in_capture, "broken")(
+            _clone(states["mid-run"]))
+
+    def syncs(s):
+        out = chunk(s)
+        out[0]["cycle"].item()
+        return out
+
+    with pytest.raises(RuntimeError, match="capturing the syncing chunk"):
+        overlay.ReplayedChunk(syncs, "syncing")(_clone(states["mid-run"]))
+    torch.cuda.synchronize()
+    assert torch.ones(4, device=cuda).sum().item() == 4.0

@@ -6,7 +6,7 @@ through ``convert.lm_params_from_numpy``; ``forward``, ``prefill`` and every
 and greedy decoding the same tokens. Also: the configs, the numpy weight
 recipe against the reference's parameter shapes at full width, the serve
 driver, the families that are not ported yet, and the full-width golden
-fixture against the recipe.
+fixtures (float32 and bfloat16) against the recipe.
 """
 import dataclasses
 from pathlib import Path
@@ -35,6 +35,7 @@ DENSE = ("qwen2-0.5b", "gemma-2b", "minicpm-2b", "starcoder2-7b")
 OTHERS = tuple(a for a in ARCHS if a not in DENSE)
 TOL = dict(rtol=1e-4, atol=1e-4)
 GOLDEN = Path(__file__).parent / "fixtures" / "qwen2_0_5b_golden.npz"
+GOLDEN_BF16 = GOLDEN.with_name("qwen2_0_5b_golden_bf16.npz")
 
 
 def _port(arch):
@@ -241,3 +242,29 @@ def test_golden_fixture_matches_recipe():
         assert path == "/".join(map(str, rpath))
         assert shape == ",".join(map(str, x.shape))
         assert x.sum(dtype=np.float64) == total, path
+
+
+def test_golden_bf16_fixture_matches_recipe():
+    """The full-width bf16 golden was made with the f32 golden's recipe
+    (seed 0, batch 2, prompt 8, 3 decode steps) from the weights of
+    ``numpy_lm_params(cfg, seed)`` rounded to bf16 as the port rounds them
+    (``Tensor.copy_`` into bf16 parameters): each leaf's path, shape and the
+    float64 sum of its bf16 values must still come out of the recipe."""
+    g = np.load(GOLDEN_BF16)
+    f32 = np.load(GOLDEN)
+    assert str(g["arch"]) == "qwen2-0.5b" and str(g["dtype"]) == "bfloat16"
+    for key in ("seed", "tokens", "prompt_len", "topk", "leaf_paths",
+                "leaf_shapes"):
+        np.testing.assert_array_equal(g[key], f32[key], err_msg=key)
+    steps, b = 4, 2
+    assert g["top_idx"].shape == g["top_val"].shape == (steps, b, 40)
+    assert g["lse"].shape == g["rms"].shape == (steps, b)
+    assert np.isfinite(g["top_val"]).all() and (g["rms"] > 0).all()
+    cfg = get_config("qwen2-0.5b")
+    assert cfg.dtype == "bfloat16"
+    recipe = convert.numpy_lm_leaves(cfg, int(g["seed"]))
+    for (path, total), (rpath, x) in zip(zip(g["leaf_paths"], g["leaf_sums"]),
+                                         recipe, strict=True):
+        assert path == "/".join(map(str, rpath))
+        bf16 = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+        assert bf16.sum(dtype=np.float64) == total, path

@@ -104,13 +104,15 @@ Phases, each of which fails the run on any error (each prints its seconds):
      chunk of two batches with three member policies at n29772,
      ``policy_sweep`` (B = 3) and ``sweep_mixed`` (B = 126);
  13. profiles: ``torch.profiler`` over the first 320 cycles of the n15072
-     ``ooo`` select run (set-up, the capture and 20 replays); over 20
-     replays of the captured chunk back to back (n15072 ``ooo`` select,
-     n29772 ``lru_flat`` select, n15072 ``ooo`` tensor), each beside its
-     device and host time per chunk (CUDA events), with each leading-one
-     kernel's device us per launch inside the replay against an empty
-     kernel's (``lod_empty`` at the same launch geometry, in a captured
-     graph); over the whole n15072 ``ooo`` megakernel run, over
+     ``ooo`` select run (set-up, the capture and 20 replays); over its
+     chunk loop alone (``run_state`` on a state built beforehand: the
+     capture, the replays with the host's read of ``done`` after each, the
+     tail); over 20 replays of the captured chunk back to back (n15072
+     ``ooo`` select, n29772 ``lru_flat`` select, n15072 ``ooo`` tensor),
+     each beside its device and host time per chunk (CUDA events), with
+     each leading-one kernel's device us per launch inside the replay
+     (PERF.md holds an empty kernel's node time, measured once, beside
+     it); over the whole n15072 ``ooo`` megakernel run, over
      its chunk loop alone (``run_state`` on a state built beforehand) and
      over the whole n470772 ``ooo`` megakernel run, each with its device busy
      share, device ops per cycle and top kernels;
@@ -151,7 +153,7 @@ Phases, each of which fails the run on any error (each prints its seconds):
      on ``split``) against the reference's bf16 golden
      (``tests/fixtures/qwen2_0_5b_golden_bf16.npz``): per row, the logits
      at the golden's top-32 indices, the top-32 values and the logsumexp
-     within 5e-2 x (|golden| + the row's RMS);
+     within 2e-2 x (|golden| + the row's RMS);
  19. serve profiles: ``torch.profiler`` over one prefill of phase 16's
      shape and over 8 decode steps after it, each with its device busy
      share, device ops per step and top kernels.
@@ -1398,79 +1400,46 @@ def replay_profile(torch, graphs, name, policy, engine):
                 nodes=nodes, ops_per_replay=per_replay)
 
 
-def empty_node_us(torch, lod, reps=100):
-    """The floor of a graph node: ``lod_empty`` (no work, at the pick's
-    launch geometry, 256 rows) ``reps`` times in a captured graph. Returns
-    (device us per launch by the profiler, us per node by CUDA events over
-    the replay: the launch's duration plus the gap to the next node)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.kernels import _build
-
-    fn = _build.library(lod.SOURCE).lod_empty
-
-    def launch():
-        rc = fn(256, torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"lod_empty launch failed: CUDA error {rc}")
-
-    per_node = device_ms(torch, launch, reps=reps) * 1e3
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            launch()
-    graph.replay()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            graph.replay()
-        torch.cuda.synchronize()
-    kernels = {e.key: (e.self_device_time_total, e.count)
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA}
-    us, count = kernel_node_us(kernels, "lod_empty_kernel")
-    print(f"empty kernel (lod_empty, 256 rows) in a graph of {reps}: "
-          + (f"{us:.3f} us per launch by the profiler ({count} launches)"
-             if us is not None else "no device time in the profile")
-          + f", {per_node:.3f} us per node by CUDA events", flush=True)
-    return us, per_node
-
-
-def profiles(torch, graphs, lod):
+def profiles(torch, graphs):
     """Phase 13. Returns {kernel: (node us, profiled launches)} from the
-    replayed select chunk loops, the empty kernel's (profiler us, event
-    us per node), and each replay profile's numbers."""
+    replayed select chunk loops, and each replay profile's numbers."""
     import repro_torch
     from repro_torch.core import overlay
     from repro_torch.core.overlay import OverlayConfig
 
     gm = graphs.memory("n15072", "ooo")
+    golden = ROWS["n15072"][1]["ooo"]
     nodes, replays = {}, {}
     cycles = REPLAY_CHUNKS * 16
     cfg = OverlayConfig(scheduler="ooo", engine="select", max_cycles=cycles)
     profile_run(torch, lambda: repro_torch.run(gm, cfg), cycles,
                 f"n15072 ooo select (first {cycles} cycles: set-up, the "
                 f"capture and {REPLAY_CHUNKS} replays)")
+    # The main path's chunk loop alone (run_state on a state built
+    # beforehand): the capture, the replays with the host's read of `done`
+    # after each, and the eager tail.
+    select = OverlayConfig(scheduler="ooo", engine="select")
+    g = overlay.device_graph(gm)
+    built = [overlay.init_state(g, select) for _ in range(3)]
+    torch.cuda.synchronize()
+    profile_run(torch, lambda: overlay.run_state(g, select, built.pop()),
+                golden, "n15072 ooo select (chunk loop: run_state on a built "
+                "state)")
     for name, policy, engine in REPLAY_PROFILES:
         out = replay_profile(torch, graphs, name, policy, engine)
         replays[name, policy, engine] = out
         for k, (us, count) in out["nodes"].items():
             if count and k not in nodes:
                 nodes[k] = (us, count)
-    floor = empty_node_us(torch, lod)
     for k, (us, count) in nodes.items():
         print(f"{k} node in the replayed chunk: {us:.3f} us per launch "
-              f"({count} launches profiled) against the empty kernel's "
-              + (f"{floor[0]:.3f} us: {us / floor[0]:.2f}x" if floor[0]
-                 else "(not in the profile)"), flush=True)
-    golden = ROWS["n15072"][1]["ooo"]
+              f"({count} launches profiled)", flush=True)
     mega = OverlayConfig(scheduler="ooo", engine="megakernel")
     profile_run(torch, lambda: repro_torch.run(gm, mega), golden,
                 "n15072 ooo megakernel (whole run)")
     # The chunk loop alone (run_state on a state built beforehand): the
     # queued chunks without the run's set-up (graph upload, init_state,
     # result unpacking).
-    g = overlay.device_graph(gm)
     states = [overlay.init_state(g, mega) for _ in range(3)]
     torch.cuda.synchronize()
     profile_run(torch, lambda: overlay.run_state(g, mega, states.pop()),
@@ -1480,7 +1449,7 @@ def profiles(torch, graphs, lod):
     big = "n470772"
     profile_run(torch, lambda: repro_torch.run(graphs.memory(big, "ooo"), mega),
                 ROWS[big][1]["ooo"], f"{big} ooo megakernel (whole run)")
-    return nodes, floor, replays
+    return nodes, replays
 
 
 # ---------------------------------------------------------------------------
@@ -1566,11 +1535,11 @@ GOLDEN_BF16 = GOLDEN.with_name("qwen2_0_5b_golden_bf16.npz")
 #: (~0.6). bf16 keeps 8 significant bits (a relative step of 2^-8 = 3.9e-3),
 #: and the two round at other places: cuBLAS and eager torch round each
 #: op's output, XLA rounds once per fused chain, the mma body rounds P to
-#: bf16. 24 layers of such differences move the residual stream by a few
-#: steps relative to its size, so the logits by ~1-3% of their RMS; 5e-2
-#: leaves room above that, and a fault of the attention (a mask or a key
-#: tile lost in one layer) moves a row by more.
-GOLDEN_BF16_TOL = 5e-2
+#: bf16. On an H100 (80GB HBM3, 700 W) the clean port reads 0.0127, and
+#: the causal mask dropped in one of the 24 prefill layers reads 0.0312:
+#: the limit sits between the two, ~1.6x from each, so that a fault of the
+#: attention in one layer fails the check.
+GOLDEN_BF16_TOL = 2e-2
 
 
 def flash_inputs(torch, case, dtype, seed):
@@ -2203,8 +2172,7 @@ def main() -> int:
     mega_timed = phase("megakernel time", megakernel_times, torch, graphs, mk)
     scaling = phase("batch scaling", batch_scaling, torch, graphs, mk,
                     solo_walls["sweep_ooo"])
-    nodes, floor, replay_runs = phase("profiles", profiles, torch, graphs,
-                                      lod)
+    nodes, replay_runs = phase("profiles", profiles, torch, graphs)
     flash = lm_phases(torch, np)
 
     line = []
@@ -2224,11 +2192,9 @@ def main() -> int:
             us = nodes.get(name, (None, 0))[0]
             row.update(
                 in_graph_ms=None if us is None else us / 1e3,
-                empty_node_ms=None if floor[0] is None else floor[0] / 1e3,
-                empty_node_event_ms=floor[1] / 1e3,
                 replays=replays, launches_per_replay=per_replay[name],
                 replay_call_ms=run["host_ms"],
-                main_path_host_ms=run["host_ms"] / run["ops_per_replay"])
+                replay_host_ms_per_op=run["host_ms"] / run["ops_per_replay"])
         line.append(row)
     first = MEGA_TIMED_ROWS[0]
     mt = mega_timed[first, "ooo", ""]

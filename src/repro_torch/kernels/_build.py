@@ -32,7 +32,6 @@ SIGNATURES = {
         "lod_pick": (_P, _P, _I, _I, _P),
         "lod_schedule_step": (_P, _P, _P, _P, _I, _I, _P),
         "lod_rotating_schedule_step": (_P, _P, _P, _P, _P, _I, _I, _P),
-        "lod_empty": (_I, _P),
     },
     # mega_chunk(const MegaArgs* args, int eject, void* stream)
     "megakernel.cu": {

@@ -14,8 +14,6 @@
 //                               ptr's word and bits above ptr's bit masked
 //                               off), wrapping to the plain pick when that
 //                               window is empty; gated clear as above
-//   lod_empty                   no work, at the pick's launch geometry: the
-//                               floor a measurement holds the others against
 //
 // Design. One warp per PE row, several rows per block. Lane l reads words
 // l, l+32, ... and keys each nonzero word as word*32 + __clz(word) (INT_MAX
@@ -127,10 +125,6 @@ __global__ void lod_rotating_kernel(const uint32_t* __restrict__ bits,
   copy_clear(r, new_bits + static_cast<size_t>(row) * W, W, lane, best, clear);
 }
 
-// No work: the floor of a launch (or of a CUDA-graph node) at the pick's
-// launch geometry, which a measurement holds the kernels above against.
-__global__ void lod_empty_kernel() {}
-
 inline dim3 grid_for(int P) {
   return dim3((P + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
@@ -168,15 +162,6 @@ int lod_rotating_schedule_step(const void* bits, const void* ptr,
         static_cast<const uint32_t*>(bits), static_cast<const int32_t*>(ptr),
         static_cast<const uint8_t*>(gate), static_cast<int32_t*>(slot),
         static_cast<uint32_t*>(new_bits), P, W);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Measurement entry point: launches the empty kernel at the grid of P rows.
-int lod_empty(int P, void* stream) {
-  if (P > 0) {
-    lod_empty_kernel<<<grid_for(P), kWarpsPerBlock * 32, 0,
-                       static_cast<cudaStream_t>(stream)>>>();
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,7 +35,13 @@ Phases, each of which fails the run on any error (each prints its seconds):
      (``--mega-rows`` beyond n15072) from three states (cycle 40, made by
      the plain chunk; half-way to the golden; three cycles before it) at
      K = 1 and 32. Each case runs the body the plan picks and, where that is
-     ``shared``, the ``global`` body too;
+     ``shared``, the ``global`` body too. The matrix graph (2x2, 36x36,
+     42x42, 48x48) and n15072 (16x16) cases also run traced
+     (``TelemetrySpec`` on: the kernel's traced variant against the traced
+     plain chunk, every trace leaf bit for bit too; 16 buckets of 8 cycles on
+     2x2 and 48x48, the default 64 x 32 on n15072, groups off on the
+     four-PEs-a-thread grids 36x36 and 42x42), so every traced instantiation
+     runs;
   5. batched megakernel: the batched chunk (one CTA per config; each body,
      as in phase 4) against its plain version (each element through the
      tensor engine's chunk) on a mixed batch (all four policies, ``ooo`` at
@@ -50,7 +56,10 @@ Phases, each of which fails the run on any error (each prints its seconds):
      before it, and three cycles before the last end (the others done), at
      K = 1 and 32 (1 and 7 above 8 elements), plus a tail launch that
      freezes every other element: every leaf (inactive members' states
-     included) and the [K, B] trace equal as bit patterns;
+     included) and the [K, B] trace equal as bit patterns. The mixed
+     batches also run traced (the matrix graph's spec of phase 4 at every
+     eject configuration, n15072's at n_first), every trace leaf equal
+     too;
  5b. replayed chunks: the ``tensor`` and ``select`` engines' K-cycle chunk
      replayed from its captured CUDA graph (``overlay.ReplayedChunk``)
      against the eager chunk (``make_chunk_fn``, ``make_batch_chunk_fn``)
@@ -59,18 +68,21 @@ Phases, each of which fails the run on any error (each prints its seconds):
      matrix graph (2x2) and on n15072 (16x16) from phase 4's four states,
      and phase 10's mixed batch (each eject configuration, four states), at
      K = 7 and the engine's own K (one capture per K, the later states
-     copied into the captured tensors);
+     copied into the captured tensors); traced too at n_first, every
+     policy on the matrix graph, the mixed batch and n15072 ``ooo``, so the
+     captured graph records the trace updates;
   6. main path, ``engine="select"``: ``repro_torch.run`` on the 16x16 PE
-     grid for the Fig. 1 arrow-LU graphs (default rows n15072, n29772 and
-     n117972); every cycle count must equal the reference's golden, values
-     must match ``reference_evaluate`` (rtol = atol = 1e-5, as the
-     reference's own tests hold them), the n15072 results must equal a CPU
-     run of the port bit for bit, the scheduler kernels must have been
-     launched during this phase, and each kernel's count must be the
-     chunks' replays times the launches their captures recorded (every run
-     ends inside a chunk, so no cycle runs eagerly);
-  7. main path, ``engine="megakernel"``: the same checks on rows n15072,
-     n29772, n117972 and n470772 (``--mega-rows``), each result bit-identical
+     grid for the Fig. 1 arrow-LU graphs (default rows n15072, n29772,
+     n59172 and n117972); every cycle count must equal the reference's
+     golden, values must match ``reference_evaluate`` (rtol = atol = 1e-5,
+     as the reference's own tests hold them), the n15072 results must equal
+     a CPU run of the port bit for bit, the scheduler kernels must have been
+     launched during this phase, and each kernel's count must be the chunks'
+     replays times the launches their captures recorded (every run ends
+     inside a chunk, so no cycle runs eagerly);
+  7. main path, ``engine="megakernel"``: the same checks on all seven
+     Fig. 1 rows, n15072, n29772, n59172, n117972, n235572, n353172 and
+     n470772 (``--mega-rows``), each result bit-identical
      to the select engine's where that phase ran the row too, the megakernel
      launched during this phase, and every chunk on the ``shared`` body (the
      per-body launch counts);
@@ -80,6 +92,27 @@ Phases, each of which fails the run on any error (each prints its seconds):
      reference's ``policy_sweep``): goldens, values, every element
      bit-identical to phase 7's solo run, the batched kernel launched, every
      chunk on the ``shared`` body;
+ 8b. eject rows: the reference's ``eject`` rows (``ooo`` on a 4x4 grid,
+     criticality layout; ``arrow_lu_graph(2, 8, 12, seed=3)`` and
+     ``banded_lu_graph(60, 12, seed=3)``) under both eject policies, each
+     under ``select`` and ``megakernel``: cycles and deflections at the
+     goldens, values, the engines bit-identical;
+ 8c. chunking rows: n29772 ``ooo`` and ``inorder`` under ``select`` at
+     check_every 1 (eager) and auto: the goldens, both bit-identical to
+     phase 6's run, simulated cycles/s of each;
+ 8d. telemetry: n15072 ``ooo`` and ``inorder`` with ``TelemetrySpec()``
+     under ``select`` and ``megakernel``, each beside its untraced run
+     (equal results; traced and untraced wall): every value of the
+     reference's BENCH ``telemetry`` rows, the two engines' traces
+     bit-identical and the select traces equal to a CPU run of the port;
+     both policies as one traced megakernel batch, each element equal to
+     its solo run; the per-cycle trace of n117972 ``ooo``
+     (``TelemetrySpec.per_cycle(14213)``, 116 MB) under both engines,
+     bit-identical, each trace sum equal to its counter; ``python -m
+     repro_torch.telemetry --fig1`` writing two Perfetto traces of
+     ``track_count`` tracks; the traced megakernel launched; then the
+     traced and untraced chunk's device time at n15072 ``ooo`` in turns,
+     the plain traced chunk's, and the traced bytes bound;
   9. full-card sweeps at n29772, one batch each: ``sweep_ooo`` (``ooo`` x
      select latency 1..128, B = 128) and ``sweep_mixed`` (inorder,
      lru_flat, scan x 1..42, B = 126); every element bit-identical to a solo
@@ -158,11 +191,13 @@ Phases, each of which fails the run on any error (each prints its seconds):
      shape and over 8 decode steps after it, each with its device busy
      share, device ops per step and top kernels.
 
-Each graph is built once (numpy set-up) and shared by the phases. The
-card's line is printed again before the JSON object describing each kernel
-(the second-to-last line); the last line is ``{"ok": true, "device":
-{...}}``. Without a CUDA device, or without the rest of the repository
-beside this file, the script exits non-zero before printing any result.
+Each graph is built once (numpy set-up, in worker processes while the
+kernels build) and shared by the phases. The card's line is printed again
+before the JSON object describing each kernel (the traced megakernel
+``mega_chunk_traced`` among them; the second-to-last line); the last line
+is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+rest of the repository beside this file, the script exits non-zero before
+printing any result.
 """
 from __future__ import annotations
 
@@ -189,14 +224,62 @@ ROWS = {
     "n15072": ((4, 10, 8, 3), {"ooo": 2125, "inorder": 2369}),
     "n29772": ((8, 10, 8, 3), {"ooo": 3974, "inorder": 4393,
                                "lru_flat": 4344, "scan": 4625}),
+    "n59172": ((16, 10, 8, 3), {"ooo": 7326, "inorder": 8533}),
     "n117972": ((32, 10, 8, 3), {"ooo": 14213, "inorder": 17004}),
+    "n235572": ((64, 10, 8, 3), {"ooo": 27912, "inorder": 33511}),
+    "n353172": ((96, 10, 8, 3), {"ooo": 41539, "inorder": 49852}),
     "n470772": ((128, 10, 8, 3), {"ooo": 54943, "inorder": 66669}),
 }
 #: Default rows of each main path. The select engine replays its chunks
 #: from captured CUDA graphs, so its default reaches n117972 (W = 15, the
-#: timed kernel shape); the megakernel runs the larger rows too.
-SELECT_ROWS = ("n15072", "n29772", "n117972")
-MEGA_ROWS = ("n15072", "n29772", "n117972", "n470772")
+#: timed kernel shape); the megakernel runs every Fig. 1 row.
+SELECT_ROWS = ("n15072", "n29772", "n59172", "n117972")
+MEGA_ROWS = ("n15072", "n29772", "n59172", "n117972", "n235572", "n353172",
+             "n470772")
+
+#: The reference's ``eject`` rows (its placement benchmark): ``ooo`` on the
+#: criticality layout of a 4x4 grid, name -> (generator, arguments with the
+#: seed, {eject_policy: (golden cycles, golden deflections)}).
+EJECT_ROWS = {
+    "arrow_n9838": ("arrow_lu_graph", (2, 8, 12, 3),
+                    {"n_first": (3160, 25664), "priority": (3087, 26004)}),
+    "banded_n16822": ("banded_lu_graph", (60, 12, 3),
+                      {"n_first": (4678, 31203), "priority": (4567, 33693)}),
+}
+#: The reference's ``chunking`` rows: the row run at check_every 1 and auto
+#: under ``select``, the same goldens at both.
+CHUNKING_ROW = "n29772"
+CHUNKING_POLICIES = ("ooo", "inorder")
+
+#: The reference's ``telemetry`` rows (n15072 with ``TelemetrySpec()``): the
+#: BENCH values, {policy: {key: value}}.
+TELEMETRY_ROW = "n15072"
+TELEMETRY_GOLDENS = {
+    "ooo": dict(cycles=2125, ctr_busy_total=13968, ctr_delivered=27936,
+                ctr_noc_deflections=96868, ctr_eject_deflections=70,
+                ctr_link_busy_max=1449, ctr_stall_no_ready=429437,
+                ctr_stall_inject_blocked=86627, ctr_stall_select_wait=0,
+                ctr_picks=15071, link_util_p50=0.3819, link_util_p95=0.5464,
+                link_util_max=0.6819, pick_pos_mean=28.94,
+                ready_depth_mean=0.424),
+    "inorder": dict(cycles=2369, ctr_busy_total=13968, ctr_delivered=27936,
+                    ctr_noc_deflections=89998, ctr_eject_deflections=63,
+                    ctr_link_busy_max=1471, ctr_stall_no_ready=498087,
+                    ctr_stall_inject_blocked=80441, ctr_stall_select_wait=0,
+                    ctr_picks=15071, link_util_p50=0.3326,
+                    link_util_p95=0.4788, link_util_max=0.6209,
+                    pick_pos_mean=28.94, ready_depth_mean=0.347),
+}
+#: The per-cycle trace: one bucket a cycle over the whole ``ooo`` run.
+PER_CYCLE_ROW = "n117972"
+#: The trace specs of the traced kernel checks (phases 4, 5, 5b), as
+#: TelemetrySpec keywords: 16 buckets of 8 cycles (the matrix graph's runs
+#: clamp into the last bucket), the default 64 x 32 at n15072 (clamped
+#: from cycle 2048), and groups off (null leaves) on the four-PEs-a-thread
+#: grids.
+TRACE_SPECS = {"small": dict(buckets=16, bucket_cycles=8), "default": {},
+               "partial": dict(buckets=8, bucket_cycles=64, links=False,
+                               sched=False)}
 #: Rows and policies at which a megakernel chunk is timed (K = 32).
 MEGA_TIMED_ROWS = ("n15072", "n117972", "n470772")
 MEGA_TIMED_POLICIES = ("ooo", "inorder")
@@ -219,6 +302,9 @@ KERNELS = {
 SOURCE = "src/repro_torch/kernels/csrc/lod.cu"
 MEGA_REPLACES = "src/repro/kernels/megakernel.py:68"
 MEGA_SOURCE = "src/repro_torch/kernels/csrc/megakernel.cu"
+#: Where the reference's kernel gets its traces: the trace leaves are state
+#: leaves of its ``pallas_call``.
+MEGA_TRACED_REPLACES = "src/repro/kernels/megakernel.py:68 (telemetry on)"
 
 #: The full-card sweeps (one batch each) on this row: (memory layout of the
 #: scheduler, policies, select latencies).
@@ -379,24 +465,59 @@ def kernel_times(torch, np, lod, p, w):
             for name, (k, plain, nbytes) in calls.items()}
 
 
+def row_setup(name):
+    """A main-path row's set-up (numpy, on the host): the DataflowGraph, its
+    ``reference_evaluate`` values, its 16x16 GraphMemory for each layout its
+    policies want, and the seconds it took. Runs in a worker process."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import schedulers
+    from repro_torch.core import workloads as wl
+    from repro_torch.core.graph import reference_evaluate
+    from repro_torch.core.partition import build_graph_memory
+
+    t = time.perf_counter()
+    args, goldens = ROWS[name]
+    g = wl.arrow_lu_graph(*args[:3], seed=args[3])
+    ref = reference_evaluate(g)
+    memories = {}
+    for sched in goldens:
+        crit = schedulers.get(sched).wants_criticality_order
+        if crit not in memories:
+            memories[crit] = build_graph_memory(g, 16, 16,
+                                                criticality_order=crit)
+    return g, ref, memories, time.perf_counter() - t
+
+
 class Graphs:
     """Each main-path graph built once: the DataflowGraph, its
-    ``reference_evaluate`` values and its 16x16 GraphMemory per layout."""
+    ``reference_evaluate`` values and its 16x16 GraphMemory per layout.
+    ``prefetch`` builds rows in worker processes while the card works (the
+    set-up of the larger rows takes tens of seconds of Python)."""
 
-    def __init__(self):
-        self._graphs, self._memories = {}, {}
+    def __init__(self, pool=None):
+        self._graphs, self._memories, self._pending = {}, {}, {}
+        self._pool = pool
+
+    def prefetch(self, names):
+        for name in names:
+            if name not in self._graphs and name not in self._pending:
+                self._pending[name] = self._pool.submit(row_setup, name)
 
     def graph(self, name):
-        from repro_torch.core import workloads as wl
-        from repro_torch.core.graph import reference_evaluate
-
         if name not in self._graphs:
-            args, _ = ROWS[name]
             t = time.perf_counter()
-            g = wl.arrow_lu_graph(*args[:3], seed=args[3])
-            self._graphs[name] = (g, reference_evaluate(g))
-            print(f"set-up {name}: arrow_lu_graph{args} -> {g.num_nodes} "
-                  f"nodes, {time.perf_counter() - t:.1f} s", flush=True)
+            if name not in self._pending:
+                self._pending[name] = None
+            job = self._pending.pop(name)
+            g, ref, memories, took = (row_setup(name) if job is None
+                                      else job.result())
+            self._graphs[name] = (g, ref)
+            for crit, gm in memories.items():
+                self._memories[name, crit] = gm
+            print(f"set-up {name}: arrow_lu_graph{ROWS[name][0]} -> "
+                  f"{g.num_nodes} nodes, reference values and graph memories "
+                  f"in {took:.1f} s ({'here' if job is None else 'a worker'}; "
+                  f"waited {time.perf_counter() - t:.1f} s)", flush=True)
         return self._graphs[name]
 
     def memory(self, name, sched):
@@ -405,11 +526,11 @@ class Graphs:
         from repro_torch.core.partition import build_graph_memory
 
         crit = schedulers.get(sched).wants_criticality_order
+        self.graph(name)
         if (name, crit) not in self._memories:
-            g, _ = self.graph(name)
             t = time.perf_counter()
             self._memories[name, crit] = build_graph_memory(
-                g, 16, 16, criticality_order=crit)
+                self.graph(name)[0], 16, 16, criticality_order=crit)
             print(f"set-up {name}: graph memory (criticality order {crit}), "
                   f"{time.perf_counter() - t:.1f} s", flush=True)
         return self._memories[name, crit]
@@ -723,6 +844,276 @@ def batched_select(torch, np, lod):
           flush=True)
 
 
+def eject_rows(torch, np):
+    """The reference's ``eject`` rows: ``ooo`` on a 4x4 grid under both
+    eject policies, each under ``select`` and ``megakernel``: cycles and
+    deflections at the goldens, values against ``reference_evaluate``, and
+    the two engines' results bit-identical."""
+    import repro_torch
+    from repro_torch.core import workloads as wl
+    from repro_torch.core.graph import reference_evaluate
+    from repro_torch.core.overlay import OverlayConfig
+    from repro_torch.core.partition import build_graph_memory
+
+    for name, (fn, args, goldens) in EJECT_ROWS.items():
+        g = getattr(wl, fn)(*args[:-1], seed=args[-1])
+        ref = reference_evaluate(g)
+        gm = build_graph_memory(g, 4, 4, criticality_order=True)
+        for pol, (cycles, defl) in goldens.items():
+            got = {}
+            for engine in ("select", "megakernel"):
+                cfg = OverlayConfig(scheduler="ooo", eject_policy=pol,
+                                    max_cycles=4_000_000, engine=engine)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                r = repro_torch.run(gm, cfg)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                ok_vals = bool(np.isfinite(r.values).all()) and bool(
+                    np.allclose(r.values, ref, rtol=1e-5, atol=1e-5))
+                print(f"eject row {name} {pol} {engine}: cycles {r.cycles} "
+                      f"(golden {cycles}), deflections {r.deflections} "
+                      f"(golden {defl}), wall {wall:.3f} s", flush=True)
+                if not (r.done and (r.cycles, r.deflections) == (cycles, defl)
+                        and ok_vals):
+                    raise AssertionError(
+                        f"eject row {name} {pol} {engine}: cycles "
+                        f"{r.cycles}, deflections {r.deflections}, values "
+                        f"match {ok_vals}")
+                got[engine] = r
+            if not same_result(np, got["select"], got["megakernel"]):
+                raise AssertionError(f"eject row {name} {pol}: the engines "
+                                     f"differ")
+
+
+def chunking_rows(torch, np, graphs, select_results):
+    """The reference's ``chunking`` rows: CHUNKING_ROW under ``select`` at
+    check_every 1 (the per-cycle engine, eager) and auto (replayed chunks),
+    each policy at its golden, the two bit-identical and equal to phase 6's
+    run. Prints simulated cycles/s of each."""
+    import repro_torch
+    from repro_torch.core.overlay import OverlayConfig
+
+    for sched in CHUNKING_POLICIES:
+        gm = graphs.memory(CHUNKING_ROW, sched)
+        golden = ROWS[CHUNKING_ROW][1][sched]
+        got = []
+        for check_every in (1, None):
+            cfg = OverlayConfig(scheduler=sched, check_every=check_every)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = repro_torch.run(gm, cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            print(f"chunking row {CHUNKING_ROW} {sched} select check_every "
+                  f"{check_every or 'auto'}: cycles {r.cycles} (golden "
+                  f"{golden}), wall {wall:.3f} s, {r.cycles / wall:.0f} "
+                  f"cycles/s", flush=True)
+            if not (r.done and r.cycles == golden):
+                raise AssertionError(f"chunking row {sched} check_every "
+                                     f"{check_every}: {r.cycles} cycles")
+            got.append(r)
+        ref = select_results.get((CHUNKING_ROW, sched), got[1])
+        if not (same_result(np, got[0], got[1])
+                and same_result(np, got[1], ref)):
+            raise AssertionError(f"chunking row {sched}: check_every 1 and "
+                                 f"auto differ")
+
+
+def traces_equal(np, a, b) -> bool:
+    """Two ``TelemetryResult``s: the same leaves, equal bit for bit."""
+    return a.traces.keys() == b.traces.keys() and all(
+        a.traces[k].dtype == b.traces[k].dtype == np.int32
+        and np.array_equal(a.traces[k], b.traces[k]) for k in a.traces)
+
+
+def telemetry_values(r) -> dict:
+    """The BENCH ``telemetry`` row's values of a traced run."""
+    rep = r.telemetry.report()
+    return dict(
+        cycles=r.cycles, ctr_busy_total=r.busy_cycles,
+        ctr_delivered=r.delivered, ctr_noc_deflections=r.noc_deflections,
+        ctr_eject_deflections=r.eject_deflections,
+        ctr_link_busy_max=rep["links"]["busy_max"],
+        ctr_stall_no_ready=rep["stalls"]["no_ready"],
+        ctr_stall_inject_blocked=rep["stalls"]["inject_blocked"],
+        ctr_stall_select_wait=rep["stalls"]["select_wait"],
+        ctr_picks=rep["sched"]["picks"],
+        link_util_p50=rep["links"]["util_p50"],
+        link_util_p95=rep["links"]["util_p95"],
+        link_util_max=rep["links"]["util_max"],
+        pick_pos_mean=rep["sched"]["pick_pos_mean"],
+        ready_depth_mean=rep["sched"]["ready_depth_mean"])
+
+
+def timed_run(torch, gm, cfg, **kw):
+    """``repro_torch.run(gm, cfg)`` and its wall in s (synchronised)."""
+    import repro_torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    r = repro_torch.run(gm, cfg, **kw)
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t
+
+
+def sums_equal_counters(r) -> bool:
+    t = r.telemetry.traces
+    return (int(t["pe_busy"].sum()) == r.busy_cycles
+            and int(t["eject_grant"].sum()) == r.delivered
+            and int(t["defl_noc"].sum()) == r.noc_deflections
+            and int(t["defl_eject"].sum()) == r.eject_deflections)
+
+
+def telemetry_phase(torch, np, graphs, mk):
+    """Phase 7c, the traced main path. TELEMETRY_ROW ``ooo`` and
+    ``inorder`` with ``TelemetrySpec()`` under ``select`` and
+    ``megakernel``, each beside its untraced run: the same results, every
+    BENCH ``telemetry`` value, the two engines' traces bit-identical and the
+    select traces equal to a CPU run of the port; both policies as one
+    traced megakernel batch, each element equal to its solo run; the
+    per-cycle trace of PER_CYCLE_ROW ``ooo`` under both engines,
+    bit-identical, each leaf's sum equal to its counter; the CLI's Fig. 1
+    traces. The launch counts are set to 0 before the runs and read after
+    them. Then the traced and untraced chunk's device time at
+    TELEMETRY_ROW ``ooo``, in turns. Returns the numbers."""
+    import os
+    import tempfile
+
+    import repro_torch
+    from repro_torch.core.overlay import OverlayConfig
+    from repro_torch.telemetry import TelemetrySpec
+    from repro_torch.telemetry.perfetto import track_count
+
+    spec = TelemetrySpec()
+    for sched in TELEMETRY_GOLDENS:
+        graphs.memory(TELEMETRY_ROW, sched)
+    graphs.memory(PER_CYCLE_ROW, "ooo")
+    mk.reset_launches()
+    walls = {}
+    for sched, want in TELEMETRY_GOLDENS.items():
+        gm = graphs.memory(TELEMETRY_ROW, sched)
+        tels = {}
+        for engine in ("select", "megakernel"):
+            cfg = OverlayConfig(scheduler=sched, engine=engine)
+            off, w_off = timed_run(torch, gm, cfg)
+            r, w_on = timed_run(torch, gm, dataclasses.replace(
+                cfg, telemetry=spec))
+            walls[sched, engine] = (w_off, w_on)
+            got = telemetry_values(r)
+            print(f"telemetry {TELEMETRY_ROW} {sched} {engine}: cycles "
+                  f"{r.cycles}, wall {w_on:.3f} s traced / {w_off:.3f} s "
+                  f"untraced ({w_on / w_off:.3f}x); {got}", flush=True)
+            if not (same_result(np, r, off) and got == want):
+                raise AssertionError(
+                    f"telemetry {sched} {engine}: equal to the untraced run "
+                    f"{same_result(np, r, off)}; values {got} against the "
+                    f"goldens {want}")
+            tels[engine] = r.telemetry
+        cpu = repro_torch.run(gm, OverlayConfig(scheduler=sched,
+                                                telemetry=spec), device="cpu")
+        same = (traces_equal(np, tels["select"], tels["megakernel"]),
+                traces_equal(np, tels["select"], cpu.telemetry))
+        print(f"telemetry {TELEMETRY_ROW} {sched}: select and megakernel "
+              f"traces bit-identical {same[0]}, select and a CPU run "
+              f"{same[1]}", flush=True)
+        if not all(same):
+            raise AssertionError(f"telemetry {sched}: traces differ {same}")
+    # Both policies as one traced batch on one layout, against solo runs of
+    # the same configs on that layout.
+    gm = graphs.memory(TELEMETRY_ROW, "ooo")
+    cfgs = [OverlayConfig(scheduler=p, engine="megakernel", telemetry=spec)
+            for p in TELEMETRY_GOLDENS]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    batch = repro_torch.run(gm, batch=cfgs)
+    torch.cuda.synchronize()
+    b_wall = time.perf_counter() - t
+    for c, rb in zip(cfgs, batch):
+        solo = repro_torch.run(gm, c)
+        if not (same_result(np, rb, solo)
+                and traces_equal(np, rb.telemetry, solo.telemetry)):
+            raise AssertionError(f"traced batch {c.scheduler}: differs from "
+                                 f"its solo run")
+    print(f"telemetry batch {TELEMETRY_ROW} {[c.scheduler for c in cfgs]} "
+          f"(criticality layout): every element equal to its solo run, "
+          f"traces included; wall {b_wall:.3f} s", flush=True)
+    # One bucket a cycle over a whole run.
+    golden = ROWS[PER_CYCLE_ROW][1]["ooo"]
+    per_cycle = TelemetrySpec.per_cycle(golden)
+    gm = graphs.memory(PER_CYCLE_ROW, "ooo")
+    tels = {}
+    for engine in ("megakernel", "select"):
+        r, wall = timed_run(torch, gm, OverlayConfig(
+            scheduler="ooo", engine=engine, telemetry=per_cycle))
+        tel_bytes = per_cycle.memory_bytes(16, 16)
+        print(f"telemetry per cycle {PER_CYCLE_ROW} ooo {engine}: cycles "
+              f"{r.cycles} (golden {golden}), {tel_bytes} bytes of trace, "
+              f"wall {wall:.3f} s, sums equal the counters "
+              f"{sums_equal_counters(r)}", flush=True)
+        if not (r.done and r.cycles == golden and sums_equal_counters(r)):
+            raise AssertionError(f"per-cycle trace {engine}: cycles "
+                                 f"{r.cycles}, sums equal the counters "
+                                 f"{sums_equal_counters(r)}")
+        tels[engine] = r.telemetry
+    if not traces_equal(np, tels["megakernel"], tels["select"]):
+        raise AssertionError("per-cycle traces differ between the engines")
+    print(f"telemetry per cycle {PER_CYCLE_ROW}: megakernel and select "
+          f"traces bit-identical", flush=True)
+    counts = dict(mk.launches)
+    print(f"telemetry kernel launches: {counts}", flush=True)
+    if counts["mega_chunk_traced"] == 0:
+        raise AssertionError("the telemetry phase never launched the traced "
+                             "megakernel")
+    assert_shared_body(counts, "telemetry")
+    # The CLI, on the card: the Fig. 1 graph's traces as Perfetto JSON.
+    with tempfile.TemporaryDirectory() as out:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   REPRO_GRAPH_CACHE=os.path.join(out, "cache"))
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.telemetry", "--fig1", "--out",
+             out], env=env, cwd=ROOT, capture_output=True, text=True,
+            timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(
+                f"telemetry CLI failed:\n{proc.stderr[-3000:]}")
+        want = track_count(spec, 16, 16)
+        files = sorted(f for f in os.listdir(out) if f.endswith(".json"))
+        for f in files:
+            with open(os.path.join(out, f)) as fh:
+                events = json.load(fh)["traceEvents"]
+            tracks = {(e["pid"], e["name"]) for e in events if e["ph"] == "C"}
+            if len(tracks) != want:
+                raise AssertionError(f"{f}: {len(tracks)} tracks, not {want}")
+        print(f"telemetry CLI --fig1: {files}, {want} counter tracks each, "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        if len(files) != 2:
+            raise AssertionError(f"telemetry CLI wrote {files}")
+    # The chunk's device time, traced and untraced in turns.
+    timed = {}
+    for tel in (None, spec, spec, None):
+        mt = mega_times(torch, graphs, mk, TELEMETRY_ROW, "ooo",
+                        5 if tel is not None and "traced" not in timed else 0,
+                        telemetry=tel)
+        key = "untraced" if tel is None else "traced"
+        timed.setdefault(key, []).append(mt)
+    t_ms = [m["ms"] for m in timed["traced"]]
+    u_ms = [m["ms"] for m in timed["untraced"]]
+    tr = timed["traced"][0]
+    print(f"telemetry chunk time {TELEMETRY_ROW} ooo K={MEGA_K}: traced "
+          f"{t_ms[0] * 1e3:.1f} / {t_ms[1] * 1e3:.1f} us, untraced "
+          f"{u_ms[0] * 1e3:.1f} / {u_ms[1] * 1e3:.1f} us (in turns: untraced, "
+          f"traced, traced, untraced); plain traced chunk "
+          f"{tr['plain_ms'] * 1e3:.1f} us; traced bytes bound "
+          f"{tr['bytes'] / HBM_BYTES_PER_S * 1e6:.3f} us ({tr['bytes']} "
+          f"bytes), host {tr['call_ms'] * 1e3:.1f} us per call", flush=True)
+    return dict(launches=counts["mega_chunk_traced"], ms=min(t_ms),
+                traced_ms=t_ms, untraced_ms=u_ms, plain_ms=tr["plain_ms"],
+                bytes=tr["bytes"], call_ms=tr["call_ms"], shape=tr["shape"],
+                walls={f"{k[0]} {k[1]}": v for k, v in walls.items()})
+
+
 def clone_state(s):
     return {k: clone_state(v) if isinstance(v, dict) else v.clone()
             for k, v in s.items()}
@@ -807,13 +1198,23 @@ def start_states(torch, mk, g, cfg):
             "signed zeros": signed_zeros(torch, mid)}, end
 
 
+def traced(cfg, spec):
+    """``cfg`` with tracing on: ``TRACE_SPECS[spec]``."""
+    from repro_torch.telemetry import TelemetrySpec
+
+    return dataclasses.replace(cfg,
+                               telemetry=TelemetrySpec(**TRACE_SPECS[spec]))
+
+
 def check_megakernel(torch, np, graphs, mk, rows):
     """The megakernel chunk against its plain version on clones of one
     state, every leaf and the done trace as bit patterns: every policy x
     eject configuration on the small matrix graph and on n15072, the
     matrix graph on grids above 1024 PEs, and the main-path policies of the
-    larger megakernel ``rows``. Returns the largest abs error and the
-    number of cases."""
+    larger megakernel ``rows``. Every grid runs untraced and traced (the
+    trace leaves of its spec in ``TRACE_SPECS`` held bit for bit too).
+    Returns the largest abs error and the number of cases, and those of
+    the traced variant."""
     from repro_torch.core import workloads as wl
     from repro_torch.core.overlay import (OverlayConfig, device_graph,
                                           init_state, run_state)
@@ -822,19 +1223,22 @@ def check_megakernel(torch, np, graphs, mk, rows):
     b, s, w, seed = MATRIX_GRAPH
     matrix = wl.arrow_lu_graph(b, s, w, seed=seed)
     n15072, _ = graphs.graph("n15072")
-    grids = [("matrix 2x2", matrix, 2, 2, POLICIES, EJECTS),
-             ("n15072 16x16", n15072, 16, 16, POLICIES, EJECTS),
-             ("n15072 2x2", n15072, 2, 2, POLICIES, ("n_first_cap1",)),
-             ("matrix 36x36", matrix, 36, 36, ("ooo",), ("n_first_cap1",)),
-             ("matrix 42x42", matrix, 42, 42, ("inorder",), ("cap2",)),
-             ("matrix 48x48", matrix, 48, 48, ("ooo",), ("n_first_cap1",)),
+    grids = [("matrix 2x2", matrix, 2, 2, POLICIES, EJECTS, "small"),
+             ("n15072 16x16", n15072, 16, 16, POLICIES, EJECTS, "default"),
+             ("n15072 2x2", n15072, 2, 2, POLICIES, ("n_first_cap1",), None),
+             ("matrix 36x36", matrix, 36, 36, ("ooo",), ("n_first_cap1",),
+              "partial"),
+             ("matrix 42x42", matrix, 42, 42, ("inorder",), ("cap2",),
+              "partial"),
+             ("matrix 48x48", matrix, 48, 48, ("ooo",), ("n_first_cap1",),
+              "small"),
              ("matrix 64x64", matrix, 64, 64, POLICIES, ("n_first_cap1",
-                                                         "cap2"))]
+                                                         "cap2"), None)]
     if "n470772" in rows:
         grids.append(("n470772 2x2", graphs.graph("n470772")[0], 2, 2,
-                      ("ooo", "lru_flat"), ("n_first_cap1",)))
-    err, cases = 0.0, 0
-    for label, graph, nx, ny, policies, ejects in grids:
+                      ("ooo", "lru_flat"), ("n_first_cap1",), None))
+    err, cases, t_err, t_cases = 0.0, 0, 0.0, 0
+    for label, graph, nx, ny, policies, ejects, spec in grids:
         for sched in policies:
             gm = (graphs.memory("n15072", sched) if label == "n15072 16x16"
                   else build_graph_memory(graph, nx, ny,
@@ -847,6 +1251,7 @@ def check_megakernel(torch, np, graphs, mk, rows):
                                          f"not the {PLANNED_BODIES[label]} "
                                          f"body")
             for eject in ejects:
+                t = time.perf_counter()
                 cap, pol = EJECTS[eject]
                 cfg = OverlayConfig(scheduler=sched, eject_capacity=cap,
                                     eject_policy=pol, engine="megakernel")
@@ -854,10 +1259,20 @@ def check_megakernel(torch, np, graphs, mk, rows):
                 e, n = compare_chunks(torch, mk, g, cfg, states, (1, 7, 32),
                                       f"{label} {sched} {eject}")
                 err, cases = max(err, e), cases + n
+                if spec is not None:
+                    cfg = traced(cfg, spec)
+                    states, _ = start_states(torch, mk, g, cfg)
+                    e, n = compare_chunks(torch, mk, g, cfg, states,
+                                          (1, 7, 32),
+                                          f"{label} {sched} {eject} traced")
+                    t_err, t_cases = max(t_err, e), t_cases + n
                 print(f"megakernel equals its plain version: {label} {sched} "
                       f"{eject}, W = {gm.lmax // 32}, bodies "
                       f"{bodies(mk, g, (sched,))} (run ends at cycle {end}; 4 "
-                      f"states x K in 1, 7, 32)", flush=True)
+                      f"states x K in 1, 7, 32)"
+                      + (f", untraced and traced ({spec} spec)"
+                         if spec else "")
+                      + f"; {time.perf_counter() - t:.1f} s", flush=True)
     # The larger main-path rows, at the main path's eject configuration:
     # states made by the plain chunk (40 cycles from cycle 0) and by the
     # engine (half-way to the golden, and 3 cycles before it).
@@ -880,7 +1295,7 @@ def check_megakernel(torch, np, graphs, mk, rows):
             print(f"megakernel equals its plain version: {name} {sched} "
                   f"(states at cycles 40, {golden // 2}, {golden - 3}; K in 1, "
                   f"32)", flush=True)
-    return err, cases
+    return err, cases, t_err, t_cases
 
 
 def timed_chunks(torch, fn, s, n):
@@ -917,11 +1332,26 @@ def chunk_bytes(g, state, mk, K):
             - nbytes(read_only) + K * state["done"].numel())
 
 
-def mega_times(torch, graphs, mk, name, policy="ooo", plain_chunks=5, **kw):
+def trace_bytes(spec, P, start, K):
+    """Bytes a traced chunk from cycle ``start`` must move beyond the
+    untraced chunk's: the rows of the buckets its K cycles land in, of each
+    bucketed leaf, and the total leaves, each read and written once."""
+    from repro_torch.telemetry.spec import BUCKETED_LEAVES, GROUPS
+
+    buckets = {min(c // spec.bucket_cycles, spec.buckets - 1)
+               for c in range(start, start + K)}
+    bucketed = sum(len(BUCKETED_LEAVES.get(g, ())) for g in GROUPS
+                   if getattr(spec, g))
+    totals = len(spec.leaf_names()) - bucketed
+    return 2 * 4 * P * (bucketed * len(buckets) + totals)
+
+
+def mega_times(torch, graphs, mk, name, policy="ooo", plain_chunks=5,
+               telemetry=None, **kw):
     """Per K=32 chunk of ``policy`` from cycle 64: device ms of the kernel
-    (``kw`` to ``make_mega_chunk_fn``: a body) and,
-    with ``plain_chunks``, of its plain version; host ms per kernel call,
-    and the bytes bound.
+    (``kw`` to ``make_mega_chunk_fn``: a body; traced with ``telemetry``)
+    and, with ``plain_chunks``, of its plain version; host ms per kernel
+    call, and the bytes bound.
 
     The chunks are enqueued back to back with a CUDA event between two
     chunks, and a chunk's time is the median interval between its events.
@@ -931,7 +1361,8 @@ def mega_times(torch, graphs, mk, name, policy="ooo", plain_chunks=5, **kw):
     host-bound time the card spends on one chunk."""
     from repro_torch.core import overlay
 
-    cfg = overlay.OverlayConfig(scheduler=policy, engine="megakernel")
+    cfg = overlay.OverlayConfig(scheduler=policy, engine="megakernel",
+                                telemetry=telemetry)
     g = overlay.device_graph(graphs.memory(name, policy))
     kernel = mk.make_mega_chunk_fn(g, cfg, MEGA_K, **kw)
     s = kernel(kernel(overlay.init_state(g, cfg)))     # warm-up
@@ -941,7 +1372,11 @@ def mega_times(torch, graphs, mk, name, policy="ooo", plain_chunks=5, **kw):
         plain = mk.mega_chunk_plain(g, cfg, MEGA_K)
         s = plain(overlay.init_state(g, cfg))
         plain_ms, _ = timed_chunks(torch, plain, s, plain_chunks)
-    total = chunk_bytes(g, overlay.init_state(g, cfg), mk, MEGA_K)
+    untraced = overlay.init_state(g, dataclasses.replace(cfg, telemetry=None))
+    total = chunk_bytes(g, untraced, mk, MEGA_K)
+    if telemetry is not None:
+        nx, ny, _ = g["opcode"].shape
+        total += trace_bytes(telemetry, nx * ny, 2 * MEGA_K, MEGA_K)
     return dict(ms=ms, plain_ms=plain_ms, call_ms=call_ms, bytes=total,
                 shape=list(g["opcode"].shape))
 
@@ -1019,12 +1454,13 @@ def batch_state(g, cfgs):
     return base, names, state
 
 
-def mixed_batch(cap, pol, budget=100):
+def mixed_batch(cap, pol, budget=100, telemetry=None):
     """All four policies, ``ooo`` at select latency 4 and ``scan`` with a
-    short budget, at one eject configuration."""
+    short budget, at one eject configuration (traced with ``telemetry``)."""
     from repro_torch.core.overlay import OverlayConfig
 
-    kw = dict(eject_capacity=cap, eject_policy=pol, engine="megakernel")
+    kw = dict(eject_capacity=cap, eject_policy=pol, engine="megakernel",
+              telemetry=telemetry)
     return [OverlayConfig(scheduler=p, **kw) for p in BATCH_POLICIES] + [
         OverlayConfig(scheduler="ooo", select_latency=4, **kw),
         OverlayConfig(scheduler="scan", max_cycles=budget, **kw)]
@@ -1088,39 +1524,55 @@ def check_batched_megakernel(torch, graphs, mk, rows):
     to its end, three cycles before it, and (where the ends differ) three
     cycles before the last end with the other elements done, at K = 1 and
     32 (K = 1 and 7 above SMALL_B elements), and a tail launch that freezes
-    every other element. Returns (max abs error, cases)."""
+    every other element. The mixed batches also run traced (the ``small``
+    spec on the matrix graph, every eject configuration; the ``default`` on
+    n15072 at n_first). Returns
+    (max abs error, cases) and those of the traced variant."""
     from repro_torch.core.overlay import device_graph, run_batch_state
+    from repro_torch.telemetry import TelemetrySpec
 
-    memories = {"matrix 2x2": matrix_memory(2, 2, True),
-                "n15072 16x16": graphs.memory("n15072", "ooo")}
-    err, cases = 0.0, 0
-    for label, gm in memories.items():
+    memories = {"matrix 2x2": (matrix_memory(2, 2, True), "small"),
+                "n15072 16x16": (graphs.memory("n15072", "ooo"), "default")}
+    err, cases, t_err, t_cases = 0.0, 0, 0.0, 0
+    runs = [(label, gm, eject, spec) for label, (gm, traced_spec)
+            in memories.items() for eject in EJECTS
+            for spec in (None, traced_spec)
+            if spec is None or label == "matrix 2x2"
+            or eject == "n_first_cap1"]
+    for label, gm, eject, spec in runs:
+        t = time.perf_counter()
         g = device_graph(gm)
-        for eject, (cap, pol) in EJECTS.items():
-            cfgs = mixed_batch(cap, pol)
-            base, names, s0 = batch_state(g, cfgs)
-            budgets = [c.max_cycles for c in cfgs]
-            ends = run_batch_state(g, base, names, clone_state(s0),
-                                   budgets)["cycle"].tolist()
-            late = run_batch_state(
-                g, base, names, clone_state(s0),
-                [min(m, e - 3) for m, e in zip(budgets, ends)])
-            mid = mk.mega_batch_chunk_plain(g, base, 40, names)(
-                clone_state(s0))
-            states = {"cycle 0": s0, "mid-run": mid, "3 before each end": late,
-                      "signed zeros": signed_zeros(torch, mid)}
-            e, n = compare_batch_chunks(torch, mk, g, base, names, states,
-                                        (1, 7, 32), f"{label} {eject}")
-            # The tail: elements at budgets 40 (= their cycle) freeze.
-            frozen = torch.tensor([40, 10_000, 41, 40, 10_000, 100],
-                                  dtype=torch.int32, device=g["opcode"].device)
-            e2, n2 = compare_batch_chunks(torch, mk, g, base, names,
-                                          {"tail": mid}, (1,),
-                                          f"{label} {eject}", max_cycles=frozen)
+        cap, pol = EJECTS[eject]
+        cfgs = mixed_batch(cap, pol, telemetry=spec and TelemetrySpec(
+            **TRACE_SPECS[spec]))
+        base, names, s0 = batch_state(g, cfgs)
+        budgets = [c.max_cycles for c in cfgs]
+        ends = run_batch_state(g, base, names, clone_state(s0),
+                               budgets)["cycle"].tolist()
+        late = run_batch_state(
+            g, base, names, clone_state(s0),
+            [min(m, e - 3) for m, e in zip(budgets, ends)])
+        mid = mk.mega_batch_chunk_plain(g, base, 40, names)(
+            clone_state(s0))
+        states = {"cycle 0": s0, "mid-run": mid, "3 before each end": late,
+                  "signed zeros": signed_zeros(torch, mid)}
+        e, n = compare_batch_chunks(torch, mk, g, base, names, states,
+                                    (1, 7, 32), f"{label} {eject}")
+        # The tail: elements at budgets 40 (= their cycle) freeze.
+        frozen = torch.tensor([40, 10_000, 41, 40, 10_000, 100],
+                              dtype=torch.int32, device=g["opcode"].device)
+        e2, n2 = compare_batch_chunks(torch, mk, g, base, names,
+                                      {"tail": mid}, (1,),
+                                      f"{label} {eject}", max_cycles=frozen)
+        if spec is None:
             err, cases = max(err, e, e2), cases + n + n2
-            print(f"batched megakernel equals its plain version: {label} "
-                  f"{eject}, B = {len(cfgs)} (elements end at cycles {ends}; "
-                  f"4 states x K in 1, 7, 32, and a tail launch)", flush=True)
+        else:
+            t_err, t_cases = max(t_err, e, e2), t_cases + n + n2
+        print(f"batched megakernel equals its plain version: {label} "
+              f"{eject}{f' traced ({spec} spec)' if spec else ''}, B = "
+              f"{len(cfgs)} (elements end at cycles {ends}; 4 states x K "
+              f"in 1, 7, 32, and a tail launch); "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
     for label, gm, cfgs in main_path_batches(graphs, rows):
         g = device_graph(gm)
         base, names, s0 = batch_state(g, cfgs)
@@ -1148,7 +1600,7 @@ def check_batched_megakernel(torch, graphs, mk, rows):
               f"{len(cfgs)}, members {names} (elements end at cycles "
               f"{min(ends)}..{max(ends)}; {len(states)} states x K in {ks}, "
               f"and a tail launch)", flush=True)
-    return err, cases
+    return err, cases, t_err, t_cases
 
 
 def compare_replayed(torch, make, states, ks, label):
@@ -1182,7 +1634,10 @@ def check_replayed_chunks(torch, graphs, mk):
     (16x16) from phase 4's four states, and phase 10's mixed batch on the
     matrix graph (each eject configuration; cycle 0, mid-run, three cycles
     before each element's end, signed zeros), at K = 7 and the engine's own
-    K. Returns (largest abs error, cases)."""
+    K. Traced too, at n_first: every policy on the matrix graph and the
+    mixed batch (the ``small`` spec) and n15072 ``ooo`` (the ``default``
+    spec), so the capture records the trace updates. Returns
+    (largest abs error, cases) and those of the traced chunks."""
     from repro_torch.core import overlay, schedulers
     from repro_torch.core.overlay import device_graph, resolve_check_every
 
@@ -1192,31 +1647,51 @@ def check_replayed_chunks(torch, graphs, mk):
                                   nx, ny, L, device_type="cuda")
         return sorted({7, own})      # the tensor engine's K on the card too
 
-    err, cases = 0.0, 0
+    err, cases, t_err, t_cases = 0.0, 0, 0.0, 0
     for label in ("matrix 2x2", "n15072 16x16"):
         for sched in POLICIES:
             gm = (graphs.memory("n15072", sched) if label == "n15072 16x16"
                   else matrix_memory(2, 2, sched == "ooo"))
             g = device_graph(gm)
             for eject, (cap, pol) in EJECTS.items():
+                t = time.perf_counter()
                 mega = overlay.OverlayConfig(
                     scheduler=sched, eject_capacity=cap, eject_policy=pol,
                     engine="megakernel")
-                states, _ = start_states(torch, mk, g, mega)
-                for engine in ("tensor", "select"):
-                    cfg = dataclasses.replace(mega, engine=engine)
-                    cycle = overlay.make_cycle_fn(g, cfg)
-                    e, n = compare_replayed(
-                        torch, lambda k: overlay.make_chunk_fn(
-                            cycle, k, with_trace=True),
-                        states, ks(g, cfg), f"{label} {sched} {eject} {engine}")
-                    err, cases = max(err, e), cases + n
+                specs = [None]
+                if eject == "n_first_cap1" and label == "matrix 2x2":
+                    specs.append("small")
+                elif eject == "n_first_cap1" and sched == "ooo":
+                    specs.append("default")
+                for spec in specs:
+                    run_cfg = mega if spec is None else traced(mega, spec)
+                    states, _ = start_states(torch, mk, g, run_cfg)
+                    for engine in ("tensor", "select"):
+                        cfg = dataclasses.replace(run_cfg, engine=engine)
+                        cycle = overlay.make_cycle_fn(g, cfg)
+                        e, n = compare_replayed(
+                            torch, lambda k: overlay.make_chunk_fn(
+                                cycle, k, with_trace=True),
+                            states, ks(g, cfg),
+                            f"{label} {sched} {eject} {engine} {spec}")
+                        if spec is None:
+                            err, cases = max(err, e), cases + n
+                        else:
+                            t_err, t_cases = max(t_err, e), t_cases + n
                 print(f"replayed chunk equals the eager chunk: {label} "
                       f"{sched} {eject}, tensor and select, 4 states x K in "
-                      f"{ks(g, mega)}", flush=True)
+                      f"{ks(g, mega)}, untraced"
+                      + (f" and traced ({specs[1]} spec)"
+                         if len(specs) > 1 else "")
+                      + f"; {time.perf_counter() - t:.1f} s", flush=True)
     g = device_graph(matrix_memory(2, 2, True))
-    for eject, (cap, pol) in EJECTS.items():
-        base, names, s0 = batch_state(g, select_batch("megakernel", cap, pol))
+    runs = [(eject, None) for eject in EJECTS] + [("n_first_cap1", "small")]
+    for eject, spec in runs:
+        cap, pol = EJECTS[eject]
+        cfgs = select_batch("megakernel", cap, pol)
+        if spec is not None:
+            cfgs = [traced(c, spec) for c in cfgs]
+        base, names, s0 = batch_state(g, cfgs)
         budgets = [c.max_cycles for c in select_batch("megakernel")]
         ends = overlay.run_batch_state(g, base, names, clone_state(s0),
                                        budgets)["cycle"].tolist()
@@ -1233,12 +1708,16 @@ def check_replayed_chunks(torch, graphs, mk):
             e, n = compare_replayed(
                 torch, lambda k: overlay.make_batch_chunk_fn(
                     cycle, k, with_trace=True),
-                states, ks(g, cfg), f"mixed batch {eject} {engine}")
-            err, cases = max(err, e), cases + n
+                states, ks(g, cfg), f"mixed batch {eject} {engine} {spec}")
+            if spec is None:
+                err, cases = max(err, e), cases + n
+            else:
+                t_err, t_cases = max(t_err, e), t_cases + n
         print(f"replayed batched chunk equals the eager chunk: matrix 2x2 "
-              f"{eject}, B = {len(budgets)} (elements end at cycles {ends}), "
-              f"tensor and select, 4 states x K in {ks(g, base)}", flush=True)
-    return err, cases
+              f"{eject}{f' traced ({spec} spec)' if spec else ''}, B = "
+              f"{len(budgets)} (elements end at cycles {ends}), tensor and "
+              f"select, 4 states x K in {ks(g, base)}", flush=True)
+    return err, cases, t_err, t_cases
 
 
 def batch_chunk_ms(torch, mk, g, cfgs):
@@ -2118,6 +2597,18 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    # The rows' host set-up runs in worker processes while the kernels build
+    # and the early phases run; the pool ends with the script.
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    with ProcessPoolExecutor(4, mp_context=multiprocessing.get_context(
+            "spawn")) as pool:
+        return run_phases(torch, np, args, pool)
+
+
+def run_phases(torch, np, args, pool) -> int:
+    """Every phase, in order; then the kernels line and the last line."""
     from repro_torch.kernels import _build, lod
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import megakernel as mk
@@ -2125,6 +2616,11 @@ def main() -> int:
     print(card_line(), flush=True)   # name, power limit as nvidia-smi gives them
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
+    graphs = Graphs(pool)
+    rows = list(dict.fromkeys(["n15072", *args.rows, *args.mega_rows,
+                               CHUNKING_ROW, PER_CYCLE_ROW]))
+    # the first phases need n15072 and (phase 4's 2x2 grid) the largest row
+    graphs.prefetch(["n15072", *sorted(rows, key=lambda n: -ROWS[n][0][0])])
     phase("build", build_all, _build, [lod.SOURCE, mk.SOURCE, fa.SOURCE])
 
     t = time.perf_counter()
@@ -2142,21 +2638,25 @@ def main() -> int:
     print(f"phase leading-one kernels: {time.perf_counter() - t:.1f} s",
           flush=True)
 
-    graphs = Graphs()
-    mega_err, cases = phase("megakernel check", check_megakernel, torch, np,
-                            graphs, mk, args.mega_rows)
+    mega_err, cases, traced_err, traced_cases = phase(
+        "megakernel check", check_megakernel, torch, np, graphs, mk,
+        args.mega_rows)
     print(f"megakernel equals its plain version in {cases} cases, max abs "
-          f"error {mega_err}", flush=True)
-    batch_err, batch_cases = phase("batched megakernel check",
-                                   check_batched_megakernel, torch, graphs, mk,
-                                   args.mega_rows)
+          f"error {mega_err}; traced in {traced_cases} cases, max abs error "
+          f"{traced_err}", flush=True)
+    batch_err, batch_cases, t_err, t_cases = phase(
+        "batched megakernel check", check_batched_megakernel, torch, graphs,
+        mk, args.mega_rows)
+    traced_err, traced_cases = max(traced_err, t_err), traced_cases + t_cases
     print(f"batched megakernel equals its plain version in {batch_cases} "
-          f"cases, max abs error {batch_err}", flush=True)
+          f"cases, max abs error {batch_err}; traced in {t_cases} cases, max "
+          f"abs error {t_err}", flush=True)
 
-    replay_err, replay_cases = phase("replayed chunk check",
-                                     check_replayed_chunks, torch, graphs, mk)
+    replay_err, replay_cases, t_err, t_cases = phase(
+        "replayed chunk check", check_replayed_chunks, torch, graphs, mk)
     print(f"replayed chunks equal the eager chunks in {replay_cases} cases, "
-          f"max abs error {replay_err}", flush=True)
+          f"max abs error {replay_err}; traced in {t_cases} cases, max abs "
+          f"error {t_err}", flush=True)
     select_results, counts, replays, per_replay = phase(
         "main path select", select_main_path, torch, np, graphs, args.rows,
         lod)
@@ -2165,6 +2665,9 @@ def main() -> int:
                                       select_results)
     batch_counts = phase("batched main path", batched_main_path, torch, np,
                          graphs, args.mega_rows, mk, mega_results)
+    phase("eject rows", eject_rows, torch, np)
+    phase("chunking rows", chunking_rows, torch, np, graphs, select_results)
+    tel = phase("telemetry", telemetry_phase, torch, np, graphs, mk)
     solo_walls = phase("full-card sweeps", full_card_sweeps, torch, np, graphs,
                        mk)
     phase("batched select", batched_select, torch, np, lod)
@@ -2217,6 +2720,16 @@ def main() -> int:
         plain_ms=mt["plain_ms"], bound_ms=gt["bytes"] / HBM_BYTES_PER_S * 1e3,
         bound_by="bytes", library_ms=None, call_ms=gt["call_ms"],
         shape=gt["shape"], K=MEGA_K, body="global"))
+    line.append(dict(
+        name="mega_chunk_traced", route="cuda", source=MEGA_SOURCE,
+        replaces=MEGA_TRACED_REPLACES, launches=tel["launches"],
+        max_abs_err=traced_err, equal=traced_err == 0, ms=tel["ms"],
+        plain_ms=tel["plain_ms"],
+        bound_ms=tel["bytes"] / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=None, call_ms=tel["call_ms"], shape=tel["shape"],
+        K=MEGA_K, body="shared", traced_ms=tel["traced_ms"],
+        untraced_ms=tel["untraced_ms"], cases=traced_cases,
+        spec="TelemetrySpec()", walls_s=tel["walls"]))
     bt = scaling[BATCH_TIMED_B]
     line.append(dict(
         name="mega_chunk_batched", route="cuda", source=MEGA_SOURCE,

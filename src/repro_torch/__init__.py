@@ -3,8 +3,10 @@
 A second package beside the JAX reference (``repro``), with the same module
 layout, that never imports it. It runs the single-device overlay simulation
 (:func:`run`) on an NVIDIA Hopper card, with the scheduler's leading-one
-pick in hand-written CUDA kernels (:mod:`repro_torch.kernels.lod`), and
-reproduces the reference's results bit for bit.
+pick in hand-written CUDA kernels (:mod:`repro_torch.kernels.lod`) or the
+whole chunk in one (:mod:`repro_torch.kernels.megakernel`), traces it on
+request (:mod:`repro_torch.telemetry`), and reproduces the reference's
+results bit for bit.
 """
 from .api import run
 

@@ -33,11 +33,14 @@ def run(graph_or_gm, cfg=None, *, mesh=None, batch: Sequence | None = None,
         is ``"select"`` (the leading-one kernels once per cycle),
         ``"tensor"`` (plain tensor ops) or ``"megakernel"`` (one kernel
         launch per ``check_every``-cycle chunk); all three give the same
-        bits.
-      mesh: the sharded engines; not ported yet.
+        bits. Its ``telemetry`` (a
+        :class:`repro_torch.telemetry.TelemetrySpec`) turns tracing on: the
+        result's ``telemetry`` holds the traces, the same on every engine.
+      mesh: the sharded engines (and their telemetry); not ported yet.
       batch: a sequence of configs to sweep as one batch over the same graph
         (mutually exclusive with ``cfg``). They must share ``eject_capacity``,
-        ``eject_policy``, ``engine``, ``placement`` and ``telemetry``; under
+        ``eject_policy``, ``engine``, ``placement`` and ``telemetry`` (each
+        element's traces equal its solo run's); under
         ``engine="megakernel"`` each chunk is one launch of the kernel with
         one CTA per config.
       nx, ny: PE grid, required only with a raw ``DataflowGraph``.

@@ -37,8 +37,9 @@ on the host between chunks; such a queued chunk leaves the state as it is
 where it finds every element done, as no chunk would have run there.
 
 The cycle updates the state's slot planes (``pending``, ``operands``,
-``value``, ``computed``) in place, and the megakernel every state tensor;
-:func:`init_state` allocates them fresh.
+``value``, ``computed``) and its trace leaves (``telem``, where the config
+carries a ``TelemetrySpec``) in place, and the megakernel every state
+tensor; :func:`init_state` allocates them fresh.
 """
 from __future__ import annotations
 
@@ -49,6 +50,9 @@ import numpy as np
 import torch
 
 from ..api import resolve_device
+from ..telemetry import result as telemetry_result
+from ..telemetry import trace as telemetry_trace
+from ..telemetry.spec import TelemetrySpec
 from . import bitvec, noc, schedulers
 from .graph import DIV_EPS, OP_ADD, OP_DIV, OP_MUL, OP_SUB, DataflowGraph
 from .partition import GraphMemory, build_graph_memory
@@ -89,9 +93,11 @@ class OverlayConfig:
     ``eject_policy`` (``"n_first"`` | ``"priority"``) and ``eject_capacity``
     (1 | 2) ARE model knobs: see :func:`repro_torch.core.noc.router_cycle`.
 
-    ``placement`` and ``telemetry`` exist for signature parity with the
-    reference; this port supports only the identity placement (``None`` or
-    ``"identity"``, stored as ``None``) and no tracing so far. ``engine``
+    ``telemetry`` is a :class:`repro_torch.telemetry.TelemetrySpec` (trace
+    leaves under ``state["telem"]``, a ``TelemetryResult`` on each result)
+    or ``None`` (tracing off). ``placement`` exists for signature parity
+    with the reference; this port supports only the identity placement
+    (``None`` or ``"identity"``, stored as ``None``) so far. ``engine``
     also takes the reference's ``"jnp"``, stored as ``"tensor"``.
     """
 
@@ -106,7 +112,7 @@ class OverlayConfig:
     #: ops; "jnp" names it too) or "megakernel" (one kernel launch per
     #: K-cycle chunk).
     engine: str = "select"
-    telemetry: Any = None            # only None (tracing off) so far
+    telemetry: Any = None            # TelemetrySpec | None = tracing off
 
     def __post_init__(self):
         engine = ENGINE_ALIASES.get(self.engine, self.engine)
@@ -121,9 +127,11 @@ class OverlayConfig:
                 f"so far, got {self.placement!r}; placement strategies come "
                 f"with ROADMAP queue 1, item 3")
         object.__setattr__(self, "placement", None)
-        if self.telemetry is not None:
-            raise NotImplementedError(
-                "telemetry is not ported yet (ROADMAP queue 1, item 2)")
+        if self.telemetry is not None and not isinstance(self.telemetry,
+                                                         TelemetrySpec):
+            raise TypeError(
+                f"telemetry must be a repro_torch.telemetry.TelemetrySpec or "
+                f"None, got {type(self.telemetry).__name__}")
         if self.select_latency is not None and self.select_latency < 1:
             raise ValueError(
                 f"select_latency must be >= 1 exposed cycle (or None for the "
@@ -230,14 +238,16 @@ def init_state(g: DeviceGraph, cfg: OverlayConfig, *, scheduler=None):
     """Policy-agnostic simulation state, keyed as the reference's state.
     Scheduler state lives under ``state["sched"]``; packets on the links are
     [6, nx, ny] tensors (:mod:`repro_torch.core.noc`). ``scheduler``
-    overrides ``cfg.scheduler`` (the batched engine's composite policy)."""
+    overrides ``cfg.scheduler`` (the batched engine's composite policy).
+    With ``cfg.telemetry`` the trace leaves of that spec ride under
+    ``state["telem"]`` (:func:`repro_torch.telemetry.trace.init`)."""
     sched = _resolve(cfg, scheduler)
     nx, ny, L = g["opcode"].shape
     dev = g["opcode"].device
     i32 = dict(dtype=torch.int32, device=dev)
     is_input = (g["fanin"] == 0) & g["valid"]
     lat = sched.sel_lat(cfg, L // bitvec.FLAGS_PER_WORD)
-    return dict(
+    state = dict(
         pending=g["fanin"].clone(),
         operands=torch.zeros((nx, ny, L, 2), dtype=torch.float32, device=dev),
         computed=is_input,
@@ -256,6 +266,9 @@ def init_state(g: DeviceGraph, cfg: OverlayConfig, *, scheduler=None):
         done=torch.tensor(False, device=dev),
         **{k: torch.tensor(0, **i32) for k in STAT_COUNTERS},
     )
+    if cfg.telemetry is not None:
+        state["telem"] = telemetry_trace.init(cfg.telemetry, nx, ny, dev)
+    return state
 
 
 def make_cycle_fn(g: DeviceGraph, cfg: OverlayConfig, *, scheduler=None):
@@ -264,7 +277,10 @@ def make_cycle_fn(g: DeviceGraph, cfg: OverlayConfig, *, scheduler=None):
 
     The tables the cycle reads every time (router coordinates, the edge
     records stacked as packet fields, the fanout base/count pairs, flat slot
-    offsets) are built once here."""
+    offsets) are built once here. With ``cfg.telemetry`` the cycle also adds
+    its increments to the trace leaves (:func:`telemetry_trace.accumulate`),
+    in place, from signals it computes anyway; nothing feeds back into the
+    model."""
     sched = _resolve(cfg, scheduler)
     nx, ny, L = g["opcode"].shape
     dev = g["opcode"].device
@@ -282,6 +298,7 @@ def make_cycle_fn(g: DeviceGraph, cfg: OverlayConfig, *, scheduler=None):
                * L).reshape(nx, ny)
     zero_f = torch.zeros((), dtype=torch.float32, device=dev)
     minus1 = torch.full((), -1, dtype=torch.int32, device=dev)
+    spec = cfg.telemetry
 
     def cycle(s):
         # ---- 1. offer injection packet from the active node's fanout cursor
@@ -354,6 +371,10 @@ def make_cycle_fn(g: DeviceGraph, cfg: OverlayConfig, *, scheduler=None):
         # ---- 5. scheduler: select (and consume) the next node on idle PEs
         idle = active < 0
         gate = idle & (sel_wait == 0)
+        if spec is not None and spec.sched:
+            # Ready-set depth as the scheduler sees it at pick time: after
+            # this cycle's fires enqueued, before the pick consumes.
+            rdy_depth = sched.ready_depth(sched_st)
         cand, have, sched_st = sched.step(sched_st, idle, gate,
                                           use_kernels=use_kernels)
         can_wait = idle & have & (sel_wait > 0)
@@ -379,7 +400,21 @@ def make_cycle_fn(g: DeviceGraph, cfg: OverlayConfig, *, scheduler=None):
                  + deflected["noc"].sum(dtype=torch.int32))
         d_ej = deflected["eject"].sum(dtype=torch.int32)
 
-        return dict(
+        if spec is not None:
+            telemetry_trace.accumulate(
+                spec, s["telem"], cycle=s["cycle"],
+                fired=fired.sum(dim=0, dtype=torch.int32),
+                occupied=s["active"] >= 0,
+                link_e_busy=link_e[noc.VALID] != 0,
+                link_s_busy=link_s[noc.VALID] != 0,
+                defl_noc=deflected["noc"] + inj_blocked.to(torch.int32),
+                defl_eject=deflected["eject"],
+                eject_grant=ej_valid.sum(dim=0, dtype=torch.int32),
+                ready_depth=rdy_depth if spec.sched else None,
+                sel=sel, cand=cand, no_ready=idle & ~have,
+                inj_blocked=inj_blocked, sel_waiting=can_wait)
+
+        out = dict(
             pending=pending, operands=operands, computed=computed, value=value,
             remaining=remaining,
             sched=sched_st,
@@ -394,8 +429,23 @@ def make_cycle_fn(g: DeviceGraph, cfg: OverlayConfig, *, scheduler=None):
             busy_cycles=s["busy_cycles"] + n_fired,
             done=done,
         )
+        if spec is not None:
+            out["telem"] = s["telem"]
+        return out
 
     return cycle
+
+
+def repair_telemetry(telem: dict, overshoot) -> None:
+    """Undo, in place, the only trace increment that is NOT zero at the
+    completed-overlay fixed point: once every PE is idle with an empty ready
+    set, ``stall_no_ready`` gains 1 a PE a cycle simulated past completion.
+    ``overshoot`` (0-dim) is the chunk's count of such cycles, its end cycle
+    less the repaired cycle: 0 while running, K - first - 1 where the run
+    completes inside the chunk, K where a done element runs a chunk. Every
+    other leaf's increment vanishes at the fixed point."""
+    if "stall_no_ready" in telem:
+        telem["stall_no_ready"].sub_(overshoot)
 
 
 def make_chunk_fn(cycle_fn, check_every: int, *, with_trace: bool = False):
@@ -406,8 +456,10 @@ def make_chunk_fn(cycle_fn, check_every: int, *, with_trace: bool = False):
     cycles simulated past completion change nothing but the cycle counter,
     which is repaired from the first done entry of the per-cycle trace. Stat
     counters need no repair on one device (their increments vanish at the
-    fixed point). The ``max_cycles`` budget is enforced by the caller: a
-    chunk is entered only while a full chunk fits (see :func:`run_state`).
+    fixed point); the trace leaves of a traced state need one
+    (:func:`repair_telemetry`). The ``max_cycles`` budget is enforced by the
+    caller: a chunk is entered only while a full chunk fits (see
+    :func:`run_state`).
     With ``with_trace`` the chunk returns ``(state, done_trace [K])``.
     """
 
@@ -423,6 +475,8 @@ def make_chunk_fn(cycle_fn, check_every: int, *, with_trace: bool = False):
         cycle = torch.where(
             start_done, start_cycle,
             torch.where(any_done, start_cycle + first + 1, s["cycle"]))
+        if "telem" in s:
+            repair_telemetry(s["telem"], s["cycle"] - cycle)
         s = dict(s, done=any_done, cycle=cycle)
         return (s, done_trace) if with_trace else s
 
@@ -481,7 +535,8 @@ def _into_state(chunk):
     """``chunk`` as a step that leaves its result in the tensors of the
     state it is given: it runs ``chunk(s)`` and copies every leaf that comes
     back as a new tensor into the leaf of ``s`` (the cycle updates
-    ``pending``, ``operands``, ``computed`` and ``value`` in place already).
+    ``pending``, ``operands``, ``computed``, ``value`` and the trace leaves
+    under ``telem`` in place already).
     It returns ``s`` itself, with the done trace where ``chunk`` returns
     one: the form a captured CUDA graph replays, since every tensor it
     writes then has a fixed address."""
@@ -707,6 +762,9 @@ class SimResult:
     busy_cycles: int
     noc_deflections: int = 0
     eject_deflections: int = 0
+    #: :class:`repro_torch.telemetry.TelemetryResult` when the config carried
+    #: a ``TelemetrySpec``, else None.
+    telemetry: Any = None
 
 
 @torch.inference_mode()
@@ -740,11 +798,19 @@ def run_state(g: DeviceGraph, cfg: OverlayConfig, state: dict) -> dict:
     return state
 
 
-def _unpack_result(final, gm: GraphMemory, b: int | None = None) -> SimResult:
-    """The result of a solo state, or of element ``b`` of a batched one."""
+def _unpack_result(final, gm: GraphMemory, b: int | None = None,
+                   cfg: OverlayConfig | None = None) -> SimResult:
+    """The result of a solo state, or of element ``b`` of a batched one; its
+    traces where ``cfg`` carries a ``TelemetrySpec``."""
     if b is not None:
         final = element(final, b)
     value = final["value"].reshape(gm.num_pes, gm.lmax).cpu().numpy()
+    telemetry = None
+    if cfg is not None and cfg.telemetry is not None:
+        telemetry = telemetry_result.TelemetryResult(
+            spec=cfg.telemetry,
+            traces={k: v.cpu().numpy() for k, v in final["telem"].items()},
+            cycles=int(final["cycle"]), nx=gm.nx, ny=gm.ny)
     return SimResult(
         cycles=int(final["cycle"]),
         done=bool(final["done"]),
@@ -754,6 +820,7 @@ def _unpack_result(final, gm: GraphMemory, b: int | None = None) -> SimResult:
         busy_cycles=int(final["busy_cycles"]),
         noc_deflections=int(final["noc_deflections"]),
         eject_deflections=int(final["eject_deflections"]),
+        telemetry=telemetry,
     )
 
 
@@ -784,7 +851,7 @@ def _simulate(gm: GraphMemory | DataflowGraph,
     gm = _as_memory(gm, cfg, nx, ny)
     g = device_graph(gm, device)
     final = run_state(g, cfg, init_state(g, cfg))
-    return _unpack_result(final, gm)
+    return _unpack_result(final, gm, cfg=cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -895,4 +962,4 @@ def _simulate_batch(gm: GraphMemory | DataflowGraph, cfgs, *,
         [schedulers.get(c.scheduler).sel_lat(c, num_words) for c in cfgs])
     final = run_batch_state(g, base, names, state,
                             [c.max_cycles for c in cfgs])
-    return [_unpack_result(final, gm, b) for b in range(len(cfgs))]
+    return [_unpack_result(final, gm, b, cfg=base) for b in range(len(cfgs))]

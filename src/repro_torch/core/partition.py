@@ -8,6 +8,8 @@ The packed image (:class:`GraphMemory`) is the only thing the simulator sees.
 It is plain numpy, byte-equal to the reference package's packing of the same
 graph; :func:`repro_torch.core.overlay.device_graph` moves it onto a torch
 device.
+:func:`rdy_flag_overhead`, :func:`fifo_worst_case_words` and
+:func:`capacity_elements` are the paper's BRAM cost model (Table 1).
 """
 from __future__ import annotations
 
@@ -241,3 +243,63 @@ def build_graph_memory(
         e_dst_pe=e_dst_pe, e_dst_slot=e_dst_slot, e_dst_opidx=e_dst_opidx,
         node_pe=node_pe, node_slot=node_slot, local_counts=local_counts,
     )
+
+
+# ---------------------------------------------------------------------------
+# Memory-cost model (paper §II-B and §III) — Table 1 of the paper.
+# ---------------------------------------------------------------------------
+
+M20K_BITS = 20 * 1024
+BRAM_WORDS = 512          # 512 x 40b configuration
+BRAM_WIDTH_BITS = 40
+BRAMS_PER_PE = 8          # "our TDP design is composed of 8 BRAMs/processor"
+NODE_RECORD_WORDS = 4     # opcode/meta + 2 operand slots + result
+EDGE_RECORD_WORDS = 1     # dst node + operand slot pack into one 40b word
+
+
+def rdy_flag_overhead() -> float:
+    """Fraction of graph-memory words spent on RDY bit-flag vectors.
+
+    Paper: per 512-word BRAM, 2 * ceil(512/32) = 32 words of flags (~6.25%).
+    """
+    per_bram = 2 * math.ceil(BRAM_WORDS / FLAGS_PER_WORD)
+    return per_bram / BRAM_WORDS
+
+
+def fifo_worst_case_words(local_words: int) -> int:
+    """Deadlock-free FIFO depth: every addressable local word could hold a
+    simultaneously-ready node, so depth == graph-memory word count."""
+    return int(local_words)
+
+
+def capacity_elements(num_pes: int, scheduler: str,
+                      edge_per_node: float = 1.5) -> dict:
+    """On-chip graph capacity (nodes + edges) under each scheduler.
+
+    In-order (prior TDPs): FIFOs live in *dedicated* BRAMs (a hardware FIFO
+    cannot share ports with graph memory) and deadlock-freedom needs TWO
+    worst-case queues (compute-ready ids + fanout-pending ids), each as deep
+    as the addressable local node space. Solving g + 2g <= 8 gives 2 graph
+    BRAMs + 6 FIFO BRAMs per PE — which is what pins the paper's in-order
+    256-PE overlay at ~100K nodes+edges.
+
+    OoO (this paper): no FIFOs; 2 x ceil(512/32) = 32 flag words per BRAM
+    (~6.25%), everything else stores the graph -> ~5x capacity.
+    """
+    if scheduler == "inorder":
+        graph_brams = BRAMS_PER_PE // (1 + 2)  # g + 2g <= 8 -> g = 2
+        words = graph_brams * BRAM_WORDS * num_pes
+        fifo_words = (BRAMS_PER_PE - graph_brams) * BRAM_WORDS * num_pes
+    elif scheduler == "ooo":
+        words = int(BRAMS_PER_PE * BRAM_WORDS * (1 - rdy_flag_overhead())) * num_pes
+        fifo_words = 0
+    else:
+        raise ValueError(scheduler)
+    # words = N * NODE_RECORD_WORDS + E * EDGE_RECORD_WORDS, E = r*N
+    n = words / (NODE_RECORD_WORDS + edge_per_node * EDGE_RECORD_WORDS)
+    return {
+        "graph_words": int(words),
+        "fifo_words": int(fifo_words),
+        "nodes": int(n),
+        "elements": int(n * (1 + edge_per_node)),
+    }

@@ -8,6 +8,8 @@ protocol:
   * ``select(st, idle)``                  -> (candidate slot, have) per PE
   * ``commit(st, sel, cand)``             -> consume the candidate where ``sel``
   * ``empty(st)``                         -> 0-dim bool: no node is queued
+  * ``ready_depth(st)``                   -> [nx, ny] int32 queued-ready count
+    (the telemetry probe; called only when tracing is on)
   * ``sel_lat(cfg, num_words)``           -> exposed select latency (cycles)
 
 Its per-cycle entry point is ``step(st, idle, gate, use_kernels=...) ->
@@ -106,6 +108,13 @@ class Scheduler:
     def empty(self, st: dict):
         raise NotImplementedError
 
+    def ready_depth(self, st: dict):
+        """[nx, ny] int32 count of queued-ready nodes per PE: the probe
+        behind :mod:`repro_torch.telemetry`'s ready-set-depth trace. Purely
+        observational: the cycle calls it only when a ``TelemetrySpec``
+        asks for scheduler traces."""
+        raise NotImplementedError
+
     def step(self, st: dict, idle, gate, *, use_kernels: bool = False):
         """Fused select + commit: the cycle kernel's per-cycle entry point.
 
@@ -162,6 +171,9 @@ class OooScheduler(Scheduler):
     def empty(self, st):
         return (st["rdy"] == 0).all()
 
+    def ready_depth(self, st):
+        return bitvec.count_set(st["rdy"])
+
     def step(self, st, idle, gate, *, use_kernels=False):
         nx, ny, W = st["rdy"].shape
         fn = lod.schedule_step if use_kernels else lod.schedule_step_plain
@@ -212,6 +224,9 @@ class InorderScheduler(Scheduler):
     def empty(self, st):
         return (st["size"] == 0).all()
 
+    def ready_depth(self, st):
+        return st["size"]
+
 
 class _RotatingRdyScheduler(Scheduler):
     """Shared machinery: RDY bit vector scanned from a rotating pointer.
@@ -244,6 +259,9 @@ class _RotatingRdyScheduler(Scheduler):
 
     def empty(self, st):
         return (st["rdy"] == 0).all()
+
+    def ready_depth(self, st):
+        return bitvec.count_set(st["rdy"])
 
     def step(self, st, idle, gate, *, use_kernels=False):
         nx, ny, W = st["rdy"].shape
@@ -292,8 +310,8 @@ class BatchedScheduler(Scheduler):
     ``inorder`` FIFO keeps taking pushes while ``ooo`` picks); ``step``
     runs each member under ``gate & (policy_id == i)``, so only the active
     member commits, and returns the active member's pick; ``empty``
-    dispatches on ``policy_id``. The cycle calls only ``on_ready``,
-    ``step`` and ``empty``.
+    dispatches on ``policy_id``, and so does ``ready_depth``. The cycle calls
+    only ``on_ready``, ``step``, ``empty`` and (tracing) ``ready_depth``.
     Each batch element is thus cycle-exact with the solo run of its member,
     and its inactive substates equal the reference's leaf for leaf. With a
     single member the dispatch is pruned.
@@ -346,6 +364,13 @@ class BatchedScheduler(Scheduler):
             return self.policies[0].empty(st[self.names[0]])
         return self._dispatch(self._preds(st), [
             p.empty(st[n]) for _, (n, p) in self._members()])
+
+    def ready_depth(self, st):
+        """The active member's depth, as ``empty`` dispatches."""
+        if self._solo:
+            return self.policies[0].ready_depth(st[self.names[0]])
+        return self._dispatch(self._preds(st), [
+            p.ready_depth(st[n]) for _, (n, p) in self._members()])
 
     def step(self, st, idle, gate, *, use_kernels=False):
         out = dict(st)

@@ -97,10 +97,33 @@
 // storage of the uint32 pattern; slot s is bit 31 - s%32 of word s/32, and
 // summary word j's bit 31 - w%32 marks RDY word w = 32 j + w%32.
 //
+// Telemetry (the TRACED variant). The reference traces inside its Pallas
+// kernel because the trace leaves are state leaves; here the trace leaves
+// ride in MegaArgs and each body has a traced instantiation, the untraced
+// one compiling as before. Every trace increment is PE-local, so the thread
+// that owns a PE owns its column of every leaf and needs no other thread's:
+// it counts the current bucket's eight increments and the chunk's five
+// totals in registers (Trc; the global body keeps them in device scratch
+// between cycles, beside the PE's registers), adds the bucket's counts to
+// the leaves (reductions that return nothing, so nothing waits on them)
+// when the bucket changes and at the chunk's end, and adds the totals once
+// at the end. The bucket is the element's pre-increment cycle over
+// bucket_cycles, clamped to the last bucket. The ready-set depth of an RDY
+// policy is the count of set flags in the PE's row, kept beside the row
+// (+1 where on_ready sets a flag, -1 where the pick clears one; a slot
+// fires once), so it costs no loads; inorder's is the FIFO's size. The only
+// increment that is not zero at the completed-overlay fixed point is
+// stall_no_ready (every PE idle, nothing ready): the chunk subtracts the
+// cycles it ran past completion (0 while running, K - first - 1 where the
+// element completes in the chunk, K where it was done already), as the
+// reference's chunk repair does, so every leaf equals a check_every = 1
+// run.
+//
 // Interface. A plain C entry point for ctypes: mega_chunk(args, eject,
 // stream) takes the tensors' pointers in one struct (MegaArgs), launches B
 // CTAs on the given stream, allocates nothing, does not synchronise and
-// returns cudaGetLastError().
+// returns cudaGetLastError(). The traced variant runs where args.buckets is
+// positive.
 #include <cstddef>
 #include <cstdint>
 
@@ -113,6 +136,14 @@ enum Eject { kNFirst = 0, kPriority = 1, kCap2 = 2 };
 enum Body { kShared = 0, kGlobal = 1 };
 enum Field { kValid = 0, kDstX, kDstY, kDstSlot, kOpidx, kValue, kFields };
 enum Stat { kFired = 0, kDelivered, kDNoc, kDEj, kStats };
+// The trace leaves (kernels/megakernel.py TELEM_LEAVES): eight bucketed,
+// then five per-PE totals.
+enum TrLeaf {
+  kPeBusy = 0, kPeOcc, kLinkE, kLinkS, kDeflNoc, kDeflEj, kEjGrant, kRdyDepth,
+  kBucketed,
+  kPickPos = kBucketed, kPicks, kStallNoReady, kStallInject, kStallSelWait,
+  kTelemLeaves
+};
 
 // The shared body: one PE a thread up to 512 threads (128 registers a
 // thread, the cycle's state without spills); above, 4 PEs a thread on up to
@@ -128,6 +159,7 @@ constexpr int kPktInts = 8;
 constexpr int kLinkInts = 2 * 2 * kPktInts;
 constexpr int kMaxSummaryWords = 32;    // the top word's bits
 constexpr int kPeInts = 32;             // a PE's registers in pe_scratch
+constexpr int kTrInts = 16;             // a PE's trace counters in tr_scratch
 constexpr int kSharedBytes = 232448;    // a CTA's shared memory on sm_90
 constexpr unsigned kAll = 0xFFFFFFFFu;
 constexpr unsigned kTop = 0x80000000u;
@@ -203,6 +235,15 @@ struct MegaArgs {
   // summary words a PE, and the dynamic shared memory of the shared body
   int32_t body, ppt, threads, Pp, S, smem_bytes;
   int32_t eject;  // Eject; set by the entry point
+  // Telemetry: buckets (0: the untraced variant) and cycles a bucket, the
+  // element stride of a bucketed leaf (buckets * P), the global body's trace
+  // counters [B, Pp, kTrInts], and the trace leaves in TrLeaf order,
+  // [B, buckets, P] bucketed and [B, P] totals, each null where the spec
+  // leaves its group out.
+  int32_t buckets, bucket_cycles;
+  int64_t s_telem;
+  int32_t* tr_scratch;
+  int32_t* telem[kTelemLeaves];
 };
 
 namespace {
@@ -275,6 +316,14 @@ struct Pe {
                      // non-zero
   float aval;        // value at clamp(active, 0, L - 1)
   int4 cur;          // the edge record at clamp(cursor, 0, emax - 1)
+};
+
+// A PE's trace counters for the chunk: the current bucket's counts (the
+// first kBucketed) and the chunk's totals, and the count of set flags in the
+// PE's RDY row (RDY policies).
+struct Trc {
+  int c[kTelemLeaves];
+  int depth;
 };
 
 // One eject cell's data: the operand pair, pending, computed, value and the
@@ -479,12 +528,16 @@ __device__ __forceinline__ int rdy_rotating(const Elem& el, int Pp, int p,
 
 // One cycle of PE r.p. `in` holds the previous cycle's links, `out`
 // receives this cycle's; both are [2 (E, S)][Pp][8]. Returns whether the PE
-// is busy (not quiet) at the end of the cycle.
-template <int POLICY, bool CAP2, bool DEEP>
+// is busy (not quiet) at the end of the cycle. TRACED: the cycle's trace
+// increments go to `t`.
+template <int POLICY, bool CAP2, bool DEEP, bool TRACED>
 __device__ __forceinline__ bool pe_cycle(const MegaArgs& a, Elem& el, Pe& r,
-                                         const int* in, int* out) {
+                                         Trc& t, const int* in, int* out) {
   constexpr int E = CAP2 ? 2 : 1;
   const int L = el.L, Pp = el.Pp, p = r.p;
+  // traced: the PE's occupancy at the cycle's start, its fires and ejects
+  const bool occupied = TRACED && r.active >= 0;
+  int n_fired = 0, n_valid = 0;
   const int x = r.xy >> 16, y = r.xy & 0xFFFF;
   // the west and north neighbours on the torus (p = x ny + y)
   const int pw = x == 0 ? p + (el.nx - 1) * el.ny : p - el.ny;
@@ -630,6 +683,10 @@ __device__ __forceinline__ bool pe_cycle(const MegaArgs& a, Elem& el, Pe& r,
     else if (s == r.clean >> 1) r.clean = -1;
     el.st[kDelivered] += valid ? 1 : 0;
     el.st[kFired] += f ? 1 : 0;
+    if constexpr (TRACED) {
+      n_valid = valid ? 1 : 0;
+      n_fired = f ? 1 : 0;
+    }
     if (s == vslot && !skip) r.aval = vn;
     slot[0] = s;
     fired[0] = f;
@@ -689,6 +746,10 @@ __device__ __forceinline__ bool pe_cycle(const MegaArgs& a, Elem& el, Pe& r,
       if (fired[e] || (fired[E - 1 - e] && same)) el.computed[c] = 1;
       el.st[kDelivered] += valid[e] ? 1 : 0;
       el.st[kFired] += fired[e] ? 1 : 0;
+      if constexpr (TRACED) {
+        n_valid += valid[e] ? 1 : 0;
+        n_fired += fired[e] ? 1 : 0;
+      }
       if (slot[e] == vslot) r.aval = d[e].val;
       fo_count[e] = d[e].info.w;
     }
@@ -706,6 +767,7 @@ __device__ __forceinline__ bool pe_cycle(const MegaArgs& a, Elem& el, Pe& r,
       r.size += 1;
     } else {
       rdy_set<DEEP>(el, Pp, p, slot[e], r.top);
+      if constexpr (TRACED) t.depth += 1;
     }
     if (el.others) {
       // The inactive members: an inorder FIFO takes the push at head + size
@@ -730,6 +792,20 @@ __device__ __forceinline__ bool pe_cycle(const MegaArgs& a, Elem& el, Pe& r,
   const bool idle = r.active < 0;
   const bool gate = idle && r.sel_wait == 0;
   const bool have = POLICY == kInorder ? r.size > 0 : r.top != 0;
+  if constexpr (TRACED) {
+    t.c[kPeBusy] += n_fired;
+    t.c[kPeOcc] += occupied ? 1 : 0;
+    t.c[kLinkE] += new_e.f[kValid] != 0 ? 1 : 0;
+    t.c[kLinkS] += new_s.f[kValid] != 0 ? 1 : 0;
+    t.c[kDeflNoc] += (w_s_lost ? 1 : 0) + (inj_valid && !accepted ? 1 : 0);
+    t.c[kDeflEj] += (w_lost_ej ? 1 : 0) + (n_at && !n_ej ? 1 : 0);
+    t.c[kEjGrant] += n_valid;
+    // the depth as the pick sees it: after this cycle's on_ready
+    t.c[kRdyDepth] += POLICY == kInorder ? r.size : t.depth;
+    t.c[kStallNoReady] += idle && !have ? 1 : 0;
+    t.c[kStallInject] += inj_valid && !accepted ? 1 : 0;
+    t.c[kStallSelWait] += idle && have && r.sel_wait > 0 ? 1 : 0;
+  }
   if (idle && have && r.sel_wait > 0) r.sel_wait -= 1;
   const bool picked = gate && have;
   if (picked) {
@@ -745,8 +821,13 @@ __device__ __forceinline__ bool pe_cycle(const MegaArgs& a, Elem& el, Pe& r,
                  : rdy_rotating<DEEP>(el, Pp, p, L, r.hs, r.top, &word);
       rdy_clear<DEEP>(el, Pp, p, cand, word, r.top);
       if (POLICY == kRotating) r.hs = wrap(cand + 1, L);
+      if constexpr (TRACED) t.depth -= 1;
     }
     r.active = cand;
+    if constexpr (TRACED) {
+      t.c[kPickPos] += cand;
+      t.c[kPicks] += 1;
+    }
   }
   // The next cycle's inputs that changed, each loaded straight into its
   // register by the lanes that need it: the edge record at the cursor
@@ -819,6 +900,48 @@ __device__ __forceinline__ Pe pe_load(const MegaArgs& a, Elem& el,
   return r;
 }
 
+// A PE's trace counters at the chunk's start: no counts, and the count of
+// set flags in its RDY row.
+template <int POLICY>
+__device__ __forceinline__ Trc trc_load(const Elem& el, int p) {
+  Trc t;
+#pragma unroll
+  for (int i = 0; i < kTelemLeaves; ++i) t.c[i] = 0;
+  t.depth = 0;
+  if constexpr (POLICY != kInorder) {
+    for (int w = 0; w < el.W; ++w)
+      t.depth += __popc(el.rdy[w * el.rws + p * el.rps]);
+  }
+  return t;
+}
+
+// Add PE p's counts of bucket `bucket` to the bucketed leaves of element b
+// and clear them. Each leaf's cell is this PE's alone; the adds return
+// nothing, so nothing waits on them.
+__device__ __forceinline__ void trc_flush(const MegaArgs& a, int b, int p,
+                                          int bucket, Trc& t) {
+  const size_t at = static_cast<size_t>(b) * a.s_telem +
+                    static_cast<size_t>(bucket) * (a.nx * a.ny) + p;
+#pragma unroll
+  for (int i = 0; i < kBucketed; ++i) {
+    if (t.c[i] != 0 && a.telem[i] != nullptr)
+      atomicAdd(a.telem[i] + at, t.c[i]);
+    t.c[i] = 0;
+  }
+}
+
+// Add PE p's chunk totals to the total leaves of element b, stall_no_ready
+// less the cycles the chunk ran past completion.
+__device__ __forceinline__ void trc_totals(const MegaArgs& a, int b, int p,
+                                           int overshoot, const Trc& t) {
+  const size_t gp = static_cast<size_t>(b) * a.s_pe + p;
+#pragma unroll
+  for (int i = kBucketed; i < kTelemLeaves; ++i) {
+    const int v = t.c[i] - (i == kStallNoReady ? overshoot : 0);
+    if (v != 0 && a.telem[i] != nullptr) a.telem[i][gp] += v;
+  }
+}
+
 // PE r.p's registers and links back to the state at the end of the chunk
 // (`last` holds the last cycle's links).
 template <int POLICY>
@@ -859,7 +982,8 @@ __device__ __forceinline__ void write_frozen(const MegaArgs& a, int b,
 // policy), then the element's chunk repair. PPT PEs a thread in registers
 // (the shared body), or PPT = 0: a loop over PEs at the CTA's stride, each
 // PE's registers in device scratch between cycles (the global body).
-template <int POLICY, bool CAP2, bool SHARED, int PPT>
+// TRACED: each PE's trace counters beside its registers.
+template <int POLICY, bool CAP2, bool SHARED, int PPT, bool TRACED>
 __device__ __forceinline__ void run_element(const MegaArgs& a, int b, int act,
                                             const Member& am, uint32_t* smem,
                                             int (*partial)[kStats]) {
@@ -932,6 +1056,16 @@ __device__ __forceinline__ void run_element(const MegaArgs& a, int b, int act,
   auto pe_at = [pes](int p) {
     return reinterpret_cast<Pe*>(pes + static_cast<size_t>(p) * kPeInts);
   };
+  // and, traced, its trace counters, kTrInts ints a PE
+  static_assert(sizeof(Trc) <= sizeof(int32_t) * kTrInts, "Trc > kTrInts");
+  int32_t* const trs =
+      TRACED && !SHARED ? a.tr_scratch + static_cast<size_t>(b) * Pp * kTrInts
+                        : nullptr;
+  auto tr_at = [trs](int p) {
+    return reinterpret_cast<Trc*>(trs + static_cast<size_t>(p) * kTrInts);
+  };
+  // traced: the element's cycle at the chunk's start, the buckets' clock
+  const int first_cycle = TRACED ? a.cycle[b] : 0;
 
   // ---- chunk start: links, the RDY rows (coalesced), then each PE's
   // registers and summaries.
@@ -950,34 +1084,60 @@ __device__ __forceinline__ void run_element(const MegaArgs& a, int b, int act,
 
   constexpr int kRegs = PPT > 0 ? PPT : 1;
   Pe pe[kRegs];
+  Trc tr[kRegs];
   if constexpr (PPT > 0) {
 #pragma unroll
     for (int i = 0; i < PPT; ++i) {
       const int p = tid + i * T;
-      if (p < P) pe[i] = pe_load<POLICY, DEEP>(a, el, am, im, p);
-      else pe[i].p = -1;
+      if (p < P) {
+        pe[i] = pe_load<POLICY, DEEP>(a, el, am, im, p);
+        if constexpr (TRACED) tr[i] = trc_load<POLICY>(el, p);
+      } else {
+        pe[i].p = -1;
+      }
     }
   } else {
-    for (int p = tid; p < P; p += T)
+    for (int p = tid; p < P; p += T) {
       *pe_at(p) = pe_load<POLICY, DEEP>(a, el, am, im, p);
+      if constexpr (TRACED) *tr_at(p) = trc_load<POLICY>(el, p);
+    }
   }
 
-  // ---- K cycles, one barrier each
+  // ---- K cycles, one barrier each. Traced, `bucket` is the bucket whose
+  // counts the counters hold (CTA-uniform; -1 before the first cycle), and
+  // a cycle in another bucket first adds them to the leaves (`done_bucket`).
   int first_quiet = -1;
+  int bucket = -1;
   for (int k = 0; k < a.K; ++k) {
     const int* in = links + (k & 1) * (kLinkInts / 2) * Pp;
     int* out = links + ((k + 1) & 1) * (kLinkInts / 2) * Pp;
     bool busy = false;
+    int done_bucket = -1;
+    if constexpr (TRACED) {
+      const int bk = min((first_cycle + k) / a.bucket_cycles, a.buckets - 1);
+      if (bucket >= 0 && bk != bucket) done_bucket = bucket;
+      bucket = bk;
+    }
     if constexpr (PPT > 0) {
 #pragma unroll
       for (int i = 0; i < PPT; ++i)
-        if (pe[i].p >= 0)
-          busy |= pe_cycle<POLICY, CAP2, DEEP>(a, el, pe[i], in, out);
+        if (pe[i].p >= 0) {
+          if (TRACED && done_bucket >= 0)
+            trc_flush(a, b, pe[i].p, done_bucket, tr[i]);
+          busy |= pe_cycle<POLICY, CAP2, DEEP, TRACED>(a, el, pe[i], tr[i],
+                                                       in, out);
+        }
     } else {
       for (int p = tid; p < P; p += T) {
         pe[0] = *pe_at(p);
-        busy |= pe_cycle<POLICY, CAP2, DEEP>(a, el, pe[0], in, out);
+        if constexpr (TRACED) {
+          tr[0] = *tr_at(p);
+          if (done_bucket >= 0) trc_flush(a, b, p, done_bucket, tr[0]);
+        }
+        busy |= pe_cycle<POLICY, CAP2, DEEP, TRACED>(a, el, pe[0], tr[0], in,
+                                                     out);
         *pe_at(p) = pe[0];
+        if constexpr (TRACED) *tr_at(p) = tr[0];
       }
     }
     if (!__syncthreads_or(busy) && first_quiet < 0) first_quiet = k;
@@ -1041,12 +1201,36 @@ __device__ __forceinline__ void run_element(const MegaArgs& a, int b, int act,
       a.eject_deflections[b] += tot[kDEj];
       a.deflections[b] += tot[kDNoc] + tot[kDEj];
       a.busy_cycles[b] += tot[kFired];
+      if constexpr (TRACED) {
+        // the cycles run past completion, for every thread's totals (the
+        // warp's other lanes are done reading `partial`)
+        partial[0][0] = start_done ? a.K : (first >= 0 ? a.K - first - 1 : 0);
+      }
+    }
+  }
+  if constexpr (TRACED) {
+    // ---- the trace: the last bucket's counts and the chunk's totals.
+    __syncthreads();
+    const int overshoot = partial[0][0];
+    if constexpr (PPT > 0) {
+#pragma unroll
+      for (int i = 0; i < PPT; ++i)
+        if (pe[i].p >= 0) {
+          trc_flush(a, b, pe[i].p, bucket, tr[i]);
+          trc_totals(a, b, pe[i].p, overshoot, tr[i]);
+        }
+    } else {
+      for (int p = tid; p < P; p += T) {
+        Trc t = *tr_at(p);
+        trc_flush(a, b, p, bucket, t);
+        trc_totals(a, b, p, overshoot, t);
+      }
     }
   }
 }
 
 // One CTA per batch element.
-template <bool CAP2, bool SHARED, int PPT>
+template <bool CAP2, bool SHARED, int PPT, bool TRACED>
 __global__ void __launch_bounds__(PPT == 1 ? kMaxThreadsPpt1 : kMaxThreads, 1)
 mega_chunk_kernel(const MegaArgs a) {
   extern __shared__ uint32_t smem[];
@@ -1081,20 +1265,23 @@ mega_chunk_kernel(const MegaArgs a) {
     if (m == act) am = a.members[m];
   switch (am.kind) {
     case kOoo:
-      run_element<kOoo, CAP2, SHARED, PPT>(a, b, act, am, smem, partial);
+      run_element<kOoo, CAP2, SHARED, PPT, TRACED>(a, b, act, am, smem,
+                                                   partial);
       break;
     case kInorder:
-      run_element<kInorder, CAP2, SHARED, PPT>(a, b, act, am, smem, partial);
+      run_element<kInorder, CAP2, SHARED, PPT, TRACED>(a, b, act, am, smem,
+                                                       partial);
       break;
     default:
-      run_element<kRotating, CAP2, SHARED, PPT>(a, b, act, am, smem, partial);
+      run_element<kRotating, CAP2, SHARED, PPT, TRACED>(a, b, act, am, smem,
+                                                        partial);
       break;
   }
 }
 
-template <bool CAP2, bool SHARED, int PPT>
+template <bool CAP2, bool SHARED, int PPT, bool TRACED>
 int launch(const MegaArgs& a, cudaStream_t stream) {
-  auto* kernel = mega_chunk_kernel<CAP2, SHARED, PPT>;
+  auto* kernel = mega_chunk_kernel<CAP2, SHARED, PPT, TRACED>;
   // Above 48 KB (static and dynamic together) a kernel must opt in to its
   // dynamic shared memory. The attribute holds for the device current at
   // the call, so it is set at every such launch.
@@ -1108,11 +1295,14 @@ int launch(const MegaArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool CAP2>
+template <bool CAP2, bool TRACED>
 int launch_body(const MegaArgs& a, cudaStream_t s) {
-  if (a.body == kShared && a.ppt == 1) return launch<CAP2, true, 1>(a, s);
-  if (a.body == kShared && a.ppt == 4) return launch<CAP2, true, 4>(a, s);
-  if (a.body == kGlobal && a.ppt == 0) return launch<CAP2, false, 0>(a, s);
+  if (a.body == kShared && a.ppt == 1)
+    return launch<CAP2, true, 1, TRACED>(a, s);
+  if (a.body == kShared && a.ppt == 4)
+    return launch<CAP2, true, 4, TRACED>(a, s);
+  if (a.body == kGlobal && a.ppt == 0)
+    return launch<CAP2, false, 0, TRACED>(a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1123,7 +1313,7 @@ extern "C" {
 // eject: 0 n_first at capacity 1, 1 priority at capacity 1, 2 capacity 2.
 // Each member's kind: 0 ooo, 1 inorder, 2 rotating (scan, lru_flat). The
 // plan's fields (body, ppt, threads, Pp, S, smem_bytes) come from
-// kernels/megakernel.py::plan.
+// kernels/megakernel.py::plan; buckets > 0 launches the traced variant.
 int mega_chunk(const MegaArgs* args, int eject, void* stream) {
   MegaArgs a = *args;
   const long long P = static_cast<long long>(a.nx) * a.ny;
@@ -1157,9 +1347,20 @@ int mega_chunk(const MegaArgs* args, int eject, void* stream) {
       a.Pp < P || a.Pp % 32 != 0 || a.S * 32 < a.W || !body_ok ||
       eject < kNFirst || eject > kCap2)
     return static_cast<int>(cudaErrorInvalidValue);
+  // Traced: the bucketing, the element stride of a bucketed leaf, and the
+  // global body's trace scratch.
+  const bool traced = a.buckets > 0;
+  if (traced && (a.bucket_cycles < 1 ||
+                 a.s_telem != static_cast<long long>(a.buckets) * P ||
+                 (a.body == kGlobal && a.tr_scratch == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
   a.eject = eject;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return eject == kCap2 ? launch_body<true>(a, s) : launch_body<false>(a, s);
+  if (traced)
+    return eject == kCap2 ? launch_body<true, true>(a, s)
+                          : launch_body<false, true>(a, s);
+  return eject == kCap2 ? launch_body<true, false>(a, s)
+                        : launch_body<false, false>(a, s);
 }
 
 }  // extern "C"

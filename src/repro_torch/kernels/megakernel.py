@@ -34,9 +34,18 @@ looping over PEs, for any other grid (links and rows above a CTA's 227 KB,
 or rows above 32,768 slots, whose pick takes a third level).
 
 :data:`launches` counts kernel launches (``"mega_chunk"`` solo,
-``"mega_chunk_batched"`` batched) and each body's (``"mega_chunk_shared"``,
-``"mega_chunk_global"``), so a run can show that its main path went through
-the kernel, and through which body.
+``"mega_chunk_batched"`` batched), each body's (``"mega_chunk_shared"``,
+``"mega_chunk_global"``) and the traced variant's (``"mega_chunk_traced"``,
+solo and batched), so a run can show that its main path went through the
+kernel, and through which body and variant.
+
+Telemetry. Where ``cfg.telemetry`` is a ``TelemetrySpec``, the state's
+``telem`` leaves ride in the kernel's arguments and the chunk launches the
+traced variant of the kernel (the same cycle with each PE's trace
+increments counted by the thread that owns the PE, ``TRACED`` in
+``csrc/megakernel.cu``); its trace leaves equal the plain chunk's bit for
+bit, ``stall_no_ready`` included, repaired for the cycles run past
+completion. ``telemetry=None`` launches the untraced variant, as before.
 """
 from __future__ import annotations
 
@@ -48,6 +57,7 @@ from typing import NamedTuple
 import torch
 
 from ..core import bitvec, noc, overlay, schedulers
+from ..telemetry.spec import BUCKETED_LEAVES, TelemetrySpec
 from . import _build
 
 SOURCE = "megakernel.cu"
@@ -55,7 +65,8 @@ SOURCE = "megakernel.cu"
 #: Kernel launches since the last :func:`reset_launches`: by form, and by
 #: body.
 launches: dict[str, int] = {"mega_chunk": 0, "mega_chunk_batched": 0,
-                            "mega_chunk_shared": 0, "mega_chunk_global": 0}
+                            "mega_chunk_shared": 0, "mega_chunk_global": 0,
+                            "mega_chunk_traced": 0}
 
 #: The kernel's pick of each policy (``csrc/megakernel.cu``'s ``Policy``)
 #: and its eject arbitration variants (``Eject``).
@@ -219,7 +230,8 @@ def _graph_spec(g):
 def _state_spec(g, cfg, names=None, batch=None):
     """Solo (``names=None``): the state of ``cfg.scheduler``. Batched: every
     leaf with a leading ``[batch]`` axis, the states of the member policies
-    ``names`` side by side under ``sched``."""
+    ``names`` side by side under ``sched``. With ``cfg.telemetry``, the
+    trace leaves of that spec under ``telem``, and no others."""
     nx, ny, L = g["opcode"].shape
     lead = () if names is None else (batch,)
     i32, plane, pe = torch.int32, (*lead, nx, ny, L), (*lead, nx, ny)
@@ -237,7 +249,7 @@ def _state_spec(g, cfg, names=None, batch=None):
         sched = {n: member(n) for n in names}
         sched["policy_id"] = (lead, i32)
     links = ((*lead, len(noc.PKT_FIELDS), nx, ny), i32)
-    return dict(
+    spec = dict(
         pending=(plane, i32), operands=((*plane, 2), torch.float32),
         computed=(plane, torch.bool), value=(plane, torch.float32),
         remaining=(lead, i32), sched=sched,
@@ -245,6 +257,12 @@ def _state_spec(g, cfg, names=None, batch=None):
         sel_lat=(lead, i32), sel_wait=(pe, i32), link_e=links, link_s=links,
         cycle=(lead, i32), done=(lead, torch.bool),
         **{k: (lead, i32) for k in overlay.STAT_COUNTERS})
+    tel = cfg.telemetry
+    if tel is not None:
+        bucketed = ((*lead, tel.buckets, nx, ny), i32)
+        spec["telem"] = {n: bucketed if n in _BUCKETED else (pe, i32)
+                         for n in tel.leaf_names()}
+    return spec
 
 
 def _check_tree(tree, spec, device, path):
@@ -284,6 +302,17 @@ def _check_tree(tree, spec, device, path):
 #: :func:`graph_tables`.
 GRAPH_LEAVES = ("opcode", "fo_base", "fo_count", "e_dst_pe", "e_dst_slot",
                 "e_dst_opidx")
+#: The trace leaves in the kernel's order (``MegaArgs::telem``, ``TrLeaf``
+#: in ``csrc/megakernel.cu``): every group's, the bucketed ``[buckets, nx,
+#: ny]`` leaves first, then the per-PE totals ``[nx, ny]``. A leaf the spec
+#: leaves out is a null pointer.
+TELEM_LEAVES = TelemetrySpec().leaf_names()
+_BUCKETED = frozenset(n for leaves in BUCKETED_LEAVES.values()
+                      for n in leaves)
+#: int32s of a PE's trace counters in the ``global`` body's scratch
+#: (``kTrInts``): the current bucket's eight counts, the five totals and
+#: the count of set flags in the PE's RDY row.
+TR_INTS = 16
 _POINTERS = (
     "slot_info", "edges",
     "pending", "operands", "computed", "value", "remaining",
@@ -307,7 +336,10 @@ class _Args(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p) for n in _POINTERS]
                 + [("members", _Member * MAX_MEMBERS)]
                 + [(n, ctypes.c_int64) for n in _STRIDES]
-                + [(n, ctypes.c_int32) for n in _INTS])
+                + [(n, ctypes.c_int32) for n in _INTS]
+                + [("buckets", ctypes.c_int32), ("bucket_cycles", ctypes.c_int32),
+                   ("s_telem", ctypes.c_int64), ("tr_scratch", ctypes.c_void_p),
+                   ("telem", ctypes.c_void_p * len(TELEM_LEAVES))])
 
 
 def _leaves(tree):
@@ -373,6 +405,7 @@ def make_mega_chunk_fn(g: overlay.DeviceGraph, cfg: overlay.OverlayConfig,
     if max_cycles is not None and not batched:
         raise ValueError("max_cycles freezes elements of a batch: pass names")
     eject = eject_variant(cfg)
+    traced = cfg.telemetry is not None
     device = _check_tree(dict(g), _graph_spec(g), None, "graph")
     nx, ny, L = g["opcode"].shape
     P, W = nx * ny, L // bitvec.FLAGS_PER_WORD
@@ -427,7 +460,14 @@ def make_mega_chunk_fn(g: overlay.DeviceGraph, cfg: overlay.OverlayConfig,
                                 ("pe_scratch", PE_INTS))}
         subs = ([s["sched"][n] for n in members] if batched
                 else [s["sched"]])
-        tensors = dict(**{k: v for k, v in s.items() if k != "sched"},
+        telem = s.get("telem", {})
+        if telem and how.body == "global":
+            # each PE's trace counters between cycles, [B, Pp, TR_INTS]
+            scratch["tr_scratch"] = torch.empty(B * TR_INTS * how.pp,
+                                                dtype=torch.int32,
+                                                device=device)
+        tensors = dict(**{k: v for k, v in s.items()
+                          if k not in ("sched", "telem")},
                        slot_info=tables[0], edges=tables[1],
                        policy_id=s["sched"]["policy_id"] if batched else None,
                        max_cycles=max_cycles, trace=trace, **scratch)
@@ -438,6 +478,15 @@ def make_mega_chunk_fn(g: overlay.DeviceGraph, cfg: overlay.OverlayConfig,
                      body=_BODIES[how.body], ppt=how.ppt,
                      threads=how.threads, Pp=how.pp, S=how.summary_words,
                      smem_bytes=how.smem_bytes)
+        if telem:
+            tel = cfg.telemetry
+            args.buckets, args.bucket_cycles = tel.buckets, tel.bucket_cycles
+            args.s_telem = tel.buckets * P
+            if "tr_scratch" in scratch:
+                args.tr_scratch = scratch["tr_scratch"].data_ptr()
+            for i, n in enumerate(TELEM_LEAVES):
+                if n in telem:
+                    args.telem[i] = telem[n].data_ptr()
         for m, (name, sub) in enumerate(zip(members, subs)):
             args.members[m] = _Member(
                 kind=POLICIES[name],
@@ -496,6 +545,8 @@ def make_mega_chunk_fn(g: overlay.DeviceGraph, cfg: overlay.OverlayConfig,
         fn = _build.library(SOURCE).mega_chunk
         launches[key] += 1
         launches[body_key] += 1
+        if traced:
+            launches["mega_chunk_traced"] += 1
         # The launch goes to the current stream of the state's device (the
         # raw handle, as torch's own generated code reads it).
         if torch.cuda.current_device() == device.index:

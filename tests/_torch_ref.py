@@ -291,3 +291,92 @@ def assert_batch_matches(reference: dict, case: str, check_every: int,
                                               want.view(np.int32))
             else:
                 assert got == want, (case, i, k, got, want)
+
+
+# ---------------------------------------------------------------------------
+# Telemetry (``OverlayConfig(telemetry=TelemetrySpec(...))``).
+# ---------------------------------------------------------------------------
+
+#: The trace spec of the matrix cells: 16 buckets of 8 cycles (the matrix
+#: runs ~1,400-8,700 cycles, so the last bucket also takes the clamped ones).
+TELEMETRY_SPEC = dict(buckets=16, bucket_cycles=8)
+
+
+def telemetry_cell(policy: str, eject: str, spec=None,
+                   budget: int = 1_000_000) -> tuple:
+    """One traced matrix cell: ``(key, policy, eject, spec as a tuple of
+    keyword pairs, max_cycles)``; ``spec`` defaults to
+    :data:`TELEMETRY_SPEC`."""
+    pairs = tuple(sorted((spec or TELEMETRY_SPEC).items()))
+    tag = "_".join(f"{k}{int(v)}" for k, v in pairs)
+    return (f"{policy}/{eject}/{tag}/{budget}", policy, eject, pairs, budget)
+
+
+def telemetry_reference(tmp_path_factory, name: str, cells) -> dict:
+    """The reference's traced runs on the matrix graph (2x2), on its
+    ``jnp`` engine at check_every 1, for each :func:`telemetry_cell` in
+    ``cells``: the result fields, each trace leaf (``telem/<leaf>``), the
+    report as JSON (``report``) and the Perfetto export as JSON
+    (``perfetto``), under the cell's key."""
+    body = f"""
+    import json
+    import repro
+    from repro.core import workloads as wl
+    from repro.core.overlay import OverlayConfig
+    from repro.core.partition import build_graph_memory
+    from repro.telemetry import TelemetrySpec
+
+    b, s, w, seed = {MATRIX_GRAPH!r}
+    g = wl.arrow_lu_graph(b, s, w, seed=seed)
+    ejects = {EJECTS!r}
+    for key, policy, eject, spec, budget in {sorted(set(cells))!r}:
+        gm = build_graph_memory(g, *{MATRIX_GRID!r},
+                                criticality_order=policy == "ooo")
+        cap, pol = ejects[eject]
+        r = repro.run(gm, OverlayConfig(
+            scheduler=policy, check_every=1, eject_capacity=cap,
+            eject_policy=pol, max_cycles=budget, engine="jnp",
+            telemetry=TelemetrySpec(**dict(spec))))
+        for k, v in sim_result(r).items():
+            res[f"{{key}}/{{k}}"] = np.asarray(v)
+        for k, v in r.telemetry.traces.items():
+            res[f"{{key}}/telem/{{k}}"] = np.asarray(v)
+        res[f"{{key}}/report"] = np.asarray(json.dumps(r.telemetry.report()))
+        res[f"{{key}}/perfetto"] = np.asarray(
+            json.dumps(r.telemetry.export_perfetto()))
+    """
+    return run_reference(tmp_path_factory, name, body)
+
+
+@functools.lru_cache(maxsize=None)
+def port_telemetry_run(cell: tuple, check_every, engine: str):
+    """The port's traced run of one :func:`telemetry_cell` at
+    ``check_every`` under ``engine``, on the CPU (cached per module
+    process)."""
+    import repro_torch
+    from repro_torch.core.overlay import OverlayConfig
+    from repro_torch.telemetry import TelemetrySpec
+
+    _, policy, eject, spec, budget = cell
+    cap, pol = EJECTS[eject]
+    cfg = OverlayConfig(scheduler=policy, check_every=check_every,
+                        eject_capacity=cap, eject_policy=pol, engine=engine,
+                        max_cycles=budget, telemetry=TelemetrySpec(**dict(spec)))
+    return repro_torch.run(_matrix_memory(policy), cfg, device="cpu")
+
+
+def assert_traces_equal(got: dict, want: dict, label="") -> None:
+    """Two traces dicts: the same leaves, each int32 and equal bit for bit."""
+    assert sorted(got) == sorted(want), label
+    for k in want:
+        assert got[k].dtype == np.int32, (label, k, got[k].dtype)
+        np.testing.assert_array_equal(got[k], want[k], err_msg=f"{label} {k}")
+
+
+def assert_telemetry_matches(result, ref: dict, key: str) -> None:
+    """A traced run equals the reference's: every counter and value, and
+    every trace leaf."""
+    assert_matches(result, ref, key)
+    want = {k[len(key) + 7:]: v for k, v in ref.items()
+            if k.startswith(key + "/telem/")}
+    assert_traces_equal(result.telemetry.traces, want, key)

@@ -31,4 +31,5 @@ def test_no_kernel_launch_on_cpu():
     assert [r.cycles for r in results] == [26, 28, 24, 28, 20]
     assert megakernel.launches == {"mega_chunk": 0, "mega_chunk_batched": 0,
                                    "mega_chunk_shared": 0,
-                                   "mega_chunk_global": 0}
+                                   "mega_chunk_global": 0,
+                                   "mega_chunk_traced": 0}

@@ -1,6 +1,7 @@
 """The port's CUDA kernels, its select and megakernel engines (the chunks of
 the tensor and select engines replayed from captured CUDA graphs among
-them) and its flash-attention kernel on a card.
+them, and the traced megakernel and traced chunks) and its flash-attention
+kernel on a card.
 Every test here needs a CUDA device and skips without one; the file imports
 neither JAX nor the reference package, so it runs on a machine that has only
 torch:
@@ -596,3 +597,85 @@ def test_capture_failure_raises(cuda):
         overlay.ReplayedChunk(syncs, "syncing")(_clone(states["mid-run"]))
     torch.cuda.synchronize()
     assert torch.ones(4, device=cuda).sum().item() == 4.0
+
+
+# ---------------------------------------------------------------------------
+# Telemetry: the traced megakernel and the traced replayed chunks.
+# ---------------------------------------------------------------------------
+
+#: 16 buckets of 8 cycles: the matrix graph's runs clamp into the last one.
+TRACE_SPEC = dict(buckets=16, bucket_cycles=8)
+
+
+def _traced(policy, eject, engine, **kw):
+    from repro_torch.telemetry import TelemetrySpec
+
+    cap, pol = EJECTS[eject]
+    return OverlayConfig(scheduler=policy, eject_capacity=cap,
+                         eject_policy=pol, engine=engine,
+                         telemetry=TelemetrySpec(**TRACE_SPEC), **kw)
+
+
+@pytest.mark.parametrize("eject", sorted(EJECTS))
+@pytest.mark.parametrize("policy", sorted(GOLDENS))
+def test_traced_megakernel_matches_plain_chunk(cuda, policy, eject):
+    """The traced kernel's chunk equals the traced plain chunk bit for bit,
+    every state leaf and trace leaf, from cycle 0, mid-run and near the end,
+    at K = 1, 7 and 32, on both bodies; one traced launch each."""
+    gm = build_graph_memory(wl.arrow_lu_graph(3, 6, 4, seed=5), 2, 2,
+                            criticality_order=policy == "ooo")
+    g = device_graph(gm, device=cuda)
+    cfg = _traced(policy, eject, "megakernel")
+    s0 = init_state(g, cfg)
+    end = int(run_state(g, cfg, _clone(s0))["cycle"])
+    late = run_state(g, _traced(policy, eject, "megakernel",
+                                max_cycles=end - 3), _clone(s0))
+    mid = megakernel.mega_chunk_plain(g, cfg, 40)(_clone(s0))
+    for state in (s0, mid, late):
+        for k in (1, 7, 32):
+            want, want_trace = megakernel.mega_chunk_plain(
+                g, cfg, k, with_trace=True)(_clone(state))
+            for body in ("shared", "global"):
+                megakernel.reset_launches()
+                got, got_trace = megakernel.make_mega_chunk_fn(
+                    g, cfg, k, with_trace=True, body=body)(_clone(state))
+                torch.cuda.synchronize()
+                assert megakernel.launches["mega_chunk_traced"] == 1
+                _assert_bits_equal(got, want)
+                assert torch.equal(got_trace, want_trace)
+
+
+@pytest.mark.parametrize("engine", ("tensor", "select", "megakernel"))
+@pytest.mark.parametrize("policy", sorted(GOLDENS))
+def test_traced_engines_equal_the_cpu(cuda, engine, policy):
+    """A traced run on the card (replayed chunks or the traced kernel)
+    gives the CPU run's results and traces bit for bit."""
+    gm = build_graph_memory(wl.arrow_lu_graph(3, 6, 4, seed=5), 2, 2,
+                            criticality_order=policy == "ooo")
+    cfg = _traced(policy, "n_first_cap1", engine)
+    got = repro_torch.run(gm, cfg)
+    want = repro_torch.run(gm, cfg, device="cpu")
+    assert (got.cycles, got.deflections) == GOLDENS[policy]
+    assert got.telemetry.traces.keys() == want.telemetry.traces.keys()
+    for k, v in want.telemetry.traces.items():
+        np.testing.assert_array_equal(got.telemetry.traces[k], v, err_msg=k)
+
+
+@pytest.mark.parametrize("engine", ("tensor", "select"))
+def test_traced_eager_chunk_makes_no_host_sync(cuda, engine):
+    """The traced cycle reads nothing on the host (the bucket index stays
+    on the card), so its chunk can be captured."""
+    from repro_torch.core import overlay
+
+    gm = build_graph_memory(wl.arrow_lu_graph(3, 6, 4, seed=5), 2, 2)
+    g = device_graph(gm, device=cuda)
+    cfg = _traced("ooo", "n_first_cap1", engine)
+    chunk = overlay.make_chunk_fn(overlay.make_cycle_fn(g, cfg), 7)
+    s = chunk(init_state(g, cfg))    # kernels built and loaded first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        chunk(s)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()

@@ -97,7 +97,8 @@ def test_no_kernel_launch_on_cpu():
     assert r.done and (r.cycles, r.deflections) == GOLDENS["ooo"]
     assert megakernel.launches == {"mega_chunk": 0, "mega_chunk_batched": 0,
                                    "mega_chunk_shared": 0,
-                                   "mega_chunk_global": 0}
+                                   "mega_chunk_global": 0,
+                                   "mega_chunk_traced": 0}
 
 
 def test_tail_runs_as_chunks_of_one(monkeypatch):

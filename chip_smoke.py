@@ -7,7 +7,8 @@
 Phases, each of which fails the run on any error (each prints its seconds):
   1. the card: its name and power limit from ``nvidia-smi``;
   2. build: compiles every CUDA source of the port (``lod.cu``,
-     ``megakernel.cu``, ``flash_attention.cu``) with ``nvcc``, one process
+     ``megakernel.cu``, ``flash_attention.cu``, ``anneal.cu``) with
+     ``nvcc``, one process
      per source, all started together (set-up), and prints each source's
      ``ptxas -v`` lines;
   3. leading-one kernels: each against its plain torch version on the card,
@@ -121,6 +122,26 @@ Phases, each of which fails the run on any error (each prints its seconds):
  10. batched select: a small mixed batch under ``engine="select"`` (the
      leading-one kernels element by element) equal to the same batch under
      the megakernel;
+ 10b. placement: the anneal kernel (``kernels/csrc/anneal.cu``, one launch a
+     search) against its plain version on the card, best placements, best
+     costs and init costs equal as integers: four graphs and grids (2x2 to
+     16x16) x 1, 2, 8 and 40 replicas x one and two rounds (both exchange
+     parities) x two seeds, and a batch of three ladders. Then the slice's
+     main path, counted (the launch counts set to 0 just before, read just
+     after): the BENCH ``placement`` rows n3689 (8x8) and n10308 (16x16),
+     each search on the card at its BENCH budget equal to the reference's
+     placement (``tests/fixtures/placement_golden.npz``) and costs,
+     identity / random / annealed / annealed_identity through
+     ``evaluate_placements`` under ``select`` and ``megakernel`` at the BENCH
+     cycles, values against ``reference_evaluate``, the engines
+     bit-identical; the multilevel row (n117972, 16x16, ratio 32: 5,645
+     clusters, costs, 14213 -> 8966 cycles, the fixture's placement) and
+     with ``--fig1-full`` ``fig1_full`` (n502447, built in a worker while
+     the card works: 19,711 clusters, costs, 56624 -> 47043 cycles) under
+     ``megakernel``; the anneal kernel, ``schedule_step`` and the
+     batched megakernel must have launched. Then the anneal kernel's device
+     time (profiler) beside its plain version's on a short search, and at
+     each BENCH row's budget (µs a step and a proposal);
  11. megakernel time: device time per K=32 chunk by CUDA events between
      chunks enqueued back to back (median over chunks) at n15072, n117972
      and n470772 for ``ooo`` and ``inorder``, the plain chunk's at n15072
@@ -2155,10 +2176,11 @@ def sdpa_inputs(torch, q, k, v, causal, lens):
 FLASH_KERNELS = ("mma_kernel", "split_kernel", "combine_kernel", "simt_kernel")
 
 
-def kernel_us(torch, fn, n=20):
-    """Device us per launch of each body's kernel that ``fn`` launches, from
-    ``torch.profiler`` over ``n`` calls (averaged over the launches the
-    profiler recorded, which may be fewer than ``n``)."""
+def kernel_us(torch, fn, n=20, names=FLASH_KERNELS):
+    """Device us per launch of each kernel of ``names`` (by default the
+    flash bodies') that ``fn`` launches, from ``torch.profiler`` over ``n``
+    calls (averaged over the launches the profiler recorded, which may be
+    fewer than ``n``)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2171,7 +2193,7 @@ def kernel_us(torch, fn, n=20):
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        for name in FLASH_KERNELS:
+        for name in names:
             if name in e.key:
                 total[name] = total.get(name, 0.0) + e.self_device_time_total
                 count[name] = count.get(name, 0) + e.count
@@ -2557,6 +2579,354 @@ def lm_phases(torch, np):
         golden_bf16_scaled_err=bf16_err, golden_bf16_tol=GOLDEN_BF16_TOL)
 
 
+# ---------------------------------------------------------------------------
+# Placement (phase 10b): the anneal kernel, the BENCH placement and
+# multilevel rows.
+# ---------------------------------------------------------------------------
+
+ANNEAL_SOURCE = "src/repro_torch/kernels/csrc/anneal.cu"
+#: Not a TPU kernel: the reference's search is one XLA scan.
+ANNEAL_REPLACES = "src/repro/place/anneal.py:234 (_anneal_jit, an XLA scan)"
+PLACEMENT_GOLDEN = ROOT / "tests" / "fixtures" / "placement_golden.npz"
+#: The BENCH ``placement`` rows: name -> (arrow_lu_graph args, grid,
+#: AnnealConfig keywords, cycles of identity / random / annealed /
+#: annealed_identity, anneal costs (random init, annealed)).
+PLACEMENT_ROWS = {
+    "n3689": ((2, 8, 6, 3), (8, 8),
+              dict(replicas=8, rounds=32, steps=1024, seed=0),
+              {"identity": 806, "random": 1021, "annealed": 684,
+               "annealed_identity": 634}, (1_104_696, 1_045_048)),
+    "n10308": ((4, 8, 8, 3), (16, 16),
+               dict(replicas=8, rounds=64, steps=2048, seed=0),
+               {"identity": 1663, "random": 2139, "annealed": 1448,
+                "annealed_identity": 1314}, (2_640_638, 2_302_114)),
+}
+#: The BENCH multilevel row (``surrogate_multilevel_n117972``): the main
+#: path's n117972 graph on 16x16, benchmarks/placement_bench.py's
+#: MULTILEVEL_COARSE / MULTILEVEL_REFINE at ratio 32, under the megakernel.
+MULTILEVEL_ROW = "n117972"
+MULTILEVEL = dict(coarse=dict(replicas=8, rounds=24, steps=2048, seed=0),
+                  refine=dict(replicas=4, rounds=8, steps=2048, seed=0),
+                  ratio=32, clusters=5645,
+                  costs=(225_687_381, 225_669_734),
+                  cycles={"round_robin": 14213, "multilevel": 8966})
+#: The BENCH ``fig1_full`` row (``--fig1-full`` only): n502447 on 16x16,
+#: FIG1_FULL_COARSE / FIG1_FULL_REFINE at ratio 32, under the megakernel.
+FIG1_FULL = dict(coarse=dict(replicas=8, rounds=24, steps=2048, seed=0),
+                 refine=dict(replicas=4, rounds=6, steps=2048, seed=0),
+                 ratio=32, nodes=502447, clusters=19711,
+                 costs=(3_961_010_560, 3_960_992_728),
+                 cycles={"round_robin": 56624, "multilevel": 47043})
+#: The anneal kernel against its plain version: (arrow_lu_graph args,
+#: grid) x replicas x rounds (two rounds: both exchange parities) x seeds,
+#: 24 steps a round; 40 replicas share warps.
+ANNEAL_GRAPHS = (((2, 4, 3), (2, 2)), ((2, 4, 3), (4, 4)),
+                 ((2, 8, 6), (8, 8)), ((4, 8, 8), (16, 16)))
+ANNEAL_REPLICAS = (1, 2, 8, 40)
+ANNEAL_ROUNDS = (1, 2)
+ANNEAL_SEEDS = (0, 7)
+#: The timed search: n3689's BENCH ladder over 2 rounds of 64 steps, the
+#: kernel and its plain version on the same inputs.
+ANNEAL_TIMED = ("n3689", dict(replicas=8, rounds=2, steps=64, seed=0))
+#: 32-bit integer operations a proposal's Threefry blocks take at least:
+#: twelve blocks of 20 rounds (add, rotate, xor) and five key injections.
+THREEFRY_OPS = 12 * (20 * 3 + 5 * 3)
+#: The float32 rate outside the tensor cores, the table's nearest to the
+#: integer units (an upper bound on their rate, so the bound stays a bound).
+SCALAR_OPS_PER_S = 67e12
+
+
+def fig1_full_setup():
+    """The ``fig1_full`` graph (built, or loaded from the graph cache) and its
+    ``reference_evaluate`` values, and the seconds they took. Runs in a
+    worker process while the card works."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import workloads as wl
+    from repro_torch.core.graph import reference_evaluate
+
+    t = time.perf_counter()
+    g = wl.fig1_full()
+    return g, reference_evaluate(g), time.perf_counter() - t
+
+
+def anneal_case(torch, np, pa, args, grid, acfgs):
+    """One search of ``acfgs`` (one ladder each) on the card and by the
+    plain version on the card; every rung's best placement, best cost and
+    the init cost must be equal as integers. Returns the results."""
+    from repro_torch.core import prng
+    from repro_torch.core import workloads as wl
+    from repro_torch.place.cost import edge_tables
+
+    g = wl.arrow_lu_graph(*args, seed=3)
+    src, dst, w_edge, w_node = edge_tables(g)
+    nbr, w_inc, is_out = pa.incidence_from_edges(src, dst, w_edge,
+                                                 g.num_nodes)
+    inits = [pa._check_init(None, g.num_nodes, grid[0] * grid[1], a.seed)
+             for a in acfgs]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    tensors = (t(np.stack(inits)), t(nbr), t(w_inc), t(is_out), t(w_node),
+               t(np.stack([pa._thresholds(a) for a in acfgs])),
+               torch.stack([prng.key(a.seed) for a in acfgs]).cuda())
+    knobs = dict(nx=grid[0], ny=grid[1], rounds=acfgs[0].rounds,
+                 steps=acfgs[0].steps,
+                 pressure_weight=acfgs[0].pressure_weight)
+    from repro_torch.kernels import anneal as ka
+
+    got = ka.anneal_ladders(*tensors, **knobs)
+    want = ka.anneal_plain(*tensors, **knobs)
+    torch.cuda.synchronize()
+    err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+              for a, b in zip(got, want))
+    if err != 0:
+        raise AssertionError(f"anneal kernel differs from its plain version "
+                             f"on arrow_lu_graph{args} {grid}, "
+                             f"{[dataclasses.astuple(a) for a in acfgs]}: "
+                             f"max abs error {err}")
+    return got
+
+
+def check_anneal(torch, np):
+    """The anneal kernel against its plain version (both on the card):
+    small budgets over several graphs, grids, replica counts (1, 2, 8, 40),
+    one or two rounds (both exchange parities) and seeds, and a batch of
+    three ladders (``anneal_tables_many``'s launch). Returns (max abs
+    error, cases)."""
+    from repro_torch.place import anneal as pa
+    from repro_torch.place.spec import AnnealConfig
+
+    cases = 0
+    for args, grid in ANNEAL_GRAPHS:
+        for R in ANNEAL_REPLICAS:
+            for rounds in ANNEAL_ROUNDS:
+                for seed in ANNEAL_SEEDS:
+                    anneal_case(torch, np, pa, args, grid, [AnnealConfig(
+                        replicas=R, rounds=rounds, steps=24, seed=seed,
+                        t_max=200.0)])
+                    cases += 1
+        anneal_case(torch, np, pa, args, grid, [
+            AnnealConfig(replicas=8, rounds=3, steps=24, seed=s, t_max=t)
+            for s, t in ((0, 64.0), (1, 4.0), (2, 500.0))])
+        cases += 1
+    print(f"anneal kernel equals its plain version in {cases} cases",
+          flush=True)
+    return 0, cases
+
+
+def placement_rows(torch, np, graphs, ka, lod, mk, fig1_job):
+    """The slice's main path: the BENCH ``placement`` rows (each search on
+    the card, then identity / random / annealed / annealed_identity through
+    ``evaluate_placements`` under ``select`` and ``megakernel``) and the
+    multilevel row n117972 (coarsen, both anneals on the card, round-robin
+    and multilevel under ``megakernel``), and ``fig1_full`` the same way
+    where ``fig1_job`` (the future of :func:`fig1_full_setup`) is given.
+    Every cycle count and cost must equal the BENCH value, every searched
+    placement the reference's (the fixture), the engines' results
+    bit-identical. The launch counts are set to 0 just before and read just
+    after. Returns (counts, walls {row: anneal seconds})."""
+    from repro_torch import place
+    from repro_torch.core import workloads as wl
+    from repro_torch.core.graph import reference_evaluate
+    from repro_torch.core.overlay import OverlayConfig
+    from repro_torch.place.spec import AnnealConfig, PlacementSpec
+
+    z = np.load(PLACEMENT_GOLDEN)
+    rows = {name: wl.arrow_lu_graph(*args[:3], seed=args[3])
+            for name, (args, *_) in PLACEMENT_ROWS.items()}
+    refs = {name: reference_evaluate(g) for name, g in rows.items()}
+    g_ml, ref_ml = graphs.graph(MULTILEVEL_ROW)
+    fig1 = None
+    if fig1_job is not None:
+        t = time.perf_counter()
+        fig1, ref_fig1, took = fig1_job.result()
+        print(f"set-up fig1_full: {fig1.num_nodes} nodes and reference "
+              f"values in {took:.1f} s (a worker; waited "
+              f"{time.perf_counter() - t:.1f} s)", flush=True)
+    for k in (ka, lod, mk):
+        k.reset_launches()
+    walls = {}
+    for name, (args, (nx, ny), kw, cycles, costs) in PLACEMENT_ROWS.items():
+        g, acfg = rows[name], AnnealConfig(**kw)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ann = place.anneal_placement(g, nx, ny, acfg)
+        walls[name] = time.perf_counter() - t
+        ann_id = place.anneal_placement(
+            g, nx, ny, acfg, init=place.resolve(g, nx, ny, "round_robin"))
+        print(f"placement {name}: anneal costs {ann.init_cost} -> "
+              f"{ann.cost} (BENCH {costs[0]} -> {costs[1]}), identity init "
+              f"{ann_id.init_cost} -> {ann_id.cost}, search wall "
+              f"{walls[name]:.3f} s", flush=True)
+        if (ann.init_cost, ann.cost) != costs:
+            raise AssertionError(f"placement {name}: costs {ann.init_cost} "
+                                 f"-> {ann.cost}, BENCH {costs}")
+        for tag, r in (("annealed", ann), ("annealed_identity", ann_id)):
+            if not (np.array_equal(r.node_pe, z[f"{name}/{tag}/node_pe"])
+                    and np.array_equal(r.replica_costs,
+                                       z[f"{name}/{tag}/replica_costs"])):
+                raise AssertionError(f"placement {name} {tag}: the search "
+                                     f"differs from the reference's")
+        got = {}
+        for engine in ("select", "megakernel"):
+            t = time.perf_counter()
+            res = place.evaluate_placements(g, nx, ny, {
+                "identity": None,
+                "random": PlacementSpec(strategy="random", seed=acfg.seed),
+                "annealed": ann.node_pe,
+                "annealed_identity": ann_id.node_pe,
+            }, cfgs=OverlayConfig(scheduler="ooo", max_cycles=4_000_000,
+                                  engine=engine))
+            seen = {k: r.cycles for k, r in res.items()}
+            print(f"placement {name} {engine}: cycles {seen} (BENCH "
+                  f"{cycles}), wall {time.perf_counter() - t:.2f} s",
+                  flush=True)
+            if seen != cycles or not all(
+                    r.done and np.allclose(r.values, refs[name], rtol=1e-5,
+                                           atol=1e-5)
+                    for r in res.values()):
+                raise AssertionError(f"placement {name} {engine}: {seen}, "
+                                     f"values against reference_evaluate")
+            got[engine] = res
+        for k in cycles:
+            if not same_result(np, got["select"][k], got["megakernel"][k]):
+                raise AssertionError(f"placement {name} {k}: the engines "
+                                     f"differ")
+    runs = [(MULTILEVEL_ROW, g_ml, ref_ml, MULTILEVEL,
+             z["multilevel/node_pe"])]
+    if fig1 is not None:
+        runs.append(("fig1_full", fig1, ref_fig1, FIG1_FULL, None))
+    for name, g, ref, spec, want_pe in runs:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ml = place.multilevel_anneal(
+            g, 16, 16, AnnealConfig(**spec["coarse"]), ratio=spec["ratio"],
+            refine=AnnealConfig(**spec["refine"]))
+        walls[name] = time.perf_counter() - t
+        t = time.perf_counter()
+        res = place.evaluate_placements(g, 16, 16, {
+            "round_robin": "round_robin", "multilevel": ml.node_pe},
+            cfgs=OverlayConfig(scheduler="ooo", max_cycles=16_000_000,
+                               engine="megakernel"))
+        seen = {k: r.cycles for k, r in res.items()}
+        ok_vals = all(bool(np.allclose(r.values, ref, rtol=1e-5, atol=1e-5))
+                      for r in res.values())
+        print(f"placement multilevel {name} (n{g.num_nodes}): "
+              f"{ml.num_clusters} clusters, costs {ml.projected_cost} -> "
+              f"{ml.cost} (BENCH {spec['costs']}), cycles {seen} (BENCH "
+              f"{spec['cycles']}), search wall {walls[name]:.2f} s, "
+              f"simulation wall {time.perf_counter() - t:.2f} s, values "
+              f"match {ok_vals}", flush=True)
+        if (ml.num_clusters != spec["clusters"]
+                or (ml.projected_cost, ml.cost) != spec["costs"]
+                or seen != spec["cycles"] or not ok_vals
+                or (want_pe is not None
+                    and not np.array_equal(ml.node_pe, want_pe))):
+            raise AssertionError(f"placement multilevel {name} differs from "
+                                 f"the BENCH row")
+    counts = dict(ka.launches, **lod.launches, **mk.launches)
+    print(f"placement kernel launches: {counts}", flush=True)
+    for k in ("anneal", "schedule_step", "mega_chunk_batched"):
+        if counts[k] == 0:
+            raise AssertionError(f"the placement path never launched {k}")
+    return counts, walls
+
+
+def anneal_times(torch, np, ka):
+    """The anneal kernel's device time on the timed search beside its plain
+    version's on the same inputs (CUDA events, synchronised), and each
+    BENCH row's full search: device ms, us per step (the replicas' steps
+    run side by side) and per proposal. Returns the kernels-line fields."""
+    from repro_torch.core import prng
+    from repro_torch.core import workloads as wl
+    from repro_torch.place import anneal as pa
+    from repro_torch.place.cost import edge_tables
+    from repro_torch.place.spec import AnnealConfig
+
+    def inputs(name, acfg):
+        args, (nx, ny), *_ = PLACEMENT_ROWS[name]
+        g = wl.arrow_lu_graph(*args[:3], seed=args[3])
+        src, dst, w_edge, w_node = edge_tables(g)
+        tabs = pa.incidence_from_edges(src, dst, w_edge, g.num_nodes)
+        init = pa._check_init(None, g.num_nodes, nx * ny, acfg.seed)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+        tensors = (t(init[None]), *map(t, tabs), t(w_node),
+                   t(pa._thresholds(acfg)[None]),
+                   prng.key(acfg.seed)[None].cuda())
+        knobs = dict(nx=nx, ny=ny, rounds=acfg.rounds, steps=acfg.steps,
+                     pressure_weight=acfg.pressure_weight)
+        return g, tabs, tensors, knobs
+
+    def timed(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+        return statistics.median(out)
+
+    name, kw = ANNEAL_TIMED
+    acfg = AnnealConfig(**kw)
+    g, (nbr, w_inc, is_out), tensors, knobs = inputs(name, acfg)
+    search = lambda: ka.anneal_ladders(*tensors, **knobs)
+    # the kernel's own device time (profiler), and the search's (events:
+    # the ladder's start, the keys' copy and the kernel)
+    ms = kernel_us(torch, search, 5, ("anneal_kernel",))["anneal_kernel"] / 1e3
+    call_ms = timed(search, 5)
+    plain_ms = timed(lambda: ka.anneal_plain(*tensors, **knobs), 1)
+    want = ka.anneal_plain(*tensors, **knobs)
+    if any(not torch.equal(a, b) for a, b in zip(search(), want)):
+        raise AssertionError("the timed search differs from its plain version")
+    steps = acfg.rounds * acfg.steps
+    proposals = steps * acfg.replicas
+    # bytes: each input read once (init, the incidence tables, weights,
+    # thresholds, keys), each output written once (every rung's best
+    # placement and cost, the init cost)
+    n, R = g.num_nodes, acfg.replicas
+    nbytes = (4 * n + nbr.nbytes + w_inc.nbytes + is_out.nbytes + 4 * n
+              + 8 * R + 16 + 4 * R * n + 8 * R + 8)
+    ops = proposals * THREEFRY_OPS
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / SCALAR_OPS_PER_S * 1e3
+    out = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+               bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               shape=dict(row=name, n=n, grid=list(knobs.values())[:2],
+                          **kw), us_per_step=ms * 1e3 / steps,
+               us_per_proposal=ms * 1e3 / proposals,
+               plain_us_per_step=plain_ms * 1e3 / steps)
+    print(f"anneal time {name} R={R} {acfg.rounds}x{acfg.steps}: kernel "
+          f"{ms:.3f} ms ({out['us_per_step']:.3f} us a step, "
+          f"{out['us_per_proposal']:.3f} us a proposal), search {call_ms:.3f} "
+          f"ms, plain "
+          f"{plain_ms:.1f} ms ({out['plain_us_per_step']:.1f} us a step), "
+          f"bound {out['bound_ms'] * 1e3:.3f} us ({out['bound_by']}: bytes "
+          f"{bytes_ms * 1e3:.3f} us, operations {ops_ms * 1e3:.3f} us)",
+          flush=True)
+    rows = {}
+    for row, (_, _, kw_row, _, _) in PLACEMENT_ROWS.items():
+        acfg = AnnealConfig(**kw_row)
+        _, (nbr, *_), tensors, knobs = inputs(row, acfg)
+        row_ms = kernel_us(torch, lambda: ka.anneal_ladders(
+            *tensors, **knobs), 2, ("anneal_kernel",))["anneal_kernel"] / 1e3
+        steps = acfg.rounds * acfg.steps
+        rows[row] = dict(ms=row_ms, steps=steps,
+                         us_per_step=row_ms * 1e3 / steps,
+                         us_per_proposal=row_ms * 1e3 / steps / acfg.replicas,
+                         degree=int(nbr.shape[1]))
+        print(f"anneal time {row} (BENCH budget, R={acfg.replicas} "
+              f"{acfg.rounds}x{acfg.steps}): {row_ms:.2f} ms, "
+              f"{rows[row]['us_per_step']:.3f} us a step, "
+              f"{rows[row]['us_per_proposal']:.3f} us a proposal, "
+              f"incidence row width {nbr.shape[1]}", flush=True)
+    out["rows"] = rows
+    return out
+
+
 def build_all(_build, sources):
     """Compile every source at once, one nvcc each; print ptxas lines."""
     t = time.perf_counter()
@@ -2588,6 +2958,9 @@ def main() -> int:
                     choices=list(ROWS),
                     help="rows of the megakernel main paths, solo and "
                          "batched (default: %(default)s)")
+    ap.add_argument("--fig1-full", action="store_true",
+                    help="also the BENCH fig1_full placement row (n502447; "
+                         "its graph builds in a worker; ~25 s more)")
     args = ap.parse_args()
 
     import numpy as np
@@ -2610,6 +2983,7 @@ def main() -> int:
 def run_phases(torch, np, args, pool) -> int:
     """Every phase, in order; then the kernels line and the last line."""
     from repro_torch.kernels import _build, lod
+    from repro_torch.kernels import anneal as ka
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import megakernel as mk
 
@@ -2617,11 +2991,14 @@ def run_phases(torch, np, args, pool) -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     graphs = Graphs(pool)
+    # fig1_full's graph (a Python elimination loop) builds in a worker too
+    fig1_job = pool.submit(fig1_full_setup) if args.fig1_full else None
     rows = list(dict.fromkeys(["n15072", *args.rows, *args.mega_rows,
                                CHUNKING_ROW, PER_CYCLE_ROW]))
     # the first phases need n15072 and (phase 4's 2x2 grid) the largest row
     graphs.prefetch(["n15072", *sorted(rows, key=lambda n: -ROWS[n][0][0])])
-    phase("build", build_all, _build, [lod.SOURCE, mk.SOURCE, fa.SOURCE])
+    phase("build", build_all, _build, [lod.SOURCE, mk.SOURCE, fa.SOURCE,
+                                       ka.SOURCE])
 
     t = time.perf_counter()
     err = check_kernels(torch, np, lod)
@@ -2671,6 +3048,11 @@ def run_phases(torch, np, args, pool) -> int:
     solo_walls = phase("full-card sweeps", full_card_sweeps, torch, np, graphs,
                        mk)
     phase("batched select", batched_select, torch, np, lod)
+    anneal_err, anneal_cases = phase("anneal check", check_anneal, torch, np)
+    place_counts, place_walls = phase(
+        "placement rows", placement_rows, torch, np, graphs, ka, lod, mk,
+        fig1_job)
+    anneal_t = phase("anneal time", anneal_times, torch, np, ka)
 
     mega_timed = phase("megakernel time", megakernel_times, torch, graphs, mk)
     scaling = phase("batch scaling", batch_scaling, torch, graphs, mk,
@@ -2740,6 +3122,21 @@ def run_phases(torch, np, args, pool) -> int:
         library_ms=None, call_ms=bt["call_ms"], shape=bt["shape"], K=MEGA_K,
         body="shared", body_launches=batch_counts["mega_chunk_shared"]))
     line.append(flash)
+    line.append(dict(
+        name="anneal", route="cuda", source=ANNEAL_SOURCE,
+        replaces=ANNEAL_REPLACES, launches=place_counts["anneal"],
+        max_abs_err=anneal_err, equal=anneal_err == 0, ms=anneal_t["ms"],
+        plain_ms=anneal_t["plain_ms"], bound_ms=anneal_t["bound_ms"],
+        bound_by=anneal_t["bound_by"], library_ms=None,
+        call_ms=anneal_t["call_ms"], shape=anneal_t["shape"],
+        cases=anneal_cases,
+        us_per_step=anneal_t["us_per_step"],
+        us_per_proposal=anneal_t["us_per_proposal"],
+        plain_us_per_step=anneal_t["plain_us_per_step"],
+        rows=anneal_t["rows"], search_walls_s=place_walls,
+        placement_launches={k: place_counts[k] for k in (
+            "schedule_step", "mega_chunk_batched", "mega_chunk_shared",
+            "mega_chunk_global")}))
     # The card's line again, where a reader of the output's tail finds it.
     print(card_line(), flush=True)
     print(json.dumps({"kernels": line}))

@@ -26,8 +26,9 @@ def run(graph_or_gm, cfg=None, *, mesh=None, batch: Sequence | None = None,
     Args:
       graph_or_gm: a packed :class:`repro_torch.core.partition.GraphMemory`,
         or a raw :class:`repro_torch.core.graph.DataflowGraph` plus
-        ``nx``/``ny`` (identity placement, with the memory layout the
-        scheduler prefers).
+        ``nx``/``ny``, placed per ``cfg.placement`` (see
+        :mod:`repro_torch.place`; a search runs on ``device`` too) with the
+        memory layout the scheduler prefers.
       cfg: a :class:`repro_torch.core.overlay.OverlayConfig` (``None`` =
         defaults: ``ooo`` through the leading-one kernels). Its ``engine``
         is ``"select"`` (the leading-one kernels once per cycle),
@@ -54,7 +55,7 @@ def run(graph_or_gm, cfg=None, *, mesh=None, batch: Sequence | None = None,
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (the sharded engines) is not ported yet "
-            "(ROADMAP queue 1, item 8)")
+            "(ROADMAP queue 1, item 4)")
     from .core import overlay
 
     if batch is not None:

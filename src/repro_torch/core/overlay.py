@@ -50,12 +50,13 @@ import numpy as np
 import torch
 
 from ..api import resolve_device
+from ..place import spec as place_spec
 from ..telemetry import result as telemetry_result
 from ..telemetry import trace as telemetry_trace
 from ..telemetry.spec import TelemetrySpec
 from . import bitvec, noc, schedulers
 from .graph import DIV_EPS, OP_ADD, OP_DIV, OP_MUL, OP_SUB, DataflowGraph
-from .partition import GraphMemory, build_graph_memory
+from .partition import GraphMemory
 from .schedulers import row_gather as _row_gather
 
 #: Chunk execution engines (cycle-exact by construction, see OverlayConfig).
@@ -95,10 +96,19 @@ class OverlayConfig:
 
     ``telemetry`` is a :class:`repro_torch.telemetry.TelemetrySpec` (trace
     leaves under ``state["telem"]``, a ``TelemetryResult`` on each result)
-    or ``None`` (tracing off). ``placement`` exists for signature parity
-    with the reference; this port supports only the identity placement
-    (``None`` or ``"identity"``, stored as ``None``) so far. ``engine``
-    also takes the reference's ``"jnp"``, stored as ``"tensor"``.
+    or ``None`` (tracing off). ``engine`` also takes the reference's
+    ``"jnp"``, stored as ``"tensor"``.
+
+    ``placement`` names how nodes map onto the PE grid when a run is handed
+    a raw :class:`~repro_torch.core.graph.DataflowGraph`: a strategy name
+    (static or search), a :class:`repro_torch.place.PlacementSpec`, or an
+    explicit ``[N]`` node -> PE array, normalised as the reference
+    normalises them (two spellings of one layout compare and hash equal).
+    ``None``, ``"identity"`` and the default spec are the identity
+    placement, stored as ``None``; any other name or spec is stored as its
+    spec, an array as a hashable
+    :class:`~repro_torch.place.spec.PlacementArray`. Ignored when the run
+    is handed a packed :class:`GraphMemory`.
     """
 
     scheduler: str = "ooo"           # any name in schedulers.REGISTRY
@@ -107,7 +117,7 @@ class OverlayConfig:
     max_cycles: int = 1_000_000
     check_every: int | None = None   # cycles per termination check; None=auto
     eject_policy: str = "n_first"    # NoC eject arbitration (see noc.py)
-    placement: Any = None            # None or "identity" so far
+    placement: Any = None            # PlacementSpec | name | [N] array | None
     #: "select" (leading-one kernels per cycle), "tensor" (plain tensor
     #: ops; "jnp" names it too) or "megakernel" (one kernel launch per
     #: K-cycle chunk).
@@ -121,12 +131,7 @@ class OverlayConfig:
                 f"engine must be one of {ENGINES} (or {tuple(ENGINE_ALIASES)}"
                 f"), got {self.engine!r}")
         object.__setattr__(self, "engine", engine)
-        if self.placement is not None and self.placement != "identity":
-            raise NotImplementedError(
-                f"only the identity placement (None or 'identity') is ported "
-                f"so far, got {self.placement!r}; placement strategies come "
-                f"with ROADMAP queue 1, item 3")
-        object.__setattr__(self, "placement", None)
+        object.__setattr__(self, "placement", _placement(self.placement))
         if self.telemetry is not None and not isinstance(self.telemetry,
                                                          TelemetrySpec):
             raise TypeError(
@@ -149,6 +154,17 @@ class OverlayConfig:
     @property
     def sel_lat(self) -> int:
         return 1 if self.select_latency is None else self.select_latency
+
+
+def _placement(placement):
+    """``OverlayConfig.placement``'s stored form: ``None`` for the
+    identity, else the canonical spec or a :class:`PlacementArray`."""
+    if isinstance(placement, place_spec.PlacementArray):
+        return placement
+    if isinstance(placement, np.ndarray):
+        return place_spec.PlacementArray(placement)
+    spec = place_spec.resolve(placement)
+    return None if spec == place_spec.IDENTITY else spec
 
 
 def resolve_check_every(cfg: OverlayConfig, nx: int, ny: int, L: int, *,
@@ -824,11 +840,14 @@ def _unpack_result(final, gm: GraphMemory, b: int | None = None,
     )
 
 
-def _as_memory(gm, cfg: OverlayConfig, nx: int | None, ny: int | None):
+def _as_memory(gm, cfg: OverlayConfig, nx: int | None, ny: int | None,
+               device=None):
     """Accept a packed GraphMemory or a raw DataflowGraph (+ grid shape).
 
-    A raw graph gets the identity placement (round-robin) with the memory
-    layout the scheduler prefers."""
+    A raw graph is placed according to ``cfg.placement`` (identity default;
+    a search runs on ``device``) with the memory layout the scheduler
+    prefers — the placement subsystem's integration point into every
+    engine."""
     if isinstance(gm, GraphMemory):
         return gm
     if isinstance(gm, DataflowGraph):
@@ -836,8 +855,9 @@ def _as_memory(gm, cfg: OverlayConfig, nx: int | None, ny: int | None):
             raise ValueError(
                 "simulating a raw DataflowGraph needs the PE grid: "
                 "pass nx= and ny=")
-        wants = schedulers.get(cfg.scheduler).wants_criticality_order
-        return build_graph_memory(gm, nx, ny, criticality_order=wants)
+        from ..place.api import graph_memory_for_config
+
+        return graph_memory_for_config(gm, nx, ny, cfg, device=device)
     raise TypeError(f"expected GraphMemory or DataflowGraph, got {type(gm)}")
 
 
@@ -848,7 +868,7 @@ def _simulate(gm: GraphMemory | DataflowGraph,
     """Run the overlay to completion on one device (behind
     :func:`repro_torch.run`)."""
     cfg = cfg or OverlayConfig()
-    gm = _as_memory(gm, cfg, nx, ny)
+    gm = _as_memory(gm, cfg, nx, ny, device)
     g = device_graph(gm, device)
     final = run_state(g, cfg, init_state(g, cfg))
     return _unpack_result(final, gm, cfg=cfg)
@@ -950,7 +970,7 @@ def _simulate_batch(gm: GraphMemory | DataflowGraph, cfgs, *,
                 "run(batch=) over a raw DataflowGraph needs schedulers with a "
                 "uniform wants_criticality_order; group configs by memory "
                 "layout or pass a pre-built GraphMemory")
-    gm = _as_memory(gm, cfgs[0], nx, ny)
+    gm = _as_memory(gm, cfgs[0], nx, ny, device)
     names = tuple(dict.fromkeys(c.scheduler for c in cfgs))
     base = dataclasses.replace(cfgs[0], scheduler=names[0],
                                select_latency=None,

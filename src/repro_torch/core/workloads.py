@@ -9,7 +9,8 @@ fine-grained operator DAG of a right-looking sparse LU factorization
 :func:`sparse_lu_graph`, :func:`banded_lu_graph` and
 :func:`elimination_tree_graph` are other factorization structures;
 :func:`layered_dag`, :func:`reduction_tree`, :func:`chain` and
-:func:`random_dag` are small DAGs for tests.
+:func:`random_dag` are small DAGs for tests. :func:`fig1_full` is the
+paper-scale sparse-LU DAG.
 
 Every generator draws from numpy's ``default_rng`` exactly as the reference
 package's does, so the same arguments give byte-equal graphs. The on-disk
@@ -227,6 +228,25 @@ def cached_graph(name: str, builder: Callable[[], DataflowGraph], *,
     g = builder()
     save_graph(g, path)
     return g
+
+
+def fig1_full(target_nodes: int = 470_000, seed: int = 0, *,
+              cache: bool = True, cache_dir: str | None = None) -> DataflowGraph:
+    """The paper's fig1-full-scale workload: a sparse-LU DAG near ~470K nodes
+    (502,447 at the default target).
+
+    ``(n, density)`` come from :func:`lu_size_for_nodes`, so the constructor
+    is calibrated rather than guessed; the result is cached on disk under
+    the reference's name (``fig1_full_lu_n<n>_d<density>_seed<seed>``), so a
+    graph either package built loads in the other. The elimination loop
+    takes minutes at this scale.
+    """
+    n, d = lu_size_for_nodes(target_nodes)
+    name = f"fig1_full_lu_n{n}_d{d}_seed{seed}"
+    builder = lambda: sparse_lu_graph(n, d, seed=seed)
+    if not cache:
+        return builder()
+    return cached_graph(name, builder, cache_dir=cache_dir)
 
 
 #: The Fig. 1 graph the telemetry CLI simulates, under the reference's cache

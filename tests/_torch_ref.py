@@ -69,11 +69,20 @@ GOLDENS = {"ooo": (1402, 2358), "inorder": (1507, 2508),
            "lru_flat": (1486, 2328), "scan": (8664, 161)}
 
 
-def run_reference(tmp_path_factory, name: str, body: str) -> dict:
+#: Selects the non-partitionable Threefry layout in the reference's process:
+#: the layout ``BENCH_overlay.json``'s placement goldens were recorded on,
+#: and the one :mod:`repro_torch.core.prng` follows.
+LEGACY_PRNG = 'jax.config.update("jax_threefry_partitionable", False)\n'
+
+
+def run_reference(tmp_path_factory, name: str, body: str, *,
+                  legacy_prng: bool = False) -> dict:
     """Run ``body`` (which fills the dict ``res``) under the reference in a
-    subprocess and return ``res`` as numpy arrays."""
+    subprocess and return ``res`` as numpy arrays. ``legacy_prng`` runs it
+    on the non-partitionable Threefry layout (:data:`LEGACY_PRNG`)."""
     out = tmp_path_factory.mktemp(name) / "reference.npz"
-    script = _PRELUDE + textwrap.dedent(body) + "\nnp.savez(sys.argv[1], **res)\n"
+    script = (_PRELUDE + (LEGACY_PRNG if legacy_prng else "")
+              + textwrap.dedent(body) + "\nnp.savez(sys.argv[1], **res)\n")
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", script, str(out)], env=env,
                           cwd=ROOT, capture_output=True, text=True, timeout=600)

@@ -679,3 +679,54 @@ def test_traced_eager_chunk_makes_no_host_sync(cuda, engine):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The placement annealer's kernel (kernels/csrc/anneal.cu).
+# ---------------------------------------------------------------------------
+
+ANNEAL_CASES = [((2, 4, 3), (2, 2), 1, 2, 0), ((2, 4, 3), (4, 4), 2, 3, 5),
+                ((2, 4, 3), (4, 4), 3, 1, 1), ((2, 8, 6), (8, 8), 8, 2, 2),
+                ((2, 8, 6), (8, 8), 40, 2, 4)]
+
+
+@pytest.mark.parametrize("args,grid,replicas,rounds,seed", ANNEAL_CASES)
+def test_anneal_kernel_equals_plain(cuda, args, grid, replicas, rounds, seed):
+    """Best placements, best costs and the init cost equal the plain
+    annealer's as integers; more than 32 replicas share warps."""
+    from repro_torch.kernels import anneal as ka
+    from repro_torch.place import anneal as pa
+    from repro_torch.place.spec import AnnealConfig
+
+    g = wl.arrow_lu_graph(*args, seed=3)
+    acfg = AnnealConfig(replicas=replicas, rounds=rounds, steps=24,
+                        seed=seed, t_max=200.0)
+    before = ka.launches["anneal"]
+    got = pa.anneal_placement(g, *grid, acfg)
+    assert ka.launches["anneal"] == before + 1
+    want = pa.anneal_placement(g, *grid, acfg, device="cpu")
+    np.testing.assert_array_equal(got.node_pe, want.node_pe)
+    np.testing.assert_array_equal(got.replica_costs, want.replica_costs)
+    assert got.init_cost == want.init_cost
+
+
+def test_anneal_kernel_many_ladders_and_bench_cost(cuda):
+    """One launch runs every ladder of ``anneal_placements``; the BENCH
+    n3689 search reaches the reference's cost 1,045,048."""
+    from repro_torch.kernels import anneal as ka
+    from repro_torch.place import anneal as pa
+    from repro_torch.place.spec import AnnealConfig
+
+    g = wl.arrow_lu_graph(2, 8, 6, seed=3)
+    acfgs = [AnnealConfig(replicas=8, rounds=2, steps=32, seed=s, t_max=t)
+             for s, t in ((0, 64.0), (1, 4.0), (2, 400.0))]
+    before = ka.launches["anneal"]
+    got = pa.anneal_placements(g, 8, 8, acfgs)
+    assert ka.launches["anneal"] == before + 1
+    for r, acfg in zip(got, acfgs):
+        want = pa.anneal_placement(g, 8, 8, acfg, device="cpu")
+        np.testing.assert_array_equal(r.node_pe, want.node_pe)
+        np.testing.assert_array_equal(r.replica_costs, want.replica_costs)
+    r = pa.anneal_placement(g, 8, 8, AnnealConfig(replicas=8, rounds=32,
+                                                  steps=1024, seed=0))
+    assert (r.init_cost, r.cost) == (1_104_696, 1_045_048)

@@ -21,6 +21,7 @@ from repro_torch.core import workloads as wl
 from repro_torch.core.graph import reference_evaluate
 from repro_torch.core.overlay import OverlayConfig
 from repro_torch.core.partition import GraphMemory, build_graph_memory
+from repro_torch.place import PlacementSpec
 
 GRAPHS = {"layered": lambda: wl.layered_dag(4, 6, seed=3),
           "arrow": lambda: wl.arrow_lu_graph(3, 6, 4, seed=5)}
@@ -146,17 +147,20 @@ def test_run_without_device_needs_cuda(monkeypatch, entry):
 
 def test_parts_not_ported_yet_raise():
     g = wl.layered_dag(3, 4, seed=1)
-    with pytest.raises(NotImplementedError, match="placement"):
-        OverlayConfig(placement="anneal")
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        OverlayConfig(placement="random")
+    # Placement is ported but for the surrogate-guided search.
+    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+        OverlayConfig(placement=PlacementSpec(strategy="anneal",
+                                              guide="surrogate"))
+    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+        OverlayConfig(placement=PlacementSpec(strategy="multilevel",
+                                              guide="surrogate"))
     # Telemetry is ported: what is not a TelemetrySpec is refused, as the
     # reference refuses it.
     with pytest.raises(TypeError, match="TelemetrySpec"):
         OverlayConfig(telemetry=object())
     with pytest.raises(ValueError, match="engine"):
         OverlayConfig(engine="xla")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
         repro_torch.run(g, mesh=object(), nx=2, ny=2, device="cpu")
 
 

@@ -142,6 +142,31 @@ Phases, each of which fails the run on any error (each prints its seconds):
      batched megakernel must have launched. Then the anneal kernel's device
      time (profiler) beside its plain version's on a short search, and at
      each BENCH row's budget (µs a step and a proposal);
+ 10c. surrogate: the anneal kernel's ``GUIDED`` instantiation (the
+     surrogate-guided search) against its plain version on the card, best
+     placements, best costs, init costs and every rung's cost evaluations
+     equal as integers: four graphs and grids (2x2, 4x2, 8x8, 16x16) x 1,
+     2 and 8 replicas x guide_every 1 and 3, margins 0, +inf and -2.5 and
+     one or two rounds cycling through the cases, per graph a coarse guide
+     on the quotient graph and a batch of three ladders; at +inf it must
+     equal the unguided kernel. Then the slice's main path under the
+     megakernel engine, counted: the BENCH ``surrogate`` rows n3689 (8x8)
+     and n10308 (16x16) — ``fit_from_sim`` (48 placements) equal to the
+     reference's placements and cycles
+     (``tests/fixtures/surrogate_golden.npz``), mu and sigma bit-equal,
+     beta within 1e-10 relative and gamma_q equal (with the distance of
+     gamma * 2^16 from a rounding boundary), the 64 held-out placements'
+     cycles, Spearman 0.9611 / 0.9424 and pruned = exhaustive best 807 /
+     1652, ``evaluate_placements(prune="surrogate", keep_top=8)``
+     simulating exactly the 8 ranked names — and the BENCH ``guided`` rows
+     (rounds x 2, margin 0.0): the fixture's placement, costs 1,043,717 /
+     2,282,179, cost evaluations 73,481 / 217,408 of 524,288 / 2,097,152
+     proposals, 652 / 1372 cycles (unguided 684 / 1448); the guided kernel
+     and the batched megakernel must have launched, every chunk on the
+     ``shared`` body. Then ``python -m repro_torch.surrogate --smoke`` in a
+     process of its own, and the guided kernel's device time (profiler)
+     beside its plain version's on a short search, and at each BENCH guided
+     budget beside the unguided kernel's (µs a step and a proposal);
  11. megakernel time: device time per K=32 chunk by CUDA events between
      chunks enqueued back to back (median over chunks) at n15072, n117972
      and n470772 for ``ooo`` and ``inorder``, the plain chunk's at n15072
@@ -227,6 +252,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -2176,14 +2202,16 @@ def sdpa_inputs(torch, q, k, v, causal, lens):
 FLASH_KERNELS = ("mma_kernel", "split_kernel", "combine_kernel", "simt_kernel")
 
 
-def kernel_us(torch, fn, n=20, names=FLASH_KERNELS):
+def kernel_us(torch, fn, n=20, names=FLASH_KERNELS, warmup=True):
     """Device us per launch of each kernel of ``names`` (by default the
     flash bodies') that ``fn`` launches, from ``torch.profiler`` over ``n``
     calls (averaged over the launches the profiler recorded, which may be
-    fewer than ``n``)."""
+    fewer than ``n``), after one call unprofiled unless ``warmup`` is
+    false."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
@@ -2927,6 +2955,480 @@ def anneal_times(torch, np, ka):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The surrogate (phase 10c): the guided anneal kernel, the BENCH surrogate
+# and guided rows, the smoke CLI.
+# ---------------------------------------------------------------------------
+
+#: Not a TPU kernel: the reference's guided search is one XLA scan.
+GUIDED_REPLACES = ("src/repro/place/anneal.py:297 (_anneal_guided_jit, an "
+                   "XLA scan)")
+SURROGATE_GOLDEN = ROOT / "tests" / "fixtures" / "surrogate_golden.npz"
+#: The BENCH ``surrogate`` rank rows and ``guided`` rows, by placement row
+#: (graph, grid and the unguided budget from PLACEMENT_ROWS): training-set
+#: cycles min/max, held-out Spearman (four digits), pruned = exhaustive
+#: best, the guided search's cost, cost evaluations and proposals (rounds
+#: x 2, margin 0.0) and its simulated cycles.
+SURROGATE_ROWS = {
+    "n3689": dict(train=(800, 3087), spearman=0.9611, best=807,
+                  cost=1_043_717, evals=73_481, proposals=524_288,
+                  cycles=652),
+    "n10308": dict(train=(1663, 5319), spearman=0.9424, best=1652,
+                   cost=2_282_179, evals=217_408, proposals=2_097_152,
+                   cycles=1372),
+}
+SURROGATE_TRAIN, SURROGATE_HELD, SURROGATE_KEEP = 48, 64, 8
+#: The reference's beta against the port's: the solves differ in their last
+#: bits (fault 5); gamma_q must be equal.
+BETA_RTOL = 1e-10
+#: The guided kernel against its plain version: (arrow_lu_graph args, grid)
+#: x replicas x guide_every, the margins and round counts cycling through
+#: the cases, 24 steps a round; a coarse guide and a batch of three ladders
+#: per graph. The 8x8 and 16x16 graphs take the fixture's fitted slopes,
+#: the others slopes drawn from a seed.
+GUIDED_GRAPHS = ((((2, 4, 3), (2, 2)), None), (((2, 4, 3), (4, 2)), None),
+                 (((2, 8, 6), (8, 8)), "n3689"),
+                 (((4, 8, 8), (16, 16)), "n10308"))
+GUIDED_REPLICAS = (1, 2, 8)
+GUIDED_EVERY = (1, 3)
+GUIDED_MARGINS = (0.0, float("inf"), -2.5)
+#: The timed guided search: n3689's ladder over 2 rounds of 64 steps (as
+#: ANNEAL_TIMED), the kernel and its plain version on the same inputs.
+GUIDED_TIMED = ("n3689", dict(replicas=8, rounds=2, steps=64, seed=0))
+
+
+def guide_for(np, golden, extractor, name, seed):
+    """A Guide over ``extractor``: the fixture's fitted slopes for a BENCH
+    row, else slopes drawn from ``seed``."""
+    from repro_torch.surrogate import delta as sd
+
+    if name is not None:
+        return sd.Guide(extractor=extractor, gamma_q=golden[f"{name}/gamma_q"])
+    rng = np.random.default_rng(seed)
+    return sd.Guide(extractor=extractor, gamma_q=rng.integers(
+        -(1 << 20), 1 << 20, extractor.num_features).astype(np.int64))
+
+
+def guided_case(torch, np, pa, ka, n, grid, tables, acfgs, guide, margin,
+                every):
+    """One guided search of ``acfgs`` (one ladder each) on the card by the
+    kernel and by the plain version; every rung's best placement, best
+    cost, the init cost and every rung's evals must be equal as integers.
+    At an open gate (+inf) the kernel must also equal the unguided kernel.
+    Returns the kernel's results."""
+    from repro_torch.core import prng
+    from repro_torch.surrogate import delta as sd
+
+    src, dst, w_edge, w_node = tables
+    nbr, w_inc, is_out = pa.incidence_from_edges(src, dst, w_edge, n)
+    inits = [pa._check_init(None, n, grid[0] * grid[1], a.seed)
+             for a in acfgs]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    tensors = (t(np.stack(inits)), t(nbr), t(w_inc), t(is_out),
+               t(np.asarray(w_node, np.int32)),
+               t(np.stack([pa._thresholds(a) for a in acfgs])),
+               torch.stack([prng.key(a.seed) for a in acfgs]).cuda())
+    knobs = dict(nx=grid[0], ny=grid[1], rounds=acfgs[0].rounds,
+                 steps=acfgs[0].steps,
+                 pressure_weight=acfgs[0].pressure_weight)
+    ga = sd.guide_arrays(guide)
+    q = sd.quantize_margin(margin)
+    got = ka.anneal_ladders(*tensors, **knobs, guide=ga, q_margin=q,
+                            guide_every=every)
+    want = ka.anneal_guided_plain(*tensors, sd.to_device(ga, "cuda"), q,
+                                  guide_every=every, **knobs)
+    torch.cuda.synchronize()
+    label = (f"{n} items on {grid}, "
+             f"{[dataclasses.astuple(a) for a in acfgs]}, margin {margin}, "
+             f"every {every}")
+    err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+              for a, b in zip(got, want))
+    if err != 0:
+        raise AssertionError(f"guided anneal kernel differs from its plain "
+                             f"version ({label}): max abs error {err}")
+    if margin == float("inf"):
+        plain = ka.anneal_ladders(*tensors, **knobs)
+        if any(not torch.equal(a, b) for a, b in zip(got[:3], plain)):
+            raise AssertionError(f"the open gate differs from the unguided "
+                                 f"kernel ({label})")
+        if not bool((got[3] == knobs["rounds"] * knobs["steps"]).all()):
+            raise AssertionError(f"the open gate's evals ({label})")
+    return got
+
+
+def check_guided(torch, np):
+    """The guided anneal kernel against its plain version (both on the
+    card): four graphs and grids (2x2, 4x2, 8x8, 16x16), 1, 2 and 8
+    replicas, guide_every 1 and 3, margins 0, +inf and -2.5, one and two
+    rounds (both exchange parities); per graph a coarse guide
+    (``Guide.coarsen``) on the quotient graph and a batch of three ladders.
+    Returns (max abs error, cases)."""
+    from repro_torch import surrogate
+    from repro_torch.core import workloads as wl
+    from repro_torch.kernels import anneal as ka
+    from repro_torch.place import anneal as pa
+    from repro_torch.place import coarsen
+    from repro_torch.place.cost import edge_tables
+    from repro_torch.place.spec import AnnealConfig
+
+    z = np.load(SURROGATE_GOLDEN)
+    cases = 0
+    for gi, ((args, grid), name) in enumerate(GUIDED_GRAPHS):
+        g = wl.arrow_lu_graph(*args, seed=3)
+        guide = guide_for(np, z, surrogate.build_features(g, *grid), name, gi)
+        tables = edge_tables(g)
+        for R in GUIDED_REPLICAS:
+            for every in GUIDED_EVERY:
+                margin = GUIDED_MARGINS[cases % len(GUIDED_MARGINS)]
+                rounds = 1 + cases % 2
+                guided_case(torch, np, pa, ka, g.num_nodes, grid, tables,
+                            [AnnealConfig(replicas=R, rounds=rounds,
+                                          steps=24, seed=gi, t_max=200.0)],
+                            guide, margin, every)
+                cases += 1
+        clusters = coarsen.cluster_nodes(g, 8)
+        ctables = coarsen.quotient_tables(g, clusters)
+        guided_case(torch, np, pa, ka, int(ctables[3].shape[0]), grid,
+                    ctables, [AnnealConfig(replicas=8, rounds=2, steps=24,
+                                           seed=1)],
+                    guide.coarsen(clusters), 0.0, 1)
+        guided_case(torch, np, pa, ka, g.num_nodes, grid, tables, [
+            AnnealConfig(replicas=8, rounds=3, steps=24, seed=s, t_max=t)
+            for s, t in ((0, 64.0), (1, 4.0), (2, 500.0))], guide, 0.0, 3)
+        cases += 2
+    print(f"guided anneal kernel equals its plain version in {cases} cases",
+          flush=True)
+    return 0, cases
+
+
+def beta_margin(np, beta, sigma):
+    """The smallest distance of ``gamma * 2**16`` from a half integer (a
+    rounding boundary of gamma_q), over the features."""
+    from repro_torch.surrogate.delta import GUIDE_SCALE
+
+    gam = np.asarray(beta) / np.asarray(sigma) * GUIDE_SCALE
+    return float(np.min(np.abs(gam - np.floor(gam) - 0.5)))
+
+
+def surrogate_rows(torch, np, ka, mk):
+    """The slice's main path: the BENCH ``surrogate`` rank rows and
+    ``guided`` rows under the megakernel engine, counted (the launch counts
+    set to 0 just before, read just after). Per row: ``fit_from_sim`` (48
+    placements, seed 0) equal to the fixture's placements and cycles, the
+    fit's mu and sigma bit-equal, beta within BETA_RTOL and gamma_q equal;
+    the 64 held-out placements (seed 101) equal, their cycles the fixture's,
+    Spearman and pruned = exhaustive best the BENCH values;
+    ``evaluate_placements(prune="surrogate", keep_top=8)`` simulating
+    exactly the 8 ranked names; the guided search (rounds x 2, margin 0.0)
+    equal to the fixture's placement, cost, cost_evals and proposals, and
+    its placement's simulated cycles the BENCH value, against the unguided
+    placement's (phase 10b's, PLACEMENT_ROWS). Every placed memory must
+    take the megakernel's ``shared`` body. Returns (counts, {row: walls})."""
+    from repro_torch import place, surrogate
+    from repro_torch.core import workloads as wl
+    from repro_torch.core.overlay import OverlayConfig
+    from repro_torch.place.spec import AnnealConfig
+    from repro_torch.surrogate import delta as sd
+
+    z = np.load(SURROGATE_GOLDEN)
+    cfg = OverlayConfig(scheduler="ooo", max_cycles=4_000_000,
+                        engine="megakernel")
+    graphs = {name: wl.arrow_lu_graph(*args[:3], seed=args[3])
+              for name, (args, *_) in PLACEMENT_ROWS.items()}
+    for k in (ka, mk):
+        k.reset_launches()
+    walls = {}
+    for name, want in SURROGATE_ROWS.items():
+        args, (nx, ny), kw, cycles, _ = PLACEMENT_ROWS[name]
+        g, w = graphs[name], {}
+        key = lambda k: z[f"{name}/{k}"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model, train, train_cycles = surrogate.fit_from_sim(
+            g, nx, ny, cfg=cfg, n_train=SURROGATE_TRAIN, seed=0)
+        w["fit"] = time.perf_counter() - t
+        gamma_q = sd.build_guide(model).gamma_q
+        beta_rel = float(np.max(np.abs(model.beta - key("beta"))
+                                / np.abs(key("beta"))))
+        margin = beta_margin(np, model.beta, model.sigma)
+        print(f"surrogate {name}: fit on {SURROGATE_TRAIN} in {w['fit']:.2f} "
+              f"s, training cycles {train_cycles.min()}..{train_cycles.max()} "
+              f"(BENCH {want['train']}), beta max relative error "
+              f"{beta_rel:.3e} (tolerance {BETA_RTOL}), gamma_q equal "
+              f"{np.array_equal(gamma_q, key('gamma_q'))}, gamma * 2^16 "
+              f"{margin:.6f} from a rounding boundary", flush=True)
+        if not (np.array_equal(train, key("train/node_pe"))
+                and np.array_equal(train_cycles, key("train/cycles"))
+                and (train_cycles.min(), train_cycles.max()) == want["train"]
+                and np.array_equal(model.mu, key("mu"))
+                and np.array_equal(model.sigma, key("sigma"))
+                and beta_rel <= BETA_RTOL
+                and np.array_equal(gamma_q, key("gamma_q"))):
+            raise AssertionError(f"surrogate {name}: the fit differs from "
+                                 f"the reference's")
+        t = time.perf_counter()
+        held = surrogate.sample_placements(
+            g, nx, ny, SURROGATE_HELD, seed=101, include_static=False)
+        res = place.simulate_placements(g, nx, ny, list(held), cfg)
+        held_cycles = np.asarray([r.cycles for r in res])
+        w["held"] = time.perf_counter() - t
+        rho = surrogate.spearman(model.predict_batch(held), held_cycles)
+        keep = model.rank(held)[:SURROGATE_KEEP]
+        best = (int(held_cycles[keep].min()), int(held_cycles.min()))
+        print(f"surrogate {name}: {SURROGATE_HELD} held-out simulated in "
+              f"{w['held']:.2f} s, Spearman {rho:.4f} (BENCH "
+              f"{want['spearman']}), pruned best {best[0]}, exhaustive "
+              f"{best[1]} (BENCH {want['best']})", flush=True)
+        if not (np.array_equal(held, key("held/node_pe"))
+                and all(r.done for r in res)
+                and np.array_equal(held_cycles, key("held/cycles"))
+                and round(rho, 4) == want["spearman"]
+                and best == (want["best"], want["best"])):
+            raise AssertionError(f"surrogate {name}: the held-out rows "
+                                 f"differ from BENCH")
+        t = time.perf_counter()
+        names = {f"cand{i}": p for i, p in enumerate(held)}
+        pruned = place.evaluate_placements(
+            g, nx, ny, names, cfgs=cfg, prune="surrogate",
+            keep_top=SURROGATE_KEEP, surrogate=model)
+        w["pruned"] = time.perf_counter() - t
+        if (list(pruned) != [f"cand{i}" for i in keep]
+                or [r.cycles for r in pruned.values()]
+                != held_cycles[keep].tolist()):
+            raise AssertionError(f"surrogate {name}: the pruned evaluation "
+                                 f"did not simulate the ranked names")
+        acfg = AnnealConfig(**kw)
+        gcfg = dataclasses.replace(acfg, rounds=2 * acfg.rounds)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        guided = place.anneal_placement(g, nx, ny, gcfg, guide=model,
+                                        guide_margin=0.0)
+        w["guided"] = time.perf_counter() - t
+        sim = place.evaluate_placements(g, nx, ny,
+                                        {"guided": guided.node_pe},
+                                        cfgs=cfg)["guided"]
+        unguided = acfg.replicas * acfg.rounds * acfg.steps
+        ratio = guided.cost_evals / unguided
+        print(f"guided {name}: cost {guided.init_cost} -> {guided.cost} "
+              f"(BENCH {want['cost']}), cost_evals {guided.cost_evals} of "
+              f"{guided.proposals} proposals (BENCH {want['evals']} of "
+              f"{want['proposals']}), eval ratio {ratio:.4f} against the "
+              f"unguided budget {unguided}, cycles {sim.cycles} (BENCH "
+              f"{want['cycles']}; unguided {cycles['annealed']}), search "
+              f"wall {w['guided']:.3f} s", flush=True)
+        if not (np.array_equal(guided.node_pe, key("guided/node_pe"))
+                and np.array_equal(guided.replica_costs,
+                                   key("guided/replica_costs"))
+                and guided.cost == want["cost"]
+                and guided.cost_evals == want["evals"]
+                and guided.proposals == want["proposals"]
+                and sim.done and sim.cycles == want["cycles"]
+                and sim.cycles <= cycles["annealed"] and ratio <= 0.5):
+            raise AssertionError(f"guided {name}: differs from BENCH")
+        walls[name] = w
+    counts = dict(ka.launches, **mk.launches)
+    print(f"surrogate kernel launches: {counts}", flush=True)
+    for k in ("anneal_guided", "mega_chunk_batched", "mega_chunk_shared"):
+        if counts[k] == 0:
+            raise AssertionError(f"the surrogate path never launched {k}")
+    if counts["mega_chunk_global"]:
+        raise AssertionError("a placed memory took the global body")
+    return counts, walls
+
+
+def surrogate_cli():
+    """``python -m repro_torch.surrogate --smoke`` on the card, in a process
+    of its own; prints its line and seconds."""
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.surrogate", "--smoke"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    if proc.returncode != 0:
+        raise AssertionError(f"the surrogate smoke failed:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    print(f"{proc.stdout.strip()} ({time.perf_counter() - t:.1f} s)",
+          flush=True)
+
+
+def guided_times(torch, np, ka):
+    """The guided kernel's device time (profiler) on the timed search
+    beside its plain version's (CUDA events) on the same inputs, and at
+    each BENCH guided budget (rounds x 2) beside the unguided kernel's at
+    the same budget: ms, µs a step and a proposal. Returns the kernels-line
+    fields."""
+    from repro_torch import surrogate
+    from repro_torch.core import prng
+    from repro_torch.core import workloads as wl
+    from repro_torch.place import anneal as pa
+    from repro_torch.place.cost import edge_tables
+    from repro_torch.place.spec import AnnealConfig
+    from repro_torch.surrogate import delta as sd
+
+    z = np.load(SURROGATE_GOLDEN)
+
+    def inputs(name, acfg):
+        args, (nx, ny), *_ = PLACEMENT_ROWS[name]
+        g = wl.arrow_lu_graph(*args[:3], seed=args[3])
+        src, dst, w_edge, w_node = edge_tables(g)
+        tabs = pa.incidence_from_edges(src, dst, w_edge, g.num_nodes)
+        init = pa._check_init(None, g.num_nodes, nx * ny, acfg.seed)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+        tensors = (t(init[None]), *map(t, tabs), t(w_node),
+                   t(pa._thresholds(acfg)[None]),
+                   prng.key(acfg.seed)[None].cuda())
+        knobs = dict(nx=nx, ny=ny, rounds=acfg.rounds, steps=acfg.steps,
+                     pressure_weight=acfg.pressure_weight)
+        ga = sd.guide_arrays(guide_for(np, z, surrogate.build_features(
+            g, nx, ny), name, 0))
+        return g, tabs, ga, tensors, knobs
+
+    def events_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+        return statistics.median(out)
+
+    name, kw = GUIDED_TIMED
+    acfg = AnnealConfig(**kw)
+    g, (nbr, w_inc, is_out), ga, tensors, knobs = inputs(name, acfg)
+    gk = dict(guide=ga, q_margin=0, guide_every=1)
+    search = lambda: ka.anneal_ladders(*tensors, **knobs, **gk)
+    ms = kernel_us(torch, search, 5,
+                   ("anneal_kernel<true>",))["anneal_kernel<true>"] / 1e3
+    call_ms = events_ms(search, 5)
+    ga_dev = sd.to_device(ga, "cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = ka.anneal_guided_plain(*tensors, ga_dev, 0, guide_every=1,
+                                  **knobs)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    if any(not torch.equal(a, b) for a, b in zip(search(), want)):
+        raise AssertionError("the timed guided search differs from its "
+                             "plain version")
+    steps = acfg.rounds * acfg.steps
+    proposals = steps * acfg.replicas
+    n, R, P = g.num_nodes, acfg.replicas, knobs["nx"] * knobs["ny"]
+    # bytes: each input read once (init, both incidence tables, the weights,
+    # the guide's tables and slopes, thresholds, keys), each output written
+    # once (every rung's best placement, cost and evals, the init cost)
+    guide_bytes = sum(np.asarray(a).nbytes for a in (
+        ga.nbr, ga.out_inc, ga.w_inc, ga.c_inc, ga.u_inc, ga.w_node,
+        ga.n_unit, ga.w_bucket, ga.gamma_q))
+    nbytes = (4 * n + nbr.nbytes + w_inc.nbytes + is_out.nbytes + 4 * n
+              + guide_bytes + 8 * R + 16 + 4 * R * n + 16 * R + 8)
+    ops = proposals * THREEFRY_OPS
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / SCALAR_OPS_PER_S * 1e3
+    out = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+               bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               shape=dict(row=name, n=n, grid=[knobs["nx"], knobs["ny"]],
+                          margin=0.0, guide_every=1, **kw),
+               us_per_step=ms * 1e3 / steps,
+               us_per_proposal=ms * 1e3 / proposals,
+               plain_us_per_step=plain_ms * 1e3 / steps)
+    print(f"guided anneal time {name} R={R} {acfg.rounds}x{acfg.steps}: "
+          f"kernel {ms:.3f} ms ({out['us_per_step']:.3f} us a step, "
+          f"{out['us_per_proposal']:.3f} us a proposal), search "
+          f"{call_ms:.3f} ms, plain {plain_ms:.1f} ms "
+          f"({out['plain_us_per_step']:.1f} us a step), bound "
+          f"{out['bound_ms'] * 1e3:.3f} us ({out['bound_by']}: bytes "
+          f"{bytes_ms * 1e3:.3f} us, operations {ops_ms * 1e3:.3f} us), "
+          f"P={P}", flush=True)
+    rows = {}
+    for row, (_, _, kw_row, _, _) in PLACEMENT_ROWS.items():
+        base = AnnealConfig(**kw_row)
+        acfg = dataclasses.replace(base, rounds=2 * base.rounds)
+        g, (nbr, *_), ga, tensors, knobs = inputs(row, acfg)
+        # one profiled search each (the library is loaded by now)
+        guided = kernel_us(torch, lambda: ka.anneal_ladders(
+            *tensors, **knobs, guide=ga, q_margin=0, guide_every=1), 1,
+            ("anneal_kernel<true>",), warmup=False)["anneal_kernel<true>"] / 1e3
+        unguided = kernel_us(torch, lambda: ka.anneal_ladders(
+            *tensors, **knobs), 1, ("anneal_kernel<false>",),
+            warmup=False)["anneal_kernel<false>"] / 1e3
+        # both plain versions a step, on one round of 16 steps at the row's
+        # shapes
+        short = dict(knobs, rounds=1, steps=16)
+        ga_dev = sd.to_device(ga, "cuda")
+        plain_us = {}
+        for tag, fn in (("unguided", lambda: ka.anneal_plain(*tensors,
+                                                             **short)),
+                        ("guided", lambda: ka.anneal_guided_plain(
+                            *tensors, ga_dev, 0, guide_every=1, **short))):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            plain_us[tag] = start.elapsed_time(end) * 1e3 / 16
+        steps = acfg.rounds * acfg.steps
+        n, D, Dg = g.num_nodes, int(nbr.shape[1]), int(ga.nbr.shape[1])
+        P, R = knobs["nx"] * knobs["ny"], acfg.replicas
+        # the BENCH budgets' bounds (inputs once, outputs once, against the
+        # Threefry operations), unguided at the placement row's budget
+        io = {"unguided": 4 * n + 9 * n * D + 4 * n + 8 * R + 16
+              + 4 * R * n + 8 * R + 8}
+        io["guided"] = io["unguided"] + sum(np.asarray(a).nbytes for a in (
+            ga.nbr, ga.out_inc, ga.w_inc, ga.c_inc, ga.u_inc, ga.w_node,
+            ga.n_unit, ga.w_bucket, ga.gamma_q)) + 8 * R
+        bound = {}
+        for tag, nsteps in (("unguided", steps // 2), ("guided", steps)):
+            b_ms = io[tag] / HBM_BYTES_PER_S * 1e3
+            o_ms = nsteps * R * THREEFRY_OPS / SCALAR_OPS_PER_S * 1e3
+            bound[tag] = (max(b_ms, o_ms),
+                          "bytes" if b_ms >= o_ms else "operations")
+        # what a replica's step touches at least: its incidence row(s), the
+        # neighbours' PEs, two loads, a commit; guided also the guide's row
+        # (29 bytes an entry), the state's 12P + nx + ny words read and the
+        # 29 features read and written
+        touched = {"unguided": 13 * D + 24}
+        touched["guided"] = (touched["unguided"] + 29 * Dg
+                             + 8 * (12 * P + knobs["nx"] + knobs["ny"])
+                             + 16 * 29)
+        rows[row] = dict(
+            ms=guided, unguided_ms=unguided, steps=steps,
+            us_per_step=guided * 1e3 / steps,
+            us_per_proposal=guided * 1e3 / steps / R,
+            unguided_us_per_step=unguided * 1e3 / steps,
+            plain_us_per_step=plain_us["guided"],
+            unguided_plain_us_per_step=plain_us["unguided"],
+            bound_ms=bound["guided"][0], bound_by=bound["guided"][1],
+            unguided_bound_ms=bound["unguided"][0],
+            unguided_bound_by=bound["unguided"][1],
+            touched_bytes_per_step={k: R * v for k, v in touched.items()},
+            degree=D, guide_degree=Dg)
+        print(f"guided anneal time {row} (BENCH guided budget, "
+              f"R={R} {acfg.rounds}x{acfg.steps}): {guided:.2f} ms, "
+              f"{rows[row]['us_per_step']:.3f} us a step, "
+              f"{rows[row]['us_per_proposal']:.3f} us a proposal; unguided "
+              f"kernel {unguided:.2f} ms, "
+              f"{rows[row]['unguided_us_per_step']:.3f} us a step; plain "
+              f"{plain_us['guided']:.1f} us a step guided, "
+              f"{plain_us['unguided']:.1f} unguided (1 x 16 steps); bound "
+              f"{bound['guided'][0] * 1e3:.3f} us ({bound['guided'][1]}) "
+              f"guided, {bound['unguided'][0] * 1e3:.3f} us "
+              f"({bound['unguided'][1]}) unguided at {steps // 2} steps; a "
+              f"step touches {R * touched['guided']} bytes guided, "
+              f"{R * touched['unguided']} unguided (D {D}, guide D {Dg})",
+              flush=True)
+    out["rows"] = rows
+    return out
+
+
 def build_all(_build, sources):
     """Compile every source at once, one nvcc each; print ptxas lines."""
     t = time.perf_counter()
@@ -3053,6 +3555,13 @@ def run_phases(torch, np, args, pool) -> int:
         "placement rows", placement_rows, torch, np, graphs, ka, lod, mk,
         fig1_job)
     anneal_t = phase("anneal time", anneal_times, torch, np, ka)
+    guided_err, guided_cases = phase("guided anneal check", check_guided,
+                                     torch, np)
+    surrogate_counts, surrogate_walls = phase("surrogate rows",
+                                              surrogate_rows, torch, np, ka,
+                                              mk)
+    phase("surrogate smoke", surrogate_cli)
+    guided_t = phase("guided anneal time", guided_times, torch, np, ka)
 
     mega_timed = phase("megakernel time", megakernel_times, torch, graphs, mk)
     scaling = phase("batch scaling", batch_scaling, torch, graphs, mk,
@@ -3136,6 +3645,21 @@ def run_phases(torch, np, args, pool) -> int:
         rows=anneal_t["rows"], search_walls_s=place_walls,
         placement_launches={k: place_counts[k] for k in (
             "schedule_step", "mega_chunk_batched", "mega_chunk_shared",
+            "mega_chunk_global")}))
+    line.append(dict(
+        name="anneal_guided", route="cuda", source=ANNEAL_SOURCE,
+        replaces=GUIDED_REPLACES,
+        launches=surrogate_counts["anneal_guided"], max_abs_err=guided_err,
+        equal=guided_err == 0, ms=guided_t["ms"],
+        plain_ms=guided_t["plain_ms"], bound_ms=guided_t["bound_ms"],
+        bound_by=guided_t["bound_by"], library_ms=None,
+        call_ms=guided_t["call_ms"], shape=guided_t["shape"],
+        cases=guided_cases, us_per_step=guided_t["us_per_step"],
+        us_per_proposal=guided_t["us_per_proposal"],
+        plain_us_per_step=guided_t["plain_us_per_step"],
+        rows=guided_t["rows"], walls_s=surrogate_walls,
+        surrogate_launches={k: surrogate_counts[k] for k in (
+            "mega_chunk_batched", "mega_chunk_shared",
             "mega_chunk_global")}))
     # The card's line again, where a reader of the output's tail finds it.
     print(card_line(), flush=True)

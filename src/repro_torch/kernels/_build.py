@@ -37,9 +37,11 @@ SIGNATURES = {
     "megakernel.cu": {
         "mega_chunk": (_P, _I, _P),
     },
-    # anneal_rounds(const AnnealArgs* args, int ladders, void* stream)
+    # anneal_rounds(const AnnealArgs* args, int ladders, void* stream);
+    # anneal_guided_rounds(args, const GuideArgs* guide, ladders, stream)
     "anneal.cu": {
         "anneal_rounds": (_P, _I, _P),
+        "anneal_guided_rounds": (_P, _P, _I, _P),
     },
     # flash_attention_fwd / _combine(const FlashArgs* args, void* stream);
     # flash_attention_ex2_error(s, mx, cols, n, scale, out, stream)

@@ -19,6 +19,13 @@ graphs (~10^8 nodes a search) cannot carry. The wrapper
     the host, and launches the kernel once on the current stream, or
     raises. There is no fallback.
 
+The surrogate-guided search (the reference's ``_anneal_guided_jit``, also
+an XLA scan) is the kernel's ``GUIDED`` instantiation: each slot also
+carries its guide state (per-PE loads, counts, inject and eject, the depth
+histogram, the rings and the 29 features, int64, in device memory), built
+with torch ops (``state_init`` on the card); on the CPU the wrapper runs
+:func:`repro_torch.place.anneal.anneal_guided_plain`.
+
 :data:`launches` counts kernel launches, so a run can show that its search
 went through the kernel.
 """
@@ -34,13 +41,15 @@ from . import _build
 
 SOURCE = "anneal.cu"
 
-#: Kernel launches since the last :func:`reset_launches`.
-launches: dict[str, int] = {"anneal": 0}
+#: Kernel launches since the last :func:`reset_launches` (the guided
+#: search's under ``"anneal_guided"``).
+launches: dict[str, int] = {"anneal": 0, "anneal_guided": 0}
 
 #: Rungs a ladder may have (the kernel's shared-memory tables).
 MAX_REPLICAS = 1024
 
 anneal_plain = place_anneal.anneal_plain
+anneal_guided_plain = place_anneal.anneal_guided_plain
 
 
 def reset_launches() -> None:
@@ -57,6 +66,13 @@ class _Args(ctypes.Structure):
         "thresh", "best_pe", "best_cost")] + [
         (n, _I) for n in ("n", "d", "nx", "ny", "replicas", "rounds",
                           "steps")] + [("pw", _L)]
+
+
+class _GuideArgs(ctypes.Structure):
+    _fields_ = [(n, _P) for n in (
+        "nbr", "is_out", "w_inc", "c_inc", "u_inc", "w_node", "n_unit",
+        "w_bucket", "gamma", "state", "evals")] + [("margin", _L)] + [
+        (n, _I) for n in ("d", "every")]
 
 
 def _check(init_pe, nbr, w_inc, is_out, w_node, thresholds, keys):
@@ -88,21 +104,41 @@ def _check(init_pe, nbr, w_inc, is_out, w_node, thresholds, keys):
 
 def anneal_ladders(init_pe, nbr, w_inc, is_out, w_node, thresholds, keys, *,
                    nx: int, ny: int, rounds: int, steps: int,
-                   pressure_weight: int):
+                   pressure_weight: int, guide=None, q_margin: int = 0,
+                   guide_every: int = 1):
     """``Q`` ladders of ``R`` rungs: ``init_pe`` [Q, N] int32, the item
     set's padded incidence tables ``nbr``/``w_inc``/``is_out`` [N, D]
     (int32, int32, bool), ``w_node`` [N] int32, ``thresholds`` [Q, R]
     int64, ``keys`` [Q, 2] int64 (each ladder's root key words).
 
     Returns (``best_pe`` [Q, R, N] int32, ``best_cost`` [Q, R] int64,
-    ``init_cost`` [Q] int64), equal to the reference's on every device."""
+    ``init_cost`` [Q] int64), equal to the reference's on every device.
+
+    With ``guide`` (:class:`repro_torch.surrogate.delta.GuideArrays` for the
+    same items and grid) the search is the surrogate-guided one
+    (:func:`repro_torch.place.anneal.anneal_guided_plain`: the gate
+    ``dscore <= q_margin``, int64, on the steps ``j % guide_every == 0`` of
+    each round), and the returns gain ``evals`` [Q, R] int64, the promising
+    proposals of each rung. The ladders share the guide and the margin."""
     Q, N, D, R = _check(init_pe, nbr, w_inc, is_out, w_node, thresholds,
                         keys)
     knobs = dict(nx=nx, ny=ny, rounds=rounds, steps=steps,
                  pressure_weight=pressure_weight)
+    if guide is not None:
+        if guide_every < 1:
+            raise ValueError(f"guide_every must be >= 1, got {guide_every}")
+        if guide.w_node.shape[0] != N:
+            raise ValueError(f"the guide is for {guide.w_node.shape[0]} "
+                             f"items, the search places {N}")
+        if not -2 ** 63 <= int(q_margin) < 2 ** 63:
+            raise ValueError(f"q_margin {q_margin} is not an int64")
     if init_pe.device.type == "cpu":
-        return anneal_plain(init_pe, nbr, w_inc, is_out, w_node, thresholds,
-                            keys, **knobs)
+        if guide is None:
+            return anneal_plain(init_pe, nbr, w_inc, is_out, w_node,
+                                thresholds, keys, **knobs)
+        return anneal_guided_plain(init_pe, nbr, w_inc, is_out, w_node,
+                                   thresholds, keys, guide, int(q_margin),
+                                   guide_every=int(guide_every), **knobs)
     if R > MAX_REPLICAS:
         raise ValueError(f"the anneal kernel takes at most {MAX_REPLICAS} "
                          f"replicas, got {R}")
@@ -122,11 +158,46 @@ def anneal_ladders(init_pe, nbr, w_inc, is_out, w_node, thresholds, keys, *,
     args = _Args(**{k: v.data_ptr() for k, v in out.items()},
                  n=N, d=D, nx=nx, ny=ny, replicas=R, rounds=rounds,
                  steps=steps, pw=int(pressure_weight))
-    fn = _build.library(SOURCE).anneal_rounds
-    launches["anneal"] += 1
+    lib = _build.library(SOURCE)
     with torch.cuda.device(init_pe.device):
-        rc = fn(ctypes.byref(args), Q,
-                torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if guide is None:
+            launches["anneal"] += 1
+            rc = lib.anneal_rounds(ctypes.byref(args), Q, stream)
+        else:
+            gargs, keep = _guide_args(guide, pe, nx, ny, int(q_margin),
+                                      int(guide_every))
+            launches["anneal_guided"] += 1
+            rc = lib.anneal_guided_rounds(ctypes.byref(args),
+                                          ctypes.byref(gargs), Q, stream)
     if rc != 0:
         raise RuntimeError(f"anneal kernel launch failed: CUDA error {rc}")
-    return best_pe, best_cost, init_cost
+    if guide is None:
+        return best_pe, best_cost, init_cost
+    return best_pe, best_cost, init_cost, keep["evals"]
+
+
+def _guide_args(guide, pe, nx: int, ny: int, q_margin: int, every: int):
+    """The guided kernel's arguments: the guide's tables on ``pe``'s device
+    and every slot's start guide state (``state_init`` of the ladders'
+    start placements ``pe`` [Q, R, N], on the card). Returns the ctypes
+    struct and the tensors it points at (kept alive by the caller)."""
+    from ..surrogate import delta
+
+    ga = delta.to_device(guide, pe.device)
+    st = delta.state_init(ga, pe, nx=nx, ny=ny)
+    state = torch.cat([st.loads, st.counts, st.inject, st.eject,
+                       st.lvl.flatten(-2), st.ring_x, st.ring_y, st.feats],
+                      -1).contiguous()
+    keep = dict(nbr=ga.nbr.to(torch.int32).contiguous(),
+                is_out=ga.out_inc.contiguous(),
+                w_inc=ga.w_inc.contiguous(), c_inc=ga.c_inc.contiguous(),
+                u_inc=ga.u_inc.contiguous(), w_node=ga.w_node.contiguous(),
+                n_unit=ga.n_unit.contiguous(),
+                w_bucket=ga.w_bucket.contiguous(),
+                gamma=ga.gamma_q.contiguous(), state=state,
+                evals=torch.zeros(pe.shape[:2], dtype=torch.int64,
+                                  device=pe.device))
+    gargs = _GuideArgs(**{k: v.data_ptr() for k, v in keep.items()},
+                       margin=q_margin, d=int(ga.nbr.shape[-1]), every=every)
+    return gargs, keep

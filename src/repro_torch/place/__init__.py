@@ -19,12 +19,15 @@ criticality order each PE's local memory lists them (paper §II).
     cycle-count evaluation through the batched engine, the config
     hillclimb).
 
-Not ported yet: the surrogate-guided search (``guide=``, ``prune=``;
-ROADMAP queue 1, item 6) and evaluation over a mesh (``mesh=``, item 4).
+The surrogate-guided search (``guide=``, ``PlacementSpec(guide=
+"surrogate")``) and the surrogate's pruning (``prune="surrogate"``) use
+:mod:`repro_torch.surrogate`. Not ported yet: evaluation over a mesh
+(``mesh=``, ROADMAP queue 1, item 4).
 Identity placement (``OverlayConfig(placement=None)``) is the default
 everywhere. ``python -m repro_torch.place`` runs the placement smoke.
 """
 from .anneal import (  # noqa: F401
+    GuidedPlacementResult,
     PlacementResult,
     anneal_placement,
     anneal_placements,

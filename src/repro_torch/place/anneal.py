@@ -30,8 +30,9 @@ Engines: the search of ``Q`` ladders (:func:`anneal_tables_many`; one for
 :func:`repro_torch.kernels.anneal.anneal_ladders`, which launches the CUDA
 kernel of ``kernels/csrc/anneal.cu`` for tensors on the card and runs
 :func:`anneal_plain` — torch ops over ``[Q, R, N]`` — for tensors on the
-CPU. The surrogate-guided search is not ported yet (ROADMAP queue 1,
-item 6): ``guide=`` raises.
+CPU. The surrogate-guided search (``guide=``) runs the same way: the
+kernel's ``GUIDED`` instantiation on the card, :func:`anneal_guided_plain`
+on the CPU.
 """
 from __future__ import annotations
 
@@ -44,7 +45,7 @@ from ..api import resolve_device
 from ..core import prng
 from ..core.graph import DataflowGraph
 from .cost import CostModel, build_cost_model, edge_endpoints, torus_hops
-from .spec import GUIDE_NOT_PORTED, AnnealConfig
+from .spec import AnnealConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +60,29 @@ class PlacementResult:
     @property
     def improvement(self) -> float:
         return 1.0 - self.cost / max(1, self.init_cost)
+
+
+@dataclasses.dataclass(frozen=True)
+class GuidedPlacementResult(PlacementResult):
+    """:class:`PlacementResult` of a surrogate-guided search.
+
+    ``cost_evals`` counts the proposals that passed the surrogate gate and
+    therefore reached the integer cost/accept rule (ungated proposals under
+    ``guide_every > 1`` count too); ``proposals`` is the total budget
+    ``replicas * rounds * steps`` — what an *unguided* run of the same
+    config would have cost-evaluated. Both are exact deterministic integers.
+
+    The counter is an *accounting* metric: every proposal still pays its
+    cost delta and, in addition, the O(degree) + O(P) surrogate update, so
+    a guided proposal takes more time than an unguided one, not less.
+    """
+
+    cost_evals: int = 0
+    proposals: int = 0
+
+    @property
+    def eval_ratio(self) -> float:
+        return self.cost_evals / max(1, self.proposals)
 
 
 def incidence_table(g: DataflowGraph, w_edge: np.ndarray):
@@ -296,6 +320,82 @@ def anneal_plain(init_pe, nbr, w_inc, is_out, w_node, thresholds, keys, *,
     return best_pe, best_cost, cost0[:, 0]
 
 
+def anneal_guided_plain(init_pe, nbr, w_inc, is_out, w_node, thresholds,
+                        keys, ga, q_margin: int, *, nx: int, ny: int,
+                        rounds: int, steps: int, pressure_weight: int,
+                        guide_every: int):
+    """The reference's ``_anneal_guided_jit`` over ``Q`` ladders, in torch
+    ops: :func:`anneal_plain` with the two-stage accept.
+
+    Every proposal is first scored by the integer-quantized surrogate through
+    the O(degree) incremental feature update
+    (:func:`repro_torch.surrogate.delta.apply_move`, over the guide's tables
+    ``ga``); on the round's steps ``j`` with ``j % guide_every == 0`` only
+    proposals with ``dscore <= q_margin`` (int64) are *promising*, on the
+    others every proposal is. Only promising proposals reach the unguided
+    search's integer cost/accept rule; ``evals`` counts them per rung (the
+    counter belongs to the rung and is not permuted by the exchange, while
+    the guide state travels with its configuration). The key chain, the cost
+    arithmetic, the best tracking and the exchange are :func:`anneal_plain`'s,
+    so with the gate wide open (``q_margin`` = int64 max) the search equals
+    it.
+
+    Returns (``best_pe`` [Q, R, N] int32, ``best_cost`` [Q, R] int64,
+    ``init_cost`` [Q] int64, ``evals`` [Q, R] int64). The plain version of
+    the kernel's ``GUIDED`` instantiation."""
+    from ..surrogate.delta import (GuideState, apply_move, state_init,
+                                   to_device)
+
+    Q, N = init_pe.shape
+    R = thresholds.shape[-1]
+    P = nx * ny
+    pw = int(pressure_weight)
+    pe, load, cost = ladder_start(init_pe, nbr, w_inc, is_out, w_node, R,
+                                  nx, ny, pw)
+    cost0, best_pe, best_cost = cost, pe.clone(), cost
+    ga = to_device(ga, pe.device)
+    gst = state_init(ga, pe, nx=nx, ny=ny)
+    evals = torch.zeros(Q, R, dtype=torch.int64, device=pe.device)
+    keys = prng.split(keys, R)                          # [Q, R, 2]
+    thresholds = thresholds.to(torch.int64)
+    zero = torch.zeros((), dtype=torch.int64, device=pe.device)
+    ladders = torch.arange(Q, device=pe.device).unsqueeze(-1)
+    for rnd in range(rounds):
+        items, pes, keys = round_proposals(keys, steps, N, P)
+        for j in range(steps):
+            i, q = items[j].to(torch.int64), pes[j].to(torch.int64)
+            # stage 1: the surrogate gate (exact incremental features)
+            new, dscore = apply_move(ga, gst, pe, i, q, nx=nx, ny=ny)
+            if j % guide_every == 0:
+                promising = dscore <= q_margin
+            else:
+                promising = torch.ones_like(dscore, dtype=torch.bool)
+            # stage 2: the unguided search's integer cost/threshold accept
+            delta, p, wn = _move_delta(pe, load, i, q, nbr, w_inc, is_out,
+                                       w_node, pw, nx, ny)
+            accept = promising & (delta <= thresholds) & (p != q)
+            pe.scatter_(-1, i.unsqueeze(-1),
+                        torch.where(accept, q, p).to(torch.int32).unsqueeze(-1))
+            load.scatter_add_(-1, p.unsqueeze(-1),
+                              torch.where(accept, -wn, zero).unsqueeze(-1))
+            load.scatter_add_(-1, q.unsqueeze(-1),
+                              torch.where(accept, wn, zero).unsqueeze(-1))
+            cost = cost + torch.where(accept, delta, zero)
+            gst = GuideState(*(torch.where(
+                accept.reshape(accept.shape + (1,) * (a.dim() - 2)), a, b)
+                for a, b in zip(new, gst)))
+            evals += promising.to(torch.int64)
+        better = cost < best_cost
+        best_cost = torch.where(better, cost, best_cost)
+        best_pe = torch.where(better.unsqueeze(-1), pe, best_pe)
+        take = _pt_take(cost, rnd % 2)
+        pe = pe[ladders, take].contiguous()
+        cost = cost[ladders, take]
+        gst = GuideState(*(a[ladders, take] for a in gst))
+        load = _pe_loads(pe, w_node, P)
+    return best_pe, best_cost, cost0[:, 0], evals
+
+
 # ---------------------------------------------------------------------------
 # Front ends.
 # ---------------------------------------------------------------------------
@@ -312,9 +412,11 @@ def _check_init(init, n: int, num_pes: int, seed: int) -> np.ndarray:
     return init
 
 
-def _search(n, nx, ny, src, dst, w_edge, w_node, acfgs, inits, device):
+def _search(n, nx, ny, src, dst, w_edge, w_node, acfgs, inits, device,
+            guide=None, guide_every: int = 1, guide_margin: float = 0.0):
     """Run one ladder per config on ``device``; -> numpy (best_pe
-    [Q, R, N], best_cost [Q, R], init_cost [Q])."""
+    [Q, R, N], best_cost [Q, R], init_cost [Q]) and, with a ``guide``,
+    evals [Q, R]."""
     from ..kernels import anneal as kernel
 
     dev = resolve_device(device)
@@ -325,23 +427,52 @@ def _search(n, nx, ny, src, dst, w_edge, w_node, acfgs, inits, device):
 
     keys = torch.stack([prng.key(a.seed) for a in acfgs]).to(dev)
     a0 = acfgs[0]
-    best_pe, best_cost, init_cost = kernel.anneal_ladders(
+    knobs = dict(nx=nx, ny=ny, rounds=a0.rounds, steps=a0.steps,
+                 pressure_weight=a0.pressure_weight)
+    if guide is not None:
+        from ..surrogate.delta import guide_arrays, quantize_margin
+
+        knobs.update(guide=guide_arrays(guide),
+                     q_margin=quantize_margin(guide_margin),
+                     guide_every=int(guide_every))
+    out = kernel.anneal_ladders(
         t(np.stack(inits)), t(nbr), t(w_inc), t(is_out),
         t(np.asarray(w_node, np.int32)),
-        t(np.stack([_thresholds(a) for a in acfgs])), keys,
-        nx=nx, ny=ny, rounds=a0.rounds, steps=a0.steps,
-        pressure_weight=a0.pressure_weight)
-    return (best_pe.cpu().numpy(), best_cost.cpu().numpy(),
-            init_cost.cpu().numpy())
+        t(np.stack([_thresholds(a) for a in acfgs])), keys, **knobs)
+    return tuple(a.cpu().numpy() for a in out)
 
 
-def _result(best_pe, best_cost, init_cost) -> PlacementResult:
+def _result(best_pe, best_cost, init_cost, evals=None,
+            acfg: AnnealConfig | None = None) -> PlacementResult:
     b = int(best_cost.argmin())
-    return PlacementResult(
+    fields = dict(
         node_pe=best_pe[b].astype(np.int32),
         cost=int(best_cost[b]),
         init_cost=int(init_cost),
         replica_costs=best_cost.astype(np.int64))
+    if evals is None:
+        return PlacementResult(**fields)
+    return GuidedPlacementResult(
+        **fields, cost_evals=int(evals.sum()),
+        proposals=acfg.replicas * acfg.rounds * acfg.steps)
+
+
+def _check_guide(guide, n: int, nx: int, ny: int, guide_every: int):
+    """The :class:`repro_torch.surrogate.delta.Guide` of ``guide`` (a guide
+    or a fitted model) for ``n`` items on ``nx x ny``, or ``ValueError``."""
+    from ..surrogate.delta import Guide, build_guide
+
+    if not isinstance(guide, Guide):
+        guide = build_guide(guide)
+    ex = guide.extractor
+    if ex.num_items != n or (ex.nx, ex.ny) != (nx, ny):
+        raise ValueError(
+            f"guide was built for {ex.num_items} items on a "
+            f"{ex.nx}x{ex.ny} grid; this search places {n} items on "
+            f"{nx}x{ny}")
+    if guide_every < 1:
+        raise ValueError(f"guide_every must be >= 1, got {guide_every}")
+    return guide
 
 
 def anneal_tables(
@@ -366,16 +497,27 @@ def anneal_tables(
     pipeline) connected by ``(src, dst)`` edges of weight ``w_edge``, with
     per-item weights ``w_node``, are placed on the ``nx x ny`` torus, on
     ``device`` (``None`` = the CUDA card: the anneal kernel; ``"cpu"``: the
-    plain version). ``guide`` (the surrogate-guided accept) raises
-    ``NotImplementedError``: ROADMAP queue 1, item 6.
+    plain version).
+
+    ``guide`` switches on the two-stage surrogate accept: a
+    :class:`repro_torch.surrogate.delta.Guide` (or a fitted
+    :class:`~repro_torch.surrogate.model.SurrogateModel`, converted on the
+    spot) built for the *same* ``n`` items on the same grid — its extractor
+    may weight edges its own way, but it must describe this item set.
+    Proposals whose quantized predicted-cycle delta exceeds ``guide_margin``
+    (in predicted cycles; ``inf`` disables the gate) are rejected before the
+    integer cost rule; ``guide_every=k`` applies the gate on every k-th
+    proposal of a round only. Guided searches return a
+    :class:`GuidedPlacementResult` carrying the exact cost-evaluation count.
     """
-    if guide is not None:
-        raise NotImplementedError(GUIDE_NOT_PORTED)
     acfg = acfg or AnnealConfig()
     init = _check_init(init, n, nx * ny, acfg.seed)
-    best_pe, best_cost, init_cost = _search(
-        n, nx, ny, src, dst, w_edge, w_node, [acfg], [init], device)
-    return _result(best_pe[0], best_cost[0], init_cost[0])
+    if guide is not None:
+        guide = _check_guide(guide, n, nx, ny, guide_every)
+    out = _search(n, nx, ny, src, dst, w_edge, w_node, [acfg], [init], device,
+                  guide=guide, guide_every=guide_every,
+                  guide_margin=guide_margin)
+    return _result(*(a[0] for a in out), acfg=acfg)
 
 
 def anneal_tables_many(
@@ -470,10 +612,11 @@ def anneal_placement(
     ``init`` defaults to a uniform-random placement drawn from
     ``acfg.seed`` — the baseline the annealer is guaranteed (by best-so-far
     tracking that includes the init) to never score worse than. ``guide``
-    raises ``NotImplementedError`` (ROADMAP queue 1, item 6).
+    (a fitted :class:`~repro_torch.surrogate.model.SurrogateModel` or a
+    prebuilt :class:`~repro_torch.surrogate.delta.Guide` for this graph and
+    grid) switches on the two-stage surrogate accept — see
+    :func:`anneal_tables`.
     """
-    if guide is not None:
-        raise NotImplementedError(GUIDE_NOT_PORTED)
     acfg = acfg or AnnealConfig()
     model = model or build_cost_model(
         g, nx, ny, metric=metric, crit_scale=acfg.crit_scale,
@@ -481,4 +624,5 @@ def anneal_placement(
     src, dst = edge_endpoints(g)
     return anneal_tables(
         g.num_nodes, nx, ny, src, dst, model.w_edge.cpu().numpy(),
-        model.w_node.cpu().numpy(), acfg, init=init, device=device)
+        model.w_node.cpu().numpy(), acfg, init=init, guide=guide,
+        guide_every=guide_every, guide_margin=guide_margin, device=device)

@@ -17,7 +17,7 @@ reference package.
 Searches and simulations run on ``device`` (``None`` = the CUDA card; pass
 ``"cpu"`` to run on the CPU). Not ported yet, and raising
 ``NotImplementedError``: ``mesh=`` (the sharded engines, ROADMAP queue 1,
-item 4) and ``prune=``/``guide_model=`` (the surrogate, item 6).
+item 4).
 
 Heavyweight imports (overlay) are deferred into the functions:
 ``core.overlay`` itself imports this module for placement threading, so the
@@ -31,15 +31,12 @@ import numpy as np
 
 from ..core.graph import DataflowGraph
 from .anneal import anneal_placement
-from .spec import GUIDE_NOT_PORTED, PlacementSpec, explicit
+from .spec import PlacementSpec, explicit
 from .spec import resolve as resolve_spec
 
 #: What ``mesh=`` raises: the sharded engines come later.
 MESH_NOT_PORTED = ("mesh= (the sharded engines) is not ported yet "
                    "(ROADMAP queue 1, item 4)")
-#: What ``prune=`` raises: the surrogate comes later.
-PRUNE_NOT_PORTED = ("prune= (the surrogate's ranking) is not ported yet "
-                    "(ROADMAP queue 1, item 6)")
 
 
 def resolve(g: DataflowGraph, nx: int, ny: int, placement=None, *,
@@ -50,16 +47,32 @@ def resolve(g: DataflowGraph, nx: int, ny: int, placement=None, *,
     (or :class:`~repro_torch.place.spec.PlacementArray`, returned as-is), or
     ``None`` (identity = the partitioner's default round-robin — the layout
     all committed benchmark numbers use). A search runs on ``device``.
+
+    A spec with ``guide="surrogate"`` runs the search with the two-stage
+    surrogate accept; ``guide_model`` supplies a prefitted
+    :class:`~repro_torch.surrogate.model.SurrogateModel` for it (must match
+    this graph and grid), otherwise one is fitted on the spot from
+    ``spec.guide_train`` self-generated placements simulated on ``device``.
     """
     node_pe = explicit(placement)
     if node_pe is not None:
         return node_pe
-    if guide_model is not None:
-        raise NotImplementedError(GUIDE_NOT_PORTED)
     from ..core import partition
 
     spec = resolve_spec(placement)
     num_pes = nx * ny
+    guide = None
+    if spec.guide == "surrogate":  # spec validation pins strategy to a search
+        guide = guide_model
+        if guide is None:
+            from .. import surrogate as sg
+
+            guide, _, _ = sg.fit_from_sim(
+                g, nx, ny, n_train=spec.guide_train, seed=spec.seed,
+                metric=spec.metric,
+                crit_scale=spec.anneal_config.crit_scale, device=device)
+    knobs = dict(guide=guide, guide_every=spec.guide_every,
+                 guide_margin=spec.guide_margin, device=device)
     if spec.strategy == "anneal":
         init = None  # anneal_placement defaults to random-from-seed
         if spec.init != "random":
@@ -67,14 +80,14 @@ def resolve(g: DataflowGraph, nx: int, ny: int, placement=None, *,
                                                     seed=spec.seed))
         return anneal_placement(
             g, nx, ny, spec.anneal_config, metric=spec.metric,
-            init=init, device=device).node_pe
+            init=init, **knobs).node_pe
     if spec.strategy == "multilevel":
         from .coarsen import multilevel_anneal
 
         return multilevel_anneal(
             g, nx, ny, spec.anneal_config, ratio=spec.coarsen_ratio,
             refine=spec.refine if spec.refine is not None else "auto",
-            metric=spec.metric, device=device).node_pe
+            metric=spec.metric, **knobs).node_pe
     strategy = "round_robin" if spec.strategy == "identity" else spec.strategy
     return partition.place_nodes(g, num_pes, strategy, seed=spec.seed)
 
@@ -210,8 +223,15 @@ def evaluate_placements(g: DataflowGraph, nx: int, ny: int, placements,
         the batched engine), or None for the default config.
       mesh: the sharded engines; raises ``NotImplementedError`` (ROADMAP
         queue 1, item 4).
-      prune: the surrogate's ranking; raises ``NotImplementedError``
-        (ROADMAP queue 1, item 6).
+      prune: ``"surrogate"`` ranks the candidates with a fitted
+        cycle-prediction model from :mod:`repro_torch.surrogate` and
+        simulates only the ``keep_top`` best-predicted ones (the returned
+        dict then contains just those names). ``surrogate`` supplies a
+        fitted :class:`~repro_torch.surrogate.model.SurrogateModel` (built
+        for this graph and grid); ``None`` fits one on the spot from
+        ``surrogate_train`` self-generated simulated placements. With a
+        config sweep, the ranking (and any on-the-spot fit) follows the
+        first config only.
       min_lmax, min_emax: raise the candidate memories' padding floor (see
         :func:`shape_class`).
       device: where searches and simulations run (``None`` = the CUDA
@@ -224,8 +244,6 @@ def evaluate_placements(g: DataflowGraph, nx: int, ny: int, placements,
     """
     if mesh is not None:
         raise NotImplementedError(MESH_NOT_PORTED)
-    if prune is not None or surrogate is not None:
-        raise NotImplementedError(PRUNE_NOT_PORTED)
     import dataclasses
 
     from ..api import resolve_device
@@ -250,6 +268,23 @@ def evaluate_placements(g: DataflowGraph, nx: int, ny: int, placements,
     # Slot ordering honors each spec's own criticality metric (explicit
     # arrays have no spec and take the default), exactly like graph_memory.
     metrics = [_metric(placements[k]) for k in names]
+
+    if prune is not None:
+        if prune != "surrogate":
+            raise ValueError(f"unknown prune mode {prune!r}; "
+                             f"known: 'surrogate'")
+        from .. import surrogate as sg
+
+        model = surrogate
+        if model is None:
+            model, _, _ = sg.fit_from_sim(
+                g, nx, ny, cfg=cfg_list[0], n_train=surrogate_train,
+                device=dev)
+        keep = model.rank(np.stack(node_pes), device=dev)[:max(1, keep_top)]
+        names = [names[i] for i in keep]
+        node_pes = [node_pes[i] for i in keep]
+        metrics = [metrics[i] for i in keep]
+
     gms = uniform_graph_memories(
         g, nx, ny, node_pes, criticality_order=wants, metric=metrics,
         pad_lmax=not _latency_depends_on_words(cfg_list),

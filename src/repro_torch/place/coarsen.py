@@ -25,9 +25,10 @@ keys; both anneal levels are the bit-deterministic annealer (the CUDA kernel
 on the card, its plain version on the CPU). For a fixed config the whole
 pipeline equals the reference's bit for bit. With identity clusters
 (``clusters=np.arange(N)``) the quotient tables carry exactly the original
-edge weights, so the coarse anneal IS the plain annealer, bit for bit. The
-surrogate-guided search (``guide=``) is not ported yet and raises (ROADMAP
-queue 1, item 6).
+edge weights, so the coarse anneal IS the plain annealer, bit for bit.
+With ``guide=`` both levels run the surrogate-guided search: the coarse
+phase with ``guide.coarsen(clusters)`` (quotient features equal the
+projected fine features exactly), the refinement with the fine guide.
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ import numpy as np
 from ..core.graph import DataflowGraph
 from .anneal import PlacementResult, anneal_placement, anneal_tables
 from .cost import build_cost_model, edge_tables
-from .spec import GUIDE_NOT_PORTED, AnnealConfig
+from .spec import AnnealConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,11 +173,11 @@ def multilevel_anneal(
     an explicit ``None`` skips refinement entirely (the projected placement
     is returned as-is). ``clusters`` overrides the clustering (e.g.
     ``np.arange(N)`` degenerates to the plain annealer, bit-exactly). Both
-    anneals run on ``device`` (``None`` = the CUDA card). ``guide`` raises
-    ``NotImplementedError`` (ROADMAP queue 1, item 6).
+    anneals run on ``device`` (``None`` = the CUDA card). ``guide`` (a
+    fitted :class:`~repro_torch.surrogate.model.SurrogateModel` or a
+    :class:`~repro_torch.surrogate.delta.Guide` for ``g`` on this grid)
+    guides both levels.
     """
-    if guide is not None:
-        raise NotImplementedError(GUIDE_NOT_PORTED)
     acfg = acfg or AnnealConfig()
     if isinstance(refine, str):
         if refine != "auto":
@@ -195,8 +196,16 @@ def multilevel_anneal(
         g, clusters, metric=metric, crit_scale=acfg.crit_scale)
     c = int(cw_node.shape[0])
 
+    coarse_guide = None
+    if guide is not None:
+        from ..surrogate.delta import Guide, build_guide
+
+        if not isinstance(guide, Guide):
+            guide = build_guide(guide)
+        coarse_guide = guide.coarsen(clusters)
     coarse = anneal_tables(c, nx, ny, csrc, cdst, cw_edge, cw_node, acfg,
-                           device=device)
+                           guide=coarse_guide, guide_every=guide_every,
+                           guide_margin=guide_margin, device=device)
     node_pe = coarse.node_pe[clusters].astype(np.int32)
 
     model = build_cost_model(g, nx, ny, metric=metric,
@@ -208,7 +217,9 @@ def multilevel_anneal(
     refined = None
     if refine is not None:
         refined = anneal_placement(g, nx, ny, refine, metric=metric,
-                                   init=node_pe, model=model, device=device)
+                                   init=node_pe, model=model, guide=guide,
+                                   guide_every=guide_every,
+                                   guide_margin=guide_margin, device=device)
         node_pe = refined.node_pe
 
     return MultilevelResult(

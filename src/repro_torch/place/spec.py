@@ -71,11 +71,11 @@ class PlacementSpec:
     ``metric`` picks the criticality labeling used for slot assignment and
     the cost model's weights.
 
-    ``guide="surrogate"`` (the reference's two-stage surrogate-guided
-    accept) is validated as the reference validates it, then refused: the
-    surrogate is not ported yet (ROADMAP queue 1, item 6). Its knobs
-    ``guide_every`` / ``guide_margin`` / ``guide_train`` are kept for
-    signature parity.
+    ``guide="surrogate"`` upgrades either search strategy to the two-stage
+    surrogate-guided accept (knobs ``guide_every`` / ``guide_margin`` /
+    ``guide_train`` below; mechanism in :mod:`repro_torch.surrogate.delta`);
+    in the multilevel pipeline both the coarse cluster-level phase and the
+    fine refinement are guided.
     """
 
     strategy: str = "identity"
@@ -85,11 +85,23 @@ class PlacementSpec:
     #: starting point for "anneal": "random" (the baseline the placer is
     #: guaranteed to never score worse than) or any static strategy.
     init: str = "random"
-    #: "anneal"/"multilevel" only: ``"surrogate"`` in the reference; refused
-    #: here (ROADMAP queue 1, item 6). ``None`` is the plain search.
+    #: "anneal"/"multilevel" only: ``"surrogate"`` switches on the two-stage
+    #: accept — a ridge surrogate fitted on ``guide_train`` self-generated
+    #: simulated placements (:func:`repro_torch.surrogate.fit_from_sim`,
+    #: seeded from ``seed``) pre-screens every proposal via exact O(degree)
+    #: incremental features, and only promising moves reach the integer
+    #: cost rule. ``None`` (default) is the plain search.
     guide: str | None = None
+    #: guided only: apply the surrogate gate on every k-th proposal of a
+    #: round (1 = every proposal).
     guide_every: int = 1
+    #: guided only: accept threshold on the predicted cycle delta — moves
+    #: predicted to add more than this many cycles are rejected before the
+    #: cost rule; ``inf`` disables the gate (the unguided search, bit for
+    #: bit).
     guide_margin: float = 0.0
+    #: guided only: simulated training placements for the auto-fitted
+    #: surrogate when :func:`repro_torch.place.api.resolve` has to fit one.
     guide_train: int = 24
     #: "multilevel" only: target nodes per cluster for the coarsening pass
     #: (the graph collapses ~coarsen_ratio x before the coarse anneal).
@@ -130,18 +142,11 @@ class PlacementSpec:
         if self.guide_train < 2:
             raise ValueError(
                 f"guide_train must be >= 2, got {self.guide_train}")
-        if self.guide is not None:
-            raise NotImplementedError(GUIDE_NOT_PORTED)
 
     @property
     def anneal_config(self) -> AnnealConfig:
         return self.anneal if self.anneal is not None else AnnealConfig(seed=self.seed)
 
-
-#: What a surrogate-guided search raises: the surrogate comes later.
-GUIDE_NOT_PORTED = (
-    "the surrogate-guided search (guide=) is not ported yet "
-    "(ROADMAP queue 1, item 6)")
 
 IDENTITY = PlacementSpec()
 

@@ -223,8 +223,18 @@ def test_plain_annealer_shapes_and_round_proposals():
 def test_anneal_validation():
     g = wl.arrow_lu_graph(2, 4, 3, seed=3)
     acfg = AnnealConfig(replicas=2, rounds=1, steps=2)
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        pa.anneal_placement(g, 2, 2, acfg, guide=object(), device="cpu")
+    # a guide for another grid, or a gate period below 1, is refused as the
+    # reference refuses it
+    from repro_torch import surrogate
+    from repro_torch.surrogate.delta import Guide
+
+    guide = Guide(extractor=surrogate.build_features(g, 2, 2),
+                  gamma_q=np.ones(29, np.int64))
+    with pytest.raises(ValueError, match="guide was built"):
+        pa.anneal_placement(g, 4, 1, acfg, guide=guide, device="cpu")
+    with pytest.raises(ValueError, match="guide_every"):
+        pa.anneal_placement(g, 2, 2, acfg, guide=guide, guide_every=0,
+                            device="cpu")
     with pytest.raises(ValueError, match="init must be"):
         pa.anneal_placement(g, 2, 2, acfg, init=np.zeros(3, np.int32),
                             device="cpu")

@@ -160,8 +160,14 @@ def test_default_refine_and_validation():
     with pytest.raises(ValueError, match="clusters must be"):
         coarsen.multilevel_anneal(g, 2, 2, clusters=np.zeros(3, np.int32),
                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        coarsen.multilevel_anneal(g, 2, 2, guide=object(), device="cpu")
+    # a guide for another grid is refused at the coarse level already
+    from repro_torch import surrogate
+    from repro_torch.surrogate.delta import Guide
+
+    guide = Guide(extractor=surrogate.build_features(g, 4, 1),
+                  gamma_q=np.ones(29, np.int64))
+    with pytest.raises(ValueError, match="guide was built"):
+        coarsen.multilevel_anneal(g, 2, 2, guide=guide, device="cpu")
 
 
 def test_fig1_full_small_calibration(reference, tmp_path):

@@ -730,3 +730,74 @@ def test_anneal_kernel_many_ladders_and_bench_cost(cuda):
     r = pa.anneal_placement(g, 8, 8, AnnealConfig(replicas=8, rounds=32,
                                                   steps=1024, seed=0))
     assert (r.init_cost, r.cost) == (1_104_696, 1_045_048)
+
+
+# ---------------------------------------------------------------------------
+# The guided search: the anneal kernel's GUIDED instantiation, the surrogate.
+# ---------------------------------------------------------------------------
+
+#: (arrow_lu_graph args, grid, replicas, rounds, margin, guide_every)
+GUIDED_CASES = [((2, 4, 3), (2, 2), 1, 2, 0.0, 1),
+                ((2, 4, 3), (4, 2), 2, 1, float("inf"), 3),
+                ((2, 8, 6), (8, 8), 8, 2, -2.5, 1),
+                ((2, 8, 6), (8, 8), 8, 2, 0.0, 3)]
+
+
+def _slopes_guide(g, grid, seed):
+    from repro_torch import surrogate
+    from repro_torch.surrogate.delta import Guide
+
+    rng = np.random.default_rng(seed)
+    return Guide(extractor=surrogate.build_features(g, *grid),
+                 gamma_q=rng.integers(-(1 << 20), 1 << 20, 29).astype(np.int64))
+
+
+@pytest.mark.parametrize("args,grid,replicas,rounds,margin,every",
+                         GUIDED_CASES)
+def test_guided_kernel_equals_plain(cuda, args, grid, replicas, rounds,
+                                    margin, every):
+    """The guided search on the card (one launch of the GUIDED kernel)
+    equals the plain guided search on the CPU: placements, per-replica
+    costs, the init cost and the cost evaluations; at an open gate it also
+    equals the unguided kernel."""
+    from repro_torch.kernels import anneal as ka
+    from repro_torch.place import anneal as pa
+    from repro_torch.place.spec import AnnealConfig
+
+    g = wl.arrow_lu_graph(*args, seed=3)
+    guide = _slopes_guide(g, grid, 1)
+    acfg = AnnealConfig(replicas=replicas, rounds=rounds, steps=24, seed=2,
+                        t_max=200.0)
+    knobs = dict(guide=guide, guide_margin=margin, guide_every=every)
+    before = ka.launches["anneal_guided"]
+    got = pa.anneal_placement(g, *grid, acfg, **knobs)
+    assert ka.launches["anneal_guided"] == before + 1
+    want = pa.anneal_placement(g, *grid, acfg, device="cpu", **knobs)
+    np.testing.assert_array_equal(got.node_pe, want.node_pe)
+    np.testing.assert_array_equal(got.replica_costs, want.replica_costs)
+    assert (got.init_cost, got.cost_evals) == (want.init_cost,
+                                               want.cost_evals)
+    if margin == float("inf"):
+        plain = pa.anneal_placement(g, *grid, acfg)
+        np.testing.assert_array_equal(got.node_pe, plain.node_pe)
+        assert got.cost_evals == got.proposals
+
+
+def test_surrogate_features_on_the_card_equal_the_cpu(cuda):
+    """Integer features are exact in any order: the card's matrix is the
+    CPU's bit for bit, and so is the multilevel guided search."""
+    from repro_torch import place, surrogate
+
+    g = wl.arrow_lu_graph(2, 8, 6, seed=3)
+    cands = surrogate.sample_placements(g, 8, 8, 16, seed=3)
+    ex = surrogate.build_features(g, 8, 8)
+    np.testing.assert_array_equal(ex.features_batch(cands),
+                                  ex.features_batch(cands, device="cpu"))
+    guide = _slopes_guide(g, (8, 8), 2)
+    acfg = place.AnnealConfig(replicas=4, rounds=2, steps=32, seed=1)
+    a = place.multilevel_anneal(g, 8, 8, acfg, ratio=8, guide=guide)
+    b = place.multilevel_anneal(g, 8, 8, acfg, ratio=8, guide=guide,
+                                device="cpu")
+    np.testing.assert_array_equal(a.node_pe, b.node_pe)
+    assert (a.coarse.cost_evals, a.refined.cost_evals) == (
+        b.coarse.cost_evals, b.refined.cost_evals)

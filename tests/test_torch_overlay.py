@@ -147,13 +147,11 @@ def test_run_without_device_needs_cuda(monkeypatch, entry):
 
 def test_parts_not_ported_yet_raise():
     g = wl.layered_dag(3, 4, seed=1)
-    # Placement is ported but for the surrogate-guided search.
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        OverlayConfig(placement=PlacementSpec(strategy="anneal",
-                                              guide="surrogate"))
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        OverlayConfig(placement=PlacementSpec(strategy="multilevel",
-                                              guide="surrogate"))
+    # Placement is ported, the surrogate-guided search too: a guided spec
+    # rides in a config as any other spec.
+    for strategy in ("anneal", "multilevel"):
+        spec = PlacementSpec(strategy=strategy, guide="surrogate")
+        assert OverlayConfig(placement=spec).placement == spec
     # Telemetry is ported: what is not a TelemetrySpec is refused, as the
     # reference refuses it.
     with pytest.raises(TypeError, match="TelemetrySpec"):

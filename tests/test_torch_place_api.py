@@ -233,8 +233,8 @@ def test_overlay_config_placement_forms():
         OverlayConfig(placement=3)
     with pytest.raises(ValueError, match="guide"):
         PlacementSpec(strategy="random", guide="surrogate")
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        PlacementSpec(strategy="anneal", guide="surrogate")
+    guided = PlacementSpec(strategy="anneal", guide="surrogate")
+    assert OverlayConfig(placement=guided).placement == guided
 
 
 def test_not_ported_options_raise():
@@ -245,11 +245,29 @@ def test_not_ported_options_raise():
     with pytest.raises(NotImplementedError, match="queue 1, item 4"):
         place.simulate_placements(g, *GRID, [place.resolve(g, *GRID)],
                                   mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        place.evaluate_placements(g, *GRID, {"a": None}, prune="surrogate",
-                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        place.resolve(g, *GRID, "anneal", guide_model=object(), device="cpu")
+    # prune= and guide_model= work (the surrogate is ported): the pruned
+    # evaluation simulates the model's best-ranked candidates only, with the
+    # full evaluation's cycles, and a guided spec's search takes the model.
+    from repro_torch import surrogate
+
+    sampled = surrogate.sample_placements(g, *GRID, 6, seed=1)
+    model = surrogate.fit(g, *GRID, sampled, 1000 + np.arange(6) ** 2,
+                          device="cpu")
+    cands = {"a": None, "b": "clustered", "c": sampled[3]}
+    full = place.evaluate_placements(g, *GRID, cands, device="cpu")
+    pruned = place.evaluate_placements(g, *GRID, cands, prune="surrogate",
+                                       keep_top=2, surrogate=model,
+                                       device="cpu")
+    order = model.rank(np.stack([place.resolve(g, *GRID, v) for v in
+                                 cands.values()]), device="cpu")
+    assert list(pruned) == [list(cands)[i] for i in order[:2]]
+    assert all(r.cycles == full[k].cycles for k, r in pruned.items())
+    spec = PlacementSpec(strategy="anneal", guide="surrogate",
+                         anneal=AnnealConfig(**SMALL_ANNEAL))
+    np.testing.assert_array_equal(
+        place.resolve(g, *GRID, spec, guide_model=model, device="cpu"),
+        place.anneal_placement(g, *GRID, AnnealConfig(**SMALL_ANNEAL),
+                               guide=model, device="cpu").node_pe)
     with pytest.raises(ValueError, match="wants_criticality_order"):
         place.evaluate_placements(
             g, *GRID, {"a": None}, cfgs=[OverlayConfig(scheduler="ooo"),

@@ -167,6 +167,26 @@ Phases, each of which fails the run on any error (each prints its seconds):
      process of its own, and the guided kernel's device time (profiler)
      beside its plain version's on a short search, and at each BENCH guided
      budget beside the unguided kernel's (µs a step and a proposal);
+ 10d. service: the placement service (``repro_torch.service``), counted:
+     the BENCH ``service`` stream (``service_stream(32, 8, seed=0)``, 4x4,
+     budget 2048, ``placement="anneal"``, ``select``) through one
+     ``PlacementService``: the cold stream, the warm all-hit replay and a
+     fresh service per distinct graph, the 8 ``cycles_anneal`` (510 / 679 /
+     895 / 1117, seeds 1 and 2 equal), cached = fresh, 24 hits, 8 misses,
+     8 simulations, 8 anneals, 0 batched, hit rate 0.75; the same fresh
+     queries under ``megakernel`` (same keys, placements, cycles and
+     stats); ``explore`` on the first graph over
+     ``service_bench.FRONTIER_SPACE``: 2 of 8 points, 937 (2x2) and 418
+     (4x4); three anneal seeds in one ``run_batch`` (one anneal launch)
+     equal to three solo queries (three launches) row for row; two guided
+     queries sharing one surrogate (one fit); ``schedule_step``, the
+     batched megakernel, the anneal kernel and its ``GUIDED``
+     instantiation must have launched. Then ``python -m
+     repro_torch.core.workloads megakernel_bench``, ``python -m
+     repro_torch.kernels --smoke`` (every policy's megakernel run equal to
+     the tensor engine's, one launch a chunk; n15072 2125 / 2369) and
+     ``python -m repro_torch.service --smoke``, each in a process of its
+     own;
  11. megakernel time: device time per K=32 chunk by CUDA events between
      chunks enqueued back to back (median over chunks) at n15072, n117972
      and n470772 for ``ooo`` and ``inorder``, the plain chunk's at n15072
@@ -3429,6 +3449,232 @@ def guided_times(torch, np, ka):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Service (phase 10d): the placement service's BENCH stream and frontier, the
+# batched fan-out, guided queries and the three CLIs.
+# ---------------------------------------------------------------------------
+
+#: benchmarks/service_bench.py's queries: the stream (32 queries over 8
+#: graphs, seed 0), 4x4, proposal budget, simulation budget.
+SERVICE_STREAM = (32, 8, 0)
+SERVICE_GRID = (4, 4)
+SERVICE_BUDGET = 2048
+SERVICE_MAX_CYCLES = 1_000_000
+#: The BENCH ``service`` rows: cycles_anneal of each distinct stream graph
+#: (svc_cycles_cached and svc_cycles_fresh equal them) ...
+SERVICE_GOLDENS = {
+    "svc_arrow_b2_s6_w4_seed1": 510, "svc_arrow_b2_s6_w4_seed2": 510,
+    "svc_arrow_b3_s6_w4_seed1": 679, "svc_arrow_b3_s6_w4_seed2": 679,
+    "svc_arrow_b4_s6_w4_seed1": 895, "svc_arrow_b4_s6_w4_seed2": 895,
+    "svc_arrow_b5_s6_w4_seed1": 1117, "svc_arrow_b5_s6_w4_seed2": 1117,
+}
+#: ... the stream's counters ...
+SERVICE_COUNTERS = dict(queries=32, distinct=8, hits=24, misses=8,
+                        simulations=8, anneals=8, batched_anneals=0,
+                        hit_rate=0.75)
+#: ... and the frontier on the stream's first graph over
+#: service_bench.FRONTIER_SPACE: its points' cycles_frontier, and the
+#: frontier and swept point counts.
+SERVICE_FRONTIER_SPACE = {"scheduler": ("ooo", "inorder"),
+                          "eject_policy": ("n_first",),
+                          "grid": ((2, 2), (4, 4)),
+                          "placement": ("identity", "anneal")}
+SERVICE_FRONTIER = {"ooo__n_first__2x2__identity": 937,
+                    "ooo__n_first__4x4__identity": 418}
+SERVICE_FRONTIER_POINTS = 2
+SERVICE_SWEPT_POINTS = 8
+#: Anneal seeds of the batched fan-out (one run_batch against solo queries).
+SERVICE_SEEDS = (0, 1, 2)
+#: Budgets of the two guided queries (rounds 1 and 2 of the default
+#: ladder): one surrogate serves both.
+SERVICE_GUIDED_BUDGETS = (2048, 8192)
+#: The three CLIs, each in a process of its own: (arguments, the line that
+#: says it passed).
+SERVICE_CLIS = (
+    (["repro_torch.core.workloads", "megakernel_bench"],
+     "arrow_b4_s10_w8_seed3: 15072 nodes"),
+    (["repro_torch.kernels", "--smoke"], "MEGAKERNEL_SMOKE_OK"),
+    (["repro_torch.service", "--smoke"], "SERVICE_SMOKE_OK"),
+)
+
+
+def service_phase(torch, np, ka, lod, mk):
+    """The slice's main path, counted (the launch counts set to 0 just
+    before, read just after): the BENCH ``service`` stream through one
+    ``PlacementService`` under ``select`` (the cold stream, the warm
+    all-hit replay, a fresh service per distinct graph), the same fresh
+    queries under ``megakernel`` (same keys, same answers), the frontier
+    through ``explore``, three anneal seeds in one ``run_batch`` against
+    three solo queries, and two guided queries sharing one surrogate. Then
+    the three CLIs in processes of their own. Returns (counts, walls,
+    anneal launches {batch, solo}, CLI walls)."""
+    from repro_torch.core import workloads as wl
+    from repro_torch.core.overlay import OverlayConfig
+    from repro_torch.place.spec import PlacementSpec
+    from repro_torch.service import PlacementQuery, PlacementService, explore
+
+    nx, ny = SERVICE_GRID
+
+    def query(g, placement="anneal", engine="select", budget=SERVICE_BUDGET):
+        return PlacementQuery(graph=g, nx=nx, ny=ny, budget=budget,
+                              cfg=OverlayConfig(
+                                  placement=placement, engine=engine,
+                                  max_cycles=SERVICE_MAX_CYCLES))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    stream = wl.service_stream(*SERVICE_STREAM)
+    for k in (ka, lod, mk):
+        k.reset_launches()
+    walls = {}
+
+    svc = PlacementService()
+    first, cached = {}, {}
+
+    def cold():
+        for name, g in stream:
+            r = svc.query(query(g))
+            if name in first:
+                if not (r.cached and r.cycles == first[name][1].cycles):
+                    raise AssertionError(f"service {name}: a repeat query "
+                                         f"missed the cache")
+                cached[name] = r.cycles
+            elif r.cached:
+                raise AssertionError(f"service {name}: a first sighting "
+                                     f"claimed a hit")
+            else:
+                first[name] = (g, r)
+
+    _, walls["stream"] = timed(cold)
+    rep = svc.report()
+    seen = dict(queries=rep["queries"], distinct=len(first),
+                hits=rep["cache_hits"], misses=rep["cache_misses"],
+                simulations=rep["simulations"], anneals=rep["anneals"],
+                batched_anneals=rep["batched_anneals"],
+                hit_rate=rep["cache_hit_rate"])
+    print(f"service stream: {seen} (BENCH {SERVICE_COUNTERS}), wall "
+          f"{walls['stream']:.3f} s", flush=True)
+    if seen != SERVICE_COUNTERS:
+        raise AssertionError("service stream: the counters differ from BENCH")
+    sims = rep["simulations"]
+    replay, walls["replay"] = timed(
+        lambda: [svc.query(query(g)) for _, g in stream])
+    if not all(r.cached for r in replay) or svc.counters["simulations"] != sims:
+        raise AssertionError("service replay: a warm query missed the cache")
+    fresh, walls["fresh"] = timed(lambda: {
+        name: PlacementService().query(query(g))
+        for name, (g, _) in first.items()})
+    mega, walls["fresh_megakernel"] = timed(lambda: {
+        name: PlacementService().query(query(g, engine="megakernel"))
+        for name, (g, _) in first.items()})
+    for name, (g, r0) in sorted(first.items()):
+        f, m = fresh[name], mega[name]
+        print(f"service {name} ({g.num_nodes} nodes): cycles {r0.cycles}, "
+              f"cached {cached[name]}, fresh {f.cycles}, fresh under "
+              f"megakernel {m.cycles} (BENCH {SERVICE_GOLDENS[name]}), key "
+              f"{r0.key:#x}", flush=True)
+        if not (r0.cycles == cached[name] == f.cycles == m.cycles
+                == SERVICE_GOLDENS[name]
+                and r0.key == f.key == m.key
+                and r0.stats == f.stats == m.stats
+                and np.array_equal(r0.node_pe, f.node_pe)
+                and np.array_equal(r0.node_pe, m.node_pe)):
+            raise AssertionError(f"service {name}: cached, fresh and "
+                                 f"megakernel answers differ from BENCH")
+    print(f"service walls: stream {walls['stream']:.3f} s, replay "
+          f"{walls['replay'] * 1e3:.2f} ms, fresh {walls['fresh']:.3f} s, "
+          f"fresh under megakernel {walls['fresh_megakernel']:.3f} s",
+          flush=True)
+
+    g0 = stream[0][1]
+    rec, walls["frontier"] = timed(lambda: explore(
+        g0, space=SERVICE_FRONTIER_SPACE, budget=SERVICE_BUDGET,
+        max_cycles=SERVICE_MAX_CYCLES))
+    front = {p["name"]: p["cycles"] for p in rec["frontier"]}
+    print(f"service frontier on {stream[0][0]}: points "
+          f"{ {p['name']: p['cycles'] for p in rec['points']} }, frontier "
+          f"{front} (BENCH {SERVICE_FRONTIER}), "
+          f"{len(rec['frontier'])}/{len(rec['points'])}, batched anneals "
+          f"{rec['report']['batched_anneals']}, wall "
+          f"{walls['frontier']:.3f} s", flush=True)
+    if (front != SERVICE_FRONTIER
+            or len(rec["frontier"]) != SERVICE_FRONTIER_POINTS
+            or len(rec["points"]) != SERVICE_SWEPT_POINTS):
+        raise AssertionError("service frontier differs from BENCH")
+
+    def seeded(s):
+        return query(g0, PlacementSpec(strategy="anneal", seed=s))
+
+    fan = {}
+    before = ka.launches["anneal"]
+    bsvc = PlacementService()
+    batched, walls["fan_out"] = timed(
+        lambda: bsvc.run_batch([seeded(s) for s in SERVICE_SEEDS]))
+    fan["batch"] = ka.launches["anneal"] - before
+    before = ka.launches["anneal"]
+    solo, walls["solo"] = timed(
+        lambda: [PlacementService().query(seeded(s)) for s in SERVICE_SEEDS])
+    fan["solo"] = ka.launches["anneal"] - before
+    print(f"service fan-out: seeds {SERVICE_SEEDS} cycles "
+          f"{[r.cycles for r in batched]} in one run_batch ({fan['batch']} "
+          f"anneal launch, {walls['fan_out']:.3f} s), solo "
+          f"{[r.cycles for r in solo]} ({fan['solo']} launches, "
+          f"{walls['solo']:.3f} s)", flush=True)
+    if not (bsvc.counters["batched_anneals"] == len(SERVICE_SEEDS)
+            and fan == {"batch": 1, "solo": len(SERVICE_SEEDS)}
+            and all(np.array_equal(b.node_pe, r.node_pe)
+                    and (b.cycles, b.stats) == (r.cycles, r.stats)
+                    for b, r in zip(batched, solo))):
+        raise AssertionError("service fan-out differs from the solo queries")
+
+    gsvc = PlacementService()
+    spec = PlacementSpec(strategy="anneal", guide="surrogate")
+    before = ka.launches["anneal_guided"]
+    guided, walls["guided"] = timed(lambda: [
+        gsvc.query(query(g0, spec, budget=b))
+        for b in SERVICE_GUIDED_BUDGETS])
+    launched = ka.launches["anneal_guided"] - before
+    print(f"service guided: budgets {SERVICE_GUIDED_BUDGETS} cycles "
+          f"{[r.cycles for r in guided]}, surrogate fits "
+          f"{gsvc.counters['surrogate_fits']}, simulations "
+          f"{gsvc.counters['simulations']}, guided launches {launched}, wall "
+          f"{walls['guided']:.3f} s", flush=True)
+    if not (gsvc.counters["surrogate_fits"] == 1 and launched == 2
+            and all(r.cycles and not r.cached for r in guided)):
+        raise AssertionError("service guided queries did not share one "
+                             "surrogate")
+
+    counts = dict(lod.launches, **mk.launches, **ka.launches)
+    print(f"service kernel launches: {counts}", flush=True)
+    for k in ("schedule_step", "mega_chunk_batched", "anneal",
+              "anneal_guided"):
+        if counts[k] == 0:
+            raise AssertionError(f"the service path never launched {k}")
+    if counts["mega_chunk_global"]:
+        raise AssertionError("a service memory took the global body")
+
+    clis = {}
+    for args, ok in SERVICE_CLIS:
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", *args], cwd=ROOT, capture_output=True,
+            text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        clis[" ".join(args)] = time.perf_counter() - t
+        if proc.returncode != 0 or ok not in proc.stdout:
+            raise AssertionError(f"python -m {' '.join(args)} failed:\n"
+                                 f"{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-4000:]}")
+        print(f"python -m {' '.join(args)} ({clis[' '.join(args)]:.1f} s):\n"
+              f"{proc.stdout.strip()}", flush=True)
+    return counts, walls, fan, clis
+
+
 def build_all(_build, sources):
     """Compile every source at once, one nvcc each; print ptxas lines."""
     t = time.perf_counter()
@@ -3562,6 +3808,8 @@ def run_phases(torch, np, args, pool) -> int:
                                               mk)
     phase("surrogate smoke", surrogate_cli)
     guided_t = phase("guided anneal time", guided_times, torch, np, ka)
+    service_counts, service_walls, service_fan, service_clis = phase(
+        "service", service_phase, torch, np, ka, lod, mk)
 
     mega_timed = phase("megakernel time", megakernel_times, torch, graphs, mk)
     scaling = phase("batch scaling", batch_scaling, torch, graphs, mk,
@@ -3589,6 +3837,8 @@ def run_phases(torch, np, args, pool) -> int:
                 replays=replays, launches_per_replay=per_replay[name],
                 replay_call_ms=run["host_ms"],
                 replay_host_ms_per_op=run["host_ms"] / run["ops_per_replay"])
+        if name == "schedule_step":
+            row.update(service_launches=service_counts[name])
         line.append(row)
     first = MEGA_TIMED_ROWS[0]
     mt = mega_timed[first, "ooo", ""]
@@ -3599,7 +3849,8 @@ def run_phases(torch, np, args, pool) -> int:
         plain_ms=mt["plain_ms"], bound_ms=mt["bytes"] / HBM_BYTES_PER_S * 1e3,
         bound_by="bytes", library_ms=None, call_ms=mt["call_ms"],
         shape=mt["shape"], K=MEGA_K, body="shared",
-        body_launches=mega_counts["mega_chunk_shared"]))
+        body_launches=mega_counts["mega_chunk_shared"],
+        service_launches=service_counts["mega_chunk"]))
     gt = mega_timed[first, "ooo", "global body"]
     line.append(dict(
         name="mega_chunk_global", route="cuda", source=MEGA_SOURCE,
@@ -3610,7 +3861,8 @@ def run_phases(torch, np, args, pool) -> int:
         equal=max(mega_err, batch_err) == 0, ms=gt["ms"],
         plain_ms=mt["plain_ms"], bound_ms=gt["bytes"] / HBM_BYTES_PER_S * 1e3,
         bound_by="bytes", library_ms=None, call_ms=gt["call_ms"],
-        shape=gt["shape"], K=MEGA_K, body="global"))
+        shape=gt["shape"], K=MEGA_K, body="global",
+        service_launches=service_counts["mega_chunk_global"]))
     line.append(dict(
         name="mega_chunk_traced", route="cuda", source=MEGA_SOURCE,
         replaces=MEGA_TRACED_REPLACES, launches=tel["launches"],
@@ -3620,7 +3872,8 @@ def run_phases(torch, np, args, pool) -> int:
         library_ms=None, call_ms=tel["call_ms"], shape=tel["shape"],
         K=MEGA_K, body="shared", traced_ms=tel["traced_ms"],
         untraced_ms=tel["untraced_ms"], cases=traced_cases,
-        spec="TelemetrySpec()", walls_s=tel["walls"]))
+        spec="TelemetrySpec()", walls_s=tel["walls"],
+        service_launches=service_counts["mega_chunk_traced"]))
     bt = scaling[BATCH_TIMED_B]
     line.append(dict(
         name="mega_chunk_batched", route="cuda", source=MEGA_SOURCE,
@@ -3629,7 +3882,8 @@ def run_phases(torch, np, args, pool) -> int:
         equal=batch_err == 0, ms=bt["ms"], plain_ms=bt["plain_ms"],
         bound_ms=bt["bytes"] / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=None, call_ms=bt["call_ms"], shape=bt["shape"], K=MEGA_K,
-        body="shared", body_launches=batch_counts["mega_chunk_shared"]))
+        body="shared", body_launches=batch_counts["mega_chunk_shared"],
+        service_launches=service_counts["mega_chunk_batched"]))
     line.append(flash)
     line.append(dict(
         name="anneal", route="cuda", source=ANNEAL_SOURCE,
@@ -3645,7 +3899,10 @@ def run_phases(torch, np, args, pool) -> int:
         rows=anneal_t["rows"], search_walls_s=place_walls,
         placement_launches={k: place_counts[k] for k in (
             "schedule_step", "mega_chunk_batched", "mega_chunk_shared",
-            "mega_chunk_global")}))
+            "mega_chunk_global")},
+        service_launches=service_counts["anneal"],
+        service_fan_out_launches=service_fan, service_walls_s=service_walls,
+        service_cli_walls_s=service_clis))
     line.append(dict(
         name="anneal_guided", route="cuda", source=ANNEAL_SOURCE,
         replaces=GUIDED_REPLACES,
@@ -3660,7 +3917,8 @@ def run_phases(torch, np, args, pool) -> int:
         rows=guided_t["rows"], walls_s=surrogate_walls,
         surrogate_launches={k: surrogate_counts[k] for k in (
             "mega_chunk_batched", "mega_chunk_shared",
-            "mega_chunk_global")}))
+            "mega_chunk_global")},
+        service_launches=service_counts["anneal_guided"]))
     # The card's line again, where a reader of the output's tail finds it.
     print(card_line(), flush=True)
     print(json.dumps({"kernels": line}))

@@ -105,8 +105,9 @@ class OverlayConfig:
     explicit ``[N]`` node -> PE array, normalised as the reference
     normalises them (two spellings of one layout compare and hash equal).
     ``None``, ``"identity"`` and the default spec are the identity
-    placement, stored as ``None``; any other name or spec is stored as its
-    spec, an array as a hashable
+    placement, stored as :data:`repro_torch.place.spec.IDENTITY` as the
+    reference stores it; any other name or spec is stored as its spec, an
+    array as a hashable
     :class:`~repro_torch.place.spec.PlacementArray`. Ignored when the run
     is handed a packed :class:`GraphMemory`.
     """
@@ -157,14 +158,14 @@ class OverlayConfig:
 
 
 def _placement(placement):
-    """``OverlayConfig.placement``'s stored form: ``None`` for the
-    identity, else the canonical spec or a :class:`PlacementArray`."""
+    """``OverlayConfig.placement``'s stored form: the canonical spec
+    (``IDENTITY`` for the identity spellings) or a :class:`PlacementArray`."""
     if isinstance(placement, place_spec.PlacementArray):
         return placement
     if isinstance(placement, np.ndarray):
         return place_spec.PlacementArray(placement)
     spec = place_spec.resolve(placement)
-    return None if spec == place_spec.IDENTITY else spec
+    return place_spec.IDENTITY if spec == place_spec.IDENTITY else spec
 
 
 def resolve_check_every(cfg: OverlayConfig, nx: int, ny: int, L: int, *,

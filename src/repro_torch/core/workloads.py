@@ -10,7 +10,9 @@ fine-grained operator DAG of a right-looking sparse LU factorization
 :func:`elimination_tree_graph` are other factorization structures;
 :func:`layered_dag`, :func:`reduction_tree`, :func:`chain` and
 :func:`random_dag` are small DAGs for tests. :func:`fig1_full` is the
-paper-scale sparse-LU DAG.
+paper-scale sparse-LU DAG. :func:`service_stream` is the placement
+service's replayed stream; :func:`warm_cache` (``python -m
+repro_torch.core.workloads [name ...]``) fills the graph cache.
 
 Every generator draws from numpy's ``default_rng`` exactly as the reference
 package's does, so the same arguments give byte-equal graphs. The on-disk
@@ -253,6 +255,75 @@ def fig1_full(target_nodes: int = 470_000, seed: int = 0, *,
 #: name: ``arrow_lu_graph(4, 10, 8, seed=3)``, 15,072 nodes.
 TELEMETRY_GRAPH = "arrow_b4_s10_w8_seed3"
 
+#: Fig. 1-family graphs ``python -m repro_torch.kernels --smoke`` simulates,
+#: under the reference's cache names; ``warm_cache(["megakernel_bench"])``
+#: builds them ahead so the smoke never pays the elimination loop.
+MEGAKERNEL_BENCH_GRAPHS = ("arrow_b4_s10_w8_seed3", "arrow_b8_s10_w8_seed3")
+
+
+def service_stream(n_queries: int = 32, distinct: int = 8,
+                   seed: int = 0) -> list:
+    """Deterministic replayed graph stream for the placement service.
+
+    ``distinct`` small Fig. 1-family arrow-LU graphs, each once up front,
+    then ``n_queries - distinct`` repeats: a round-robin pass first (when
+    the stream is long enough every distinct graph repeats at least once),
+    the rest drawn from a fixed numpy PRNG, in the reference's order. 32
+    queries over 8 graphs carry 75% repeats. Returns ``[(name,
+    DataflowGraph)]``, the reference's names and graphs.
+    """
+    if not 1 <= distinct <= n_queries:
+        raise ValueError(
+            f"need 1 <= distinct <= n_queries, got {distinct}/{n_queries}")
+    variants = []
+    for blocks in (2, 3, 4, 5):
+        for gseed in (1, 2):
+            variants.append((f"svc_arrow_b{blocks}_s6_w4_seed{gseed}",
+                             (blocks, 6, 4, gseed)))
+    if distinct > len(variants):
+        raise ValueError(f"at most {len(variants)} distinct stream graphs, "
+                         f"got {distinct}")
+    graphs = [(name, arrow_lu_graph(b, s, w, seed=sd))
+              for name, (b, s, w, sd) in variants[:distinct]]
+    rng = np.random.default_rng(seed)
+    stream = list(graphs)
+    n_repeats = n_queries - distinct
+    stream += [graphs[i % distinct] for i in range(min(n_repeats, distinct))]
+    for _ in range(n_repeats - distinct):
+        stream.append(graphs[int(rng.integers(0, distinct))])
+    return stream
+
+
+def warm_cache(names: list[str] | None = None) -> dict[str, int]:
+    """Build (or load) cacheable graphs into the graph cache.
+
+    ``python -m repro_torch.core.workloads [name ...]``. Known names:
+    ``fig1_full`` (the default), ``arrow_b{blocks}_s{size}_w{border}_seed
+    {seed}`` and ``megakernel_bench`` (:data:`MEGAKERNEL_BENCH_GRAPHS`).
+    Returns ``{name: num_nodes}``; an unknown name raises ``ValueError``.
+    """
+    names = names or ["fig1_full"]
+    built: dict[str, int] = {}
+    for name in names:
+        if name == "fig1_full":
+            built[name] = fig1_full().num_nodes
+            continue
+        if name == "megakernel_bench":
+            built.update(warm_cache(list(MEGAKERNEL_BENCH_GRAPHS)))
+            continue
+        if name.startswith("arrow_"):
+            parts = dict(
+                (p[0], int(p[1:])) for p in name.split("_")[1:]
+                if p[0] in "bsw" and p[1:].isdigit())
+            seed = int(name.rsplit("seed", 1)[1]) if "seed" in name else 0
+            if {"b", "s", "w"} <= parts.keys():
+                g = cached_graph(name, lambda: arrow_lu_graph(
+                    parts["b"], parts["s"], parts["w"], seed=seed))
+                built[name] = g.num_nodes
+                continue
+        raise ValueError(f"don't know how to build cached graph {name!r}")
+    return built
+
 
 def layered_dag(
     num_layers: int,
@@ -329,3 +400,10 @@ def random_dag(num_nodes: int, seed: int = 0, input_frac: float = 0.2) -> Datafl
             a, c = rng.integers(0, i, size=2)
             ids.append(b.op(ops[rng.integers(4)], ids[a], ids[c]))
     return b.build()
+
+
+if __name__ == "__main__":
+    import sys
+
+    for _name, _nodes in warm_cache(sys.argv[1:] or None).items():
+        print(f"{_name}: {_nodes} nodes (cache: {graph_cache_dir()})")

@@ -2,8 +2,8 @@
 ``train/steps.py`` ``make_prefill_step`` and ``make_decode_step``.
 
 Prefill fills the KV cache from a prompt; a decode step advances one token,
-greedily. Sampling is not ported: its random stream cannot match the
-reference's ``jax.random`` keys (ROADMAP queue 3 item 4). The training step
+greedily. Sampled decoding (the reference's ``jax.random.categorical``
+draw) is not ported yet (ROADMAP queue 1, item 12h). The training step
 belongs to a later slice (ROADMAP queue 1 item 12g).
 """
 from __future__ import annotations
@@ -30,8 +30,8 @@ def make_decode_step(cfg: ModelConfig, *, greedy: bool = True,
     lm.check_supported(cfg)
     if not greedy:
         raise NotImplementedError(
-            "sampled decoding is not ported: its random stream cannot match "
-            "the reference's (ROADMAP queue 3 item 4); use greedy=True")
+            "sampled decoding is not ported yet (ROADMAP queue 1, item 12h); "
+            "use greedy=True")
     del temperature
 
     def decode_step(params, tokens, cache, cache_len, key=None):

@@ -129,7 +129,7 @@ def test_other_families_raise(arch):
 
 
 def test_sampling_raises():
-    with pytest.raises(NotImplementedError, match="queue 3 item 4"):
+    with pytest.raises(NotImplementedError, match="item 12h"):
         make_decode_step(get_config("qwen2-0.5b", smoke=True), greedy=False)
 
 

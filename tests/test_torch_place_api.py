@@ -16,6 +16,7 @@ import repro_torch
 from repro_torch import place
 from repro_torch.core import workloads as wl
 from repro_torch.core.overlay import OverlayConfig
+from repro_torch.place import spec as place_spec
 from repro_torch.place.spec import (STATIC_STRATEGIES, AnnealConfig,
                                     PlacementArray, PlacementSpec)
 
@@ -204,18 +205,19 @@ def test_run_with_placement_solo_and_batched(reference):
 
 def test_overlay_config_placement_forms():
     """Every name, a spec and an array are taken and normalised: the
-    identity spellings are stored as None, two spellings of one layout
+    identity spellings are stored as IDENTITY, two spellings of one layout
     compare and hash equal, an array becomes a read-only PlacementArray."""
     for s in STATIC_STRATEGIES + ("anneal", "multilevel"):
         cfg = OverlayConfig(placement=s)
         if s == "identity":
-            assert cfg.placement is None
+            assert cfg.placement is place_spec.IDENTITY
         else:
             assert cfg.placement == PlacementSpec(strategy=s)
             assert cfg == OverlayConfig(placement=PlacementSpec(strategy=s))
             assert hash(cfg) == hash(OverlayConfig(
                 placement=PlacementSpec(strategy=s)))
-    assert OverlayConfig(placement=PlacementSpec()).placement is None
+    assert (OverlayConfig(placement=PlacementSpec()).placement
+            is place_spec.IDENTITY)
     arr = np.arange(10, dtype=np.int64) % 4
     cfg = OverlayConfig(placement=arr)
     assert isinstance(cfg.placement, PlacementArray)

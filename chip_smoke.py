@@ -140,7 +140,8 @@ Phases, each of which fails the run on any error (each prints its seconds):
      the card works: 19,711 clusters, costs, 56624 -> 47043 cycles) under
      ``megakernel``; the anneal kernel, ``schedule_step`` and the
      batched megakernel must have launched. Then the anneal kernel's device
-     time (profiler) beside its plain version's on a short search, and at
+     time (profiler; CUDA events around the call where three profiled runs
+     record no launch) beside its plain version's on a short search, and at
      each BENCH row's budget (µs a step and a proposal);
  10c. surrogate: the anneal kernel's ``GUIDED`` instantiation (the
      surrogate-guided search) against its plain version on the card, best
@@ -164,8 +165,8 @@ Phases, each of which fails the run on any error (each prints its seconds):
      proposals, 652 / 1372 cycles (unguided 684 / 1448); the guided kernel
      and the batched megakernel must have launched, every chunk on the
      ``shared`` body. Then ``python -m repro_torch.surrogate --smoke`` in a
-     process of its own, and the guided kernel's device time (profiler)
-     beside its plain version's on a short search, and at each BENCH guided
+     process of its own, and the guided kernel's device time (profiler, or
+     events as in 10b) beside its plain version's on a short search, and at each BENCH guided
      budget beside the unguided kernel's (µs a step and a proposal);
  10d. service: the placement service (``repro_torch.service``), counted:
      the BENCH ``service`` stream (``service_stream(32, 8, seed=0)``, 4x4,
@@ -2248,6 +2249,32 @@ def kernel_us(torch, fn, n=20, names=FLASH_KERNELS, warmup=True):
     return {name: total[name] / count[name] for name in total}
 
 
+def one_kernel_ms(torch, fn, name, n, warmup=True, tries=3):
+    """Device ms per launch of the kernel ``name``, which each call of ``fn``
+    launches once: from the profiler (:func:`kernel_us`), profiled again
+    where a run recorded no launch of it (a profiled run of one long call
+    has come back without its kernel), and after ``tries`` such runs from
+    CUDA events around ``n`` calls (the whole call, so a little more than
+    the kernel), which the output says."""
+    for t in range(tries):
+        got = kernel_us(torch, fn, n, (name,), warmup=warmup and t == 0)
+        if name in got:
+            return got[name] / 1e3
+        print(f"the profiler recorded no {name} launch (run {t + 1} of "
+              f"{tries})", flush=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / n
+    print(f"{name}: {ms:.3f} ms a call, from CUDA events", flush=True)
+    return ms
+
+
 def host_ms(torch, fn, n=100, rounds=7):
     """Host ms per call: ``n`` calls enqueued without a synchronisation
     (the card keeps up), median over ``rounds``."""
@@ -2923,7 +2950,7 @@ def anneal_times(torch, np, ka):
     search = lambda: ka.anneal_ladders(*tensors, **knobs)
     # the kernel's own device time (profiler), and the search's (events:
     # the ladder's start, the keys' copy and the kernel)
-    ms = kernel_us(torch, search, 5, ("anneal_kernel",))["anneal_kernel"] / 1e3
+    ms = one_kernel_ms(torch, search, "anneal_kernel", 5)
     call_ms = timed(search, 5)
     plain_ms = timed(lambda: ka.anneal_plain(*tensors, **knobs), 1)
     want = ka.anneal_plain(*tensors, **knobs)
@@ -2959,8 +2986,8 @@ def anneal_times(torch, np, ka):
     for row, (_, _, kw_row, _, _) in PLACEMENT_ROWS.items():
         acfg = AnnealConfig(**kw_row)
         _, (nbr, *_), tensors, knobs = inputs(row, acfg)
-        row_ms = kernel_us(torch, lambda: ka.anneal_ladders(
-            *tensors, **knobs), 2, ("anneal_kernel",))["anneal_kernel"] / 1e3
+        row_ms = one_kernel_ms(torch, lambda: ka.anneal_ladders(
+            *tensors, **knobs), "anneal_kernel", 2)
         steps = acfg.rounds * acfg.steps
         rows[row] = dict(ms=row_ms, steps=steps,
                          us_per_step=row_ms * 1e3 / steps,
@@ -3322,8 +3349,7 @@ def guided_times(torch, np, ka):
     g, (nbr, w_inc, is_out), ga, tensors, knobs = inputs(name, acfg)
     gk = dict(guide=ga, q_margin=0, guide_every=1)
     search = lambda: ka.anneal_ladders(*tensors, **knobs, **gk)
-    ms = kernel_us(torch, search, 5,
-                   ("anneal_kernel<true>",))["anneal_kernel<true>"] / 1e3
+    ms = one_kernel_ms(torch, search, "anneal_kernel<true>", 5)
     call_ms = events_ms(search, 5)
     ga_dev = sd.to_device(ga, "cuda")
     start = torch.cuda.Event(enable_timing=True)
@@ -3373,12 +3399,11 @@ def guided_times(torch, np, ka):
         acfg = dataclasses.replace(base, rounds=2 * base.rounds)
         g, (nbr, *_), ga, tensors, knobs = inputs(row, acfg)
         # one profiled search each (the library is loaded by now)
-        guided = kernel_us(torch, lambda: ka.anneal_ladders(
-            *tensors, **knobs, guide=ga, q_margin=0, guide_every=1), 1,
-            ("anneal_kernel<true>",), warmup=False)["anneal_kernel<true>"] / 1e3
-        unguided = kernel_us(torch, lambda: ka.anneal_ladders(
-            *tensors, **knobs), 1, ("anneal_kernel<false>",),
-            warmup=False)["anneal_kernel<false>"] / 1e3
+        guided = one_kernel_ms(torch, lambda: ka.anneal_ladders(
+            *tensors, **knobs, guide=ga, q_margin=0, guide_every=1),
+            "anneal_kernel<true>", 1, warmup=False)
+        unguided = one_kernel_ms(torch, lambda: ka.anneal_ladders(
+            *tensors, **knobs), "anneal_kernel<false>", 1, warmup=False)
         # both plain versions a step, on one round of 16 steps at the row's
         # shapes
         short = dict(knobs, rounds=1, steps=16)

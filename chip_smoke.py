@@ -188,6 +188,24 @@ Phases, each of which fails the run on any error (each prints its seconds):
      the tensor engine's, one launch a chunk; n15072 2125 / 2369) and
      ``python -m repro_torch.service --smoke``, each in a process of its
      own;
+ 10e. sharded: ``repro_torch.run(..., mesh=)`` (``core/distributed.py``).
+     (a) A 1x1 mesh in this process over NCCL (a world of one, a
+     ``FileStore`` rendezvous in a temporary directory), counted: n15072
+     ``ooo`` and ``inorder`` under ``select`` and ``megakernel``, the
+     reference's batch (``ooo``, ``inorder``, ``scan`` at a budget of 200)
+     under ``megakernel`` on the criticality-ordered memory, ``ooo`` traced
+     (``TelemetrySpec()``) under ``megakernel`` and n470772 ``ooo`` under
+     ``megakernel``: each equal to its non-mesh run leaf for leaf (traces
+     included), at the goldens (2125 / 2369, 54943); kernels 2, 4, 4b and 4t
+     must have launched through the mesh path, and no collective. (b) A 2x2
+     mesh of four gloo ranks spawned on the one card (each tile on
+     ``cuda:0``; halo edges and reduces staged through pinned host
+     buffers): n15072 ``ooo`` and ``inorder`` under ``select`` and
+     ``tensor``, and ``ooo`` under ``megakernel`` (which runs the tensor
+     chunk on a multi-shard mesh; the line names the chunk that ran), every
+     rank equal to the non-mesh run bit for bit; each run's wall, simulated
+     cycles/s, halo exchanges and µs a cycle, reduces, the route and kernel
+     2's launches;
  11. megakernel time: device time per K=32 chunk by CUDA events between
      chunks enqueued back to back (median over chunks) at n15072, n117972
      and n470772 for ``ooo`` and ``inorder``, the plain chunk's at n15072
@@ -259,7 +277,8 @@ Phases, each of which fails the run on any error (each prints its seconds):
      share, device ops per step and top kernels.
 
 Each graph is built once (numpy set-up, in worker processes while the
-kernels build) and shared by the phases. The card's line is printed again
+kernels build) and shared by the phases; phase 10e's four ranks build
+n15072 themselves. The card's line is printed again
 before the JSON object describing each kernel (the traced megakernel
 ``mega_chunk_traced`` among them; the second-to-last line); the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -3700,6 +3719,254 @@ def service_phase(torch, np, ka, lod, mk):
     return counts, walls, fan, clis
 
 
+# ---------------------------------------------------------------------------
+# Phase 10e: the sharded engines (``run(..., mesh=)``).
+# ---------------------------------------------------------------------------
+
+#: The 1x1 mesh's runs: n15072 ``ooo`` and ``inorder`` (the Fig. 1 pair) under
+#: both engines, solo; the reference's batch of ``ooo``, ``inorder`` and
+#: ``scan`` (budget 200) on one criticality-ordered memory under the
+#: megakernel; ``ooo`` traced under the megakernel; n470772 ``ooo`` under the
+#: megakernel.
+SHARD_ROW = "n15072"
+SHARD_ENGINES = ("select", "megakernel")
+SHARD_BATCH = (dict(scheduler="ooo"), dict(scheduler="inorder"),
+               dict(scheduler="scan", max_cycles=200))
+SHARD_DEEP = "n470772"
+#: The 2x2 mesh of four gloo ranks on the one card: (policy, engine) runs on
+#: SHARD_ROW; ``megakernel`` runs the tensor chunk on a multi-shard mesh.
+SHARD_2X2 = (("ooo", "select"), ("inorder", "select"), ("ooo", "tensor"),
+             ("inorder", "tensor"), ("ooo", "megakernel"))
+SHARD_TIMEOUT_S = 120
+
+
+def _result_arrays(np, r) -> dict:
+    """A SimResult's counters, values and trace leaves as numpy arrays."""
+    out = {f: np.asarray(getattr(r, f)) for f in (
+        "cycles", "done", "delivered", "deflections", "busy_cycles",
+        "noc_deflections", "eject_deflections", "values")}
+    if r.telemetry is not None:
+        out.update({f"telem/{k}": v for k, v in r.telemetry.traces.items()})
+    return out
+
+
+def same_arrays(np, got: dict, want: dict) -> bool:
+    """Two ``_result_arrays``: the same keys, equal as bit patterns."""
+    return got.keys() == want.keys() and all(
+        np.array_equal(got[k].view(np.int32) if got[k].dtype == np.float32
+                       else got[k], want[k].view(np.int32)
+                       if want[k].dtype == np.float32 else want[k])
+        for k in want)
+
+
+def shard_rank(rank, world, store, out_dir, runs):
+    """One rank of the 2x2 gloo mesh (spawned; its tile on ``cuda:0``):
+    the SHARD_2X2 runs on SHARD_ROW, each result, its wall, the halo's
+    exchanges and seconds and the leading-one launches saved to
+    ``out_dir/rank<r>.npz``."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch
+    from repro_torch.core import distributed
+    from repro_torch.core.overlay import OverlayConfig
+    from repro_torch.kernels import lod, megakernel
+
+    torch.cuda.set_device(0)
+    torch.set_num_threads(1)    # four ranks share the host's cores
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store, world), rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    try:
+        mesh = init_device_mesh("cpu", (2, 2),
+                                mesh_dim_names=("data", "model"))
+        g, _, memories, _ = row_setup(SHARD_ROW)
+        res = {"route": np.asarray(distributed.route(mesh))}
+        for policy, engine in runs:
+            crit = policy == "ooo"
+            cfg = OverlayConfig(scheduler=policy, engine=engine)
+            lod.reset_launches()
+            megakernel.reset_launches()
+            distributed.reset_stats()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = repro_torch.run(memories[crit], cfg, mesh=mesh)
+            torch.cuda.synchronize()
+            key = f"{policy}/{engine}"
+            res[f"{key}/wall"] = np.asarray(time.perf_counter() - t)
+            for k, v in _result_arrays(np, r).items():
+                res[f"{key}/{k}"] = v
+            for k, v in {**distributed.stats, **lod.launches,
+                         "mega_chunks": sum(megakernel.launches.values())
+                         }.items():
+                res[f"{key}/stat/{k}"] = np.asarray(v)
+            dist.barrier()
+        np.savez(Path(out_dir) / f"rank{rank}.npz", **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_phase(torch, np, graphs, lod, mk, mega_results, select_results):
+    """Phase 10e. (a) A 1x1 mesh in this process, over NCCL with a world of
+    one (a FileStore rendezvous): the SHARD_ROW pair under both engines, the
+    reference's batch, ``ooo`` traced and SHARD_DEEP ``ooo``, counted (the
+    launch counts set to 0 just before, read just after), each equal to its
+    non-mesh run leaf for leaf, traces included, at the goldens; no
+    collective is launched. (b) A 2x2 mesh of four gloo ranks spawned on the
+    one card: SHARD_2X2, every rank's result equal to the non-mesh run bit
+    for bit; each run's wall, simulated cycles/s, halo µs a cycle and route,
+    and kernel 2's launches. Returns the counts of (a) and the summed
+    leading-one launches of (b)."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as tmp
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import repro_torch
+    from repro_torch.core import distributed
+    from repro_torch.core.overlay import OverlayConfig
+    from repro_torch.telemetry import TelemetrySpec
+
+    _, ref = graphs.graph(SHARD_ROW)
+    goldens = ROWS[SHARD_ROW][1]
+    crit = graphs.memory(SHARD_ROW, "ooo")
+    # The non-mesh runs each mesh run is held to (earlier phases' where
+    # they ran it), made before the counted window.
+    solo = {}
+    for sched in goldens:
+        for engine in SHARD_ENGINES:
+            earlier = (select_results if engine == "select"
+                       else mega_results).get((SHARD_ROW, sched))
+            solo[sched, engine] = earlier or repro_torch.run(
+                graphs.memory(SHARD_ROW, sched),
+                OverlayConfig(scheduler=sched, engine=engine))
+    batch_cfgs = [OverlayConfig(engine="megakernel", **kw)
+                  for kw in SHARD_BATCH]
+    solo["batch"] = repro_torch.run(crit, batch=batch_cfgs)
+    traced = OverlayConfig(engine="megakernel", telemetry=TelemetrySpec())
+    solo["traced"] = repro_torch.run(crit, traced)
+    deep = graphs.memory(SHARD_DEEP, "ooo")
+    solo["deep"] = mega_results.get((SHARD_DEEP, "ooo")) or repro_torch.run(
+        deep, OverlayConfig(engine="megakernel"))
+
+    def check(label, got, want, golden=None):
+        same = same_arrays(np, _result_arrays(np, got),
+                           _result_arrays(np, want))
+        print(f"sharded 1x1 {label}: cycles {got.cycles}"
+              + (f" (golden {golden})" if golden else "")
+              + f", equal to the non-mesh run leaf for leaf {same}",
+              flush=True)
+        if not same or (golden and got.cycles != golden):
+            raise AssertionError(f"sharded 1x1 {label} differs")
+
+    with tempfile.TemporaryDirectory() as tmpdir:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(str(Path(tmpdir) / "store"), 1),
+            rank=0, world_size=1,
+            timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+        try:
+            mesh = init_device_mesh("cuda", (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            print(f"sharded 1x1: backend {dist.get_backend()}, route "
+                  f"{distributed.route(mesh)}", flush=True)
+            lod.reset_launches()
+            mk.reset_launches()
+            distributed.reset_stats()
+            for sched, golden in goldens.items():
+                for engine in SHARD_ENGINES:
+                    cfg = OverlayConfig(scheduler=sched, engine=engine)
+                    r = repro_torch.run(graphs.memory(SHARD_ROW, sched), cfg,
+                                        mesh=mesh)
+                    check(f"{SHARD_ROW} {sched} {engine}", r,
+                          solo[sched, engine], golden)
+                    if not np.allclose(r.values, ref, rtol=1e-5, atol=1e-5):
+                        raise AssertionError(f"{sched} {engine}: values")
+            for i, r in enumerate(repro_torch.run(crit, mesh=mesh,
+                                                  batch=batch_cfgs)):
+                check(f"{SHARD_ROW} batch {batch_cfgs[i].scheduler} "
+                      f"(budget {batch_cfgs[i].max_cycles}) megakernel", r,
+                      solo["batch"][i])
+            check(f"{SHARD_ROW} ooo megakernel traced",
+                  repro_torch.run(crit, traced, mesh=mesh), solo["traced"],
+                  goldens["ooo"])
+            check(f"{SHARD_DEEP} ooo megakernel",
+                  repro_torch.run(deep, OverlayConfig(engine="megakernel"),
+                                  mesh=mesh), solo["deep"],
+                  ROWS[SHARD_DEEP][1]["ooo"])
+            counts = {**lod.launches, **mk.launches}
+            collectives = dict(distributed.stats)
+        finally:
+            dist.destroy_process_group()
+    print(f"sharded 1x1 launches through the mesh path: {counts}; "
+          f"collectives {collectives}", flush=True)
+    for k in ("schedule_step", "mega_chunk", "mega_chunk_batched",
+              "mega_chunk_traced"):
+        if counts[k] == 0:
+            raise AssertionError(f"the 1x1 mesh path never launched {k}")
+    if any(collectives[k] for k in ("halo", "all_reduce", "all_gather")):
+        raise AssertionError(f"a 1x1 mesh launched collectives {collectives}")
+
+    # (b) The non-mesh runs of the 2x2 configs, then the four ranks.
+    want = {}
+    for policy, engine in SHARD_2X2:
+        r = (solo.get((policy, engine)) or repro_torch.run(
+            graphs.memory(SHARD_ROW, policy),
+            OverlayConfig(scheduler=policy, engine=engine)))
+        want[policy, engine] = _result_arrays(np, r)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        t = time.perf_counter()
+        tmp.start_processes(shard_rank, args=(
+            4, str(Path(tmpdir) / "store"), tmpdir, SHARD_2X2), nprocs=4,
+            join=True, start_method="spawn")
+        print(f"sharded 2x2: four gloo ranks on cuda:0 in "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        ranks = []
+        for r in range(4):
+            with np.load(Path(tmpdir) / f"rank{r}.npz") as z:
+                ranks.append({k: z[k] for k in z.files})
+    print(f"sharded 2x2 route: {ranks[0]['route']}", flush=True)
+    launches_2x2 = {}
+    for policy, engine in SHARD_2X2:
+        key = f"{policy}/{engine}"
+        same = all(same_arrays(np, {k[len(key) + 1:]: v for k, v in res.items()
+                                    if k.startswith(key + "/") and "/stat/"
+                                    not in k and not k.endswith("/wall")},
+                               want[policy, engine]) for res in ranks)
+        r0 = ranks[0]
+        cycles, wall = int(r0[f"{key}/cycles"]), float(r0[f"{key}/wall"])
+        halo = int(r0[f"{key}/stat/halo"])
+        halo_us = float(r0[f"{key}/stat/halo_s"]) / cycles * 1e6
+        lods = {k: sum(int(res[f"{key}/stat/{k}"]) for res in ranks)
+                for k in lod.launches}
+        for k, v in lods.items():
+            launches_2x2[k] = launches_2x2.get(k, 0) + v
+        mega = sum(int(res[f"{key}/stat/mega_chunks"]) for res in ranks)
+        chunk = ("megakernel" if mega else
+                 f"{'tensor' if engine != 'select' else 'select'} (eager)")
+        print(f"sharded 2x2 {SHARD_ROW} {policy} {engine}: cycles {cycles}, "
+              f"every rank equal to the non-mesh run {same}, wall "
+              f"{wall:.3f} s, {cycles / wall:.0f} cycles/s, halo "
+              f"{halo} exchanges on rank 0, {halo_us:.1f} µs a cycle "
+              f"(two exchanges), reduces {int(r0[f'{key}/stat/all_reduce'])}"
+              f", chunk {chunk}, leading-one launches (4 ranks) {lods}",
+              flush=True)
+        if not same or cycles != goldens[policy]:
+            raise AssertionError(f"sharded 2x2 {key} differs")
+        if engine == "megakernel" and mega:
+            raise AssertionError("the megakernel ran on a multi-shard mesh")
+    if launches_2x2["schedule_step"] == 0:
+        raise AssertionError("the 2x2 mesh never launched schedule_step")
+    return counts, launches_2x2
+
+
 def build_all(_build, sources):
     """Compile every source at once, one nvcc each; print ptxas lines."""
     t = time.perf_counter()
@@ -3835,6 +4102,9 @@ def run_phases(torch, np, args, pool) -> int:
     guided_t = phase("guided anneal time", guided_times, torch, np, ka)
     service_counts, service_walls, service_fan, service_clis = phase(
         "service", service_phase, torch, np, ka, lod, mk)
+    shard_counts, shard_2x2 = phase("sharded", sharded_phase, torch, np,
+                                    graphs, lod, mk, mega_results,
+                                    select_results)
 
     mega_timed = phase("megakernel time", megakernel_times, torch, graphs, mk)
     scaling = phase("batch scaling", batch_scaling, torch, graphs, mk,
@@ -3864,6 +4134,8 @@ def run_phases(torch, np, args, pool) -> int:
                 replay_host_ms_per_op=run["host_ms"] / run["ops_per_replay"])
         if name == "schedule_step":
             row.update(service_launches=service_counts[name])
+        row.update(mesh_1x1_launches=shard_counts[name],
+                   mesh_2x2_launches=shard_2x2[name])
         line.append(row)
     first = MEGA_TIMED_ROWS[0]
     mt = mega_timed[first, "ooo", ""]
@@ -3875,7 +4147,8 @@ def run_phases(torch, np, args, pool) -> int:
         bound_by="bytes", library_ms=None, call_ms=mt["call_ms"],
         shape=mt["shape"], K=MEGA_K, body="shared",
         body_launches=mega_counts["mega_chunk_shared"],
-        service_launches=service_counts["mega_chunk"]))
+        service_launches=service_counts["mega_chunk"],
+        mesh_1x1_launches=shard_counts["mega_chunk"]))
     gt = mega_timed[first, "ooo", "global body"]
     line.append(dict(
         name="mega_chunk_global", route="cuda", source=MEGA_SOURCE,
@@ -3898,7 +4171,8 @@ def run_phases(torch, np, args, pool) -> int:
         K=MEGA_K, body="shared", traced_ms=tel["traced_ms"],
         untraced_ms=tel["untraced_ms"], cases=traced_cases,
         spec="TelemetrySpec()", walls_s=tel["walls"],
-        service_launches=service_counts["mega_chunk_traced"]))
+        service_launches=service_counts["mega_chunk_traced"],
+        mesh_1x1_launches=shard_counts["mega_chunk_traced"]))
     bt = scaling[BATCH_TIMED_B]
     line.append(dict(
         name="mega_chunk_batched", route="cuda", source=MEGA_SOURCE,
@@ -3908,7 +4182,8 @@ def run_phases(torch, np, args, pool) -> int:
         bound_ms=bt["bytes"] / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=None, call_ms=bt["call_ms"], shape=bt["shape"], K=MEGA_K,
         body="shared", body_launches=batch_counts["mega_chunk_shared"],
-        service_launches=service_counts["mega_chunk_batched"]))
+        service_launches=service_counts["mega_chunk_batched"],
+        mesh_1x1_launches=shard_counts["mega_chunk_batched"]))
     line.append(flash)
     line.append(dict(
         name="anneal", route="cuda", source=ANNEAL_SOURCE,

@@ -21,7 +21,8 @@ def resolve_device(device=None) -> torch.device:
 
 def run(graph_or_gm, cfg=None, *, mesh=None, batch: Sequence | None = None,
         nx: int | None = None, ny: int | None = None, device=None) -> Any:
-    """Simulate an overlay on one device.
+    """Simulate an overlay on one device, or with its PE grid tiled over a
+    mesh of devices.
 
     Args:
       graph_or_gm: a packed :class:`repro_torch.core.partition.GraphMemory`,
@@ -37,7 +38,12 @@ def run(graph_or_gm, cfg=None, *, mesh=None, batch: Sequence | None = None,
         bits. Its ``telemetry`` (a
         :class:`repro_torch.telemetry.TelemetrySpec`) turns tracing on: the
         result's ``telemetry`` holds the traces, the same on every engine.
-      mesh: the sharded engines (and their telemetry); not ported yet.
+      mesh: a :class:`torch.distributed.device_mesh.DeviceMesh` with dims
+        ``("data", "model")``: tiles the PE grid over the mesh's ranks
+        (``nx`` divisible by the data axis, ``ny`` by the model axis; see
+        :mod:`repro_torch.core.distributed`). Every rank of the mesh calls
+        ``run`` with the same arguments and gets the same result; its tile
+        lives on ``device`` (``None``: the rank's current CUDA device).
       batch: a sequence of configs to sweep as one batch over the same graph
         (mutually exclusive with ``cfg``). They must share ``eject_capacity``,
         ``eject_policy``, ``engine``, ``placement`` and ``telemetry`` (each
@@ -50,20 +56,22 @@ def run(graph_or_gm, cfg=None, *, mesh=None, batch: Sequence | None = None,
     Returns:
       :class:`repro_torch.core.overlay.SimResult` (a list of them, one per
       config, with ``batch=``), equal bit for bit to the reference package's
-      ``repro.run`` on the same inputs.
+      ``repro.run`` on the same inputs, with or without a mesh.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the sharded engines) is not ported yet "
-            "(ROADMAP queue 1, item 4)")
-    from .core import overlay
+    from .core import distributed, overlay
 
+    if batch is not None and cfg is not None:
+        raise ValueError(
+            "repro_torch.run: pass either cfg= (one config) or batch= "
+            "(a config sweep), not both")
+    device = resolve_device(device)
     if batch is not None:
-        if cfg is not None:
-            raise ValueError(
-                "repro_torch.run: pass either cfg= (one config) or batch= "
-                "(a config sweep), not both")
+        if mesh is not None:
+            return distributed._simulate_batch_sharded(
+                graph_or_gm, mesh, batch, nx=nx, ny=ny, device=device)
         return overlay._simulate_batch(graph_or_gm, batch, nx=nx, ny=ny,
-                                       device=resolve_device(device))
-    return overlay._simulate(graph_or_gm, cfg, nx=nx, ny=ny,
-                             device=resolve_device(device))
+                                       device=device)
+    if mesh is not None:
+        return distributed._simulate_sharded(graph_or_gm, mesh, cfg, nx=nx,
+                                             ny=ny, device=device)
+    return overlay._simulate(graph_or_gm, cfg, nx=nx, ny=ny, device=device)

@@ -20,6 +20,10 @@ six fields are stacked in ONE int32 tensor ``[6, nx, ny]`` (order
 so a torus shift or a select moves every field in one tensor op. Fields of
 an invalid packet keep whatever the reference would keep there, so the state
 converts leaf for leaf (:func:`pack`, :func:`unpack`).
+
+Torus links are :func:`torch.roll` on a single device; on a grid sharded
+over a mesh, :mod:`repro_torch.core.distributed` passes shifts that roll the
+tile and exchange its edge with the neighbouring tiles.
 """
 from __future__ import annotations
 
@@ -76,20 +80,26 @@ def grid_coords(nx: int, ny: int, *, device):
             torch.arange(ny, dtype=torch.int32, device=device)[None, :])
 
 
-def router_cycle(link_e, link_s, inject, *, eject_capacity=1,
+def router_cycle(link_e, link_s, inject, *, shift_e=roll_shift_e,
+                 shift_s=roll_shift_s, x0=0, y0=0, eject_capacity=1,
                  eject_policy="n_first", coords=None):
     """One NoC cycle for every router in parallel.
 
     Args:
       link_e, link_s: packets on the E/S output registers, [6, nx, ny].
       inject: packet offered by each PE this cycle, [6, nx, ny].
+      shift_e/shift_s: torus shift implementations (a local roll, or a roll
+        plus the edge exchange of a sharded grid).
+      x0, y0: global coordinate offsets of this router tile (0 on a single
+        device); added to ``coords``.
       eject_capacity: PE packets/cycle. 2 models the paper's §II-C BRAM
         multipumping: N and W can eject in the same cycle.
       eject_policy: single-port eject arbitration. ``"n_first"`` (N always
         beats W) or ``"priority"`` (the packet for the lower, i.e. more
         critical, ``dst_slot`` wins; the losing N deflects south, the losing
         W east). Irrelevant when ``eject_capacity >= 2``.
-      coords: precomputed :func:`grid_coords` (built here when None).
+      coords: precomputed :func:`grid_coords` of the tile (built here when
+        None), before the offsets.
 
     Returns:
       (new_link_e, new_link_s, ejects [list of packets], accepted,
@@ -103,9 +113,11 @@ def router_cycle(link_e, link_s, inject, *, eject_capacity=1,
     if coords is None:
         coords = grid_coords(nx, ny, device=link_e.device)
     my_x, my_y = coords
+    if x0 or y0:
+        my_x, my_y = my_x + x0, my_y + y0
 
-    w_in = roll_shift_e(link_e)   # arrives from the west
-    n_in = roll_shift_s(link_s)   # arrives from the north
+    w_in = shift_e(link_e)   # arrives from the west
+    n_in = shift_s(link_s)   # arrives from the north
 
     # Routing predicates of the three candidates (W, N, inject) at once.
     cand = torch.stack((w_in, n_in, inject))

@@ -4,7 +4,10 @@ A simulation is a loop of one-cycle transitions that advance every PE and
 every Hoplite router together. All per-cycle updates are local to a PE row
 (the paper's "local graph memory"). The engine runs eagerly on one torch
 device; it reproduces the reference package's single-device engine bit for
-bit: cycle counts, stat counters, node values and every state leaf.
+bit: cycle counts, stat counters, node values and every state leaf. The same
+cycle and chunks step one tile of a grid sharded over a mesh
+(:mod:`repro_torch.core.distributed`), through their torus-shift and
+reduce hooks.
 
 Timing model (faithful to §II):
   * one packet ejected per PE per cycle, one packet injected per PE per cycle
@@ -44,7 +47,7 @@ tensor; :func:`init_state` allocates them fresh.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -169,11 +172,13 @@ def _placement(placement):
 
 
 def resolve_check_every(cfg: OverlayConfig, nx: int, ny: int, L: int, *,
-                        device_type: str = "cpu") -> int:
+                        device_type: str = "cpu", num_devices: int = 1) -> int:
     """Cycles per chunk. Any value is cycle-exact; the autotune only trades
     the per-chunk host read of ``done`` against wasted tail cycles (up to
     K-1 extra cycle evaluations after completion):
 
+      * always 32 on a mesh of more than one device (``num_devices``),
+        where the chunk also amortizes its reduce over the mesh;
       * grows with the slot count: 8 / 16 / 32;
       * at least 16 on CUDA, where each read of ``done`` synchronises the
         host with the device, and under ``engine="select"``;
@@ -182,7 +187,7 @@ def resolve_check_every(cfg: OverlayConfig, nx: int, ny: int, L: int, *,
     """
     if cfg.check_every is not None:
         return cfg.check_every
-    if cfg.engine == "megakernel":
+    if num_devices > 1 or cfg.engine == "megakernel":
         return 32
     slots = nx * ny * L
     base = 8 if slots <= 4_096 else (16 if slots <= 65_536 else 32)
@@ -288,9 +293,21 @@ def init_state(g: DeviceGraph, cfg: OverlayConfig, *, scheduler=None):
     return state
 
 
-def make_cycle_fn(g: DeviceGraph, cfg: OverlayConfig, *, scheduler=None):
+def make_cycle_fn(g: DeviceGraph, cfg: OverlayConfig, *, scheduler=None,
+                  shift_e: Callable = noc.roll_shift_e,
+                  shift_s: Callable = noc.roll_shift_s,
+                  all_reduce: Callable | None = None, x0: int = 0,
+                  y0: int = 0, global_ny: int | None = None):
     """Build the one-cycle transition ``state -> state`` (``scheduler``
     overrides ``cfg.scheduler``).
+
+    On a tile of a grid sharded over a mesh (:mod:`core.distributed`),
+    ``shift_e``/``shift_s`` are the torus shifts with the halo exchange,
+    ``x0``/``y0`` the tile's global offsets and ``global_ny`` the whole
+    grid's ny (edge records name global PEs). ``all_reduce`` reduces the
+    termination predicates (a logical AND over the tiles) and the stat
+    increments (a sum) over the mesh each cycle; ``None`` is the identity,
+    as on one device and inside a chunk (:func:`make_chunk_fn`).
 
     The tables the cycle reads every time (router coordinates, the edge
     records stacked as packet fields, the fanout base/count pairs, flat slot
@@ -304,9 +321,12 @@ def make_cycle_fn(g: DeviceGraph, cfg: OverlayConfig, *, scheduler=None):
     use_kernels = cfg.engine == "select"
     E = 2 if cfg.eject_capacity >= 2 else 1
     coords = noc.grid_coords(nx, ny, device=dev)
+    if x0 or y0:
+        coords = (coords[0] + x0, coords[1] + y0)
+    gny = ny if global_ny is None else global_ny
     # Edge records as the four routing fields of an injected packet.
     dst_pe = g["e_dst_pe"]
-    edge = torch.stack((dst_pe // ny, dst_pe % ny, g["e_dst_slot"],
+    edge = torch.stack((dst_pe // gny, dst_pe % gny, g["e_dst_slot"],
                         g["e_dst_opidx"]))                 # [4, nx, ny, emax]
     emax = edge.shape[-1]
     fo = torch.stack((g["fo_base"], g["fo_count"]), dim=-1)   # [nx, ny, L, 2]
@@ -329,8 +349,9 @@ def make_cycle_fn(g: DeviceGraph, cfg: OverlayConfig, *, scheduler=None):
 
         # ---- 2. NoC cycle
         link_e, link_s, ejects, accepted, deflected = noc.router_cycle(
-            s["link_e"], s["link_s"], inject, eject_capacity=cfg.eject_capacity,
-            eject_policy=cfg.eject_policy, coords=coords)
+            s["link_e"], s["link_s"], inject, shift_e=shift_e, shift_s=shift_s,
+            eject_capacity=cfg.eject_capacity, eject_policy=cfg.eject_policy,
+            coords=coords)
 
         # ---- 3. advance fanout cursor; retire drained nodes
         cursor = cursor + accepted.to(torch.int32)
@@ -404,10 +425,11 @@ def make_cycle_fn(g: DeviceGraph, cfg: OverlayConfig, *, scheduler=None):
         cursor_end = torch.where(sel, new[..., 0] + new[..., 1], cursor_end)
 
         # ---- 6. termination + stats. ``remaining`` counts uncomputed valid
-        # nodes, so the all-computed predicate is O(1) per cycle.
+        # nodes (of this tile), so the all-computed predicate is O(1) per
+        # cycle.
         remaining = s["remaining"] - n_fired
-        done = ((remaining == 0) & sched.empty(sched_st) & (active < 0).all()
-                & noc.links_empty(link_e, link_s))
+        preds = (remaining == 0, sched.empty(sched_st), (active < 0).all(),
+                 noc.links_empty(link_e, link_s))
 
         # A blocked PE injection keeps its packet circulating in the PE just
         # as a lost S-turn keeps it on the ring: both count as NoC
@@ -416,6 +438,12 @@ def make_cycle_fn(g: DeviceGraph, cfg: OverlayConfig, *, scheduler=None):
         d_noc = (inj_blocked.sum(dtype=torch.int32)
                  + deflected["noc"].sum(dtype=torch.int32))
         d_ej = deflected["eject"].sum(dtype=torch.int32)
+        if all_reduce is None:
+            done = preds[0] & preds[1] & preds[2] & preds[3]
+        else:
+            done = all_reduce(torch.stack(preds)).all()
+            n_delivered, n_fired, d_noc, d_ej = all_reduce(torch.stack(
+                (n_delivered, n_fired, d_noc, d_ej))).unbind(0)
 
         if spec is not None:
             telemetry_trace.accumulate(
@@ -460,12 +488,46 @@ def repair_telemetry(telem: dict, overshoot) -> None:
     ``overshoot`` (0-dim) is the chunk's count of such cycles, its end cycle
     less the repaired cycle: 0 while running, K - first - 1 where the run
     completes inside the chunk, K where a done element runs a chunk. Every
-    other leaf's increment vanishes at the fixed point."""
+    other leaf's increment vanishes at the fixed point. A batch's
+    ``overshoot`` is ``[B]``, one an element."""
     if "stall_no_ready" in telem:
-        telem["stall_no_ready"].sub_(overshoot)
+        telem["stall_no_ready"].sub_(overshoot.reshape(overshoot.shape
+                                                       + (1, 1)))
 
 
-def make_chunk_fn(cycle_fn, check_every: int, *, with_trace: bool = False):
+def _chunk_start(s: dict, all_reduce) -> tuple:
+    """What the chunk repair needs of the state a chunk starts from (copies:
+    a batched chunk writes each element's cycles into these tensors)."""
+    stats = (torch.stack([s[k] for k in STAT_COUNTERS])
+             if all_reduce is not None else None)
+    return s["cycle"].clone(), s["done"].clone(), stats
+
+
+def _finish_chunk(s: dict, start: tuple, done_trace, all_reduce):
+    """The chunk repair of ``s`` after the chunk's cycles, from the per-cycle
+    ``done_trace`` (``[K]``, or ``[K, B]`` over a batched state): with
+    ``all_reduce``, first the chunk's one reduce over the mesh of the trace
+    (a logical AND over the tiles) and of the stat deltas; then ``done`` and
+    the exact completion cycle, and the telemetry repair. Returns
+    ``(state, done_trace)``."""
+    start_cycle, start_done, start_stats = start
+    if all_reduce is not None:
+        done_trace = all_reduce(done_trace)
+        end = torch.stack([s[k] for k in STAT_COUNTERS])
+        stats = start_stats + all_reduce(end - start_stats)
+        s = dict(s, **dict(zip(STAT_COUNTERS, stats.unbind(0))))
+    any_done = done_trace.any(0)
+    first = torch.argmax(done_trace.to(torch.int32), 0).to(torch.int32)
+    cycle = torch.where(
+        start_done, start_cycle,
+        torch.where(any_done, start_cycle + first + 1, s["cycle"]))
+    if "telem" in s:
+        repair_telemetry(s["telem"], s["cycle"] - cycle)
+    return dict(s, done=any_done, cycle=cycle), done_trace
+
+
+def make_chunk_fn(cycle_fn, check_every: int, all_reduce=None, *,
+                  with_trace: bool = False):
     """Wrap ``check_every`` cycles of ``cycle_fn`` into one chunk step.
 
     The chunk body is guard-free: a completed overlay is a *fixed point* of
@@ -477,24 +539,23 @@ def make_chunk_fn(cycle_fn, check_every: int, *, with_trace: bool = False):
     (:func:`repair_telemetry`). The ``max_cycles`` budget is enforced by the
     caller: a chunk is entered only while a full chunk fits (see
     :func:`run_state`).
+
+    ``all_reduce`` (a tile of a sharded grid, :mod:`core.distributed`)
+    reduces over the mesh once per chunk: ``cycle_fn`` is then built
+    without one, so inside the chunk every predicate and stat increment
+    stays tile-local, and the stacked done trace (a logical AND) and the
+    chunk's stat deltas (``start + all_reduce(end - start)``) are reduced
+    before the repair.
     With ``with_trace`` the chunk returns ``(state, done_trace [K])``.
     """
 
     def chunk(s):
-        start_cycle, start_done = s["cycle"], s["done"]
+        start = _chunk_start(s, all_reduce)
         trace = []
         for _ in range(check_every):
             s = cycle_fn(s)
             trace.append(s["done"])
-        done_trace = torch.stack(trace)
-        any_done = done_trace.any()
-        first = torch.argmax(done_trace.to(torch.int32)).to(torch.int32)
-        cycle = torch.where(
-            start_done, start_cycle,
-            torch.where(any_done, start_cycle + first + 1, s["cycle"]))
-        if "telem" in s:
-            repair_telemetry(s["telem"], s["cycle"] - cycle)
-        s = dict(s, done=any_done, cycle=cycle)
+        s, done_trace = _finish_chunk(s, start, torch.stack(trace), all_reduce)
         return (s, done_trace) if with_trace else s
 
     return chunk
@@ -516,20 +577,25 @@ def _copy_into(dst: dict, src: dict) -> None:
 
 
 def make_batch_chunk_fn(cycle_fn, check_every: int, *,
-                        with_trace: bool = False, max_cycles=None):
+                        with_trace: bool = False, max_cycles=None,
+                        all_reduce=None):
     """The batched chunk as a loop over the elements: each element's views
-    go through the solo chunk of ``cycle_fn`` (built with the
+    go through ``check_every`` cycles of ``cycle_fn`` (built with the
     :class:`~repro_torch.core.schedulers.BatchedScheduler`), and the leaves
-    it returns are copied back into the stacked tensors; the done trace is
-    ``[K, B]``. Elements that are done still run whole chunks (their cycle is
+    they return are copied back into the stacked tensors; then the chunk
+    repair runs on the batch (:func:`make_chunk_fn`; with ``all_reduce``,
+    one reduce of the ``[K, B]`` done trace and one of the stat deltas over
+    the mesh). Elements that are done still run whole chunks (their cycle is
     repaired), as the reference's vmapped chunk runs them.
 
     With ``max_cycles`` (``[B]`` int32) the chunk leaves a halted element
     (done, or at its own budget) untouched, leaf for leaf, and records its
-    ``done`` in the trace: the reference's per-cycle freeze of the tail."""
-    chunk = make_chunk_fn(cycle_fn, check_every, with_trace=True)
+    ``done`` in the trace: the reference's per-cycle freeze of the tail.
+    Which elements halted is read on the host from ``done`` and ``cycle``,
+    which are the same on every tile of a sharded batch."""
 
     def batch_chunk(s):
+        start = _chunk_start(s, all_reduce)
         halted = None
         if max_cycles is not None:
             halted = (s["done"] | (s["cycle"] >= max_cycles)).tolist()
@@ -539,10 +605,14 @@ def make_batch_chunk_fn(cycle_fn, check_every: int, *,
             if halted is not None and halted[b]:
                 traces.append(view["done"].expand(check_every))
                 continue
-            new, trace = chunk(view)
+            new, trace = view, []
+            for _ in range(check_every):
+                new = cycle_fn(new)
+                trace.append(new["done"])
             _copy_into(view, new)
-            traces.append(trace)
-        trace = torch.stack(traces, dim=1)
+            traces.append(torch.stack(trace))
+        s, trace = _finish_chunk(s, start, torch.stack(traces, dim=1),
+                                 all_reduce)
         return (s, trace) if with_trace else s
 
     return batch_chunk
@@ -658,7 +728,8 @@ class ReplayedChunk:
 
 
 def make_engine_chunk_fn(g: DeviceGraph, cfg: OverlayConfig, check_every: int,
-                         *, cycle_fn=None, names=None, max_cycles=None):
+                         *, cycle_fn=None, names=None, max_cycles=None,
+                         all_reduce=None):
     """Chunk step for ``cfg.engine``, the one dispatch point of the
     engines: ``"megakernel"`` builds the one-launch chunk
     (:mod:`repro_torch.kernels.megakernel`); ``"tensor"`` and ``"select"``
@@ -668,20 +739,32 @@ def make_engine_chunk_fn(g: DeviceGraph, cfg: OverlayConfig, check_every: int,
     ``names`` (the member policies) makes the chunk batched: it steps a
     state with a leading config axis (:func:`init_batch_state`), and with
     ``max_cycles`` freezes halted elements (see :func:`make_batch_chunk_fn`);
-    that tail step reads the halted flags on the host, so it stays eager."""
+    that tail step reads the halted flags on the host, so it stays eager.
+
+    ``all_reduce`` makes it the chunk of a tile of a grid sharded over
+    several devices (:func:`make_chunk_fn`), which runs eagerly: its
+    ``cycle_fn`` exchanges halos through the host every cycle, which a
+    captured graph cannot hold. The megakernel steps a whole grid and takes
+    no ``all_reduce`` (:func:`repro_torch.core.distributed._mk_chunk` runs
+    it on a 1x1 mesh only)."""
     if cfg.engine == "megakernel":
+        if all_reduce is not None:
+            raise ValueError("the megakernel chunk steps a whole grid on one "
+                             "device; it takes no all_reduce")
         from ..kernels import megakernel
 
         return megakernel.make_mega_chunk_fn(g, cfg, check_every, names=names,
                                              max_cycles=max_cycles)
     if names is None:
-        chunk = make_chunk_fn(cycle_fn or make_cycle_fn(g, cfg), check_every)
+        chunk = make_chunk_fn(cycle_fn or make_cycle_fn(g, cfg), check_every,
+                              all_reduce)
     else:
         chunk = make_batch_chunk_fn(
             cycle_fn or make_cycle_fn(
                 g, cfg, scheduler=schedulers.BatchedScheduler(names)),
-            check_every, max_cycles=max_cycles)
-    if g["opcode"].device.type != "cuda" or max_cycles is not None:
+            check_every, max_cycles=max_cycles, all_reduce=all_reduce)
+    if (g["opcode"].device.type != "cuda" or max_cycles is not None
+            or all_reduce is not None):
         return chunk
     return ReplayedChunk(chunk, f"{cfg.engine} {check_every}-cycle"
                          + (f" batched {'+'.join(names)}" if names else ""))
@@ -769,6 +852,26 @@ def _run_chunks(chunk, state, cycle, done, budget, K: int, depth: int):
         done = now
 
 
+def _drive(state, chunk, step, K: int, depth: int, budget: list):
+    """Advance ``state`` (solo, or batched with one entry of ``budget`` an
+    element): whole chunks of ``chunk`` (None: none) while they fit every
+    running element's budget (:func:`_run_chunks`, ``depth`` chunks in
+    flight), then ``step`` until every element is done or at its budget.
+    The host reads ``done`` once per chunk and tail step and counts the
+    cycles itself."""
+    cycle = state["cycle"].reshape(-1).tolist()
+    done = state["done"].reshape(-1).tolist()
+    if chunk is not None:
+        state, cycle, done = _run_chunks(chunk, state, cycle, done, budget, K,
+                                         depth)
+    while any(live := [not d and c < m
+                       for c, d, m in zip(cycle, done, budget)]):
+        state = step(state)
+        cycle = [c + 1 if r else c for c, r in zip(cycle, live)]
+        done = state["done"].reshape(-1).tolist()
+    return state
+
+
 @dataclasses.dataclass
 class SimResult:
     cycles: int
@@ -801,18 +904,10 @@ def run_state(g: DeviceGraph, cfg: OverlayConfig, state: dict) -> dict:
     K = resolve_check_every(cfg, nx, ny, L, device_type=g["opcode"].device.type)
     mega = cfg.engine == "megakernel"
     cycle_fn = None if mega else make_cycle_fn(g, cfg)
-    cycle, done = int(state["cycle"]), bool(state["done"])
-    if K > 1 or mega:
-        chunk = make_engine_chunk_fn(g, cfg, K, cycle_fn=cycle_fn)
-        state, (cycle,), (done,) = _run_chunks(
-            chunk, state, [cycle], [done], [cfg.max_cycles], K,
-            2 if mega else 1)
+    chunk = (make_engine_chunk_fn(g, cfg, K, cycle_fn=cycle_fn)
+             if K > 1 or mega else None)
     step = make_engine_chunk_fn(g, cfg, 1) if mega else cycle_fn
-    while not done and cycle < cfg.max_cycles:
-        state = step(state)
-        done = bool(state["done"])
-        cycle += 1
-    return state
+    return _drive(state, chunk, step, K, 2 if mega else 1, [cfg.max_cycles])
 
 
 def _unpack_result(final, gm: GraphMemory, b: int | None = None,
@@ -925,25 +1020,14 @@ def run_batch_state(g: DeviceGraph, cfg: OverlayConfig, names, state: dict,
     K = resolve_check_every(cfg, nx, ny, L, device_type=dev.type)
     mega = cfg.engine == "megakernel"
     budget = [int(m) for m in max_cycles]
-    cycle, done = state["cycle"].tolist(), state["done"].tolist()
     cycle_fn = None if mega else make_cycle_fn(
         g, cfg, scheduler=schedulers.BatchedScheduler(names))
-
-    def running():
-        return [not d and c < m for c, d, m in zip(cycle, done, budget)]
-
-    if K > 1 or mega:
-        chunk = make_engine_chunk_fn(g, cfg, K, cycle_fn=cycle_fn, names=names)
-        state, cycle, done = _run_chunks(chunk, state, cycle, done, budget, K,
-                                         2 if mega else 1)
+    chunk = (make_engine_chunk_fn(g, cfg, K, cycle_fn=cycle_fn, names=names)
+             if K > 1 or mega else None)
     step = make_engine_chunk_fn(
         g, cfg, 1, cycle_fn=cycle_fn, names=names,
         max_cycles=torch.tensor(budget, dtype=torch.int32, device=dev))
-    while any(live := running()):
-        state = step(state)
-        cycle = [c + 1 if r else c for c, r in zip(cycle, live)]
-        done = state["done"].tolist()
-    return state
+    return _drive(state, chunk, step, K, 2 if mega else 1, budget)
 
 
 def _simulate_batch(gm: GraphMemory | DataflowGraph, cfgs, *,

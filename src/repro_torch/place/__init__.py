@@ -21,8 +21,8 @@ criticality order each PE's local memory lists them (paper §II).
 
 The surrogate-guided search (``guide=``, ``PlacementSpec(guide=
 "surrogate")``) and the surrogate's pruning (``prune="surrogate"``) use
-:mod:`repro_torch.surrogate`. Not ported yet: evaluation over a mesh
-(``mesh=``, ROADMAP queue 1, item 4).
+:mod:`repro_torch.surrogate`. With ``mesh=`` the evaluations run through
+the sharded engines (:mod:`repro_torch.core.distributed`).
 Identity placement (``OverlayConfig(placement=None)``) is the default
 everywhere. ``python -m repro_torch.place`` runs the placement smoke.
 """

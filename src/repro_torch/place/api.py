@@ -15,9 +15,8 @@ reference package.
     (placement x scheduler x select latency x eject capacity).
 
 Searches and simulations run on ``device`` (``None`` = the CUDA card; pass
-``"cpu"`` to run on the CPU). Not ported yet, and raising
-``NotImplementedError``: ``mesh=`` (the sharded engines, ROADMAP queue 1,
-item 4).
+``"cpu"`` to run on the CPU); with ``mesh=`` the simulations run with the
+PE grid tiled over the mesh (:mod:`repro_torch.core.distributed`).
 
 Heavyweight imports (overlay) are deferred into the functions:
 ``core.overlay`` itself imports this module for placement threading, so the
@@ -33,11 +32,6 @@ from ..core.graph import DataflowGraph
 from .anneal import anneal_placement
 from .spec import PlacementSpec, explicit
 from .spec import resolve as resolve_spec
-
-#: What ``mesh=`` raises: the sharded engines come later.
-MESH_NOT_PORTED = ("mesh= (the sharded engines) is not ported yet "
-                   "(ROADMAP queue 1, item 4)")
-
 
 def resolve(g: DataflowGraph, nx: int, ny: int, placement=None, *,
             guide_model=None, device=None) -> np.ndarray:
@@ -195,18 +189,21 @@ def simulate_placements(g: DataflowGraph, nx: int, ny: int, node_pes, cfg=None,
                         *, mesh=None, criticality_order: bool = True,
                         metric: str = "height", device=None) -> list:
     """Simulated :class:`~repro_torch.core.overlay.SimResult` per ``[N]``
-    vector, the memories shape-unified (:func:`uniform_graph_memories`)."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+    vector, the memories shape-unified (:func:`uniform_graph_memories`);
+    with ``mesh`` each through the sharded batched engine."""
     from ..api import resolve_device
-    from ..core import overlay
+    from ..core import distributed, overlay
 
     dev = resolve_device(device)
     cfg = cfg or overlay.OverlayConfig()
     gms = uniform_graph_memories(
         g, nx, ny, node_pes, criticality_order=criticality_order,
         metric=metric, pad_lmax=not _latency_depends_on_words([cfg]))
-    return [overlay._simulate_batch(gm, [cfg], device=dev)[0] for gm in gms]
+    if mesh is None:
+        return [overlay._simulate_batch(gm, [cfg], device=dev)[0]
+                for gm in gms]
+    return [distributed._simulate_batch_sharded(gm, mesh, [cfg], device=dev)[0]
+            for gm in gms]
 
 
 def evaluate_placements(g: DataflowGraph, nx: int, ny: int, placements,
@@ -221,8 +218,9 @@ def evaluate_placements(g: DataflowGraph, nx: int, ny: int, placements,
       placements: ``{name: spec | strategy | [N] array}``.
       cfgs: one OverlayConfig, a sequence of them (swept per placement via
         the batched engine), or None for the default config.
-      mesh: the sharded engines; raises ``NotImplementedError`` (ROADMAP
-        queue 1, item 4).
+      mesh: a ``DeviceMesh`` (see :func:`repro_torch.run`): the evaluations
+        (and an on-the-spot surrogate fit's simulations) then run with the
+        PE grid tiled over the mesh.
       prune: ``"surrogate"`` ranks the candidates with a fitted
         cycle-prediction model from :mod:`repro_torch.surrogate` and
         simulates only the ``keep_top`` best-predicted ones (the returned
@@ -242,12 +240,10 @@ def evaluate_placements(g: DataflowGraph, nx: int, ny: int, placements,
       sweep). Candidate memories are shape-unified
       (:func:`uniform_graph_memories`).
     """
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
     import dataclasses
 
     from ..api import resolve_device
-    from ..core import overlay, schedulers
+    from ..core import distributed, overlay, schedulers
 
     dev = resolve_device(device)
     single = cfgs is None or not isinstance(cfgs, (list, tuple))
@@ -279,7 +275,7 @@ def evaluate_placements(g: DataflowGraph, nx: int, ny: int, placements,
         if model is None:
             model, _, _ = sg.fit_from_sim(
                 g, nx, ny, cfg=cfg_list[0], n_train=surrogate_train,
-                device=dev)
+                mesh=mesh, device=dev)
         keep = model.rank(np.stack(node_pes), device=dev)[:max(1, keep_top)]
         names = [names[i] for i in keep]
         node_pes = [node_pes[i] for i in keep]
@@ -293,7 +289,11 @@ def evaluate_placements(g: DataflowGraph, nx: int, ny: int, placements,
     cfg_list = [dataclasses.replace(c, placement=None) for c in cfg_list]
     out = {}
     for name, gm in zip(names, gms):
-        res = overlay._simulate_batch(gm, cfg_list, device=dev)
+        if mesh is None:
+            res = overlay._simulate_batch(gm, cfg_list, device=dev)
+        else:
+            res = distributed._simulate_batch_sharded(gm, mesh, cfg_list,
+                                                      device=dev)
         out[name] = res[0] if single else res
     return out
 

@@ -11,12 +11,15 @@ Inputs are made from numpy seeds and handed to both sides as numpy arrays.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import datetime
 import functools
 import os
 import subprocess
 import sys
 import textwrap
+import time
 from pathlib import Path
 
 import numpy as np
@@ -76,14 +79,17 @@ LEGACY_PRNG = 'jax.config.update("jax_threefry_partitionable", False)\n'
 
 
 def run_reference(tmp_path_factory, name: str, body: str, *,
-                  legacy_prng: bool = False) -> dict:
+                  legacy_prng: bool = False, env: dict | None = None) -> dict:
     """Run ``body`` (which fills the dict ``res``) under the reference in a
     subprocess and return ``res`` as numpy arrays. ``legacy_prng`` runs it
-    on the non-partitionable Threefry layout (:data:`LEGACY_PRNG`)."""
+    on the non-partitionable Threefry layout (:data:`LEGACY_PRNG`); ``env``
+    adds environment variables (e.g. ``XLA_FLAGS`` for fake host devices,
+    read when jax is imported)."""
     out = tmp_path_factory.mktemp(name) / "reference.npz"
     script = (_PRELUDE + (LEGACY_PRNG if legacy_prng else "")
               + textwrap.dedent(body) + "\nnp.savez(sys.argv[1], **res)\n")
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"),
+               **(env or {}))
     proc = subprocess.run([sys.executable, "-c", script, str(out)], env=env,
                           cwd=ROOT, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
@@ -389,3 +395,248 @@ def assert_telemetry_matches(result, ref: dict, key: str) -> None:
     want = {k[len(key) + 7:]: v for k, v in ref.items()
             if k.startswith(key + "/telem/")}
     assert_traces_equal(result.telemetry.traces, want, key)
+
+
+# ---------------------------------------------------------------------------
+# The sharded engines (``run(..., mesh=)``) on gloo ranks.
+# ---------------------------------------------------------------------------
+
+#: Seconds a process group waits on a collective before it fails the rank.
+GROUP_TIMEOUT_S = 120
+
+
+@contextlib.contextmanager
+def one_rank_mesh(tmp_path):
+    """A 1x1 CPU ``DeviceMesh`` (dims ``("data", "model")``) over a gloo
+    group of this process alone, joined through a ``FileStore`` under
+    ``tmp_path``; the group is destroyed on exit."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    try:
+        yield init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+_RANK_PRELUDE = f"""\
+import datetime
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+
+torch.set_num_threads(1)
+rank, world = int(sys.argv[1]), int(sys.argv[2])
+dist.init_process_group(
+    "gloo", store=dist.FileStore(sys.argv[3], world), rank=rank,
+    world_size=world,
+    timeout=datetime.timedelta(seconds={GROUP_TIMEOUT_S}))
+
+
+def mesh_of(shape):
+    return init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+
+
+def put(key, r):
+    for k in {RESULT_KEYS!r}:
+        res[f"{{key}}/{{k}}"] = np.asarray(getattr(r, k))
+    if r.telemetry is not None:
+        for k, v in r.telemetry.traces.items():
+            res[f"{{key}}/telem/{{k}}"] = v
+
+
+res = {{}}
+"""
+
+
+def run_ranks(tmp_path_factory, name: str, world: int, body: str, *,
+              timeout: float = 300) -> list[dict]:
+    """Run ``body`` on ``world`` gloo ranks on the CPU, one subprocess a
+    rank. The ranks meet through a ``FileStore`` in a fresh temporary
+    directory (no TCP port, so concurrent test workers cannot collide), and
+    every collective fails its rank after :data:`GROUP_TIMEOUT_S` seconds
+    instead of hanging. ``body`` sees ``rank``, ``world``, ``mesh_of(shape)``
+    (a CPU ``DeviceMesh`` with dims ``("data", "model")``) and
+    ``put(key, result)``, and fills the dict ``res``. Returns each rank's
+    ``res`` as numpy arrays, by rank; any rank's failure raises."""
+    d = tmp_path_factory.mktemp(name)
+    script = (_RANK_PRELUDE + textwrap.dedent(body)
+              + "\ndist.destroy_process_group()\nnp.savez(sys.argv[4], **res)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    logs = [open(d / f"rank{r}.log", "w+") for r in range(world)]
+    procs = []
+    try:
+        for r in range(world):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", script, str(r), str(world),
+                 str(d / "store"), str(d / f"rank{r}.npz")],
+                env=env, cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        failed = []
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode:
+                log.seek(0)
+                failed.append(f"rank {r} (rc {p.returncode}):\n"
+                              f"{log.read()[-3000:]}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    out = []
+    for r in range(world):
+        with np.load(d / f"rank{r}.npz") as z:
+            out.append({k: z[k] for k in z.files})
+    return out
+
+
+def assert_same_result(got, want, label="") -> None:
+    """Two port results: every counter, every value as a bit pattern, and
+    every trace leaf equal."""
+    for k in RESULT_KEYS:
+        a, b = getattr(got, k), getattr(want, k)
+        if k == "values":
+            np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32),
+                                          err_msg=f"{label} values")
+        else:
+            assert a == b, (label, k, a, b)
+    assert (got.telemetry is None) == (want.telemetry is None), label
+    if want.telemetry is not None:
+        assert_traces_equal(got.telemetry.traces, want.telemetry.traces, label)
+
+
+def assert_rank_matches(res: dict, key: str, want) -> None:
+    """One rank's saved result ``key`` (``put`` in :func:`run_ranks`)
+    equals the port result ``want``, bit for bit, traces included."""
+    for k in RESULT_KEYS:
+        got = res[f"{key}/{k}"]
+        if k == "values":
+            np.testing.assert_array_equal(got.view(np.int32),
+                                          want.values.view(np.int32),
+                                          err_msg=f"{key} values")
+        else:
+            assert got.item() == getattr(want, k), (key, k, got, want)
+    traces = {k[len(key) + 7:]: v for k, v in res.items()
+              if k.startswith(key + "/telem/")}
+    if want.telemetry is None:
+        assert not traces, key
+    else:
+        assert_traces_equal(traces, want.telemetry.traces, key)
+
+
+#: The runs of the mesh tests on every mesh: key -> config keywords (a list
+#: of them for a batch; ``telemetry`` as TelemetrySpec keywords). The graph:
+#: ``arrow_lu_graph(2, 5, 3, seed=4)`` on 4x4 (criticality layout), 238-277
+#: cycles a policy; the batches hold every policy and ``scan`` again at a
+#: budget of 60 (frozen mid-run).
+_POLICIES = ("ooo", "inorder", "lru_flat", "scan")
+_SPEC = dict(buckets=16, bucket_cycles=8)
+MESH_RUNS = {
+    **{f"{p}/{e}": dict(scheduler=p, engine=e)
+       for p in _POLICIES for e in ("tensor", "select", "megakernel")},
+    **{f"ooo/tensor/K{k}": dict(check_every=k, engine="tensor")
+       for k in (1, 7)},
+    **{f"batch/{e}": [*(dict(scheduler=p, engine=e) for p in _POLICIES),
+                      dict(scheduler="scan", max_cycles=60, engine=e)]
+       for e in ("tensor", "megakernel")},
+    "traced/select": dict(engine="select", telemetry=_SPEC),
+    "traced_batch/megakernel": [
+        dict(scheduler=s, engine="megakernel", telemetry=_SPEC)
+        for s in ("ooo", "inorder")],
+}
+
+_MESH_BODY = """
+import repro_torch
+from repro_torch import place
+from repro_torch.core import distributed
+from repro_torch.core import workloads as wl
+from repro_torch.core.overlay import OverlayConfig
+from repro_torch.core.partition import build_graph_memory
+from repro_torch.telemetry import TelemetrySpec
+
+
+def config(kw):
+    kw = dict(kw)
+    if "telemetry" in kw:
+        kw["telemetry"] = TelemetrySpec(**kw["telemetry"])
+    return OverlayConfig(**kw)
+
+
+g = wl.arrow_lu_graph(2, 5, 3, seed=4)
+gm = build_graph_memory(g, 4, 4, criticality_order=True)
+for shape in SHAPES:
+    mesh = mesh_of(shape)
+    tag = "x".join(map(str, shape))
+    for key, kw in MESH_RUNS.items():
+        if isinstance(kw, list):
+            rs = repro_torch.run(gm, mesh=mesh, device="cpu",
+                                 batch=[config(c) for c in kw])
+            for i, r in enumerate(rs):
+                put(f"{tag}/{key}/{i}", r)
+        else:
+            put(f"{tag}/{key}", repro_torch.run(gm, config(kw), mesh=mesh,
+                                                device="cpu"))
+    res[f"{tag}/route"] = np.asarray(distributed.route(mesh, "cpu"))
+"""
+
+
+
+
+def mesh_config(kw):
+    """An OverlayConfig from :data:`MESH_RUNS` keywords."""
+    from repro_torch.core.overlay import OverlayConfig
+    from repro_torch.telemetry import TelemetrySpec
+
+    kw = dict(kw)
+    if "telemetry" in kw:
+        kw["telemetry"] = TelemetrySpec(**kw["telemetry"])
+    return OverlayConfig(**kw)
+
+
+def mesh_runs(tmp_path_factory, name: str, world: int, shapes, extra: str = ""):
+    """Every rank's results of :data:`MESH_RUNS` on each mesh of ``shapes``
+    (``put`` under ``"<shape>/<key>"``, batches ``"<shape>/<key>/<i>"``,
+    the route under ``"<shape>/route"``), then ``extra`` (a body that may
+    use ``g``, ``gm`` and ``config``), on ``world`` gloo ranks."""
+    head = f"SHAPES = {tuple(shapes)!r}\nMESH_RUNS = {MESH_RUNS!r}\n"
+    return run_ranks(tmp_path_factory, name, world,
+                     head + _MESH_BODY + textwrap.dedent(extra))
+
+
+@functools.lru_cache(maxsize=None)
+def mesh_single_run(key: str):
+    """The port's single-device run of ``MESH_RUNS[key]``."""
+    import repro_torch
+    from repro_torch.core import workloads as wl
+    from repro_torch.core.partition import build_graph_memory
+
+    gm = build_graph_memory(wl.arrow_lu_graph(2, 5, 3, seed=4), 4, 4,
+                            criticality_order=True)
+    kw = MESH_RUNS[key]
+    if isinstance(kw, list):
+        return repro_torch.run(gm, batch=[mesh_config(c) for c in kw],
+                               device="cpu")
+    return repro_torch.run(gm, mesh_config(kw), device="cpu")
+
+
+def assert_mesh_run(results: list, tag: str, key: str) -> None:
+    """Every rank's run ``key`` on mesh ``tag`` equals the single-device
+    run, and went over gloo with host tensors."""
+    want = mesh_single_run(key)
+    for res in results:
+        assert str(res[f"{tag}/route"]) == "gloo, host tensors"
+        if isinstance(want, list):
+            for i, w in enumerate(want):
+                assert_rank_matches(res, f"{tag}/{key}/{i}", w)
+        else:
+            assert_rank_matches(res, f"{tag}/{key}", want)

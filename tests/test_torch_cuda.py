@@ -801,3 +801,46 @@ def test_surrogate_features_on_the_card_equal_the_cpu(cuda):
     np.testing.assert_array_equal(a.node_pe, b.node_pe)
     assert (a.coarse.cost_evals, a.refined.cost_evals) == (
         b.coarse.cost_evals, b.refined.cost_evals)
+
+
+def test_one_by_one_nccl_mesh_equals_the_non_mesh_run(cuda, tmp_path):
+    """``run(..., mesh=)`` on a 1x1 mesh over NCCL (a world of one, a
+    FileStore rendezvous) under ``megakernel``, solo and batched: every
+    result equals the non-mesh run leaf for leaf, through the solo and the
+    batched kernel, with no collective launched."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import distributed
+
+    gm = build_graph_memory(wl.arrow_lu_graph(3, 6, 4, seed=5), 2, 2,
+                            criticality_order=True)
+    cfg = OverlayConfig(engine="megakernel")
+    cfgs = [OverlayConfig(scheduler=p, engine="megakernel")
+            for p in ("ooo", "inorder")] + [
+        OverlayConfig(scheduler="scan", max_cycles=200, engine="megakernel")]
+    want, want_batch = repro_torch.run(gm, cfg), repro_torch.run(gm, batch=cfgs)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        megakernel.reset_launches()
+        distributed.reset_stats()
+        got = repro_torch.run(gm, cfg, mesh=mesh)
+        got_batch = repro_torch.run(gm, mesh=mesh, batch=cfgs)
+        launches, stats = dict(megakernel.launches), dict(distributed.stats)
+    finally:
+        dist.destroy_process_group()
+    assert launches["mega_chunk"] > 0 and launches["mega_chunk_batched"] > 0
+    assert stats == dict(halo=0, all_reduce=0, all_gather=0, halo_s=0.0)
+    assert (got.cycles, got.deflections) == GOLDENS["ooo"]
+    for a, b in zip([got, *got_batch], [want, *want_batch]):
+        for f in ("cycles", "done", "delivered", "deflections", "busy_cycles",
+                  "noc_deflections", "eject_deflections"):
+            assert getattr(a, f) == getattr(b, f), f
+        np.testing.assert_array_equal(a.values.view(np.int32),
+                                      b.values.view(np.int32))

@@ -13,7 +13,8 @@ import pytest
 import torch
 
 import repro_torch
-from _torch_ref import assert_tree_equal, run_reference, unflatten
+from _torch_ref import (assert_same_result, assert_tree_equal, one_rank_mesh,
+                        run_reference, unflatten)
 from repro_torch.convert import (graph_memory_from_numpy, state_from_numpy,
                                  state_to_numpy)
 from repro_torch.core import overlay
@@ -145,7 +146,7 @@ def test_run_without_device_needs_cuda(monkeypatch, entry):
         make[entry]()
 
 
-def test_parts_not_ported_yet_raise():
+def test_parts_not_ported_yet_raise(tmp_path):
     g = wl.layered_dag(3, 4, seed=1)
     # Placement is ported, the surrogate-guided search too: a guided spec
     # rides in a config as any other spec.
@@ -158,8 +159,14 @@ def test_parts_not_ported_yet_raise():
         OverlayConfig(telemetry=object())
     with pytest.raises(ValueError, match="engine"):
         OverlayConfig(engine="xla")
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        repro_torch.run(g, mesh=object(), nx=2, ny=2, device="cpu")
+    # The sharded engines are ported: a raw graph on a 1x1 mesh runs as on
+    # one device, leaf for leaf (meshes of more ranks:
+    # tests/test_torch_distributed*.py).
+    with one_rank_mesh(tmp_path) as mesh:
+        got = repro_torch.run(g, mesh=mesh, nx=2, ny=2, device="cpu")
+    want = repro_torch.run(g, nx=2, ny=2, device="cpu")
+    assert got.done
+    assert_same_result(got, want)
 
 
 def test_reference_spellings_run_as_the_defaults():

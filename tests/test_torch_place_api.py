@@ -10,7 +10,8 @@ batched; and the config hillclimb. The BENCH ``placement`` rows are in
 import numpy as np
 import pytest
 
-from _torch_ref import RESULT_KEYS, run_reference
+from _torch_ref import (RESULT_KEYS, assert_same_result, one_rank_mesh,
+                        run_reference)
 
 import repro_torch
 from repro_torch import place
@@ -239,14 +240,22 @@ def test_overlay_config_placement_forms():
     assert OverlayConfig(placement=guided).placement == guided
 
 
-def test_not_ported_options_raise():
+def test_not_ported_options_raise(tmp_path):
     g = _graph()
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        place.evaluate_placements(g, *GRID, {"a": None}, mesh=object(),
-                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        place.simulate_placements(g, *GRID, [place.resolve(g, *GRID)],
-                                  mesh=object(), device="cpu")
+    # mesh= works (the sharded engines are ported): on a 1x1 mesh the
+    # evaluation and the simulations equal the single-device ones.
+    pes = [place.resolve(g, *GRID)]
+    with one_rank_mesh(tmp_path) as mesh:
+        (got,) = place.evaluate_placements(g, *GRID, {"a": None}, mesh=mesh,
+                                           device="cpu").values()
+        (sim,) = place.simulate_placements(g, *GRID, pes, mesh=mesh,
+                                           device="cpu")
+    (want,) = place.evaluate_placements(g, *GRID, {"a": None},
+                                        device="cpu").values()
+    assert got.done
+    assert_same_result(got, want)
+    assert_same_result(sim, place.simulate_placements(g, *GRID, pes,
+                                                      device="cpu")[0])
     # prune= and guide_model= work (the surrogate is ported): the pruned
     # evaluation simulates the model's best-ranked candidates only, with the
     # full evaluation's cycles, and a guided spec's search takes the model.

@@ -245,19 +245,31 @@ Phases, each of which fails the run on any error (each prints its seconds):
      2080-key cache, kv_len per row from 1 to 2080), gemma-2b's head_dim 256
      under MQA (prefill and decode), and awkward shapes (Tq 33 and 2047, Tkv
      70 and 2049, head_dim 80, 128 and 256, non-causal, kv_len 1, 64, 65,
-     2080); then the mma body's exponential (ex2.approx) against expf on
+     2080), and deepseek-v2-lite's MLA shapes at head_dim 192 with v's
+     last 64 columns zero and ``scale = 192 ** -0.5`` (the prefill, batch 8
+     x 2048 tokens, 16 heads; an 8-token prompt on ``split``; Tq 33 and
+     2047); then the mma body's exponential (ex2.approx) against expf on
      the prefill case's scores, within half a bf16 step;
  15. flash-attention time: device time at the prefill and decode shapes in
-     bfloat16 (CUDA-graph replay), each body kernel's time by the profiler
-     (the simt body's at the prefill shape in float32), beside the plain
-     version's, SDPA's (the yardstick, with an explicit mask and without
-     one), the host time per call and the bound (FLOPs at 989 TFLOP/s or
-     bytes at 3.35 TB/s, whichever is larger);
+     bfloat16 (CUDA-graph replay) and at deepseek-v2-lite's MLA prefill
+     (head_dim 192), each body kernel's time by the profiler (the simt
+     body's at the prefill shapes in float32), beside the plain version's,
+     SDPA's (the yardstick, with an explicit mask and without one), the
+     host time per call and the bound (FLOPs at 989 TFLOP/s or bytes at
+     3.35 TB/s, whichever is larger; head_dim 192 counted as 192, not the
+     256 the mma body pads its tiles to);
  16. serve main path: ``repro_torch.launch.serve.main`` for qwen2-0.5b at
      full width in bfloat16, batch 8 x 2048 prompt tokens, 32 new tokens
      (after a warm-up run of 2 new tokens): prefill and decode tok/s, and
      the flash kernel called exactly 24 x 32 times in the counted run: 24
      ``mma`` launches, 744 ``split`` and 744 ``combine``, no ``simt``;
+ 16b. serve deepseek: ``serve.main`` for deepseek-v2-lite-16b at full width
+     and depth (27 layers, MLA, 64 routed experts top-6 + 2 shared, layer 0
+     dense) in bfloat16, batch 8 x 2048 prompt tokens, 32 new tokens (after
+     a warm-up run of 2): prefill and decode tok/s, the prefill's
+     ``moe_dropped``, the peak device memory, and the flash kernel called
+     once a layer in the prefill on the body ``plan`` gives (27 ``mma``)
+     and never in decode (MLA's absorbed decode launches no kernel);
  17. serve consistency: full width in float32 (TF32 off), prefill (on the
      ``simt`` body) and 16 teacher-forced decode steps (``split``) through
      the kernel against ``forward``'s logits, and against the same steps
@@ -272,9 +284,20 @@ Phases, each of which fails the run on any error (each prints its seconds):
      (``tests/fixtures/qwen2_0_5b_golden_bf16.npz``): per row, the logits
      at the golden's top-32 indices, the top-32 values and the logsumexp
      within 2e-2 x (|golden| + the row's RMS);
+ 18c. deepseek against the reference: the numpy recipe's weights in
+     float32 at full width and depth 2 (layer 0 dense, layer 1 MoE), a
+     prefill of 2 x 64 tokens and three decode steps against the JAX
+     package's golden (``tests/fixtures/deepseek_v2_lite_golden.npz``):
+     top-32 logits and logsumexp at 1e-4, and the MoE layer's prefill
+     routing (each token's top-6 experts and the capacity cut's keep
+     mask) equal but for near-ties (the golden's own gap below 1e-5),
+     which are counted; then deepseek at full width and depth 4 in float32
+     with capacity factor 8 (nothing drops): prefill and 16 teacher-forced
+     decode steps against ``forward``'s logits at 3e-4;
  19. serve profiles: ``torch.profiler`` over one prefill of phase 16's
      shape and over 8 decode steps after it, each with its device busy
-     share, device ops per step and top kernels.
+     share, device ops per step and top kernels; then the same over one
+     deepseek-v2-lite prefill of phase 16b's shape and 4 decode steps.
 
 Each graph is built once (numpy set-up, in worker processes while the
 kernels build) and shared by the phases; phase 10e's four ranks build
@@ -2036,6 +2059,22 @@ SERVE_LAUNCHES = 24 * 32
 #: split over the keys, each followed by its combine.
 SERVE_BODIES = {"flash_attention_mma": 24, "flash_attention_split": 24 * 31,
                 "flash_attention_combine": 24 * 31, "flash_attention_simt": 0}
+#: deepseek-v2-lite-16b at full width and depth, served as phase 16 serves
+#: qwen2-0.5b: 27 MLA layers, each one flash call in the prefill (the body
+#: ``plan`` gives at batch 8 x 2048 tokens, 16 heads, head_dim 192) and
+#: none in decode (the absorbed form).
+DEEPSEEK = "deepseek-v2-lite-16b"
+DEEPSEEK_SERVE_ARGS = ["--arch", DEEPSEEK, "--batch", "8", "--prompt-len",
+                       "2048", "--gen", "32"]
+DEEPSEEK_GOLDEN = ROOT / "tests" / "fixtures" / "deepseek_v2_lite_golden.npz"
+#: A routing difference from the golden passes only where the golden's own
+#: gap there (between neighbouring router probabilities, or between the
+#: criticality keys on either side of an expert's capacity cut) is below
+#: this.
+ROUTE_TIE = 1e-5
+#: The f32 consistency check at full width: layers, capacity factor (no
+#: drops at the check's lengths).
+DEEPSEEK_CONSIST = (4, 8.0)
 #: Kernel checks: name -> (b, hq, hkv, tq, tkv, d, causal, kv_len, layout,
 #: (body in float32, body in bfloat16)). The reference's five kernel-test
 #: shapes (tests/test_kernels.py, in the Pallas kernel's [B, H, T, D]
@@ -2076,6 +2115,19 @@ FLASH_CASES = {
     "decode_mqa_d80": (3, 8, 1, 1, 129, 80, True, [1, 65, 129], "tokens",
                        DECODE),
 }
+#: deepseek-v2-lite's MLA attention (phase 16b's prefill, an 8-token prompt,
+#: Tq 33 and 2047): q and k [nope 128, rope 64], v's 128 columns padded to
+#: 192 with zeros (``MLA_V``), ``scale = 192 ** -0.5``.
+MLA_CASES = {
+    "deepseek_prefill": (8, 16, 16, 2048, 2048, 192, True, None, "tokens",
+                         PREFILL),
+    "deepseek_prompt8": (8, 16, 16, 8, 8, 192, True, None, "tokens", DECODE),
+    "mla_tq33": (2, 16, 16, 33, 33, 192, True, None, "tokens", PREFILL),
+    "mla_tq2047": (1, 16, 16, 2047, 2047, 192, True, None, "tokens",
+                   PREFILL),
+}
+MLA_V = 128
+FLASH_CASES.update(MLA_CASES)
 #: Tolerances against the plain version: in float32 the two differ only in
 #: the order of f32 sums; bfloat16 is the reference's kernel-test tolerance
 #: (tests/test_kernels.py:135). Each holds twice: as rtol = atol, and per
@@ -2084,7 +2136,8 @@ FLASH_CASES = {
 #: fail if a key tile went missing.
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: Timed shapes (bfloat16, the serve path's type): name -> case.
-FLASH_TIMED = {"prefill": "qwen2_prefill", "decode": "qwen2_decode"}
+FLASH_TIMED = {"prefill": "qwen2_prefill", "decode": "qwen2_decode",
+               "mla_prefill": "deepseek_prefill"}
 #: The decode timing reads a full cache: kv_len = Tkv for every row.
 DECODE_TIMED_KV_LEN = 2080
 #: Consistency at full width (f32): batch, prompt, teacher-forced steps;
@@ -2109,10 +2162,21 @@ GOLDEN_BF16_TOL = 2e-2
 
 
 def flash_inputs(torch, case, dtype, seed):
+    """q, k, v of a case, drawn on the card (an MLA case's v zero past its
+    ``MLA_V`` columns)."""
     b, hq, hkv, tq, tkv, d = FLASH_CASES[case][:6]
     g = torch.Generator("cuda").manual_seed(seed)
-    return [torch.randn(shape, generator=g, device="cuda").to(dtype)
-            for shape in ((b, tq, hq, d), (b, tkv, hkv, d), (b, tkv, hkv, d))]
+    q, k, v = [torch.randn(shape, generator=g, device="cuda").to(dtype)
+               for shape in ((b, tq, hq, d), (b, tkv, hkv, d), (b, tkv, hkv, d))]
+    if case in MLA_CASES:
+        v[..., MLA_V:] = 0
+    return q, k, v
+
+
+def flash_scale(case):
+    """The scale a case's caller passes: MLA's ``192 ** -0.5``, else the
+    default."""
+    return FLASH_CASES[case][5] ** -0.5 if case in MLA_CASES else None
 
 
 def body_launches(body):
@@ -2128,21 +2192,24 @@ def body_launches(body):
 
 def check_flash(torch, fa):
     """The kernel against its plain version on every case, both dtypes, and
-    the body each case must take. Returns the largest error over the cases
-    and that of each body."""
-    worst, by_body = 0.0, {}
+    the body each case must take. Returns the largest error over the cases,
+    that of each body and that of each case."""
+    worst, by_body, by_case = 0.0, {}, {}
     for i, (case, (b, hq, hkv, tq, tkv, d, causal, kv_len, layout, bodies)) \
             in enumerate(FLASH_CASES.items()):
         for dtype, body in zip((torch.float32, torch.bfloat16), bodies):
             q, k, v = flash_inputs(torch, case, dtype, seed=i)
-            want = fa.attention_plain(q, k, v, causal=causal, kv_len=kv_len)
+            scale = flash_scale(case)
+            want = fa.attention_plain(q, k, v, causal=causal, scale=scale,
+                                      kv_len=kv_len)
             fa.reset_launches()
             if layout == "heads":       # the Pallas kernel's [B, H, T, D]
                 heads = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
                 got = fa.flash_attention(*heads, causal=causal,
                                          kv_len=kv_len).transpose(1, 2)
             else:
-                got = fa.attention(q, k, v, causal=causal, kv_len=kv_len)
+                got = fa.attention(q, k, v, causal=causal, scale=scale,
+                                   kv_len=kv_len)
             torch.cuda.synchronize()
             diff = (got.float() - want.float()).abs()
             err = diff.max().item()
@@ -2162,14 +2229,18 @@ def check_flash(torch, fa):
             if got.dtype != dtype or got.shape != q.shape:
                 raise AssertionError(f"{case}: output {got.dtype} "
                                      f"{tuple(got.shape)}")
+            if case in MLA_CASES and (got[..., MLA_V:] != 0).any():
+                raise AssertionError(f"{case}: v's zero columns came out "
+                                     f"non-zero")
             if fa.launches != body_launches(body):
                 raise AssertionError(f"{case} {dtype}: launches "
                                      f"{fa.launches}, want the {body} body")
             worst = max(worst, err)
             key = f"{body}_{str(dtype)[6:]}"
             by_body[key] = max(by_body.get(key, 0.0), err)
+            by_case[case] = max(by_case.get(case, 0.0), err)
     print(f"flash_attention max abs error by body: {by_body}", flush=True)
-    return worst, by_body
+    return worst, by_body, by_case
 
 
 def ex2_error(torch, fa):
@@ -2238,16 +2309,11 @@ def sdpa_inputs(torch, q, k, v, causal, lens):
             mask[:, None])                                  # [B, 1, Tq, Tkv]
 
 
-#: Kernel names of the bodies, as the profiler shows them.
-FLASH_KERNELS = ("mma_kernel", "split_kernel", "combine_kernel", "simt_kernel")
-
-
-def kernel_us(torch, fn, n=20, names=FLASH_KERNELS, warmup=True):
-    """Device us per launch of each kernel of ``names`` (by default the
-    flash bodies') that ``fn`` launches, from ``torch.profiler`` over ``n``
-    calls (averaged over the launches the profiler recorded, which may be
-    fewer than ``n``), after one call unprofiled unless ``warmup`` is
-    false."""
+def kernel_us(torch, fn, n, names, warmup=True):
+    """Device us per launch of each kernel of ``names`` that ``fn``
+    launches, from ``torch.profiler`` over ``n`` calls (averaged over the
+    launches the profiler recorded, which may be fewer than ``n``, or none),
+    after one call unprofiled unless ``warmup`` is false."""
     from torch.profiler import ProfilerActivity, profile
 
     if warmup:
@@ -2294,6 +2360,27 @@ def one_kernel_ms(torch, fn, name, n, warmup=True, tries=3):
     return ms
 
 
+#: The kernels each body of the flash kernel launches, as the profiler names
+#: them.
+BODY_KERNELS = {"mma": ("mma_kernel",), "simt": ("simt_kernel",),
+                "split": ("split_kernel", "combine_kernel")}
+
+
+def body_kernel_us(torch, fn, body, n=20):
+    """Device us per launch of each kernel of the flash body ``body`` that
+    ``fn`` launches (:func:`kernel_us`); a kernel the profiled run did not
+    record is read again by :func:`one_kernel_ms` (profiled again, else CUDA
+    events around the whole call, which it says), so no body reads 0."""
+    names = BODY_KERNELS[body]
+    got = kernel_us(torch, fn, n, names)
+    for name in names:
+        if name not in got:
+            print(f"the profiler recorded no {name} launch; reading it again",
+                  flush=True)
+            got[name] = one_kernel_ms(torch, fn, name, n, warmup=False) * 1e3
+    return got
+
+
 def host_ms(torch, fn, n=100, rounds=7):
     """Host ms per call: ``n`` calls enqueued without a synchronisation
     (the card keeps up), median over ``rounds``."""
@@ -2322,22 +2409,24 @@ def flash_times(torch, fa):
     out = {}
     for label, case in FLASH_TIMED.items():
         b, hq, hkv, tq, tkv, d, causal = FLASH_CASES[case][:7]
-        kv_len = tkv if label == "prefill" else DECODE_TIMED_KV_LEN
+        big = label != "decode"
+        kv_len = tkv if big else DECODE_TIMED_KV_LEN
         lens = [kv_len] * b
+        scale = flash_scale(case)
         q, k, v = flash_inputs(torch, case, torch.bfloat16, seed=99)
         (qh, kh, vh), mask = sdpa_inputs(torch, q, k, v, causal, lens)
         pl = fa.plan(b, tq, tkv, hq, hkv, d, q.dtype, lens)
-        kernel = lambda: fa.attention(q, k, v, causal=causal, kv_len=kv_len)
+        kernel = lambda: fa.attention(q, k, v, causal=causal, scale=scale,
+                                      kv_len=kv_len)
         plain = lambda: fa.attention_plain(q, k, v, causal=causal,
-                                           kv_len=kv_len)
+                                           scale=scale, kv_len=kv_len)
         sdpa = lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=mask, enable_gqa=True)
+            qh, kh, vh, attn_mask=mask, enable_gqa=True, scale=scale)
         # The same function at these inputs without a mask tensor: causal
         # from the top left is the ends-aligned mask when Tq = Tkv = kv_len,
         # and a single query row over a full cache needs no mask.
         sdpa_fast = lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=tq == tkv, enable_gqa=True)
-        big = label == "prefill"
+            qh, kh, vh, is_causal=tq == tkv, enable_gqa=True, scale=scale)
         reps = 20 if big else 100
         n = dict(
             ms=device_ms(torch, kernel, reps=reps, rounds=5),
@@ -2347,7 +2436,7 @@ def flash_times(torch, fa):
             call_ms=call_ms(torch, kernel, reps=20 if big else 100),
             host_ms=host_ms(torch, kernel),
             body=pl.body, plan=list(pl),
-            kernels_us=kernel_us(torch, kernel))
+            kernels_us=body_kernel_us(torch, kernel, pl.body))
         flops, nbytes = flash_work(case, kv_len, 2)
         n["flops"], n["bytes"] = flops, nbytes
         n["ops_ms"] = flops / BF16_FLOPS_PER_S * 1e3
@@ -2369,10 +2458,11 @@ def flash_times(torch, fa):
               f"at 3.35 TB/s = {n['bytes_ms'] * 1e3:.3f} us)", flush=True)
         if big:
             q32, k32, v32 = (x.float() for x in (q, k, v))
-            n["f32_plan"] = list(fa.plan(b, tq, tkv, hq, hkv, d, q32.dtype,
-                                         lens))
-            n["f32_kernels_us"] = kernel_us(torch, lambda: fa.attention(
-                q32, k32, v32, causal=causal, kv_len=kv_len), n=5)
+            f32_plan = fa.plan(b, tq, tkv, hq, hkv, d, q32.dtype, lens)
+            n["f32_plan"] = list(f32_plan)
+            n["f32_kernels_us"] = body_kernel_us(torch, lambda: fa.attention(
+                q32, k32, v32, causal=causal, scale=scale, kv_len=kv_len),
+                f32_plan.body, n=5)
             print(f"flash_attention time {label} f32: {n['f32_plan']} by "
                   f"kernel { {k: round(x, 1) for k, x in n['f32_kernels_us'].items()} }"
                   f" us", flush=True)
@@ -2511,7 +2601,15 @@ def against_golden(torch, np):
           f"{time.perf_counter() - t:.1f} s", flush=True)
     tokens = torch.from_numpy(g["tokens"]).cuda()
     lg = teacher_forced(torch, model, cfg, tokens, int(g["prompt_len"]))
-    lg = lg.cpu().numpy()
+    return golden_top(np, lg.cpu().numpy(), g, "qwen2-0.5b")
+
+
+def golden_top(np, lg, g, arch):
+    """The card's f32 logits [steps, B, V] against an f32 golden: the
+    values at the golden's top-32 indices and the logsumexp at GOLDEN_TOL;
+    an index may differ from the golden's only where the golden's own
+    values at the two ranks lie within 2 x tol (a near-tie; the golden
+    keeps 40 ranks for that). Returns the largest error."""
     k = int(g["topk"])
     gold_idx, gold_val = g["top_idx"], g["top_val"]
     at = np.take_along_axis(lg, gold_idx[..., :k], -1)
@@ -2529,7 +2627,7 @@ def against_golden(torch, np):
             raise AssertionError(f"golden: top-{k} index {idx[pos]} at rank "
                                  f"{pos} is no near-tie of the golden's")
         swaps += 1
-    print(f"golden qwen2-0.5b f32 full width vs the reference (CPU, f32): "
+    print(f"golden {arch} f32 full width vs the reference (CPU, f32): "
           f"top-{k} values max abs error {err:.3e}, logsumexp {lse_err:.3e} "
           f"(tol {GOLDEN_TOL}), top-{k} indices equal but for {swaps} "
           f"near-tie swaps (the golden's smallest neighbour gap "
@@ -2624,27 +2722,289 @@ def serve_profiles(torch):
                 f"at cache length {p}", "step")
 
 
+def free_card(torch):
+    """Let the card's caching allocator give back what earlier phases'
+    models held."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def flash_calls(pl, n):
+    """The launch counts of ``n`` calls that take plan ``pl``."""
+    return {k: n * v for k, v in body_launches(pl.body).items()}
+
+
+def mla_prefill_plan(fa, cfg, b, t, dtype):
+    """The flash plan of one MLA prefill layer of ``cfg`` (q, k and v at
+    the qk head width, one kv head a q head)."""
+    m = cfg.mla
+    return fa.plan(b, t, t, cfg.num_heads, cfg.num_heads,
+                   m.nope_head_dim + m.rope_head_dim, dtype)
+
+
+def serve_deepseek(torch, np, fa):
+    """``serve.main`` for deepseek-v2-lite-16b at full width and depth in
+    bf16 (batch 8 x 2048, 32 new tokens), after a warm-up run of 2 new
+    tokens. The flash kernel must be called once a layer in the prefill,
+    on the body ``plan`` gives, and never in decode. Returns (launches,
+    prefill tok/s, decode tok/s, the prefill's moe_dropped, peak GiB)."""
+    import contextlib
+    import io
+    import re
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    free_card(torch)
+    cfg = get_config(DEEPSEEK)
+    b, p = int(DEEPSEEK_SERVE_ARGS[3]), int(DEEPSEEK_SERVE_ARGS[5])
+    want = flash_calls(mla_prefill_plan(fa, cfg, b, p,
+                                            cfg.torch_dtype), cfg.num_layers)
+    with contextlib.redirect_stdout(io.StringIO()):
+        serve.main(DEEPSEEK_SERVE_ARGS[:-1] + ["2"])
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    fa.reset_launches()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        seq = serve.main(DEEPSEEK_SERVE_ARGS)
+    wall = time.perf_counter() - t
+    used = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    text = buf.getvalue()
+    print(text.rstrip(), flush=True)
+    rates = [float(x.replace(",", "")) for x in
+             re.findall(r"\(([\d,]+) tok/s\)", text)]
+    dropped = [int(x) for x in re.findall(r"prefill moe_dropped: (\d+)", text)]
+    print(f"serve {' '.join(DEEPSEEK_SERVE_ARGS)}: wall {wall:.2f} s (weights "
+          f"drawn on the card included), peak device memory {peak:.2f} GiB, "
+          f"prefill moe_dropped {dropped}, flash_attention launches {used} "
+          f"(want {want}: one a layer in the prefill, none in decode)",
+          flush=True)
+    if used != want:
+        raise AssertionError(f"serve {DEEPSEEK} launched {used}, want {want}")
+    if seq.shape != (b, 32) or not ((seq >= 0) & (seq < cfg.vocab_size)).all():
+        raise AssertionError(f"serve returned tokens {seq.shape} out of range")
+    if len(rates) != 2 or len(dropped) != 1:
+        raise AssertionError(f"serve printed no rates or drops: {text!r}")
+    return used, rates[0], rates[1], dropped[0], peak
+
+
+def deepseek_f32(torch, layers, **moe):
+    """deepseek-v2-lite-16b's full width in float32 cut to ``layers``, its
+    MoE config replaced by ``moe``; TF32 off (``full_width_f32``)."""
+    from repro_torch.configs import get_config
+
+    full_width_f32(torch)
+    cfg = get_config(DEEPSEEK)
+    return dataclasses.replace(cfg, num_layers=layers, dtype="float32",
+                               moe=dataclasses.replace(cfg.moe, **moe))
+
+
+def routing_check(np, got, g):
+    """Each MoE layer's prefill routing against the golden's: a top-6 id
+    may differ only at a near-tie of the golden's router probabilities
+    (neighbouring ranks within ROUTE_TIE), a keep flag only where the
+    golden's criticality keys on either side of that expert's cut lie
+    within ROUTE_TIE or the expert took part in such a top-6 near-tie.
+    Returns (top-6 near-ties, keep near-ties)."""
+    idx_ties = keep_ties = 0
+    for layer, (topi, keep) in enumerate(got):
+        gi, gp = g["route_idx"][layer], g["route_prob"][layer]
+        gk, gap = g["route_keep"][layer], g["route_cut_gap"][layer]
+        excused = set()
+        for pos in zip(*np.nonzero(topi != gi)):
+            grp, tok, r = pos
+            gaps = [abs(gp[grp, tok, r] - gp[grp, tok, r + 1])]
+            if r > 0:
+                gaps.append(abs(gp[grp, tok, r - 1] - gp[grp, tok, r]))
+            if not min(gaps) < ROUTE_TIE:
+                raise AssertionError(
+                    f"routing: layer {layer} group {grp} token {tok} rank {r}"
+                    f": expert {topi[pos]}, the golden's {gi[pos]}, gaps "
+                    f"{gaps} (no near-tie)")
+            excused |= {(grp, int(topi[pos])), (grp, int(gi[pos]))}
+            idx_ties += 1
+        fe = gi.reshape(gi.shape[0], -1)
+        for grp, j in zip(*np.nonzero(keep != gk)):
+            e = int(fe[grp, j])
+            if not ((grp, e) in excused or gap[grp, e] < ROUTE_TIE):
+                raise AssertionError(
+                    f"routing: layer {layer} group {grp} assignment {j} "
+                    f"(expert {e}) kept {keep[grp, j]}, the golden "
+                    f"{gk[grp, j]}; the golden's gap at the cut {gap[grp, e]}")
+            keep_ties += 1
+    return idx_ties, keep_ties
+
+
+def against_deepseek_golden(torch, np, fa):
+    """deepseek-v2-lite at full width, depth 2, f32, the numpy recipe's
+    weights: a prefill of 2 x 64 tokens and three decode steps against the
+    reference's golden (``golden_top``), and the MoE layer's prefill
+    routing (``routing_check``), read by a hook on each MoE module through
+    ``moe.route`` on its input. Returns (the largest logit error, top-6
+    near-ties, keep near-ties)."""
+    from repro_torch.convert import lm_params_from_numpy, numpy_lm_params
+    from repro_torch.models import moe
+
+    free_card(torch)
+    g = np.load(DEEPSEEK_GOLDEN)
+    cfg = deepseek_f32(torch, int(g["layers"]))
+    t = time.perf_counter()
+    model = lm_params_from_numpy(cfg, numpy_lm_params(cfg, int(g["seed"])),
+                                 device="cuda")
+    print(f"golden {DEEPSEEK}: numpy weights (seed {int(g['seed'])}, "
+          f"{cfg.num_layers} layers) to the card in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    prompt = int(g["prompt_len"])
+    routes = []
+
+    def record(mod, args):
+        x = args[0]
+        if x.shape[1] == prompt:                    # the prefill's call
+            r = moe.route(mod.router.w, cfg, x)
+            routes.append((r["topi"].cpu().numpy(),
+                           (r["mypos"] < r["cap"]).cpu().numpy()))
+
+    hooks = [blk.ffn.register_forward_pre_hook(record)
+             for blk in model.blocks if blk.kind == "moe"]
+    tokens = torch.from_numpy(g["tokens"]).cuda()
+    fa.reset_launches()
+    try:
+        lg = teacher_forced(torch, model, cfg, tokens, prompt)
+    finally:
+        for h in hooks:
+            h.remove()
+    want = flash_calls(mla_prefill_plan(fa, cfg, tokens.shape[0],
+                                            prompt, torch.float32),
+                       cfg.num_layers)
+    if fa.launches != want:
+        raise AssertionError(f"launches {fa.launches}, want {want}")
+    err = golden_top(np, lg.cpu().numpy(), g, DEEPSEEK)
+    if len(routes) != len(g["route_idx"]):
+        raise AssertionError(f"{len(routes)} MoE prefill routes recorded")
+    idx_ties, keep_ties = routing_check(np, routes, g)
+    dropped = sum(int((~keep).sum()) for _, keep in routes)
+    print(f"golden {DEEPSEEK} routing: top-{cfg.moe.top_k} experts and keep "
+          f"masks of {len(routes)} MoE layer(s) equal to the golden's but for "
+          f"{idx_ties} top-k and {keep_ties} keep near-ties (gap < "
+          f"{ROUTE_TIE}); dropped {dropped}, the golden {int(g['moe_dropped'])}"
+          f"; flash launches {dict(fa.launches)}", flush=True)
+    return err, idx_ties, keep_ties
+
+
+def deepseek_consistency(torch, np, fa):
+    """deepseek-v2-lite at full width, depth 4, f32, capacity factor 8 (no
+    drops): prefill + 16 teacher-forced decode steps equal ``forward``'s
+    logits at CONSIST_TOL; the flash kernel runs once a layer in the
+    prefill, never in decode."""
+    from repro_torch.models import lm
+
+    free_card(torch)
+    layers, cf = DEEPSEEK_CONSIST
+    cfg = deepseek_f32(torch, layers, capacity_factor=cf)
+    model = lm.init(torch.Generator("cuda").manual_seed(0), cfg)
+    b, p, n = CONSIST
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, p + n))
+                              .astype(np.int32)).cuda()
+    h, metrics = lm.forward(model, cfg, tokens=tokens)
+    full = lm.logits_fn(model, cfg, h)[:, p - 1:].transpose(0, 1)
+    cache = lm.init_cache(cfg, b, p + n, device="cuda")
+    fa.reset_launches()
+    logits, cache, pm = lm.prefill(model, cfg, tokens=tokens[:, :p],
+                                   cache=cache, return_metrics=True)
+    steps = [logits]
+    for i in range(p, p + n):
+        logits, cache = lm.decode_step(model, cfg, tokens[:, i], cache, i)
+        steps.append(logits)
+    kern = torch.stack(steps)
+    want = flash_calls(mla_prefill_plan(fa, cfg, b, p,
+                                            torch.float32), layers)
+    drops = (int(metrics["moe_dropped"].item()), int(pm["moe_dropped"].item()))
+    e_full = (kern - full).abs().max().item()
+    print(f"consistency {DEEPSEEK} f32 full width, {layers} layers, capacity "
+          f"factor {cf}, batch {b}, prompt {p}, {n} decode steps: prefill+"
+          f"decode vs forward max abs error {e_full:.3e} (tol {CONSIST_TOL}; "
+          f"|logits| up to {full[..., :cfg.vocab_size].abs().max().item():.3f})"
+          f"; moe_dropped forward / prefill {drops}; launches "
+          f"{dict(fa.launches)}", flush=True)
+    if fa.launches != want:
+        raise AssertionError(f"launches {fa.launches}, want {want}")
+    if drops != (0, 0):
+        raise AssertionError(f"capacity factor {cf} dropped {drops}")
+    torch.testing.assert_close(kern, full, rtol=CONSIST_TOL, atol=CONSIST_TOL)
+    return e_full
+
+
+def deepseek_profiles(torch, fa):
+    """``torch.profiler`` over one deepseek-v2-lite prefill of phase 16b's
+    shape (bf16, batch 8 x 2048) and over 4 decode steps after it; no flash
+    launch in the decode steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    free_card(torch)
+    cfg = get_config(DEEPSEEK)
+    g = torch.Generator("cuda").manual_seed(0)
+    model = lm.init(g, cfg)
+    b, p, n = 8, 2048, 4
+    tokens = torch.randint(0, cfg.vocab_size, (b, p), generator=g,
+                           device="cuda", dtype=torch.int32)
+    cache = lm.init_cache(cfg, b, p + n, device="cuda")
+    cur = tokens[:, -1].contiguous()
+
+    def decode():
+        for i in range(n):
+            lm.decode_step(model, cfg, cur, cache, p + i)
+
+    profile_run(torch, lambda: lm.prefill(model, cfg, tokens=tokens,
+                                          cache=cache),
+                1, f"serve {DEEPSEEK} bf16 prefill batch {b} x {p}", "prefill")
+    fa.reset_launches()
+    profile_run(torch, decode, n, f"serve {DEEPSEEK} bf16 decode batch {b} at "
+                f"cache length {p}", "step")
+    if fa.launches["flash_attention"]:
+        raise AssertionError(f"deepseek decode launched {fa.launches}")
+
+
 def lm_phases(torch, np):
     """The LM serving path: the flash kernel against its plain version, its
-    times, serve at full width (counted), consistency, the golden and the
-    profiles. Returns the ``flash_attention`` entry of the kernels line."""
+    times, serve at full width (qwen2-0.5b and deepseek-v2-lite, counted),
+    consistency, the goldens and the profiles. Returns the
+    ``flash_attention`` entry of the kernels line."""
     from repro_torch.kernels import flash_attention as fa
 
-    err, err_by_body = phase("flash_attention check", check_flash, torch, fa)
+    err, err_by_body, err_by_case = phase("flash_attention check",
+                                          check_flash, torch, fa)
     ex2_abs, ex2_rel = phase("flash_attention ex2 error", ex2_error, torch, fa)
     timed = phase("flash_attention time", flash_times, torch, fa)
     launches, bodies, prefill_tps, decode_tps = phase(
         "serve main path", serve_main_path, torch, np, fa)
+    ds_launches, ds_prefill, ds_decode, ds_dropped, ds_peak = phase(
+        "serve deepseek", serve_deepseek, torch, np, fa)
     phase("serve consistency", consistency, torch, np, fa)
     phase("serve against the golden", against_golden, torch, np)
     bf16_err = phase("serve against the bf16 golden", against_golden_bf16,
                      torch, np, fa)
+    ds_err, ds_idx_ties, ds_keep_ties = phase(
+        "deepseek against the golden", against_deepseek_golden, torch, np, fa)
+    ds_consist = phase("deepseek consistency", deepseek_consistency, torch,
+                       np, fa)
     phase("serve profiles", serve_profiles, torch)
-    pre, dec = timed["prefill"], timed["decode"]
+    phase("deepseek profiles", deepseek_profiles, torch, fa)
+    pre, dec, mla = timed["prefill"], timed["decode"], timed["mla_prefill"]
     us = {**pre["kernels_us"], **dec["kernels_us"]}
     return dict(
         name="flash_attention", route="cuda", source=FLASH_SOURCE,
-        replaces=FLASH_REPLACES, launches=launches, max_abs_err=err,
+        replaces=FLASH_REPLACES,
+        launches=launches + ds_launches["flash_attention"],
+        serve_launches={"qwen2-0.5b": launches,
+                        DEEPSEEK: ds_launches["flash_attention"]},
+        max_abs_err=err,
         ms=pre["ms"], plain_ms=pre["plain_ms"], bound_ms=pre["bound_ms"],
         bound_by=pre["bound_by"], library_ms=pre["library_ms"],
         call_ms=pre["call_ms"], host_ms=pre["host_ms"], shape=pre["shape"],
@@ -2652,10 +3012,22 @@ def lm_phases(torch, np):
         decode=dict((k, dec[k]) for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_fast_ms", "call_ms", "host_ms", "shape", "plan")),
+        mla_prefill=dict(
+            {k: mla[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library_fast_ms", "call_ms", "host_ms", "shape", "plan",
+                "kernels_us", "f32_plan", "f32_kernels_us")},
+            max_abs_err=max(err_by_case[c] for c in MLA_CASES),
+            serve_launches=ds_launches, serve_prefill_tok_s=ds_prefill,
+            serve_decode_tok_s=ds_decode, serve_prefill_moe_dropped=ds_dropped,
+            serve_peak_gib=ds_peak, golden_max_abs_err=ds_err,
+            golden_route_near_ties=[ds_idx_ties, ds_keep_ties],
+            consistency_max_abs_err=ds_consist),
         library_fast_ms=pre["library_fast_ms"], plan=pre["plan"],
         ex2_max_abs_err=ex2_abs, ex2_max_rel_err=ex2_rel,
         bodies={
-            "mma": dict(launches=bodies["flash_attention_mma"],
+            "mma": dict(launches=bodies["flash_attention_mma"]
+                        + ds_launches["flash_attention_mma"],
                         ms=us.get("mma_kernel", 0.0) / 1e3, at="prefill",
                         max_abs_err=err_by_body.get("mma_bfloat16")),
             "split": dict(launches=bodies["flash_attention_split"],

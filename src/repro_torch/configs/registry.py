@@ -9,7 +9,7 @@ ModelConfig of each. SHAPES are the four (seq_len, global_batch, kind) cells.
     cache); pure full-attention archs skip it.
   * all archs here are decoder-bearing, so decode shapes always apply.
 
-Every arch has a config here; the port's model runs the dense family only
+Every arch has a config here; the port's model runs the dense and MoE families
 (:mod:`repro_torch.models.lm` raises for the others).
 """
 from __future__ import annotations

@@ -96,40 +96,62 @@ def state_to_numpy(state: Mapping, *, batched: bool = False) -> dict:
 
 def _lm_leaf_specs(cfg):
     """(path, shape, init) of every leaf of the reference's LM parameter
-    tree (``repro.models.lm.init``) for a dense ``cfg``, in a fixed order.
-    A segment's leaves carry a leading [n] layer axis; ``init`` is
-    ``"embed"`` (normal x 0.02), ``"dense"`` (normal / sqrt(fan_in)),
+    tree (``repro.models.lm.init``) for a dense or MoE ``cfg``, with GQA
+    attention or MLA, in a fixed order. A segment's leaves carry a leading
+    [n] layer axis; ``init`` is ``"embed"`` (normal x 0.02), ``"dense"``
+    (normal / sqrt(fan_in), the fan-in the unstacked leaf's first axis),
     ``"ones"`` or ``"zeros"``."""
     d, vocab = cfg.d_model, cfg.padded_vocab
     h, hkv, hd, f = cfg.num_heads, cfg.num_kv_heads, cfg.hd, cfg.d_ff
     out = [(("embed",), (vocab, d), "embed")]
 
-    def norm(pre, lead=()):
-        out.append((pre + ("w",), (*lead, d), "ones"))
-        if cfg.norm == "layernorm":
-            out.append((pre + ("b",), (*lead, d), "zeros"))
+    def norm(pre, lead=(), width=d):
+        out.append((pre + ("w",), (*lead, width), "ones"))
+        if cfg.norm == "layernorm" and pre[-1] != "kv_norm":
+            out.append((pre + ("b",), (*lead, width), "zeros"))
 
-    for si, (_, n) in enumerate(lm.segments(cfg)):
+    for si, (kind, n) in enumerate(lm.segments(cfg)):
         pre = ("segments", si)
 
-        def dense(name, d_in, d_out, bias):
-            out.append((pre + name + ("w",), (n, d_in, d_out), "dense"))
+        def dense(name, *shape, bias=False, leaf=("w",)):
+            out.append((pre + name + leaf, (n, *shape), "dense"))
             if bias:
-                out.append((pre + name + ("b",), (n, d_out), "zeros"))
+                out.append((pre + name + ("b",), (n, shape[-1]), "zeros"))
 
         norm(pre + ("ln1",), (n,))
-        dense(("attn", "wq"), d, h * hd, cfg.qkv_bias)
-        dense(("attn", "wk"), d, hkv * hd, cfg.qkv_bias)
-        dense(("attn", "wv"), d, hkv * hd, cfg.qkv_bias)
-        dense(("attn", "wo"), h * hd, d, cfg.proj_bias)
-        norm(pre + ("ln2",), (n,))
-        if cfg.mlp_glu:
-            dense(("ffn", "w_gate"), d, f, False)
-            dense(("ffn", "w_up"), d, f, False)
-            dense(("ffn", "w_down"), f, d, False)
+        if cfg.mla is not None:
+            m = cfg.mla
+            dense(("attn", "wq"), d, h * (m.nope_head_dim + m.rope_head_dim))
+            dense(("attn", "w_dkv"), d, m.kv_lora_rank + m.rope_head_dim)
+            norm(pre + ("attn", "kv_norm"), (n,), m.kv_lora_rank)
+            dense(("attn", "w_uk"), m.kv_lora_rank, h * m.nope_head_dim)
+            dense(("attn", "w_uv"), m.kv_lora_rank, h * m.v_head_dim)
+            dense(("attn", "wo"), h * m.v_head_dim, d)
         else:
-            dense(("ffn", "w_up"), d, f, cfg.proj_bias)
-            dense(("ffn", "w_down"), f, d, cfg.proj_bias)
+            dense(("attn", "wq"), d, h * hd, bias=cfg.qkv_bias)
+            dense(("attn", "wk"), d, hkv * hd, bias=cfg.qkv_bias)
+            dense(("attn", "wv"), d, hkv * hd, bias=cfg.qkv_bias)
+            dense(("attn", "wo"), h * hd, d, bias=cfg.proj_bias)
+        norm(pre + ("ln2",), (n,))
+        if kind == "moe":
+            m = cfg.moe
+            e, fe = m.num_experts, m.d_ff_expert
+            dense(("ffn", "router"), d, e)
+            dense(("ffn", "w_gate"), e, d, fe, leaf=())
+            dense(("ffn", "w_up"), e, d, fe, leaf=())
+            dense(("ffn", "w_down"), e, fe, d, leaf=())
+            if m.num_shared:
+                fs = m.num_shared * fe
+                dense(("ffn", "shared", "w_gate"), d, fs)
+                dense(("ffn", "shared", "w_up"), d, fs)
+                dense(("ffn", "shared", "w_down"), fs, d)
+        elif cfg.mlp_glu:
+            dense(("ffn", "w_gate"), d, f)
+            dense(("ffn", "w_up"), d, f)
+            dense(("ffn", "w_down"), f, d)
+        else:
+            dense(("ffn", "w_up"), d, f, bias=cfg.proj_bias)
+            dense(("ffn", "w_down"), f, d, bias=cfg.proj_bias)
     norm(("final_norm",))
     if not cfg.tie_embeddings:
         out.append((("lm_head",), (d, vocab), "embed"))
@@ -139,13 +161,18 @@ def _lm_leaf_specs(cfg):
 def numpy_lm_leaves(cfg, seed: int = 0):
     """Yield (path, float32 array) for every leaf of :func:`numpy_lm_params`,
     one at a time. Leaf ``i`` draws from ``np.random.default_rng([seed,
-    i])``, so each leaf can be made without the others."""
+    i])``, so each leaf can be made without the others. A ``"dense"`` leaf
+    is scaled by 1/sqrt(fan-in), the fan-in being the first axis of the
+    leaf without its layer axis, as the reference's ``dense_init`` takes
+    ``shape[0]``: ``d_in`` of a matrix ``[n, d_in, d_out]``, but ``E`` (the
+    expert count) of the stacked expert weights ``[n, E, d, f]``, not
+    ``d``."""
     lm.check_supported(cfg)
     for i, (path, shape, init) in enumerate(_lm_leaf_specs(cfg)):
         if init in ("ones", "zeros"):
             yield path, np.full(shape, init == "ones", dtype=np.float32)
             continue
-        scale = 0.02 if init == "embed" else 1.0 / np.sqrt(shape[-2])
+        scale = 0.02 if init == "embed" else 1.0 / np.sqrt(shape[1])
         x = np.random.default_rng([seed, i]).standard_normal(
             shape, dtype=np.float32)
         x *= np.float32(scale)
@@ -153,7 +180,7 @@ def numpy_lm_leaves(cfg, seed: int = 0):
 
 
 def numpy_lm_params(cfg, seed: int = 0) -> dict:
-    """The reference's LM parameter tree for a dense ``cfg`` (the shapes of
+    """The reference's LM parameter tree for a dense or MoE ``cfg`` (the shapes of
     ``repro.models.lm.init``, ``dense_init``'s and ``embed_init``'s scales),
     drawn with numpy from ``seed``, every leaf float32. Both packages can
     then be fed the same weights, at any width."""
@@ -183,7 +210,9 @@ def lm_params_from_numpy(cfg, tree: Mapping, device=None) -> "lm.LM":
     """The reference's LM parameter pytree (numpy leaves; a segment's leaves
     stacked on a leading [n] layer axis) -> the port's :class:`LM` in
     ``cfg``'s dtype on ``device`` (``None`` = the CUDA card; raises without
-    one). Each segment is split into its layers; every matrix keeps the
+    one); a MoE router stays float32, as in the reference (each leaf is
+    copied into its parameter's dtype, so routing sees the weights as
+    drawn). Each segment is split into its layers; every matrix keeps the
     reference's ``[in, out]`` orientation. Every leaf must land on exactly
     one parameter and every parameter must be given."""
     model = lm.LM(cfg, device=resolve_device(device))

@@ -1,11 +1,17 @@
 """Batched serving driver: prefill a prompt batch, decode N tokens greedily,
 report throughput. The counterpart of the reference package's
-``launch/serve.py``, for the dense family.
+``launch/serve.py``, for the dense and MoE families (MLA too).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --batch 8 --prompt-len 2048 --gen 32          # on the CUDA card
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch deepseek-v2-lite-16b --batch 8 --prompt-len 2048 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --smoke --device cpu --batch 2 --prompt-len 8 --gen 4
+
+Besides the rates it prints the prefill's ``moe_dropped``: the routed
+assignments its MoE layers dropped at the capacity cut (0 for a dense
+model).
 
 Weights are random, drawn from ``torch.Generator(device).manual_seed(0)``;
 prompt tokens come from ``np.random.default_rng(0)``, as in the reference.
@@ -55,7 +61,8 @@ def main(argv=None):
 
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, batch, cache)
+    logits, cache, metrics = prefill(params, batch, cache,
+                                     return_metrics=True)
     _sync(device)
     t_prefill = time.perf_counter() - t0
 
@@ -74,6 +81,7 @@ def main(argv=None):
     print(f"arch={cfg.name} batch={b} prompt={p} gen={gen}")
     print(f"prefill: {t_prefill*1e3:.1f} ms  ({b*p/t_prefill:,.0f} tok/s)")
     print(f"decode:  {t_decode*1e3:.1f} ms   ({b*(gen-1)/max(t_decode,1e-9):,.0f} tok/s)")
+    print(f"prefill moe_dropped: {int(metrics['moe_dropped'].item())}")
     print("sample tokens:", seq[0, :12].tolist())
     print(f"device: {name}")
     return seq

@@ -1,8 +1,10 @@
 """Transformer block assembly, as ``nn.Module``s.
 
 The counterpart of the reference package's ``models/blocks.py`` for block
-kind ``"attn"`` without MLA: norm, attention with a KV cache, norm, dense
-MLP. Every weight keeps the reference's ``[in, out]`` orientation
+kinds ``"attn"`` (norm, attention, norm, dense MLP) and ``"moe"`` (the MoE
+FFN of :mod:`.moe` in place of the MLP), with GQA attention and a KV cache,
+or MLA (:mod:`.mla`, a latent cache) in every layer when ``cfg.mla`` is set.
+Every weight keeps the reference's ``[in, out]`` orientation
 (``y = x @ w``) and its parameter path (``attn.wq.w``, ``ffn.w_down.b``), so
 a reference parameter tree maps onto a block leaf for leaf
 (:func:`repro_torch.convert.lm_params_from_numpy`).
@@ -10,14 +12,18 @@ a reference parameter tree maps onto a block leaf for leaf
 A block's forward takes ``aux = {mode: train|prefill|decode, positions,
 cache (the layer's entry or None), cache_len}`` and returns ``(h, extras)``
 with ``extras = {cache: entry}`` in prefill and decode, as the reference's
-``block_apply`` does. The reference returns a new cache; here the entry's
-tensors are updated in place (an index copy) and returned.
+``block_apply`` does, and ``extras["metrics"]`` (``moe_aux``,
+``moe_dropped``) from a ``"moe"`` block. The reference returns a new cache;
+here the entry's tensors are updated in place (an index copy) and returned.
+The SSM kinds (``"mamba"``, ``"shared_attn"``) are not ported yet.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from . import mla as mla_mod
+from . import moe as moe_mod
 from .attention import blockwise_attention
 from .common import (ModelConfig, act_fn, apply_rope, dense_init, layernorm,
                      rmsnorm)
@@ -69,15 +75,18 @@ class Norm(nn.Module):
 
 class MLP(nn.Module):
     """Gated (``w_gate``, ``w_up``, ``w_down``) or plain two-matrix MLP,
-    the plain one with biases under ``proj_bias``."""
+    the plain one with biases under ``proj_bias``. ``d_ff`` and ``glu``
+    default to ``cfg``'s (the MoE's shared experts: their own width, always
+    gated)."""
 
-    def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
+    def __init__(self, cfg: ModelConfig, *, d_ff=None, glu=None,
+                 generator=None, device=None):
         super().__init__()
-        d, f = cfg.d_model, cfg.d_ff
+        d, f = cfg.d_model, d_ff or cfg.d_ff
         kw = dict(generator=generator, device=device)
-        self.glu = cfg.mlp_glu
+        self.glu = cfg.mlp_glu if glu is None else glu
         self.act = act_fn(cfg.act)
-        if cfg.mlp_glu:
+        if self.glu:
             self.w_gate = Dense(d, f, cfg, **kw)
             self.w_up = Dense(d, f, cfg, **kw)
             self.w_down = Dense(f, d, cfg, **kw)
@@ -149,23 +158,53 @@ def attn_cache_init(cfg: ModelConfig, batch: int, max_len: int, device):
             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
 
 
+#: Block kinds of the reference that the port does not run yet.
+_WAITING_KINDS = {"mamba": "Mamba2 (SSM)", "shared_attn": "the hybrid's shared "
+                  "attention between Mamba2 layers"}
+
+
+def _check_kind(kind: str) -> None:
+    if kind in _WAITING_KINDS:
+        raise NotImplementedError(
+            f"block kind {kind!r} ({_WAITING_KINDS[kind]}) is not ported yet "
+            f"(ROADMAP queue 1 item 12e)")
+    if kind not in ("attn", "moe"):
+        raise ValueError(f"unknown block kind {kind!r}")
+
+
 class Block(nn.Module):
-    """Pre-norm block of kind ``"attn"``: attention, then the dense MLP."""
+    """Pre-norm block: attention (MLA when ``cfg.mla`` is set, in every
+    layer), then the dense MLP (kind ``"attn"``) or the MoE FFN (kind
+    ``"moe"``)."""
 
     def __init__(self, cfg: ModelConfig, kind: str = "attn", *,
                  generator=None, device=None):
         super().__init__()
-        if kind != "attn" or cfg.mla is not None:
-            raise NotImplementedError(
-                f"block kind {kind!r}{' with MLA' if cfg.mla else ''} is not "
-                f"ported yet (ROADMAP queue 1 item 12)")
+        _check_kind(kind)
         kw = dict(generator=generator, device=device)
+        self.kind = kind
         self.ln1 = Norm(cfg, device=device)
-        self.attn = Attention(cfg, **kw)
+        self.attn = (mla_mod.MLA(cfg, **kw) if cfg.mla is not None
+                     else Attention(cfg, **kw))
         self.ln2 = Norm(cfg, device=device)
-        self.ffn = MLP(cfg, **kw)
+        self.ffn = moe_mod.MoE(cfg, **kw) if kind == "moe" else MLP(cfg, **kw)
 
     def forward(self, h, aux):
         y, extras = self.attn(self.ln1(h), aux)
         h = h + y
-        return h + self.ffn(self.ln2(h)), extras
+        x = self.ln2(h)
+        if self.kind == "moe":
+            y, extras["metrics"] = self.ffn(x)
+        else:
+            y = self.ffn(x)
+        return h + y, extras
+
+
+def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                     device):
+    """The layer's cache entry: MLA's latent cache whatever the kind, else
+    the K/V cache."""
+    _check_kind(kind)
+    if cfg.mla is not None:
+        return mla_mod.init_cache(cfg, batch, max_len, device)
+    return attn_cache_init(cfg, batch, max_len, device)

@@ -1,16 +1,20 @@
-"""Language model of the dense family: embedding -> blocks -> norm -> head.
+"""Language model: embedding -> blocks -> norm -> head.
 
 The counterpart of the reference package's ``models/lm.py``, for the dense
-family (block kind ``"attn"``, RoPE). The functions keep the reference's
-names and signatures, with :class:`LM` (an ``nn.Module``) in place of the
-parameter pytree. Layers are grouped into the same segments; the reference
-scans a segment's stacked parameters, here each layer is its own module and
-the KV cache of a segment is stacked on a leading ``[n]`` axis as in the
-reference. The cache is updated in place.
+and MoE families (block kinds ``"attn"`` and ``"moe"``, RoPE, GQA attention
+or MLA). The functions keep the reference's names and signatures, with
+:class:`LM` (an ``nn.Module``) in place of the parameter pytree. Layers are
+grouped into the same segments; the reference scans a segment's stacked
+parameters, here each layer is its own module and the cache of a segment
+(K/V, or MLA's latent ``ckv``/``kr``) is stacked on a leading ``[n]`` axis as
+in the reference. The cache is updated in place. ``forward`` returns the
+reference's metrics, ``moe_aux`` and ``moe_dropped`` summed over the MoE
+layers (zero without any).
 
 This slice serves: ``forward`` (a scoring forward), ``prefill`` and
-``decode_step`` run under ``torch.no_grad()``. Families other than dense
-raise ``NotImplementedError`` naming the ROADMAP item where they wait.
+``decode_step`` run under ``torch.no_grad()``. Families that need M-RoPE,
+SSM blocks or the encoder-decoder raise ``NotImplementedError`` naming the
+ROADMAP item where they wait.
 """
 from __future__ import annotations
 
@@ -27,8 +31,6 @@ from .common import ModelConfig, embed_init
 _WAITING = (
     (lambda c: c.encdec is not None, "the encoder-decoder stack", "12f"),
     (lambda c: c.ssm is not None, "SSM blocks", "12e"),
-    (lambda c: c.mla is not None, "MLA attention", "12d"),
-    (lambda c: c.moe is not None, "the MoE FFN", "12c"),
     (lambda c: c.pos == "mrope" or c.family == "vlm", "M-RoPE", "12b"),
     (lambda c: c.pos != "rope", "positions other than RoPE", "12f"),
 )
@@ -39,7 +41,8 @@ def check_supported(cfg: ModelConfig) -> None:
         if test(cfg):
             raise NotImplementedError(
                 f"{cfg.name} needs {what}, which is not ported yet (ROADMAP "
-                f"queue 1 item {item}); the port's LM runs the dense family")
+                f"queue 1 item {item}); the port's LM runs the dense and MoE "
+                f"families")
 
 
 def segments(cfg: ModelConfig) -> list[tuple[str, int]]:
@@ -51,11 +54,14 @@ class LM(nn.Module):
     """Embedding ``[padded_vocab, d]``, the blocks, the final norm, and the
     head: ``embed.T`` when embeddings are tied, else ``lm_head`` ``[d,
     padded_vocab]``. With no generator the weights are left uninitialised,
-    to be loaded."""
+    to be loaded, on ``device`` (``None`` = the CUDA card; raises without
+    one); with one they are drawn on the generator's device."""
 
     def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
         super().__init__()
         check_supported(cfg)
+        device = (generator.device if generator is not None
+                  else resolve_device(device))
         self.cfg = cfg
         dt = cfg.torch_dtype
         shape = (cfg.padded_vocab, cfg.d_model)
@@ -84,16 +90,22 @@ def make_positions(cfg, b, t, device=None):
 
 
 def _apply_stack(params: LM, cfg, h, aux, cache):
-    """Run the blocks; layer j of segment s uses entry j of ``cache[s]``."""
+    """Run the blocks; layer j of segment s uses entry j of ``cache[s]``.
+    Returns (h, metrics): ``moe_aux`` and ``moe_dropped`` summed over the
+    MoE layers, float32 scalars on h's device."""
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    metrics = {"moe_aux": zero, "moe_dropped": zero}
     layer = 0
     for si, (_, n) in enumerate(segments(cfg)):
         for j in range(n):
             a = dict(aux)
             if cache is not None:
                 a["cache"] = {name: t[j] for name, t in cache[si].items()}
-            h, _ = params.blocks[layer](h, a)
+            h, extras = params.blocks[layer](h, a)
+            for name, x in extras.get("metrics", {}).items():
+                metrics[name] = metrics[name] + x
             layer += 1
-    return h
+    return h, metrics
 
 
 def embed_tokens(params: LM, cfg, tokens):
@@ -115,8 +127,8 @@ def forward(params: LM, cfg: ModelConfig, *, tokens=None, embeds=None,
         positions = make_positions(cfg, b, t, device=h.device)
     aux = {"mode": "train", "positions": positions, "cache": None,
            "cache_len": None}
-    h = _apply_stack(params, cfg, h, aux, None)
-    return params.final_norm(h), {}
+    h, metrics = _apply_stack(params, cfg, h, aux, None)
+    return params.final_norm(h), metrics
 
 
 @torch.no_grad()
@@ -130,29 +142,34 @@ def logits_fn(params: LM, cfg, h):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    """Per segment, the layers' K and V caches stacked on a leading [n] axis:
-    ``{"k": [n, batch, max_len, Hkv, D], "v": ...}``. ``device`` None = the
-    CUDA card (raises without one)."""
+    """Per segment, the layers' cache entries (``B.block_cache_init``)
+    stacked on a leading [n] axis: ``{"k": [n, batch, max_len, Hkv, D],
+    "v": ...}``, or under MLA ``{"ckv": [n, batch, max_len, kv_lora_rank],
+    "kr": [n, batch, max_len, rope_head_dim]}``. ``device`` None = the CUDA
+    card (raises without one)."""
     check_supported(cfg)
     device = resolve_device(device)
     out = []
-    for _, n in segments(cfg):
-        layers = [B.attn_cache_init(cfg, batch, max_len, device)
+    for kind, n in segments(cfg):
+        layers = [B.block_cache_init(cfg, kind, batch, max_len, device)
                   for _ in range(n)]
-        out.append({k: torch.stack([c[k] for c in layers]) for k in ("k", "v")})
+        out.append({k: torch.stack([c[k] for c in layers]) for k in layers[0]})
     return out
 
 
 @torch.no_grad()
-def prefill(params: LM, cfg: ModelConfig, *, tokens=None, embeds=None, cache):
-    """Fill the cache with a full prompt; returns (last-token logits, cache)."""
+def prefill(params: LM, cfg: ModelConfig, *, tokens=None, embeds=None, cache,
+            return_metrics: bool = False):
+    """Fill the cache with a full prompt; returns (last-token logits, cache),
+    and the prompt's MoE metrics after them with ``return_metrics``."""
     h = _embed(params, cfg, tokens, embeds)
     b, t, _ = h.shape
     aux = {"mode": "prefill", "positions": make_positions(cfg, b, t,
                                                           device=h.device),
            "cache_len": t}
-    h = params.final_norm(_apply_stack(params, cfg, h, aux, cache))
-    return logits_fn(params, cfg, h[:, -1]), cache
+    h, metrics = _apply_stack(params, cfg, h, aux, cache)
+    logits = logits_fn(params, cfg, params.final_norm(h)[:, -1])
+    return (logits, cache, metrics) if return_metrics else (logits, cache)
 
 
 @torch.no_grad()
@@ -164,5 +181,5 @@ def decode_step(params: LM, cfg: ModelConfig, tokens, cache, cache_len):
     b = h.shape[0]
     pos = torch.full((b, 1), cache_len, dtype=torch.int32, device=h.device)
     aux = {"mode": "decode", "positions": pos, "cache_len": cache_len}
-    h = params.final_norm(_apply_stack(params, cfg, h, aux, cache))
-    return logits_fn(params, cfg, h[:, -1]), cache
+    h, _ = _apply_stack(params, cfg, h, aux, cache)
+    return logits_fn(params, cfg, params.final_norm(h)[:, -1]), cache

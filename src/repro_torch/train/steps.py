@@ -17,10 +17,12 @@ from ..models.common import ModelConfig
 def make_prefill_step(cfg: ModelConfig):
     lm.check_supported(cfg)
 
-    def prefill_step(params, batch, cache):
+    def prefill_step(params, batch, cache, *, return_metrics=False):
         if "embeds" in batch:
-            return lm.prefill(params, cfg, embeds=batch["embeds"], cache=cache)
-        return lm.prefill(params, cfg, tokens=batch["tokens"], cache=cache)
+            return lm.prefill(params, cfg, embeds=batch["embeds"], cache=cache,
+                              return_metrics=return_metrics)
+        return lm.prefill(params, cfg, tokens=batch["tokens"], cache=cache,
+                          return_metrics=return_metrics)
 
     return prefill_step
 

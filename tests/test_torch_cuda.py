@@ -388,6 +388,36 @@ FLASH_CASES = [(2, 33, 70, 4, 2, 64, True, None, PREFILL),
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("tq", [8, 2048])
+def test_flash_attention_mla_prefill_head_dim_192(cuda, tq, dtype, tol):
+    """deepseek-v2-lite's MLA prefill shape (batch 8, 16 heads, rep 1,
+    head_dim 192 with v's last 64 columns zero, scale 192 ** -0.5): the
+    kernel against its plain version; 2048 tokens take ``mma`` in bf16 and
+    ``simt`` in f32, an 8-token prompt ``split``. The padded columns stay
+    zero."""
+    b, h, d = 8, 16, 192
+    g = torch.Generator(cuda).manual_seed(tq)
+    q, k, v = (torch.randn((b, tq, h, d), generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    v[..., 128:] = 0
+    body = fa.plan(b, tq, tq, h, h, d, dtype).body
+    assert body == ("split" if tq == 8 else
+                    "mma" if dtype == torch.bfloat16 else "simt")
+    fa.reset_launches()
+    got = fa.attention(q, k, v, causal=True, scale=d ** -0.5)
+    want = fa.attention_plain(q, k, v, causal=True, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    rms = want.float().pow(2).mean(-1, keepdim=True).sqrt()
+    assert ((got.float() - want.float()).abs()
+            <= tol * (want.float().abs() + rms)).all()
+    assert (got[..., 128:] == 0).all()
+    assert fa.launches["flash_attention"] == 1
+    assert fa.launches[f"flash_attention_{body}"] == 1
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("case", FLASH_CASES)
 def test_flash_attention_matches_plain(cuda, case, dtype, tol):
     b, tq, tkv, hq, hkv, d, causal, kv_len, bodies = case

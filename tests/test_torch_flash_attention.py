@@ -118,6 +118,36 @@ def test_wrapper_checks():
         fa.attention(q.requires_grad_(), k, k)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("tq", [8, 33, 64])
+def test_mla_head_dim_192_matches_reference(tq, dtype):
+    """MLA's prefill form at head_dim 192 (q and k [nope 128, rope 64], v's
+    128 columns zero-padded to 192, ``scale = 192 ** -0.5``, causal, Tq =
+    Tkv): the plain version and the split body's arithmetic against the
+    reference's blockwise attention; the padded columns come out zero."""
+    b, h, d, dv = 2, 4, 192, 128
+    rng = np.random.default_rng(tq)
+    q = rng.standard_normal((b, tq, h, d)).astype(dtype)
+    k = rng.standard_normal((b, tq, h, d)).astype(dtype)
+    v = rng.standard_normal((b, tq, h, d)).astype(dtype)
+    v[..., dv:] = 0
+    scale = d ** -0.5
+    want = np.asarray(ref_blockwise(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=True, scale=scale,
+                                    q_chunk=16, kv_chunk=16), np.float32)
+    tol = 2e-5 if dtype == np.float32 else 2e-2
+    got = fa.attention_plain(_t(q), _t(k), _t(v), causal=True, scale=scale)
+    split = fa.attention_split_plain(_t(q), _t(k), _t(v), causal=True,
+                                     scale=scale, chunk=64)
+    for out in (got, split):
+        assert out.dtype == _t(q).dtype and out.shape == (b, tq, h, d)
+        np.testing.assert_allclose(_np(out), want, rtol=tol, atol=tol)
+        assert (_np(out)[..., dv:] == 0).all()
+    assert tuple(fa.plan(b, tq, tq, h, h, d, _t(q).dtype, None))[0] == (
+        "split" if tq <= fa.SPLIT_ROWS else
+        "mma" if dtype == BF16 else "simt")
+
+
 # (b, tq, tkv, hq, hkv, d, causal, kv_len, chunk): the split body's
 # arithmetic with ragged kv_len at 1 and at chunk edges (64, 65, 128, 129),
 # rep-7 GQA, MQA, two causal rows per position, and non-causal.
@@ -181,6 +211,15 @@ PLAN_CASES = {
                     ("mma", 1, 0)),
     "gemma_prefill_d256": ((2, 256, 256, 8, 1, 256, "bf16", None),
                            ("mma", 1, 0)),
+    # deepseek-v2-lite's MLA prefill (16 heads, rep 1, head_dim 192): the
+    # serve shape on the tensor cores, in f32 on simt, an 8-token prompt
+    # (8 rows a head) split.
+    "deepseek_prefill_d192": ((8, 2048, 2048, 16, 16, 192, "bf16", None),
+                              ("mma", 1, 0)),
+    "deepseek_prefill_f32": ((8, 2048, 2048, 16, 16, 192, "f32", None),
+                             ("simt", 1, 0)),
+    "deepseek_prompt8": ((8, 8, 8, 16, 16, 192, "bf16", [8] * 8),
+                         ("split", 1, 64)),
 }
 
 

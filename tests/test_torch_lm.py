@@ -1,12 +1,17 @@
 """The port's LM serving path against the reference package's, on the CPU.
 
-For each dense smoke config the reference's own weights (``lm.init``) go
-through ``convert.lm_params_from_numpy``; ``forward``, ``prefill`` and every
-``decode_step`` must give the reference's logits (f32, rtol = atol = 1e-4)
-and greedy decoding the same tokens. Also: the configs, the numpy weight
-recipe against the reference's parameter shapes at full width, the serve
-driver, the families that are not ported yet, and the full-width golden
-fixtures (float32 and bfloat16) against the recipe.
+For each served smoke config (the dense family, and the MoE family:
+deepseek-v2-lite with MLA, dbrx with GQA) the reference's own weights
+(``lm.init``) go through ``convert.lm_params_from_numpy``; ``forward`` (with
+its MoE metrics), ``prefill`` and every ``decode_step`` must give the
+reference's logits (f32, rtol = atol = 1e-4) and greedy decoding the same
+tokens. Prefill + decode equals ``forward`` for the MoE configs only under a
+capacity that drops nothing (a prompt's cut depends on its length; the
+reference's serving test does the same). Also: the configs, the numpy
+weight recipe against the reference's parameter shapes at full width, the
+serve driver, the families that are not ported yet, and the full-width
+golden fixtures (qwen2-0.5b float32 and bfloat16, deepseek-v2-lite float32
+at depth 2) against the recipe.
 """
 import dataclasses
 from pathlib import Path
@@ -32,30 +37,48 @@ from repro_torch.models import common, lm
 from repro_torch.train.steps import make_decode_step, make_prefill_step
 
 DENSE = ("qwen2-0.5b", "gemma-2b", "minicpm-2b", "starcoder2-7b")
-OTHERS = tuple(a for a in ARCHS if a not in DENSE)
+MOE = ("deepseek-v2-lite-16b", "dbrx-132b")
+SERVED = DENSE + MOE
+OTHERS = tuple(a for a in ARCHS if a not in SERVED)
 TOL = dict(rtol=1e-4, atol=1e-4)
 GOLDEN = Path(__file__).parent / "fixtures" / "qwen2_0_5b_golden.npz"
 GOLDEN_BF16 = GOLDEN.with_name("qwen2_0_5b_golden_bf16.npz")
+GOLDEN_DEEPSEEK = GOLDEN.with_name("deepseek_v2_lite_golden.npz")
 
 
-def _port(arch):
+def _nodrop(cfg):
+    """The MoE capacity factor at 8 (no drops at these lengths)."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0))
+
+
+def _port(arch, nodrop=False):
     cfg = get_config(arch, smoke=True)
-    params = ref_lm.init(jax.random.key(1), ref_config(arch, smoke=True))
+    rcfg = ref_config(arch, smoke=True)
+    if nodrop:
+        cfg, rcfg = _nodrop(cfg), _nodrop(rcfg)
+    params = ref_lm.init(jax.random.key(1), rcfg)
     tree = jax.tree.map(np.asarray, params)
     return cfg, params, convert.lm_params_from_numpy(cfg, tree, device="cpu")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", SERVED)
 def test_logits_match_reference(arch):
     cfg, params, model = _port(arch)
     rcfg = ref_config(arch, smoke=True)
     rng = np.random.default_rng(0)
     b, t, p = 2, 20, 16
     toks = rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int32)
-    h, _ = ref_lm.forward(params, rcfg, tokens=jnp.asarray(toks))
+    h, want_metrics = ref_lm.forward(params, rcfg, tokens=jnp.asarray(toks))
     full = np.asarray(ref_lm.logits_fn(params, rcfg, h))
     th, metrics = lm.forward(model, cfg, tokens=torch.from_numpy(toks))
-    assert metrics == {}
+    assert set(metrics) == set(want_metrics) == {"moe_aux", "moe_dropped"}
+    assert float(metrics["moe_dropped"]) == float(want_metrics["moe_dropped"])
+    np.testing.assert_allclose(float(metrics["moe_aux"]),
+                               float(want_metrics["moe_aux"]), rtol=1e-6,
+                               atol=1e-6)
+    if cfg.moe is None:
+        assert float(metrics["moe_aux"]) == float(metrics["moe_dropped"]) == 0
     np.testing.assert_allclose(lm.logits_fn(model, cfg, th).numpy(), full, **TOL)
 
     cache = ref_lm.init_cache(rcfg, b, max_len=t)
@@ -71,14 +94,45 @@ def test_logits_match_reference(arch):
         tlg, tcache = lm.decode_step(model, cfg, torch.from_numpy(toks[:, i]),
                                      tcache, i)
         np.testing.assert_allclose(tlg.numpy(), np.asarray(lg), **TOL)
-        np.testing.assert_allclose(tlg.numpy(), full[:, i], **TOL)
-    # The cache the port filled in place holds the reference's K and V.
-    for name in ("k", "v"):
-        np.testing.assert_allclose(tcache[0][name].numpy(),
-                                   np.asarray(cache[0][name]), **TOL)
+        if cfg.moe is None:     # a MoE forward drops at this length
+            np.testing.assert_allclose(tlg.numpy(), full[:, i], **TOL)
+    # The cache the port filled in place holds the reference's (K and V, or
+    # MLA's latent ckv and kr), segment by segment.
+    for seg, ref_seg in zip(tcache, cache, strict=True):
+        assert set(seg) == set(ref_seg) == ({"ckv", "kr"} if cfg.mla
+                                            else {"k", "v"})
+        for name in seg:
+            np.testing.assert_allclose(seg[name].numpy(),
+                                       np.asarray(ref_seg[name]), **TOL)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", MOE)
+def test_prefill_decode_match_forward_without_drops(arch):
+    """The reference's serving test for the MoE configs, on the port: under
+    a capacity factor of 8 nothing drops, and prefill + teacher-forced
+    decode steps give ``forward``'s logits (and the reference's)."""
+    cfg, params, model = _port(arch, nodrop=True)
+    rcfg = _nodrop(ref_config(arch, smoke=True))
+    b, t, p = 2, 20, 16
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (b, t)).astype(np.int32)
+    th, metrics = lm.forward(model, cfg, tokens=torch.from_numpy(toks))
+    assert float(metrics["moe_dropped"]) == 0
+    full = lm.logits_fn(model, cfg, th).numpy()
+    h, _ = ref_lm.forward(params, rcfg, tokens=jnp.asarray(toks))
+    np.testing.assert_allclose(full, np.asarray(ref_lm.logits_fn(params, rcfg, h)),
+                               **TOL)
+    tcache = lm.init_cache(cfg, b, max_len=t, device="cpu")
+    tlg, tcache, pm = lm.prefill(model, cfg, tokens=torch.from_numpy(toks[:, :p]),
+                                 cache=tcache, return_metrics=True)
+    assert float(pm["moe_dropped"]) == 0
+    np.testing.assert_allclose(tlg.numpy(), full[:, p - 1], rtol=3e-4, atol=3e-4)
+    for i in range(p, t):
+        tlg, tcache = lm.decode_step(model, cfg, torch.from_numpy(toks[:, i]),
+                                     tcache, i)
+        np.testing.assert_allclose(tlg.numpy(), full[:, i], rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("arch", SERVED)
 def test_greedy_tokens_match_reference(arch):
     cfg, params, model = _port(arch)
     rcfg = ref_config(arch, smoke=True)
@@ -112,13 +166,26 @@ def test_serve_smoke_runs_on_cpu(capsys):
     out = capsys.readouterr().out.splitlines()
     assert out[0] == "arch=qwen2-0.5b-smoke batch=2 prompt=8 gen=4"
     assert out[1].startswith("prefill:") and out[2].startswith("decode:")
+    assert out[3] == "prefill moe_dropped: 0"
     assert out[-1] == "device: cpu"
+
+
+def test_serve_moe_smoke_prints_the_prefill_drops(capsys):
+    seq = serve.main(["--arch", "deepseek-v2-lite-16b", "--smoke", "--device",
+                      "cpu", "--batch", "2", "--prompt-len", "16", "--gen", "3"])
+    assert seq.shape == (2, 3) and ((seq >= 0) & (seq < 256)).all()
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "arch=deepseek-v2-lite-smoke batch=2 prompt=16 gen=3"
+    # 2 MoE layers x 2 groups x 16 tokens x top-2 at 10 slots an expert
+    dropped = int(out[3].removeprefix("prefill moe_dropped: "))
+    assert 0 < dropped < 2 * 2 * 16 * 2
 
 
 @pytest.mark.parametrize("arch", OTHERS)
 def test_other_families_raise(arch):
     cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP queue 1 item 12[bef]\b"):
         lm.LM(cfg, device="cpu")
     with pytest.raises(NotImplementedError):
         lm.init_cache(cfg, 1, 4, device="cpu")
@@ -143,7 +210,7 @@ def test_configs_are_copies(arch):
             == {k: dataclasses.asdict(v) for k, v in REF_SHAPES.items()})
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", SERVED)
 def test_recipe_has_reference_shapes_at_full_width(arch):
     """The numpy recipe's tree has ``repro.models.lm.init``'s structure and
     shapes, at full width (shapes only: nothing is drawn here)."""
@@ -181,6 +248,32 @@ def test_recipe_round_trips_through_the_port():
         convert.lm_params_from_numpy(cfg, tree, device="cpu")
 
 
+def test_recipe_round_trips_moe_and_mla_in_bfloat16():
+    """deepseek-v2-lite's recipe into a bf16 model: every leaf lands on its
+    parameter; the router stays float32 and exact, the rest rounds to
+    bf16; the expert weights scale by 1/sqrt(E), dense_init's fan-in."""
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b", smoke=True),
+                              dtype="bfloat16")
+    tree = convert.numpy_lm_params(cfg, seed=5)
+    model = convert.lm_params_from_numpy(cfg, tree, device="cpu")
+    ffn, want = model.blocks[2].ffn, tree["segments"][1]["ffn"]
+    assert ffn.router.w.dtype == torch.float32
+    np.testing.assert_array_equal(ffn.router.w.numpy(), want["router"]["w"][1])
+    assert ffn.w_down.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        ffn.w_down.float().numpy(),
+        torch.from_numpy(want["w_down"][1]).to(torch.bfloat16).float().numpy())
+    np.testing.assert_array_equal(
+        model.blocks[0].attn.kv_norm.w.float().numpy(),
+        np.ones(cfg.mla.kv_lora_rank, np.float32))
+    e = cfg.moe.num_experts
+    w = tree["segments"][1]["ffn"]["w_gate"]
+    assert abs(w.std() * np.sqrt(e) - 1) < 0.05
+    assert set(tree["segments"][0]["ffn"]) == {"w_gate", "w_up", "w_down"}
+    assert set(tree["segments"][1]["ffn"]["shared"]) == {"w_gate", "w_up",
+                                                         "w_down"}
+
+
 def test_common_ops_match_reference():
     rng = np.random.default_rng(2)
     x = rng.standard_normal((2, 3, 5, 16)).astype(np.float32)
@@ -208,6 +301,8 @@ def test_entry_points_default_to_the_card():
     cfg = get_config("qwen2-0.5b", smoke=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lm.init_cache(cfg, 1, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.LM(get_config("deepseek-v2-lite-16b", smoke=True))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "qwen2-0.5b", "--smoke"])
 
@@ -268,3 +363,31 @@ def test_golden_bf16_fixture_matches_recipe():
         assert path == "/".join(map(str, rpath))
         bf16 = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
         assert bf16.sum(dtype=np.float64) == total, path
+
+
+def test_deepseek_golden_fixture_matches_recipe():
+    """The deepseek-v2-lite golden (full width, depth 2, float32) was made
+    from ``numpy_lm_params(cfg, seed)``: each leaf's path, shape and float64
+    sum must still come out of the recipe (leaf by leaf, ~1.1 B values,
+    at most one 2.2 GB expert leaf at a time); its routing arrays have the
+    MoE layer's shapes."""
+    g = np.load(GOLDEN_DEEPSEEK)
+    assert str(g["arch"]) == "deepseek-v2-lite-16b" and int(g["seed"]) == 0
+    layers, steps, b, p = int(g["layers"]), 4, 2, int(g["prompt_len"])
+    assert layers == 2 and p == 64
+    assert g["tokens"].shape == (b, p + steps - 1)
+    assert g["top_idx"].shape == g["top_val"].shape == (steps, b, 40)
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                              num_layers=layers, dtype="float32")
+    k, e = cfg.moe.top_k, cfg.moe.num_experts
+    assert g["route_idx"].shape == (1, b, p, k)
+    assert g["route_prob"].shape == (1, b, p, k + 1)
+    assert g["route_keep"].shape == (1, b, p * k)
+    assert g["route_cut_gap"].shape == (1, b, e)
+    assert int(g["moe_dropped"]) == int((~g["route_keep"]).sum()) > 0
+    leaves = list(zip(g["leaf_paths"], g["leaf_shapes"], g["leaf_sums"]))
+    recipe = convert.numpy_lm_leaves(cfg, int(g["seed"]))
+    for (path, shape, total), (rpath, x) in zip(leaves, recipe, strict=True):
+        assert path == "/".join(map(str, rpath))
+        assert shape == ",".join(map(str, x.shape))
+        assert x.sum(dtype=np.float64) == total, path

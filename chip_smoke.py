@@ -248,11 +248,16 @@ Phases, each of which fails the run on any error (each prints its seconds):
      2080), and deepseek-v2-lite's MLA shapes at head_dim 192 with v's
      last 64 columns zero and ``scale = 192 ** -0.5`` (the prefill, batch 8
      x 2048 tokens, 16 heads; an 8-token prompt on ``split``; Tq 33 and
-     2047); then the mma body's exponential (ex2.approx) against expf on
-     the prefill case's scores, within half a bf16 step;
+     2047), zamba2-7b's shared attention (32 heads of 112: the ``mma`` body
+     pads them to 128) and qwen2-vl-72b's (64 q over 8 kv heads of 128),
+     each at its serve prefill (batch 8 x 2048) and decode (a 2080-key
+     cache, ragged fill levels); then the mma body's exponential
+     (ex2.approx) against expf on the prefill case's scores, within half a
+     bf16 step;
  15. flash-attention time: device time at the prefill and decode shapes in
      bfloat16 (CUDA-graph replay) and at deepseek-v2-lite's MLA prefill
-     (head_dim 192), each body kernel's time by the profiler (the simt
+     (head_dim 192) and at zamba2-7b's and qwen2-vl-72b's prefill and
+     decode, each body kernel's time by the profiler (the simt
      body's at the prefill shapes in float32), beside the plain version's,
      SDPA's (the yardstick, with an explicit mask and without one), the
      host time per call and the bound (FLOPs at 989 TFLOP/s or bytes at
@@ -270,6 +275,16 @@ Phases, each of which fails the run on any error (each prints its seconds):
      ``moe_dropped``, the peak device memory, and the flash kernel called
      once a layer in the prefill on the body ``plan`` gives (27 ``mma``)
      and never in decode (MLA's absorbed decode launches no kernel);
+ 16c. serve the SSM, hybrid and VLM families: ``serve.main`` for
+     mamba2-130m (24 Mamba2 layers) and zamba2-7b (70 Mamba2 layers, 11
+     applications of one shared attention block) at full width and depth,
+     and qwen2-vl-72b at full width cut to 16 layers (``--layers 16``;
+     from stub patch embeddings), bf16, batch 8 x 2048, 32 new tokens
+     (after a warm-up run of 2): prefill and decode tok/s, peak device
+     memory, and the flash kernel's launches by body against the count
+     expected (printed first): none for mamba2; for zamba2 one an
+     application, 11 ``mma`` in the prefill and 11 x 31 ``split`` +
+     ``combine`` in decode; for qwen2-vl 16 and 16 x 31;
  17. serve consistency: full width in float32 (TF32 off), prefill (on the
      ``simt`` body) and 16 teacher-forced decode steps (``split``) through
      the kernel against ``forward``'s logits, and against the same steps
@@ -294,10 +309,24 @@ Phases, each of which fails the run on any error (each prints its seconds):
      which are counted; then deepseek at full width and depth 4 in float32
      with capacity factor 8 (nothing drops): prefill and 16 teacher-forced
      decode steps against ``forward``'s logits at 3e-4;
+ 18d. the SSM goldens: mamba2-130m at full width and depth and zamba2-7b at
+     full width and depth 7 (6 Mamba2 layers, one shared-block
+     application), float32 (TF32 off), the numpy recipe's weights, a
+     prefill of 2 x 300 tokens (past one SSD chunk of 256) and three
+     decode steps against the JAX package's goldens
+     (``tests/fixtures/mamba2_130m_golden.npz``, ``zamba2_7b_golden.npz``):
+     top-32 logits and logsumexp at 1e-4, and the flash launches (zamba2:
+     ``simt`` in the prefill, ``split`` in decode);
+ 18e. qwen2-vl consistency: qwen2-vl-72b at full width and depth 2 in
+     float32, ``forward`` over 64 stub embeddings followed by the table
+     rows of 8 tokens against a prefill of the 64 embeddings and decode
+     steps of those tokens, at 3e-4 (the reference's f32 golden at this
+     width would need ~17 GB on a CPU);
  19. serve profiles: ``torch.profiler`` over one prefill of phase 16's
      shape and over 8 decode steps after it, each with its device busy
      share, device ops per step and top kernels; then the same over one
-     deepseek-v2-lite prefill of phase 16b's shape and 4 decode steps.
+     deepseek-v2-lite prefill of phase 16b's shape and 4 decode steps, and
+     over one zamba2-7b prefill of phase 16c's shape and 4 decode steps.
 
 Each graph is built once (numpy set-up, in worker processes while the
 kernels build) and shared by the phases; phase 10e's four ranks build
@@ -2128,6 +2157,24 @@ MLA_CASES = {
 }
 MLA_V = 128
 FLASH_CASES.update(MLA_CASES)
+#: zamba2-7b's shared attention (32 heads of 112 over 32 kv heads: the mma
+#: body pads 112 to its 128 instantiation) and qwen2-vl-72b's (64 q over 8
+#: kv heads of 128): each serve run's prefill (batch 8 x 2048 tokens) and a
+#: decode step (one query, 1 row a kv head for zamba2 and 8 for qwen2-vl,
+#: over a 2080-key cache at ragged fill levels).
+SERVE_CASES = {
+    "zamba2_prefill": (8, 32, 32, 2048, 2048, 112, True, None, "tokens",
+                       PREFILL),
+    "zamba2_decode": (8, 32, 32, 1, 2080, 112, True,
+                      [1, 2080, 2049, 1500, 777, 64, 65, 2079], "tokens",
+                      DECODE),
+    "qwen2vl_prefill": (8, 64, 8, 2048, 2048, 128, True, None, "tokens",
+                        PREFILL),
+    "qwen2vl_decode": (8, 64, 8, 1, 2080, 128, True,
+                       [1, 2080, 2049, 1500, 777, 64, 65, 2079], "tokens",
+                       DECODE),
+}
+FLASH_CASES.update(SERVE_CASES)
 #: Tolerances against the plain version: in float32 the two differ only in
 #: the order of f32 sums; bfloat16 is the reference's kernel-test tolerance
 #: (tests/test_kernels.py:135). Each holds twice: as rtol = atol, and per
@@ -2137,7 +2184,8 @@ FLASH_CASES.update(MLA_CASES)
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: Timed shapes (bfloat16, the serve path's type): name -> case.
 FLASH_TIMED = {"prefill": "qwen2_prefill", "decode": "qwen2_decode",
-               "mla_prefill": "deepseek_prefill"}
+               "mla_prefill": "deepseek_prefill",
+               **{case: case for case in SERVE_CASES}}
 #: The decode timing reads a full cache: kv_len = Tkv for every row.
 DECODE_TIMED_KV_LEN = 2080
 #: Consistency at full width (f32): batch, prompt, teacher-forced steps;
@@ -2409,7 +2457,7 @@ def flash_times(torch, fa):
     out = {}
     for label, case in FLASH_TIMED.items():
         b, hq, hkv, tq, tkv, d, causal = FLASH_CASES[case][:7]
-        big = label != "decode"
+        big = tq > 1
         kv_len = tkv if big else DECODE_TIMED_KV_LEN
         lens = [kv_len] * b
         scale = flash_scale(case)
@@ -2476,43 +2524,14 @@ def serve_main_path(torch, np, fa):
     exactly 24 x 32 times: the prefill's 24 on the mma body, the decode
     steps' on the split body and its combine, none on simt. Returns (calls,
     the launches by body, prefill tok/s, decode tok/s)."""
-    import contextlib
-    import io
-    import re
+    from repro_torch.configs import get_config
 
-    from repro_torch.launch import serve
-
-    warm = SERVE_ARGS[:-1] + ["2"]
-    with contextlib.redirect_stdout(io.StringIO()):
-        serve.main(warm)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    buf = io.StringIO()
-    fa.reset_launches()
-    t = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        seq = serve.main(SERVE_ARGS)
-    wall = time.perf_counter() - t
-    launches = fa.launches["flash_attention"]
-    bodies = {k: fa.launches[k] for k in SERVE_BODIES}
-    text = buf.getvalue()
-    print(text.rstrip(), flush=True)
-    rates = [float(x.replace(",", "")) for x in
-             re.findall(r"\(([\d,]+) tok/s\)", text)]
-    print(f"serve {' '.join(SERVE_ARGS)}: wall {wall:.2f} s (weights drawn "
-          f"on the card included), peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-          f"flash_attention launches {launches} (want {SERVE_LAUNCHES}), by "
-          f"body {bodies} (want {SERVE_BODIES})", flush=True)
-    if launches != SERVE_LAUNCHES or bodies != SERVE_BODIES:
-        raise AssertionError(f"serve launched flash_attention {launches} "
-                             f"times, {bodies}, want {SERVE_LAUNCHES}, "
-                             f"{SERVE_BODIES}")
-    if seq.shape != (8, 32) or not ((seq >= 0) & (seq < 151936)).all():
-        raise AssertionError(f"serve returned tokens {seq.shape} out of range")
-    if len(rates) != 2:
-        raise AssertionError(f"serve printed no rates: {text!r}")
-    return launches, bodies, rates[0], rates[1]
+    used, prefill, decode, _, _ = counted_serve(
+        torch, fa, SERVE_ARGS, {"flash_attention": SERVE_LAUNCHES,
+                                **SERVE_BODIES},
+        get_config("qwen2-0.5b").vocab_size)
+    return (used["flash_attention"], {k: used[k] for k in SERVE_BODIES},
+            prefill, decode)
 
 
 def full_width_f32(torch):
@@ -2744,33 +2763,27 @@ def mla_prefill_plan(fa, cfg, b, t, dtype):
                    m.nope_head_dim + m.rope_head_dim, dtype)
 
 
-def serve_deepseek(torch, np, fa):
-    """``serve.main`` for deepseek-v2-lite-16b at full width and depth in
-    bf16 (batch 8 x 2048, 32 new tokens), after a warm-up run of 2 new
-    tokens. The flash kernel must be called once a layer in the prefill,
-    on the body ``plan`` gives, and never in decode. Returns (launches,
-    prefill tok/s, decode tok/s, the prefill's moe_dropped, peak GiB)."""
+def counted_serve(torch, fa, args, want, vocab):
+    """``serve.main(args)`` once with 2 new tokens as a warm-up, then
+    counted: the flash launches must equal ``want`` and the tokens lie in
+    ``[0, vocab)``. Prints ``serve.main``'s lines and a summary; returns
+    (the launches, prefill tok/s, decode tok/s, peak GiB, those lines)."""
     import contextlib
     import io
     import re
 
-    from repro_torch.configs import get_config
     from repro_torch.launch import serve
 
     free_card(torch)
-    cfg = get_config(DEEPSEEK)
-    b, p = int(DEEPSEEK_SERVE_ARGS[3]), int(DEEPSEEK_SERVE_ARGS[5])
-    want = flash_calls(mla_prefill_plan(fa, cfg, b, p,
-                                            cfg.torch_dtype), cfg.num_layers)
     with contextlib.redirect_stdout(io.StringIO()):
-        serve.main(DEEPSEEK_SERVE_ARGS[:-1] + ["2"])
+        serve.main(args[:-1] + ["2"])
     free_card(torch)
     torch.cuda.reset_peak_memory_stats()
     buf = io.StringIO()
     fa.reset_launches()
     t = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        seq = serve.main(DEEPSEEK_SERVE_ARGS)
+        seq = serve.main(args)
     wall = time.perf_counter() - t
     used = dict(fa.launches)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2778,19 +2791,199 @@ def serve_deepseek(torch, np, fa):
     print(text.rstrip(), flush=True)
     rates = [float(x.replace(",", "")) for x in
              re.findall(r"\(([\d,]+) tok/s\)", text)]
-    dropped = [int(x) for x in re.findall(r"prefill moe_dropped: (\d+)", text)]
-    print(f"serve {' '.join(DEEPSEEK_SERVE_ARGS)}: wall {wall:.2f} s (weights "
-          f"drawn on the card included), peak device memory {peak:.2f} GiB, "
-          f"prefill moe_dropped {dropped}, flash_attention launches {used} "
-          f"(want {want}: one a layer in the prefill, none in decode)",
-          flush=True)
+    print(f"serve {' '.join(args)}: wall {wall:.2f} s (weights drawn on the "
+          f"card included), peak device memory {peak:.2f} GiB, "
+          f"flash_attention launches {used} (want {want})", flush=True)
     if used != want:
-        raise AssertionError(f"serve {DEEPSEEK} launched {used}, want {want}")
-    if seq.shape != (b, 32) or not ((seq >= 0) & (seq < cfg.vocab_size)).all():
+        raise AssertionError(f"serve {' '.join(args)} launched {used}, want "
+                             f"{want}")
+    b, gen = int(args[args.index("--batch") + 1]), int(args[-1])
+    if seq.shape != (b, gen) or not ((seq >= 0) & (seq < vocab)).all():
         raise AssertionError(f"serve returned tokens {seq.shape} out of range")
-    if len(rates) != 2 or len(dropped) != 1:
-        raise AssertionError(f"serve printed no rates or drops: {text!r}")
-    return used, rates[0], rates[1], dropped[0], peak
+    if len(rates) != 2:
+        raise AssertionError(f"serve printed no rates: {text!r}")
+    return used, rates[0], rates[1], peak, text
+
+
+def serve_deepseek(torch, np, fa):
+    """``serve.main`` for deepseek-v2-lite-16b at full width and depth in
+    bf16 (batch 8 x 2048, 32 new tokens), after a warm-up run of 2 new
+    tokens. The flash kernel must be called once a layer in the prefill,
+    on the body ``plan`` gives, and never in decode. Returns (launches,
+    prefill tok/s, decode tok/s, the prefill's moe_dropped, peak GiB)."""
+    import re
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(DEEPSEEK)
+    b, p = int(DEEPSEEK_SERVE_ARGS[3]), int(DEEPSEEK_SERVE_ARGS[5])
+    want = flash_calls(mla_prefill_plan(fa, cfg, b, p,
+                                            cfg.torch_dtype), cfg.num_layers)
+    used, prefill, decode, peak, text = counted_serve(
+        torch, fa, DEEPSEEK_SERVE_ARGS, want, cfg.vocab_size)
+    dropped = [int(x) for x in re.findall(r"prefill moe_dropped: (\d+)", text)]
+    print(f"serve {DEEPSEEK}: prefill moe_dropped {dropped}; flash_attention "
+          f"one a layer in the prefill, none in decode", flush=True)
+    if len(dropped) != 1:
+        raise AssertionError(f"serve printed no drops: {text!r}")
+    return used, prefill, decode, dropped[0], peak
+
+
+#: The slice's new serve runs (phase 16c): arch -> extra ``serve.main``
+#: arguments. qwen2-vl-72b's 80 layers take ~144 GB in bf16, so it runs at
+#: full width cut to its first 16 (~33 GB).
+NEW_SERVES = {"mamba2-130m": [], "zamba2-7b": [],
+              "qwen2-vl-72b": ["--layers", "16"]}
+NEW_SERVE_ARGS = ["--batch", "8", "--prompt-len", "2048", "--gen", "32"]
+
+
+def new_serve_want(fa, cfg, b, p, gen):
+    """The flash launches a serve run of ``cfg`` must make: one call an
+    attention layer (zamba2's shared-block applications; none for mamba2)
+    in the prefill and in each of the ``gen - 1`` decode steps, each on the
+    body ``plan`` gives."""
+    want = {k: 0 for k in body_launches("mma")}
+    n = sum(cfg.block_kind(i) in ("attn", "shared_attn")
+            for i in range(cfg.num_layers))
+    if not n:
+        return want
+    h, hkv, d, dt = cfg.num_heads, cfg.num_kv_heads, cfg.hd, cfg.torch_dtype
+    for part in (flash_calls(fa.plan(b, p, p, h, hkv, d, dt), n),
+                 flash_calls(fa.plan(b, 1, p + gen, h, hkv, d, dt,
+                                     [p + 1] * b), n * (gen - 1))):
+        for k, v in part.items():
+            want[k] += v
+    return want
+
+
+def serve_new(torch, np, fa):
+    """``serve.main`` for mamba2-130m and zamba2-7b at full width and depth
+    and qwen2-vl-72b at full width and depth 16 (from stub patch
+    embeddings), bf16, batch 8 x 2048, 32 new tokens, each after a warm-up
+    run of 2 new tokens. The flash kernel must launch exactly as
+    :func:`new_serve_want` says (mamba2: never). Returns, by arch, the
+    launches by body, prefill and decode tok/s and peak GiB."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    b, p, gen = (int(x) for x in NEW_SERVE_ARGS[1::2])
+    for arch, extra in NEW_SERVES.items():
+        cfg = get_config(arch)
+        if extra:
+            cfg = dataclasses.replace(cfg, num_layers=int(extra[1]))
+        want = new_serve_want(fa, cfg, b, p, gen)
+        print(f"serve {arch} ({cfg.num_layers} layers): flash launches "
+              f"expected {want}", flush=True)
+        used, prefill, decode, peak, _ = counted_serve(
+            torch, fa, ["--arch", arch, *extra, *NEW_SERVE_ARGS], want,
+            cfg.vocab_size)
+        out[arch] = dict(launches=used, prefill_tok_s=prefill,
+                         decode_tok_s=decode, peak_gib=peak,
+                         layers=cfg.num_layers)
+    return out
+
+
+#: The SSM goldens (phase 18d): arch -> (fixture, the flash launches of its
+#: prefill and 3 decode steps in f32: zamba2's one shared-block application
+#: on ``simt`` (600 rows a kv head) then ``split``; mamba2 none).
+SSM_GOLDENS = {
+    "mamba2-130m": (ROOT / "tests" / "fixtures" / "mamba2_130m_golden.npz",
+                    {}),
+    "zamba2-7b": (ROOT / "tests" / "fixtures" / "zamba2_7b_golden.npz",
+                  {"flash_attention": 4, "flash_attention_simt": 1,
+                   "flash_attention_split": 3,
+                   "flash_attention_combine": 3}),
+}
+
+
+def against_ssm_goldens(torch, np, fa):
+    """mamba2-130m at full width and depth and zamba2-7b at full width and
+    depth 7 (6 Mamba2 layers, one shared-block application), f32 with TF32
+    off, the numpy recipe's weights: a prefill of 2 x 300 tokens (past one
+    SSD chunk of 256) and three teacher-forced decode steps against the
+    JAX package's goldens (``golden_top``: top-32 logits and logsumexp at
+    1e-4). Returns the largest error by arch."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_numpy, numpy_lm_params
+
+    errs = {}
+    for arch, (path, launches) in SSM_GOLDENS.items():
+        free_card(torch)
+        g = np.load(path)
+        full_width_f32(torch)
+        cfg = dataclasses.replace(get_config(arch), num_layers=int(g["layers"]),
+                                  dtype="float32")
+        t = time.perf_counter()
+        model = lm_params_from_numpy(cfg, numpy_lm_params(cfg, int(g["seed"])),
+                                     device="cuda")
+        print(f"golden {arch}: numpy weights (seed {int(g['seed'])}, "
+              f"{cfg.num_layers} layers) to the card in "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        tokens = torch.from_numpy(g["tokens"]).cuda()
+        fa.reset_launches()
+        lg = teacher_forced(torch, model, cfg, tokens, int(g["prompt_len"]))
+        want = {k: 0 for k in body_launches("mma")}
+        want.update(launches)
+        if fa.launches != want:
+            raise AssertionError(f"{arch}: launches {fa.launches}, want {want}")
+        errs[arch] = golden_top(np, lg.cpu().numpy(), g, arch)
+        del model
+    return errs
+
+
+#: qwen2-vl-72b at full width in f32 (TF32 off): layers, batch, prompt
+#: embeddings, teacher-forced decode steps. The reference's f32 golden at
+#: this width would need ~17 GB on a CPU even at depth 2, so the port is
+#: held to itself: prefill + decode against ``forward``, at CONSIST_TOL.
+VLM_CONSIST = (2, 2, 64, 8)
+
+
+def vlm_consistency(torch, np, fa):
+    """qwen2-vl-72b at full width, depth 2, f32: ``forward`` over p + n
+    stub embeddings, where embedding p + i is the token-i row of the
+    embedding table, gives at each position the logits of a prefill of
+    the first p embeddings followed by teacher-forced decode steps of those
+    tokens (the prefill of t + 1 embeddings equals the prefill of t and one
+    decode step), at CONSIST_TOL. The prefill runs on ``simt`` (f32), each
+    decode step on ``split``. Returns the largest error."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    free_card(torch)
+    layers, b, p, n = VLM_CONSIST
+    full_width_f32(torch)
+    cfg = dataclasses.replace(get_config("qwen2-vl-72b"), num_layers=layers,
+                              dtype="float32")
+    g = torch.Generator("cuda").manual_seed(0)
+    model = lm.init(g, cfg)
+    emb = torch.randn((b, p, cfg.d_model), generator=g, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (b, n), generator=g,
+                         device="cuda", dtype=torch.int32)
+    seq = torch.cat([emb, model.embed[toks]], dim=1)         # [b, p + n, d]
+    h, _ = lm.forward(model, cfg, embeds=seq)
+    full = lm.logits_fn(model, cfg, h)[:, p - 1:-1].transpose(0, 1)
+    cache = lm.init_cache(cfg, b, p + n, device="cuda")
+    fa.reset_launches()
+    logits, cache = lm.prefill(model, cfg, embeds=emb, cache=cache)
+    steps = [logits]
+    for i in range(n - 1):
+        logits, cache = lm.decode_step(model, cfg, toks[:, i], cache, p + i)
+        steps.append(logits)
+    kern = torch.stack(steps)
+    want = {k: 0 for k in body_launches("mma")}
+    want.update({"flash_attention": layers * n, "flash_attention_simt": layers,
+                 "flash_attention_split": layers * (n - 1),
+                 "flash_attention_combine": layers * (n - 1)})
+    err = (kern - full).abs().max().item()
+    print(f"consistency qwen2-vl-72b f32 full width, {layers} layers, batch "
+          f"{b}, {p} prompt embeddings, {n - 1} decode steps: prefill+decode "
+          f"vs forward max abs error {err:.3e} (tol {CONSIST_TOL}; |logits| "
+          f"up to {full[..., :cfg.vocab_size].abs().max().item():.3f}); "
+          f"launches {dict(fa.launches)}", flush=True)
+    if fa.launches != want:
+        raise AssertionError(f"launches {fa.launches}, want {want}")
+    torch.testing.assert_close(kern, full, rtol=CONSIST_TOL, atol=CONSIST_TOL)
+    return err
 
 
 def deepseek_f32(torch, layers, **moe):
@@ -2971,11 +3164,41 @@ def deepseek_profiles(torch, fa):
         raise AssertionError(f"deepseek decode launched {fa.launches}")
 
 
+def zamba2_profiles(torch, fa):
+    """``torch.profiler`` over one zamba2-7b prefill of phase 16c's shape
+    (bf16, batch 8 x 2048, full depth) and over 4 decode steps after it:
+    where the hybrid's time goes (the SSD scan's torch ops, the GEMMs, the
+    11 shared-block applications through kernel 5)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    free_card(torch)
+    cfg = get_config("zamba2-7b")
+    g = torch.Generator("cuda").manual_seed(0)
+    model = lm.init(g, cfg)
+    b, p, n = 8, 2048, 4
+    tokens = torch.randint(0, cfg.vocab_size, (b, p), generator=g,
+                           device="cuda", dtype=torch.int32)
+    cache = lm.init_cache(cfg, b, p + n, device="cuda")
+    cur = tokens[:, -1].contiguous()
+
+    def decode():
+        for i in range(n):
+            lm.decode_step(model, cfg, cur, cache, p + i)
+
+    profile_run(torch, lambda: lm.prefill(model, cfg, tokens=tokens,
+                                          cache=cache),
+                1, f"serve zamba2-7b bf16 prefill batch {b} x {p}", "prefill")
+    profile_run(torch, decode, n, f"serve zamba2-7b bf16 decode batch {b} at "
+                f"cache length {p}", "step")
+
+
 def lm_phases(torch, np):
     """The LM serving path: the flash kernel against its plain version, its
-    times, serve at full width (qwen2-0.5b and deepseek-v2-lite, counted),
-    consistency, the goldens and the profiles. Returns the
-    ``flash_attention`` entry of the kernels line."""
+    times, serve at full width (qwen2-0.5b, deepseek-v2-lite, mamba2-130m,
+    zamba2-7b and qwen2-vl-72b at depth 16, counted), consistency, the
+    goldens and the profiles. Returns the ``flash_attention`` entry of the
+    kernels line."""
     from repro_torch.kernels import flash_attention as fa
 
     err, err_by_body, err_by_case = phase("flash_attention check",
@@ -2994,16 +3217,34 @@ def lm_phases(torch, np):
         "deepseek against the golden", against_deepseek_golden, torch, np, fa)
     ds_consist = phase("deepseek consistency", deepseek_consistency, torch,
                        np, fa)
+    new_serves = phase("serve mamba2, zamba2, qwen2-vl", serve_new, torch, np,
+                       fa)
+    ssm_errs = phase("ssm goldens", against_ssm_goldens, torch, np, fa)
+    vlm_consist = phase("vlm consistency", vlm_consistency, torch, np, fa)
     phase("serve profiles", serve_profiles, torch)
     phase("deepseek profiles", deepseek_profiles, torch, fa)
+    phase("zamba2 profiles", zamba2_profiles, torch, fa)
     pre, dec, mla = timed["prefill"], timed["decode"], timed["mla_prefill"]
     us = {**pre["kernels_us"], **dec["kernels_us"]}
+    timed_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                  "library_fast_ms", "call_ms", "host_ms", "shape", "plan",
+                  "kernels_us")
+    new_shapes = {case: dict({k: timed[case][k] for k in timed_keys},
+                             max_abs_err=err_by_case[case])
+                  for case in SERVE_CASES}
+    new_launches = {arch: r["launches"]["flash_attention"]
+                    for arch, r in new_serves.items()}
     return dict(
         name="flash_attention", route="cuda", source=FLASH_SOURCE,
         replaces=FLASH_REPLACES,
-        launches=launches + ds_launches["flash_attention"],
+        launches=launches + ds_launches["flash_attention"]
+        + sum(new_launches.values()),
         serve_launches={"qwen2-0.5b": launches,
-                        DEEPSEEK: ds_launches["flash_attention"]},
+                        DEEPSEEK: ds_launches["flash_attention"],
+                        **new_launches},
+        serve_shapes=new_shapes, serves=new_serves,
+        ssm_golden_max_abs_err=ssm_errs,
+        vlm_consistency_max_abs_err=vlm_consist,
         max_abs_err=err,
         ms=pre["ms"], plain_ms=pre["plain_ms"], bound_ms=pre["bound_ms"],
         bound_by=pre["bound_by"], library_ms=pre["library_ms"],
@@ -3027,14 +3268,20 @@ def lm_phases(torch, np):
         ex2_max_abs_err=ex2_abs, ex2_max_rel_err=ex2_rel,
         bodies={
             "mma": dict(launches=bodies["flash_attention_mma"]
-                        + ds_launches["flash_attention_mma"],
+                        + ds_launches["flash_attention_mma"]
+                        + sum(r["launches"]["flash_attention_mma"]
+                              for r in new_serves.values()),
                         ms=us.get("mma_kernel", 0.0) / 1e3, at="prefill",
                         max_abs_err=err_by_body.get("mma_bfloat16")),
-            "split": dict(launches=bodies["flash_attention_split"],
+            "split": dict(launches=bodies["flash_attention_split"]
+                          + sum(r["launches"]["flash_attention_split"]
+                                for r in new_serves.values()),
                           ms=us.get("split_kernel", 0.0) / 1e3, at="decode",
                           max_abs_err=max(err_by_body.get("split_bfloat16", 0),
                                           err_by_body.get("split_float32", 0))),
-            "combine": dict(launches=bodies["flash_attention_combine"],
+            "combine": dict(launches=bodies["flash_attention_combine"]
+                            + sum(r["launches"]["flash_attention_combine"]
+                                  for r in new_serves.values()),
                             ms=us.get("combine_kernel", 0.0) / 1e3,
                             at="decode"),
             "simt": dict(launches=bodies["flash_attention_simt"],

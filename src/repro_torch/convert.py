@@ -29,7 +29,7 @@ import torch
 from .api import resolve_device
 from .core import noc
 from .core.partition import GraphMemory
-from .models import lm
+from .models import lm, ssm
 
 _LINKS = ("link_e", "link_s")
 _WORDS = ("rdy",)
@@ -96,13 +96,16 @@ def state_to_numpy(state: Mapping, *, batched: bool = False) -> dict:
 
 def _lm_leaf_specs(cfg):
     """(path, shape, init) of every leaf of the reference's LM parameter
-    tree (``repro.models.lm.init``) for a dense or MoE ``cfg``, with GQA
-    attention or MLA, in a fixed order. A segment's leaves carry a leading
-    [n] layer axis; ``init`` is ``"embed"`` (normal x 0.02), ``"dense"``
-    (normal / sqrt(fan_in), the fan-in the unstacked leaf's first axis),
-    ``"ones"`` or ``"zeros"``."""
+    tree (``repro.models.lm.init``), in a fixed order. A segment's leaves
+    carry a leading [n] layer axis; the hybrid's shared block
+    (``("shared_attn", ...)``) has none, and its segments hold no leaves.
+    ``init`` is ``"embed"`` (normal x 0.02), ``"dense"`` (normal /
+    sqrt(fan_in), the fan-in the unstacked leaf's first axis), ``"conv"``
+    (normal x 0.5, the Mamba2 conv's fixed scale), ``"a_log"``
+    (log(1..nheads)), ``"dt_bias"`` (the inverse softplus of exp(U(log 1e-3,
+    log 1e-1))), ``"ones"`` or ``"zeros"``."""
     d, vocab = cfg.d_model, cfg.padded_vocab
-    h, hkv, hd, f = cfg.num_heads, cfg.num_kv_heads, cfg.hd, cfg.d_ff
+    h, hkv, f = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
     out = [(("embed",), (vocab, d), "embed")]
 
     def norm(pre, lead=(), width=d):
@@ -110,36 +113,50 @@ def _lm_leaf_specs(cfg):
         if cfg.norm == "layernorm" and pre[-1] != "kv_norm":
             out.append((pre + ("b",), (*lead, width), "zeros"))
 
-    for si, (kind, n) in enumerate(lm.segments(cfg)):
-        pre = ("segments", si)
+    def block(pre, lead, kind):
+        def leaf(name, *shape, init="dense"):
+            out.append((pre + name, (*lead, *shape), init))
 
-        def dense(name, *shape, bias=False, leaf=("w",)):
-            out.append((pre + name + leaf, (n, *shape), "dense"))
+        def dense(name, *shape, bias=False, leaf_name=("w",)):
+            leaf(name + leaf_name, *shape)
             if bias:
-                out.append((pre + name + ("b",), (n, shape[-1]), "zeros"))
+                leaf(name + ("b",), shape[-1], init="zeros")
 
-        norm(pre + ("ln1",), (n,))
+        norm(pre + ("ln1",), lead)
+        if kind == "mamba":
+            s = cfg.ssm
+            d_inner, nheads, conv_dim = ssm.dims(cfg)
+            dense(("mamba", "in_proj"), d, 2 * d_inner + 2 * s.d_state + nheads)
+            leaf(("mamba", "conv", "w"), s.d_conv, conv_dim, init="conv")
+            leaf(("mamba", "conv", "b"), conv_dim, init="zeros")
+            leaf(("mamba", "A_log"), nheads, init="a_log")
+            leaf(("mamba", "D"), nheads, init="ones")
+            leaf(("mamba", "dt_bias"), nheads, init="dt_bias")
+            leaf(("mamba", "norm", "w"), d_inner, init="ones")
+            dense(("mamba", "out_proj"), d_inner, d)
+            return
         if cfg.mla is not None:
             m = cfg.mla
             dense(("attn", "wq"), d, h * (m.nope_head_dim + m.rope_head_dim))
             dense(("attn", "w_dkv"), d, m.kv_lora_rank + m.rope_head_dim)
-            norm(pre + ("attn", "kv_norm"), (n,), m.kv_lora_rank)
+            norm(pre + ("attn", "kv_norm"), lead, m.kv_lora_rank)
             dense(("attn", "w_uk"), m.kv_lora_rank, h * m.nope_head_dim)
             dense(("attn", "w_uv"), m.kv_lora_rank, h * m.v_head_dim)
             dense(("attn", "wo"), h * m.v_head_dim, d)
         else:
+            hd = cfg.hd
             dense(("attn", "wq"), d, h * hd, bias=cfg.qkv_bias)
             dense(("attn", "wk"), d, hkv * hd, bias=cfg.qkv_bias)
             dense(("attn", "wv"), d, hkv * hd, bias=cfg.qkv_bias)
             dense(("attn", "wo"), h * hd, d, bias=cfg.proj_bias)
-        norm(pre + ("ln2",), (n,))
+        norm(pre + ("ln2",), lead)
         if kind == "moe":
             m = cfg.moe
             e, fe = m.num_experts, m.d_ff_expert
             dense(("ffn", "router"), d, e)
-            dense(("ffn", "w_gate"), e, d, fe, leaf=())
-            dense(("ffn", "w_up"), e, d, fe, leaf=())
-            dense(("ffn", "w_down"), e, fe, d, leaf=())
+            dense(("ffn", "w_gate"), e, d, fe, leaf_name=())
+            dense(("ffn", "w_up"), e, d, fe, leaf_name=())
+            dense(("ffn", "w_down"), e, fe, d, leaf_name=())
             if m.num_shared:
                 fs = m.num_shared * fe
                 dense(("ffn", "shared", "w_gate"), d, fs)
@@ -152,6 +169,15 @@ def _lm_leaf_specs(cfg):
         else:
             dense(("ffn", "w_up"), d, f, bias=cfg.proj_bias)
             dense(("ffn", "w_down"), f, d, bias=cfg.proj_bias)
+
+    shared_made = False
+    for si, (kind, n) in enumerate(lm.segments(cfg)):
+        if kind == "shared_attn":
+            if not shared_made:
+                block(("shared_attn",), (), "attn")
+                shared_made = True
+            continue
+        block(("segments", si), (n,), kind)
     norm(("final_norm",))
     if not cfg.tie_embeddings:
         out.append((("lm_head",), (d, vocab), "embed"))
@@ -172,25 +198,38 @@ def numpy_lm_leaves(cfg, seed: int = 0):
         if init in ("ones", "zeros"):
             yield path, np.full(shape, init == "ones", dtype=np.float32)
             continue
-        scale = 0.02 if init == "embed" else 1.0 / np.sqrt(shape[1])
-        x = np.random.default_rng([seed, i]).standard_normal(
-            shape, dtype=np.float32)
+        if init == "a_log":
+            yield path, np.broadcast_to(np.log(np.arange(
+                1, shape[-1] + 1, dtype=np.float32)), shape).copy()
+            continue
+        rng = np.random.default_rng([seed, i])
+        if init == "dt_bias":
+            lo, hi = np.log(np.float32(1e-3)), np.log(np.float32(1e-1))
+            dt = np.exp(rng.random(shape, dtype=np.float32) * (hi - lo) + lo)
+            yield path, dt + np.log(-np.expm1(-dt))
+            continue
+        scale = {"embed": 0.02, "conv": 0.5}.get(init)
+        if scale is None:
+            scale = 1.0 / np.sqrt(shape[1] if path[0] == "segments"
+                                  else shape[0])
+        x = rng.standard_normal(shape, dtype=np.float32)
         x *= np.float32(scale)
         yield path, x
 
 
 def numpy_lm_params(cfg, seed: int = 0) -> dict:
-    """The reference's LM parameter tree for a dense or MoE ``cfg`` (the shapes of
-    ``repro.models.lm.init``, ``dense_init``'s and ``embed_init``'s scales),
-    drawn with numpy from ``seed``, every leaf float32. Both packages can
+    """The reference's LM parameter tree for ``cfg`` (the shapes of
+    ``repro.models.lm.init``, its initialisers' scales and constants), drawn
+    with numpy from ``seed``, every leaf float32; ``None`` at each
+    ``"shared_attn"`` segment, as the reference's tree. Both packages can
     then be fed the same weights, at any width."""
-    tree: dict = {}
+    tree: dict = {"segments": [None] * len(lm.segments(cfg))}
     for path, x in numpy_lm_leaves(cfg, seed):
         node = tree
         for key, nxt in zip(path[:-1], path[1:]):
             if isinstance(key, int):
-                while len(node) <= key:
-                    node.append({})
+                if node[key] is None:
+                    node[key] = {}
                 node = node[key]
             else:
                 node = node.setdefault(key, [] if isinstance(nxt, int) else {})
@@ -210,11 +249,14 @@ def lm_params_from_numpy(cfg, tree: Mapping, device=None) -> "lm.LM":
     """The reference's LM parameter pytree (numpy leaves; a segment's leaves
     stacked on a leading [n] layer axis) -> the port's :class:`LM` in
     ``cfg``'s dtype on ``device`` (``None`` = the CUDA card; raises without
-    one); a MoE router stays float32, as in the reference (each leaf is
-    copied into its parameter's dtype, so routing sees the weights as
-    drawn). Each segment is split into its layers; every matrix keeps the
-    reference's ``[in, out]`` orientation. Every leaf must land on exactly
-    one parameter and every parameter must be given."""
+    one); a MoE router and Mamba2's ``A_log``, ``D`` and ``dt_bias`` stay
+    float32, as in the reference (each leaf is copied into its parameter's
+    dtype, so routing and the SSM decays see the weights as drawn). Each
+    segment is split into its layers; a ``"shared_attn"`` segment holds
+    ``None`` (its layers run the one ``shared_attn`` block, loaded once from
+    the tree's ``shared_attn``). Every matrix keeps the reference's ``[in,
+    out]`` orientation. Every leaf must land on exactly one parameter and
+    every parameter must be given."""
     model = lm.LM(cfg, device=resolve_device(device))
     params = dict(model.named_parameters())
     given = set()
@@ -235,7 +277,14 @@ def lm_params_from_numpy(cfg, tree: Mapping, device=None) -> "lm.LM":
             for name, leaf in (_flatten(value, f"{key}.")
                                if isinstance(value, Mapping) else [(key, value)]):
                 put(name, leaf)
-    for (_, n), seg in zip(lm.segments(cfg), tree["segments"], strict=True):
+    for (kind, n), seg in zip(lm.segments(cfg), tree["segments"],
+                              strict=True):
+        if kind == "shared_attn":
+            if seg:
+                raise ValueError("a shared_attn segment holds no leaves (the "
+                                 "shared block's are under shared_attn)")
+            layer += n
+            continue
         for name, leaf in _flatten(seg):
             if np.shape(leaf)[0] != n:
                 raise ValueError(f"segment leaf {name} has {np.shape(leaf)[0]} "

@@ -1,11 +1,17 @@
 """Batched serving driver: prefill a prompt batch, decode N tokens greedily,
 report throughput. The counterpart of the reference package's
-``launch/serve.py``, for the dense and MoE families (MLA too).
+``launch/serve.py``, for the dense, MoE (MLA too), SSM, hybrid and VLM
+families. A VLM's prompt is stub patch embeddings ``[batch, prompt,
+d_model]``, as in the reference.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --batch 8 --prompt-len 2048 --gen 32          # on the CUDA card
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch deepseek-v2-lite-16b --batch 8 --prompt-len 2048 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
+      --batch 8 --prompt-len 2048 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-72b \\
+      --layers 16 --batch 8 --prompt-len 2048 --gen 32   # depth cut to fit
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --smoke --device cpu --batch 2 --prompt-len 8 --gen 4
 
@@ -14,11 +20,14 @@ assignments its MoE layers dropped at the capacity cut (0 for a dense
 model).
 
 Weights are random, drawn from ``torch.Generator(device).manual_seed(0)``;
-prompt tokens come from ``np.random.default_rng(0)``, as in the reference.
+prompt tokens (or a VLM's embeddings) come from ``np.random.default_rng(0)``,
+as in the reference. ``--layers N`` keeps the first N layers (a depth cut,
+for a model the card cannot hold whole); the widths stay the config's.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -45,18 +54,28 @@ def main(argv=None):
     ap.add_argument("--greedy", action="store_true", default=True)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep only the first N layers (default: all)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.layers is not None:
+        if not 0 < args.layers <= cfg.num_layers:
+            raise ValueError(f"--layers must lie in [1, {cfg.num_layers}]")
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     params = lm.init(torch.Generator(device).manual_seed(0), cfg)
     rng = np.random.default_rng(0)
     b, p, gen = args.batch, args.prompt_len, args.gen
 
     prefill = make_prefill_step(cfg)
     decode = make_decode_step(cfg, greedy=args.greedy)
-    batch = {"tokens": torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (b, p)).astype(np.int32)).to(device)}
+    if cfg.family == "vlm":
+        batch = {"embeds": torch.from_numpy(rng.standard_normal(
+            (b, p, cfg.d_model))).to(device, cfg.torch_dtype)}
+    else:
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (b, p)).astype(np.int32)).to(device)}
     cache = lm.init_cache(cfg, b, max_len=p + gen, device=device)
 
     _sync(device)

@@ -1,9 +1,12 @@
 """Transformer block assembly, as ``nn.Module``s.
 
 The counterpart of the reference package's ``models/blocks.py`` for block
-kinds ``"attn"`` (norm, attention, norm, dense MLP) and ``"moe"`` (the MoE
-FFN of :mod:`.moe` in place of the MLP), with GQA attention and a KV cache,
-or MLA (:mod:`.mla`, a latent cache) in every layer when ``cfg.mla`` is set.
+kinds ``"attn"`` (norm, attention, norm, dense MLP), ``"moe"`` (the MoE
+FFN of :mod:`.moe` in place of the MLP) and ``"mamba"`` (norm and a Mamba2
+mixer of :mod:`.ssm`, no FFN), with GQA attention (RoPE or M-RoPE) and a KV
+cache, or MLA (:mod:`.mla`, a latent cache) in every attention layer when
+``cfg.mla`` is set. The hybrid's ``"shared_attn"`` layers run one shared
+``"attn"`` block (:class:`repro_torch.models.lm.LM`).
 Every weight keeps the reference's ``[in, out]`` orientation
 (``y = x @ w``) and its parameter path (``attn.wq.w``, ``ffn.w_down.b``), so
 a reference parameter tree maps onto a block leaf for leaf
@@ -15,7 +18,6 @@ with ``extras = {cache: entry}`` in prefill and decode, as the reference's
 ``block_apply`` does, and ``extras["metrics"]`` (``moe_aux``,
 ``moe_dropped``) from a ``"moe"`` block. The reference returns a new cache;
 here the entry's tensors are updated in place (an index copy) and returned.
-The SSM kinds (``"mamba"``, ``"shared_attn"``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -24,9 +26,10 @@ from torch import nn
 
 from . import mla as mla_mod
 from . import moe as moe_mod
+from . import ssm as ssm_mod
 from .attention import blockwise_attention
-from .common import (ModelConfig, act_fn, apply_rope, dense_init, layernorm,
-                     rmsnorm)
+from .common import (ModelConfig, act_fn, apply_mrope, apply_rope, dense_init,
+                     layernorm, rmsnorm)
 
 
 def _param(shape, dtype, device, generator=None, fill=None):
@@ -123,10 +126,12 @@ class Attention(nn.Module):
         q = self.wq(x).reshape(b, t, h, hd)
         k = self.wk(x).reshape(b, t, hkv, hd)
         v = self.wv(x).reshape(b, t, hkv, hd)
-        if cfg.pos == "rope":
+        if cfg.pos in ("rope", "mrope"):
+            # positions [b, t], or [b, 3, t] under M-RoPE.
+            rot = apply_rope if cfg.pos == "rope" else apply_mrope
             pos = aux["positions"]
-            q = apply_rope(q.transpose(1, 2), pos, cfg.rope_theta).transpose(1, 2)
-            k = apply_rope(k.transpose(1, 2), pos, cfg.rope_theta).transpose(1, 2)
+            q = rot(q.transpose(1, 2), pos, cfg.rope_theta).transpose(1, 2)
+            k = rot(k.transpose(1, 2), pos, cfg.rope_theta).transpose(1, 2)
         mode = aux["mode"]
         chunk = dict(q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk)
         extras = {}
@@ -158,24 +163,16 @@ def attn_cache_init(cfg: ModelConfig, batch: int, max_len: int, device):
             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
 
 
-#: Block kinds of the reference that the port does not run yet.
-_WAITING_KINDS = {"mamba": "Mamba2 (SSM)", "shared_attn": "the hybrid's shared "
-                  "attention between Mamba2 layers"}
-
-
 def _check_kind(kind: str) -> None:
-    if kind in _WAITING_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} ({_WAITING_KINDS[kind]}) is not ported yet "
-            f"(ROADMAP queue 1 item 12e)")
-    if kind not in ("attn", "moe"):
+    if kind not in ("attn", "moe", "mamba"):
         raise ValueError(f"unknown block kind {kind!r}")
 
 
 class Block(nn.Module):
-    """Pre-norm block: attention (MLA when ``cfg.mla`` is set, in every
-    layer), then the dense MLP (kind ``"attn"``) or the MoE FFN (kind
-    ``"moe"``)."""
+    """Pre-norm block. Kinds ``"attn"`` and ``"moe"``: attention (MLA when
+    ``cfg.mla`` is set, in every layer), then the dense MLP (``"attn"``) or
+    the MoE FFN (``"moe"``). Kind ``"mamba"``: ``ln1`` and the Mamba2 mixer
+    (``mamba``), ``h + mamba(ln1(h))``, with no FFN."""
 
     def __init__(self, cfg: ModelConfig, kind: str = "attn", *,
                  generator=None, device=None):
@@ -184,12 +181,18 @@ class Block(nn.Module):
         kw = dict(generator=generator, device=device)
         self.kind = kind
         self.ln1 = Norm(cfg, device=device)
+        if kind == "mamba":
+            self.mamba = ssm_mod.Mamba2(cfg, **kw)
+            return
         self.attn = (mla_mod.MLA(cfg, **kw) if cfg.mla is not None
                      else Attention(cfg, **kw))
         self.ln2 = Norm(cfg, device=device)
         self.ffn = moe_mod.MoE(cfg, **kw) if kind == "moe" else MLP(cfg, **kw)
 
     def forward(self, h, aux):
+        if self.kind == "mamba":
+            y, extras = self.mamba(self.ln1(h), aux)
+            return h + y, extras
         y, extras = self.attn(self.ln1(h), aux)
         h = h + y
         x = self.ln2(h)
@@ -200,11 +203,20 @@ class Block(nn.Module):
         return h + y, extras
 
 
+def ssm_prefill_cache(mamba: "ssm_mod.Mamba2", cfg: ModelConfig, x):
+    """The SSM cache entry after the sequence x (the ln1 output): the scan's
+    final state, in float32, and the last ``d_conv - 1`` conv inputs."""
+    return ssm_mod.apply_seq(mamba, cfg, x, return_cache=True)[1]
+
+
 def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      device):
-    """The layer's cache entry: MLA's latent cache whatever the kind, else
-    the K/V cache."""
+    """The layer's cache entry: the SSM state and conv tail for kind
+    ``"mamba"``, else MLA's latent cache when ``cfg.mla`` is set, else the
+    K/V cache."""
     _check_kind(kind)
+    if kind == "mamba":
+        return ssm_mod.init_cache(cfg, batch, device)
     if cfg.mla is not None:
         return mla_mod.init_cache(cfg, batch, max_len, device)
     return attn_cache_init(cfg, batch, max_len, device)

@@ -1,4 +1,5 @@
-"""Model config schema, parameter init helpers, norms, activations, RoPE.
+"""Model config schema, parameter init helpers, norms, activations, RoPE
+and M-RoPE.
 
 The counterpart of the reference package's ``repro/models/common.py``. The
 config dataclasses are a plain copy (they hold no arrays); ``torch_dtype``
@@ -206,6 +207,35 @@ def apply_rope(x, positions, theta: float):
     d = x.shape[-1]
     freqs = _rope_freqs_on(d, theta, x.device)                      # [D/2]
     ang = positions[:, None, :, None].float() * freqs               # [B,1,T,D/2]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+MROPE_SECTIONS = (16, 24, 24)  # qwen2-vl: (temporal, height, width) freq split
+
+
+@functools.lru_cache(maxsize=None)
+def _mrope_streams_on(half: int, sections: tuple, device: torch.device):
+    # The stream (0 temporal, 1 height, 2 width) of each of the ``half``
+    # frequency channels, built on the host as the reference builds it:
+    # channel i takes ``i % sum(sections)`` against the sections' cumulative
+    # bounds, clamped to 2.
+    bounds = np.cumsum(sections)
+    sec = np.searchsorted(bounds, np.arange(half) % bounds[-1], side="right")
+    return torch.from_numpy(np.minimum(sec, 2)).to(device)
+
+
+def apply_mrope(x, positions3, theta: float, sections=MROPE_SECTIONS):
+    """Multimodal RoPE: x [B, H, T, D], positions3 [B, 3, T] (t/h/w ids).
+    Each frequency channel turns by the position stream of its section; for
+    text tokens the three ids are equal and this is :func:`apply_rope`."""
+    d = x.shape[-1]
+    freqs = _rope_freqs_on(d, theta, x.device)                      # [D/2]
+    sec = _mrope_streams_on(d // 2, tuple(sections), x.device)
+    pos = positions3.float()[:, sec, :]                             # [B,D/2,T]
+    ang = pos.transpose(1, 2)[:, None] * freqs                      # [B,1,T,D/2]
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

@@ -383,7 +383,17 @@ FLASH_CASES = [(2, 33, 70, 4, 2, 64, True, None, PREFILL),
                (2, 100, 70, 6, 2, 80, False, [70, 33], PREFILL),
                (3, 70, 2049, 8, 2, 128, True, [70, 2049, 1000], PREFILL),
                (1, 130, 200, 4, 2, 256, True, None, PREFILL),
-               (4, 1, 2080, 14, 2, 64, True, [1, 64, 65, 2080], DECODE)]
+               (4, 1, 2080, 14, 2, 64, True, [1, 64, 65, 2080], DECODE),
+               # zamba2-7b's shared attention: 32 heads of 112 (the mma body
+               # pads them to its 128 instantiation), prefill and decode
+               (2, 2048, 2048, 32, 32, 112, True, None, PREFILL),
+               (8, 1, 2080, 32, 32, 112, True,
+                [1, 2080, 2049, 1500, 777, 64, 65, 2079], DECODE),
+               # qwen2-vl-72b's: 64 q over 8 kv heads of 128 (8 rows a kv
+               # head in decode)
+               (2, 2048, 2048, 64, 8, 128, True, None, PREFILL),
+               (8, 1, 2080, 64, 8, 128, True,
+                [1, 2080, 2049, 1500, 777, 64, 65, 2079], DECODE)]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -441,6 +451,55 @@ def test_flash_attention_matches_plain(cuda, case, dtype, tol):
     if body == "split":
         expect["flash_attention_combine"] = 1
     assert fa.launches == expect
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b"])
+def test_ssm_golden_at_full_width(cuda, arch):
+    """The JAX package's f32 golden (``tests/fixtures``; mamba2-130m at full
+    depth, zamba2-7b at depth 7 with one shared-block application): the
+    numpy recipe's weights in f32 on the card, TF32 off, a prefill of 2 x
+    300 tokens and 3 teacher-forced decode steps; the logits at the
+    golden's top-32 indices and the logsumexp within 1e-4."""
+    import dataclasses
+    from pathlib import Path
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_numpy, numpy_lm_params
+    from repro_torch.models import lm
+
+    g = np.load(Path(__file__).parent / "fixtures"
+                / f"{arch.replace('-', '_')}_golden.npz")
+    cfg = dataclasses.replace(get_config(arch), num_layers=int(g["layers"]),
+                              dtype="float32")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model = lm_params_from_numpy(cfg, numpy_lm_params(cfg, int(g["seed"])),
+                                     device=cuda)
+        tokens = torch.from_numpy(g["tokens"]).to(cuda)
+        p = int(g["prompt_len"])
+        cache = lm.init_cache(cfg, tokens.shape[0], tokens.shape[1],
+                              device=cuda)
+        fa.reset_launches()
+        logits, cache = lm.prefill(model, cfg, tokens=tokens[:, :p],
+                                   cache=cache)
+        steps = [logits]
+        for i in range(p, tokens.shape[1]):
+            logits, cache = lm.decode_step(model, cfg, tokens[:, i], cache, i)
+            steps.append(logits)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    lg = torch.stack(steps).cpu().numpy()
+    k = int(g["topk"])
+    at = np.take_along_axis(lg, g["top_idx"][..., :k], -1)
+    np.testing.assert_allclose(at, g["top_val"][..., :k], rtol=1e-4, atol=1e-4)
+    m = lg.max(-1)
+    lse = m + np.log(np.exp(lg - m[..., None]).sum(-1))
+    np.testing.assert_allclose(lse, g["lse"], rtol=1e-4, atol=1e-4)
+    # zamba2's shared block: the prefill on simt (f32), each step split
+    apps = 1 if arch == "zamba2-7b" else 0
+    assert fa.launches["flash_attention"] == 4 * apps
+    assert fa.launches["flash_attention_simt"] == apps
 
 
 # ---------------------------------------------------------------------------

@@ -88,6 +88,9 @@ def repro_run(*args, **kw):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """(every rank's results, the reference's), run at the same time."""
+    # Both threads call ``mktemp``. Made here first, pytest's base temp dir
+    # is not created by two threads at once (the loser's mkdir raises).
+    tmp_path_factory.getbasetemp()
     with ThreadPoolExecutor(2) as pool:
         ranks = pool.submit(run_ranks, tmp_path_factory, "mesh_2x4", 8, _PORT)
         ref = pool.submit(

@@ -220,6 +220,17 @@ PLAN_CASES = {
                              ("simt", 1, 0)),
     "deepseek_prompt8": ((8, 8, 8, 16, 16, 192, "bf16", [8] * 8),
                          ("split", 1, 64)),
+    # zamba2-7b's shared attention (32 heads of 112, rep 1) and qwen2-vl-72b's
+    # (64 q over 8 kv heads of 128): their serve prefill on the tensor cores,
+    # a decode step (1 and 8 rows a kv head) split over the keys.
+    "zamba2_prefill_d112": ((8, 2048, 2048, 32, 32, 112, "bf16", None),
+                            ("mma", 1, 0)),
+    "zamba2_decode_d112": ((8, 1, 2080, 32, 32, 112, "bf16", [2080] * 8),
+                           ("split", 3, 704)),
+    "qwen2vl_prefill": ((8, 2048, 2048, 64, 8, 128, "bf16", None),
+                        ("mma", 1, 0)),
+    "qwen2vl_decode": ((8, 1, 2080, 64, 8, 128, "bf16", [2080] * 8),
+                       ("split", 9, 256)),
 }
 
 
@@ -233,6 +244,30 @@ def test_plan(case):
         assert got.chunk % 64 == 0 and got.splits * got.chunk >= max(lens)
         assert (got.splits - 1) * got.chunk < max(lens)   # the keys allow
         assert b * hkv * got.splits >= 132 or got.chunk == 64
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "qwen2-vl-72b"])
+def test_serve_layouts_pass_the_kernel_checks(arch):
+    """The q, k and v the attention layer hands the kernel at full width
+    (zamba2's head_dim 112, qwen2-vl's 64 / 8 heads under M-RoPE), in the
+    prefill (views of the rotated projections) and in decode (an entry of
+    the segment-stacked cache): D contiguous, every other stride a multiple
+    of 8 elements, 16-byte aligned."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import common, lm
+
+    cfg = get_config(arch)
+    b, t, h, hkv, d = 1, 3, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    x = torch.zeros(b, t, cfg.d_model, dtype=torch.bfloat16)
+    q = (x @ torch.zeros(cfg.d_model, h * d, dtype=x.dtype)).reshape(b, t, h, d)
+    k = (x @ torch.zeros(cfg.d_model, hkv * d, dtype=x.dtype)).reshape(b, t, hkv, d)
+    pos = lm.make_positions(cfg, b, t)
+    rot = common.apply_mrope if cfg.pos == "mrope" else common.apply_rope
+    q, k = (rot(y.transpose(1, 2), pos, cfg.rope_theta).transpose(1, 2)
+            for y in (q, k))
+    fa._check_layout(q, k, k)
+    cache = torch.zeros(3, b, 8, hkv, d, dtype=x.dtype)       # [n, b, L, ...]
+    fa._check_layout(q[:, :1], cache[1], cache[2])
 
 
 def test_launch_rejects_bad_plans():

@@ -1,7 +1,8 @@
 """The port's LM serving path against the reference package's, on the CPU.
 
-For each served smoke config (the dense family, and the MoE family:
-deepseek-v2-lite with MLA, dbrx with GQA) the reference's own weights
+For each served smoke config (the dense family; the MoE family:
+deepseek-v2-lite with MLA, dbrx with GQA; the VLM with M-RoPE, fed tokens
+here; the SSM and hybrid families) the reference's own weights
 (``lm.init``) go through ``convert.lm_params_from_numpy``; ``forward`` (with
 its MoE metrics), ``prefill`` and every ``decode_step`` must give the
 reference's logits (f32, rtol = atol = 1e-4) and greedy decoding the same
@@ -9,7 +10,8 @@ tokens. Prefill + decode equals ``forward`` for the MoE configs only under a
 capacity that drops nothing (a prompt's cut depends on its length; the
 reference's serving test does the same). Also: the configs, the numpy
 weight recipe against the reference's parameter shapes at full width, the
-serve driver, the families that are not ported yet, and the full-width
+serve entry point (the VLM from stub embeddings), the family that is not
+ported yet (the encoder-decoder), and the full-width
 golden fixtures (qwen2-0.5b float32 and bfloat16, deepseek-v2-lite float32
 at depth 2) against the recipe.
 """
@@ -38,7 +40,9 @@ from repro_torch.train.steps import make_decode_step, make_prefill_step
 
 DENSE = ("qwen2-0.5b", "gemma-2b", "minicpm-2b", "starcoder2-7b")
 MOE = ("deepseek-v2-lite-16b", "dbrx-132b")
-SERVED = DENSE + MOE
+#: The VLM (M-RoPE), the SSM and the hybrid family.
+NEW = ("qwen2-vl-72b", "mamba2-130m", "zamba2-7b")
+SERVED = DENSE + MOE + NEW
 OTHERS = tuple(a for a in ARCHS if a not in SERVED)
 TOL = dict(rtol=1e-4, atol=1e-4)
 GOLDEN = Path(__file__).parent / "fixtures" / "qwen2_0_5b_golden.npz"
@@ -96,11 +100,14 @@ def test_logits_match_reference(arch):
         np.testing.assert_allclose(tlg.numpy(), np.asarray(lg), **TOL)
         if cfg.moe is None:     # a MoE forward drops at this length
             np.testing.assert_allclose(tlg.numpy(), full[:, i], **TOL)
-    # The cache the port filled in place holds the reference's (K and V, or
-    # MLA's latent ckv and kr), segment by segment.
-    for seg, ref_seg in zip(tcache, cache, strict=True):
-        assert set(seg) == set(ref_seg) == ({"ckv", "kr"} if cfg.mla
-                                            else {"k", "v"})
+    # The cache the port filled in place holds the reference's (K and V,
+    # MLA's latent ckv and kr, or the SSM state and conv tail), segment by
+    # segment.
+    for (kind, _), seg, ref_seg in zip(lm.segments(cfg), tcache, cache,
+                                       strict=True):
+        assert set(seg) == set(ref_seg) == (
+            {"state", "conv"} if kind == "mamba"
+            else {"ckv", "kr"} if cfg.mla else {"k", "v"})
         for name in seg:
             np.testing.assert_allclose(seg[name].numpy(),
                                        np.asarray(ref_seg[name]), **TOL)
@@ -181,11 +188,35 @@ def test_serve_moe_smoke_prints_the_prefill_drops(capsys):
     assert 0 < dropped < 2 * 2 * 16 * 2
 
 
+@pytest.mark.parametrize("arch", NEW)
+def test_serve_new_families_smoke_on_cpu(arch, capsys):
+    """The VLM from stub embeddings, the SSM and the hybrid through the
+    serve entry point (a prompt past one SSD chunk)."""
+    seq = serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch",
+                      "2", "--prompt-len", "19", "--gen", "3"])
+    assert seq.shape == (2, 3) and ((seq >= 0) & (seq < 256)).all()
+    out = capsys.readouterr().out.splitlines()
+    name = get_config(arch, smoke=True).name
+    assert out[0] == f"arch={name} batch=2 prompt=19 gen=3"
+    assert out[3] == "prefill moe_dropped: 0" and out[-1] == "device: cpu"
+
+
+def test_serve_cuts_the_depth():
+    seq = serve.main(["--arch", "qwen2-vl-72b", "--smoke", "--device", "cpu",
+                      "--layers", "1", "--batch", "1", "--prompt-len", "4",
+                      "--gen", "2"])
+    assert seq.shape == (1, 2)
+    with pytest.raises(ValueError, match="--layers"):
+        serve.main(["--arch", "qwen2-vl-72b", "--smoke", "--device", "cpu",
+                    "--layers", "3"])
+
+
 @pytest.mark.parametrize("arch", OTHERS)
 def test_other_families_raise(arch):
+    assert OTHERS == ("whisper-large-v3",)
     cfg = get_config(arch, smoke=True)
     with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP queue 1 item 12[bef]\b"):
+                       match=r"ROADMAP queue 1 item 12f\b"):
         lm.LM(cfg, device="cpu")
     with pytest.raises(NotImplementedError):
         lm.init_cache(cfg, 1, 4, device="cpu")

@@ -251,13 +251,19 @@ Phases, each of which fails the run on any error (each prints its seconds):
      2047), zamba2-7b's shared attention (32 heads of 112: the ``mma`` body
      pads them to 128) and qwen2-vl-72b's (64 q over 8 kv heads of 128),
      each at its serve prefill (batch 8 x 2048) and decode (a 2080-key
-     cache, ragged fill levels); then the mma body's exponential
+     cache, ragged fill levels), and whisper-large-v3's five calls at its
+     serve shapes (20 heads of 64; batch 8): the encoder's non-causal
+     1,500 x 1,500, the decoder's causal 750 x 750 prefill, the non-causal
+     cross-attention of 750 queries over 1,500 keys, and a decode step's
+     causal self-attention over up to 782 keys (ragged) and non-causal
+     cross-attention over 1,500; then the mma body's exponential
      (ex2.approx) against expf on the prefill case's scores, within half a
      bf16 step;
  15. flash-attention time: device time at the prefill and decode shapes in
      bfloat16 (CUDA-graph replay) and at deepseek-v2-lite's MLA prefill
-     (head_dim 192) and at zamba2-7b's and qwen2-vl-72b's prefill and
-     decode, each body kernel's time by the profiler (the simt
+     (head_dim 192), at zamba2-7b's and qwen2-vl-72b's prefill and decode
+     and at whisper-large-v3's five shapes (decode over a full cache),
+     each body kernel's time by the profiler (the simt
      body's at the prefill shapes in float32), beside the plain version's,
      SDPA's (the yardstick, with an explicit mask and without one), the
      host time per call and the bound (FLOPs at 989 TFLOP/s or bytes at
@@ -285,6 +291,15 @@ Phases, each of which fails the run on any error (each prints its seconds):
      expected (printed first): none for mamba2; for zamba2 one an
      application, 11 ``mma`` in the prefill and 11 x 31 ``split`` +
      ``combine`` in decode; for qwen2-vl 16 and 16 x 31;
+ 16d. serve whisper: ``serve.main`` for whisper-large-v3 at full width and
+     depth (32 encoder and 32 decoder layers) in bf16, batch 8, 1,500
+     frames (twice the prompt, as the reference's serve draws them), a
+     750-token prompt, 32 new tokens (after a warm-up run of 2): prefill and
+     decode tok/s, peak device memory, and the flash kernel's launches by
+     body against the count ``plan`` gives (printed first), which must be
+     96 ``mma`` (32 encoder, 32 self- and 32 cross-attention prefill
+     calls), 1,984 ``split`` and 1,984 ``combine`` (31 steps x 32 layers x
+     self and cross) and no ``simt``;
  17. serve consistency: full width in float32 (TF32 off), prefill (on the
      ``simt`` body) and 16 teacher-forced decode steps (``split``) through
      the kernel against ``forward``'s logits, and against the same steps
@@ -322,11 +337,28 @@ Phases, each of which fails the run on any error (each prints its seconds):
      rows of 8 tokens against a prefill of the 64 embeddings and decode
      steps of those tokens, at 3e-4 (the reference's f32 golden at this
      width would need ~17 GB on a CPU);
+ 18f. whisper against the reference: whisper-large-v3 at full width and
+     depth in float32 (TF32 off), the numpy recipe's weights (~6.1 GB), the
+     encoder over 2 x 150 frames (ragged key tiles on the non-causal
+     ``simt`` path), a prefill of 75 tokens and three decode steps against
+     the JAX package's golden (``tests/fixtures/whisper_large_v3_golden.npz``):
+     top-32 logits and logsumexp at 1e-4, and the launches (96 ``simt``,
+     then ``split``); then the same model's prefill of 32 tokens and 16
+     teacher-forced decode steps against ``forward_encdec``'s logits at
+     3e-4;
+ 18g. sampled decoding: 8 sampled decode steps of qwen2-0.5b at full width
+     in bf16 (batch 8, temperature 0.8, the key of step i ``fold_in(key(11),
+     i)``): each step's Threefry bits and uniforms (JAX's partitionable
+     layout) drawn on the card equal to the same draws on the CPU bit for
+     bit, and each token equal to ``argmax(logits / T + gumbel)`` computed
+     on the CPU from the card's logits; the host time of a sampled and a
+     greedy step;
  19. serve profiles: ``torch.profiler`` over one prefill of phase 16's
      shape and over 8 decode steps after it, each with its device busy
      share, device ops per step and top kernels; then the same over one
-     deepseek-v2-lite prefill of phase 16b's shape and 4 decode steps, and
-     over one zamba2-7b prefill of phase 16c's shape and 4 decode steps.
+     deepseek-v2-lite prefill of phase 16b's shape and 4 decode steps, over
+     one zamba2-7b prefill of phase 16c's shape and 4 decode steps, and over
+     one whisper-large-v3 prefill of phase 16d's shape and 4 decode steps.
 
 Each graph is built once (numpy set-up, in worker processes while the
 kernels build) and shared by the phases; phase 10e's four ranks build
@@ -2111,7 +2143,7 @@ DEEPSEEK_CONSIST = (4, 8.0)
 #: 64, 65 and Tkv among them), gemma-2b's head_dim 256 under MQA, and the
 #: tensor-core body at awkward shapes: Tq not a multiple of 64 (33, 2047),
 #: Tkv not a multiple of the key tile (70, 2049), head_dim 80, 128 and 256,
-#: non-causal (whisper's cross-attention form), Tq < Tkv, ragged kv_len.
+#: non-causal, Tq < Tkv, ragged kv_len.
 #: Each runs in float32 and bfloat16 and must take the body named.
 PREFILL, DECODE = ("simt", "mma"), ("split", "split")
 FLASH_CASES = {
@@ -2175,6 +2207,27 @@ SERVE_CASES = {
                        DECODE),
 }
 FLASH_CASES.update(SERVE_CASES)
+#: whisper-large-v3's five calls at its serve shapes (phase 16d: batch 8,
+#: 1,500 frames, a 750-token prompt, 32 new tokens; 20 heads of 64 over 20
+#: kv heads): the encoder's non-causal self-attention, the decoder's causal
+#: prefill, the cross-attention's non-causal prefill (750 queries over the
+#: 1,500 encoder keys), a decode step's causal self-attention over a cache
+#: of up to 782 keys (ragged fill levels) and its non-causal
+#: cross-attention over all 1,500 keys (4 splits of 384). 1,500 is not a
+#: multiple of the 64-key tiles.
+WHISPER_CASES = {
+    "whisper_encoder": (8, 20, 20, 1500, 1500, 64, False, None, "tokens",
+                        PREFILL),
+    "whisper_prefill": (8, 20, 20, 750, 750, 64, True, None, "tokens",
+                        PREFILL),
+    "whisper_cross_prefill": (8, 20, 20, 750, 1500, 64, False, None,
+                              "tokens", PREFILL),
+    "whisper_decode": (8, 20, 20, 1, 782, 64, True,
+                       [751, 782, 760, 1, 64, 65, 400, 781], "tokens", DECODE),
+    "whisper_cross_decode": (8, 20, 20, 1, 1500, 64, False, None, "tokens",
+                             DECODE),
+}
+FLASH_CASES.update(WHISPER_CASES)
 #: Tolerances against the plain version: in float32 the two differ only in
 #: the order of f32 sums; bfloat16 is the reference's kernel-test tolerance
 #: (tests/test_kernels.py:135). Each holds twice: as rtol = atol, and per
@@ -2185,8 +2238,9 @@ FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: Timed shapes (bfloat16, the serve path's type): name -> case.
 FLASH_TIMED = {"prefill": "qwen2_prefill", "decode": "qwen2_decode",
                "mla_prefill": "deepseek_prefill",
-               **{case: case for case in SERVE_CASES}}
-#: The decode timing reads a full cache: kv_len = Tkv for every row.
+               **{case: case for case in (*SERVE_CASES, *WHISPER_CASES)}}
+#: The decode timing reads a full cache: kv_len = Tkv for every row (at most
+#: 2080).
 DECODE_TIMED_KV_LEN = 2080
 #: Consistency at full width (f32): batch, prompt, teacher-forced steps;
 #: the reference's serving-test tolerance (tests/test_serving.py:13).
@@ -2458,7 +2512,7 @@ def flash_times(torch, fa):
     for label, case in FLASH_TIMED.items():
         b, hq, hkv, tq, tkv, d, causal = FLASH_CASES[case][:7]
         big = tq > 1
-        kv_len = tkv if big else DECODE_TIMED_KV_LEN
+        kv_len = tkv if big else min(tkv, DECODE_TIMED_KV_LEN)
         lens = [kv_len] * b
         scale = flash_scale(case)
         q, k, v = flash_inputs(torch, case, torch.bfloat16, seed=99)
@@ -2472,9 +2526,11 @@ def flash_times(torch, fa):
             qh, kh, vh, attn_mask=mask, enable_gqa=True, scale=scale)
         # The same function at these inputs without a mask tensor: causal
         # from the top left is the ends-aligned mask when Tq = Tkv = kv_len,
-        # and a single query row over a full cache needs no mask.
+        # and a non-causal call or a single query row over a full cache
+        # needs no mask.
         sdpa_fast = lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=tq == tkv, enable_gqa=True, scale=scale)
+            qh, kh, vh, is_causal=causal and tq == tkv, enable_gqa=True,
+            scale=scale)
         reps = 20 if big else 100
         n = dict(
             ms=device_ms(torch, kernel, reps=reps, rounds=5),
@@ -3193,6 +3249,266 @@ def zamba2_profiles(torch, fa):
                 f"cache length {p}", "step")
 
 
+#: whisper-large-v3 at full width and depth (32 encoder and 32 decoder
+#: layers, 1.54 B parameters), served as the reference's serve serves it:
+#: frames [8, 2 x 750, 1280], a 750-token decoder prompt, 32 new tokens.
+WHISPER = "whisper-large-v3"
+WHISPER_SERVE_ARGS = ["--arch", WHISPER, "--batch", "8", "--prompt-len",
+                      "750", "--gen", "32"]
+#: Its kernel 5 launches by body: the prefill's 32 encoder, 32 causal
+#: self-attention and 32 cross-attention calls on ``mma``; each of the 31
+#: decode steps' 32 self- and 32 cross-attention calls on ``split`` with its
+#: ``combine``.
+WHISPER_SERVE_BODIES = {"flash_attention": 96 + 2 * 32 * 31,
+                        "flash_attention_mma": 96,
+                        "flash_attention_split": 2 * 32 * 31,
+                        "flash_attention_combine": 2 * 32 * 31,
+                        "flash_attention_simt": 0}
+WHISPER_GOLDEN = ROOT / "tests" / "fixtures" / "whisper_large_v3_golden.npz"
+#: Sampled decoding on the card (phase 18g): qwen2-0.5b at full width in
+#: bf16, batch, prompt, sampled decode steps, temperature, key seed.
+SAMPLED = (8, 64, 8, 0.8, 11)
+
+
+def whisper_serve_want(fa, cfg, b, p, gen):
+    """The flash launches of a whisper serve run, each call on the body
+    ``plan`` gives: in the prefill one an encoder layer (non-causal over
+    the 2p frames) and two a decoder layer (causal self-attention over the
+    p prompt tokens; cross-attention of the p tokens over the 2p frames);
+    in each of the ``gen - 1`` decode steps two a decoder layer
+    (self-attention over the cache, cross-attention over the 2p frames)."""
+    h, hkv, d, dt = cfg.num_heads, cfg.num_kv_heads, cfg.hd, cfg.torch_dtype
+    n, te = cfg.num_layers, 2 * p
+    calls = [(fa.plan(b, te, te, h, hkv, d, dt), cfg.encdec.enc_layers),
+             (fa.plan(b, p, p, h, hkv, d, dt), n),
+             (fa.plan(b, p, te, h, hkv, d, dt), n)]
+    for i in range(gen - 1):
+        calls += [(fa.plan(b, 1, p + gen, h, hkv, d, dt, [p + i + 1] * b), n),
+                  (fa.plan(b, 1, te, h, hkv, d, dt), n)]
+    want = {k: 0 for k in body_launches("mma")}
+    for pl, count in calls:
+        for k, v in flash_calls(pl, count).items():
+            want[k] += v
+    return want
+
+
+def serve_whisper(torch, np, fa):
+    """``serve.main`` for whisper-large-v3 at full width and depth in bf16
+    (batch 8, 1,500 frames, a 750-token prompt, 32 new tokens), after a
+    warm-up run of 2 new tokens. The flash kernel must launch as
+    :func:`whisper_serve_want` says, which must be WHISPER_SERVE_BODIES
+    (printed first). Returns the launches, prefill and decode tok/s and peak
+    GiB."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(WHISPER)
+    b, p, gen = (int(x) for x in WHISPER_SERVE_ARGS[3::2])
+    want = whisper_serve_want(fa, cfg, b, p, gen)
+    print(f"serve {WHISPER} ({cfg.encdec.enc_layers} + {cfg.num_layers} "
+          f"layers, {2 * p} frames, prompt {p}): flash launches expected "
+          f"{want}", flush=True)
+    if want != WHISPER_SERVE_BODIES:
+        raise AssertionError(f"plan gives {want}, want {WHISPER_SERVE_BODIES}")
+    used, prefill, decode, peak, _ = counted_serve(
+        torch, fa, WHISPER_SERVE_ARGS, want, cfg.vocab_size)
+    return dict(launches=used, prefill_tok_s=prefill, decode_tok_s=decode,
+                peak_gib=peak, layers=[cfg.encdec.enc_layers, cfg.num_layers])
+
+
+def whisper_inputs(torch, np, g, cfg):
+    """The golden's frames and tokens on the card, drawn again from its
+    seed as its script draws them (frames first); their sum and the tokens
+    must be the golden's."""
+    rng = np.random.default_rng(int(g["seed"]))
+    b = g["tokens"].shape[0]
+    frames = rng.standard_normal((b, int(g["frames_len"]), cfg.d_model),
+                                 dtype=np.float32)
+    tokens = rng.integers(0, cfg.vocab_size, g["tokens"].shape).astype(np.int32)
+    if (frames.sum(dtype=np.float64) != float(g["frames_sum"])
+            or not (tokens == g["tokens"]).all()):
+        raise AssertionError("the golden's inputs do not come out of its seed")
+    return torch.from_numpy(frames).cuda(), torch.from_numpy(tokens).cuda()
+
+
+def whisper_steps(torch, model, cfg, frames, tokens, prompt):
+    """Logits of an encdec prefill over ``frames`` and ``tokens[:,
+    :prompt]`` and of a decode step for each later token: [steps, B, V]."""
+    from repro_torch.models import lm
+
+    b, t = tokens.shape
+    cache = lm.encdec_init_cache(cfg, b, t, frames.shape[1], device="cuda")
+    logits, cache = lm.prefill_encdec(model, cfg, frames, tokens[:, :prompt],
+                                      cache)
+    steps = [logits]
+    for i in range(prompt, t):
+        logits, cache = lm.decode_step_encdec(model, cfg, tokens[:, i], cache,
+                                              i)
+        steps.append(logits)
+    return torch.stack(steps)
+
+
+def whisper_golden(torch, np, fa):
+    """whisper-large-v3 at full width and depth in f32 (TF32 off), the numpy
+    recipe's weights (~6.1 GB): the encoder over 2 x 150 frames, a prefill
+    of 75 tokens and three teacher-forced decode steps against the JAX
+    package's golden (``golden_top``: top-32 logits and logsumexp at 1e-4),
+    the f32 prefill's calls on ``simt`` (150 and 75 rows a kv head) and the
+    steps' on ``split``. Then the same model's prefill of 32 tokens and 16
+    teacher-forced decode steps against ``forward_encdec``'s logits at
+    CONSIST_TOL. Returns (the golden's largest error, the consistency's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_numpy, numpy_lm_params
+    from repro_torch.models import lm
+
+    free_card(torch)
+    g = np.load(WHISPER_GOLDEN)
+    full_width_f32(torch)
+    cfg = dataclasses.replace(get_config(WHISPER), dtype="float32")
+    if int(g["layers"]) != cfg.num_layers:
+        raise AssertionError(f"golden of {int(g['layers'])} layers")
+    t = time.perf_counter()
+    model = lm_params_from_numpy(cfg, numpy_lm_params(cfg, int(g["seed"])),
+                                 device="cuda")
+    print(f"golden {WHISPER}: numpy weights (seed {int(g['seed'])}, "
+          f"{cfg.encdec.enc_layers} + {cfg.num_layers} layers) to the card in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    frames, tokens = whisper_inputs(torch, np, g, cfg)
+    fa.reset_launches()
+    lg = whisper_steps(torch, model, cfg, frames, tokens, int(g["prompt_len"]))
+    n_dec = tokens.shape[1] - int(g["prompt_len"])
+    want = {"flash_attention": 96 + 64 * n_dec, "flash_attention_simt": 96,
+            "flash_attention_mma": 0, "flash_attention_split": 64 * n_dec,
+            "flash_attention_combine": 64 * n_dec}
+    if fa.launches != want:
+        raise AssertionError(f"launches {fa.launches}, want {want}")
+    err = golden_top(np, lg.cpu().numpy(), g, WHISPER)
+
+    b, p, n = CONSIST
+    rng = np.random.default_rng(1)
+    frames = torch.from_numpy(rng.standard_normal(
+        (b, int(g["frames_len"]), cfg.d_model), dtype=np.float32)).cuda()
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, p + n))
+                              .astype(np.int32)).cuda()
+    h, _ = lm.forward_encdec(model, cfg, frames, tokens)
+    full = lm.logits_fn(model, cfg, h)[:, p - 1:].transpose(0, 1)
+    fa.reset_launches()
+    kern = whisper_steps(torch, model, cfg, frames, tokens, p)
+    e_full = (kern - full).abs().max().item()
+    print(f"consistency {WHISPER} f32 full width and depth, batch {b}, "
+          f"{frames.shape[1]} frames, prompt {p}, {n} decode steps: prefill+"
+          f"decode vs forward_encdec max abs error {e_full:.3e} (tol "
+          f"{CONSIST_TOL}; |logits| up to "
+          f"{full[..., :cfg.vocab_size].abs().max().item():.3f}); launches "
+          f"{dict(fa.launches)}", flush=True)
+    torch.testing.assert_close(kern, full, rtol=CONSIST_TOL, atol=CONSIST_TOL)
+    del model
+    return err, e_full
+
+
+def sampled_decoding(torch, np, fa):
+    """Sampled decode steps of qwen2-0.5b at full width in bf16 (SAMPLED:
+    batch 8, a 64-token prompt, 8 steps at temperature 0.8), the key of
+    step i ``fold_in(key(11), i)``: each step's 32-bit draws in the
+    partitionable layout on the card equal the same draw on the CPU bit for
+    bit, and so do its uniforms; each sampled token equals
+    ``argmax(logits / T + gumbel)`` computed on the CPU from the card's
+    logits. Returns (the steps' smallest top-two margin on the CPU, host ms
+    a sampled step, host ms a greedy step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.models import lm
+    from repro_torch.train.steps import make_decode_step
+
+    free_card(torch)
+    b, p, n, temp, seed = SAMPLED
+    cfg = get_config("qwen2-0.5b")
+    g = torch.Generator("cuda").manual_seed(0)
+    model = lm.init(g, cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (b, p), generator=g,
+                           device="cuda", dtype=torch.int32)
+    cache = lm.init_cache(cfg, b, p + 2 * n, device="cuda")
+    logits, cache = lm.prefill(model, cfg, tokens=tokens, cache=cache)
+    cur = torch.argmax(logits, -1).to(torch.int32)
+    step = make_decode_step(cfg, greedy=False, temperature=temp)
+    greedy = make_decode_step(cfg)
+    margin, walls = float("inf"), []
+    for i in range(n):
+        key = prng.fold_in(prng.key(seed), i)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        nxt, logits, cache = step(model, cur, cache, p + i, key.cuda())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        shape = tuple(logits.shape)
+        for name, draw in (("bits", lambda k: prng.random_bits(
+                k, 32, shape, partitionable=True)),
+                           ("uniforms", lambda k: prng.uniform(
+                               k, shape, prng.F32_TINY, 1.0
+                           ).view(torch.int32))):
+            if not torch.equal(draw(key.cuda()).cpu(), draw(key)):
+                raise AssertionError(f"step {i}: the card's {name} differ "
+                                     f"from the CPU's")
+        noisy = prng.gumbel(key, shape) + logits.cpu() / temp
+        want = torch.argmax(noisy, -1).to(torch.int32)
+        top2 = torch.topk(noisy, 2, dim=-1).values
+        margin = min(margin, (top2[:, 0] - top2[:, 1]).min().item())
+        if not torch.equal(nxt.cpu(), want):
+            raise AssertionError(f"step {i}: sampled {nxt.tolist()}, the CPU "
+                                 f"{want.tolist()}")
+        cur = nxt
+    greedy_walls = []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cur, _, cache = greedy(model, cur, cache, p + n + i)
+        torch.cuda.synchronize()
+        greedy_walls.append(time.perf_counter() - t)
+    s_ms = statistics.median(walls) * 1e3
+    g_ms = statistics.median(greedy_walls) * 1e3
+    print(f"sampled decoding qwen2-0.5b bf16 full width, batch {b}, prompt "
+          f"{p}, {n} steps at T = {temp}: each step's {b} x "
+          f"{cfg.padded_vocab} partitionable Threefry bits and uniforms on "
+          f"the card equal the CPU's bit for bit; every token equals the "
+          f"CPU's argmax(logits / T + gumbel) (smallest top-two margin "
+          f"{margin:.3e}); host {s_ms:.2f} ms a sampled step, {g_ms:.2f} ms a "
+          f"greedy one (medians)", flush=True)
+    del model
+    return margin, s_ms, g_ms
+
+
+def whisper_profiles(torch, fa):
+    """``torch.profiler`` over one whisper-large-v3 prefill of phase 16d's
+    shape (bf16, batch 8, 1,500 frames, 750 tokens, full depth: the
+    encoder, the decoder prefill and the cross cache) and over 4 decode
+    steps after it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    free_card(torch)
+    cfg = get_config(WHISPER)
+    g = torch.Generator("cuda").manual_seed(0)
+    model = lm.init(g, cfg)
+    b, p, n = 8, 750, 4
+    frames = torch.randn((b, 2 * p, cfg.d_model), generator=g,
+                         device="cuda").to(cfg.torch_dtype)
+    tokens = torch.randint(0, cfg.vocab_size, (b, p), generator=g,
+                           device="cuda", dtype=torch.int32)
+    cache = lm.encdec_init_cache(cfg, b, p + n, 2 * p, device="cuda")
+    cur = tokens[:, -1].contiguous()
+
+    def decode():
+        for i in range(n):
+            lm.decode_step_encdec(model, cfg, cur, cache, p + i)
+
+    profile_run(torch, lambda: lm.prefill_encdec(model, cfg, frames, tokens,
+                                                 cache),
+                1, f"serve {WHISPER} bf16 prefill batch {b}, {2 * p} frames, "
+                f"{p} tokens", "prefill")
+    profile_run(torch, decode, n, f"serve {WHISPER} bf16 decode batch {b} at "
+                f"cache length {p}", "step")
+    del model
+
+
 def lm_phases(torch, np):
     """The LM serving path: the flash kernel against its plain version, its
     times, serve at full width (qwen2-0.5b, deepseek-v2-lite, mamba2-130m,
@@ -3219,11 +3535,17 @@ def lm_phases(torch, np):
                        np, fa)
     new_serves = phase("serve mamba2, zamba2, qwen2-vl", serve_new, torch, np,
                        fa)
+    new_serves[WHISPER] = phase("serve whisper", serve_whisper, torch, np, fa)
     ssm_errs = phase("ssm goldens", against_ssm_goldens, torch, np, fa)
     vlm_consist = phase("vlm consistency", vlm_consistency, torch, np, fa)
+    whisper_err, whisper_consist = phase("whisper golden", whisper_golden,
+                                         torch, np, fa)
+    sample_margin, sampled_ms, greedy_ms = phase(
+        "sampled decoding", sampled_decoding, torch, np, fa)
     phase("serve profiles", serve_profiles, torch)
     phase("deepseek profiles", deepseek_profiles, torch, fa)
     phase("zamba2 profiles", zamba2_profiles, torch, fa)
+    phase("whisper profiles", whisper_profiles, torch, fa)
     pre, dec, mla = timed["prefill"], timed["decode"], timed["mla_prefill"]
     us = {**pre["kernels_us"], **dec["kernels_us"]}
     timed_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -3231,7 +3553,7 @@ def lm_phases(torch, np):
                   "kernels_us")
     new_shapes = {case: dict({k: timed[case][k] for k in timed_keys},
                              max_abs_err=err_by_case[case])
-                  for case in SERVE_CASES}
+                  for case in (*SERVE_CASES, *WHISPER_CASES)}
     new_launches = {arch: r["launches"]["flash_attention"]
                     for arch, r in new_serves.items()}
     return dict(
@@ -3245,6 +3567,10 @@ def lm_phases(torch, np):
         serve_shapes=new_shapes, serves=new_serves,
         ssm_golden_max_abs_err=ssm_errs,
         vlm_consistency_max_abs_err=vlm_consist,
+        whisper_golden_max_abs_err=whisper_err,
+        whisper_consistency_max_abs_err=whisper_consist,
+        sampled=dict(min_top2_margin=sample_margin, step_host_ms=sampled_ms,
+                     greedy_step_host_ms=greedy_ms),
         max_abs_err=err,
         ms=pre["ms"], plain_ms=pre["plain_ms"], bound_ms=pre["bound_ms"],
         bound_by=pre["bound_by"], library_ms=pre["library_ms"],

@@ -20,8 +20,11 @@ reference.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import os
 from collections.abc import Mapping
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -99,6 +102,10 @@ def _lm_leaf_specs(cfg):
     tree (``repro.models.lm.init``), in a fixed order. A segment's leaves
     carry a leading [n] layer axis; the hybrid's shared block
     (``("shared_attn", ...)``) has none, and its segments hold no leaves.
+    An encoder-decoder's come last: ``("encoder", "blocks", ...)`` stacked
+    on ``[enc_layers]``, ``("encoder", "final_norm", ...)``, and
+    ``("cross_attn", ...)`` (``ln`` and ``attn``) stacked on
+    ``[num_layers]``.
     ``init`` is ``"embed"`` (normal x 0.02), ``"dense"`` (normal /
     sqrt(fan_in), the fan-in the unstacked leaf's first axis), ``"conv"``
     (normal x 0.5, the Mamba2 conv's fixed scale), ``"a_log"``
@@ -113,7 +120,7 @@ def _lm_leaf_specs(cfg):
         if cfg.norm == "layernorm" and pre[-1] != "kv_norm":
             out.append((pre + ("b",), (*lead, width), "zeros"))
 
-    def block(pre, lead, kind):
+    def leaf_fns(pre, lead):
         def leaf(name, *shape, init="dense"):
             out.append((pre + name, (*lead, *shape), init))
 
@@ -122,6 +129,17 @@ def _lm_leaf_specs(cfg):
             if bias:
                 leaf(name + ("b",), shape[-1], init="zeros")
 
+        return leaf, dense
+
+    def attention(dense):
+        hd = cfg.hd
+        dense(("attn", "wq"), d, h * hd, bias=cfg.qkv_bias)
+        dense(("attn", "wk"), d, hkv * hd, bias=cfg.qkv_bias)
+        dense(("attn", "wv"), d, hkv * hd, bias=cfg.qkv_bias)
+        dense(("attn", "wo"), h * hd, d, bias=cfg.proj_bias)
+
+    def block(pre, lead, kind):
+        leaf, dense = leaf_fns(pre, lead)
         norm(pre + ("ln1",), lead)
         if kind == "mamba":
             s = cfg.ssm
@@ -144,11 +162,7 @@ def _lm_leaf_specs(cfg):
             dense(("attn", "w_uv"), m.kv_lora_rank, h * m.v_head_dim)
             dense(("attn", "wo"), h * m.v_head_dim, d)
         else:
-            hd = cfg.hd
-            dense(("attn", "wq"), d, h * hd, bias=cfg.qkv_bias)
-            dense(("attn", "wk"), d, hkv * hd, bias=cfg.qkv_bias)
-            dense(("attn", "wv"), d, hkv * hd, bias=cfg.qkv_bias)
-            dense(("attn", "wo"), h * hd, d, bias=cfg.proj_bias)
+            attention(dense)
         norm(pre + ("ln2",), lead)
         if kind == "moe":
             m = cfg.moe
@@ -181,40 +195,64 @@ def _lm_leaf_specs(cfg):
     norm(("final_norm",))
     if not cfg.tie_embeddings:
         out.append((("lm_head",), (d, vocab), "embed"))
+    if cfg.encdec is not None:
+        block(("encoder", "blocks"), (cfg.encdec.enc_layers,), "attn")
+        norm(("encoder", "final_norm"))
+        lead = (cfg.num_layers,)
+        norm(("cross_attn", "ln"), lead)
+        attention(leaf_fns(("cross_attn",), lead)[1])
     return out
 
 
-def numpy_lm_leaves(cfg, seed: int = 0):
+def _stacked(path) -> bool:
+    """Whether a leaf of the reference's tree carries a leading layer axis:
+    a segment's, the encoder's blocks' and the cross-attention's."""
+    return (path[0] in ("segments", "cross_attn")
+            or tuple(path[:2]) == ("encoder", "blocks"))
+
+
+def _draw_leaf(i: int, path, shape, init: str, seed: int) -> np.ndarray:
+    """Leaf ``i`` of the recipe (:func:`numpy_lm_leaves`)."""
+    if init in ("ones", "zeros"):
+        return np.full(shape, init == "ones", dtype=np.float32)
+    if init == "a_log":
+        return np.broadcast_to(np.log(np.arange(
+            1, shape[-1] + 1, dtype=np.float32)), shape).copy()
+    rng = np.random.default_rng([seed, i])
+    if init == "dt_bias":
+        lo, hi = np.log(np.float32(1e-3)), np.log(np.float32(1e-1))
+        dt = np.exp(rng.random(shape, dtype=np.float32) * (hi - lo) + lo)
+        return dt + np.log(-np.expm1(-dt))
+    scale = {"embed": 0.02, "conv": 0.5}.get(init)
+    if scale is None:
+        scale = 1.0 / np.sqrt(shape[1] if _stacked(path) else shape[0])
+    x = rng.standard_normal(shape, dtype=np.float32)
+    x *= np.float32(scale)
+    return x
+
+
+def numpy_lm_leaves(cfg, seed: int = 0, *, threads: int = 1):
     """Yield (path, float32 array) for every leaf of :func:`numpy_lm_params`,
-    one at a time. Leaf ``i`` draws from ``np.random.default_rng([seed,
+    in the recipe's order. Leaf ``i`` draws from ``np.random.default_rng([seed,
     i])``, so each leaf can be made without the others. A ``"dense"`` leaf
     is scaled by 1/sqrt(fan-in), the fan-in being the first axis of the
     leaf without its layer axis, as the reference's ``dense_init`` takes
     ``shape[0]``: ``d_in`` of a matrix ``[n, d_in, d_out]``, but ``E`` (the
     expert count) of the stacked expert weights ``[n, E, d, f]``, not
-    ``d``."""
-    lm.check_supported(cfg)
-    for i, (path, shape, init) in enumerate(_lm_leaf_specs(cfg)):
-        if init in ("ones", "zeros"):
-            yield path, np.full(shape, init == "ones", dtype=np.float32)
-            continue
-        if init == "a_log":
-            yield path, np.broadcast_to(np.log(np.arange(
-                1, shape[-1] + 1, dtype=np.float32)), shape).copy()
-            continue
-        rng = np.random.default_rng([seed, i])
-        if init == "dt_bias":
-            lo, hi = np.log(np.float32(1e-3)), np.log(np.float32(1e-1))
-            dt = np.exp(rng.random(shape, dtype=np.float32) * (hi - lo) + lo)
-            yield path, dt + np.log(-np.expm1(-dt))
-            continue
-        scale = {"embed": 0.02, "conv": 0.5}.get(init)
-        if scale is None:
-            scale = 1.0 / np.sqrt(shape[1] if path[0] == "segments"
-                                  else shape[0])
-        x = rng.standard_normal(shape, dtype=np.float32)
-        x *= np.float32(scale)
-        yield path, x
+    ``d``. ``threads`` leaves are drawn at once, in threads (numpy's
+    generators release the interpreter lock while they fill an array), so
+    at most ``threads`` leaves are held beyond the one yielded; the default
+    draws one at a time."""
+    with ThreadPoolExecutor(threads) as pool:
+        pending = collections.deque()
+        for i, (path, shape, init) in enumerate(_lm_leaf_specs(cfg)):
+            pending.append((path, pool.submit(_draw_leaf, i, path, shape,
+                                              init, seed)))
+            if len(pending) == threads:
+                done, leaf = pending.popleft()
+                yield done, leaf.result()
+        for done, leaf in pending:
+            yield done, leaf.result()
 
 
 def numpy_lm_params(cfg, seed: int = 0) -> dict:
@@ -222,9 +260,11 @@ def numpy_lm_params(cfg, seed: int = 0) -> dict:
     ``repro.models.lm.init``, its initialisers' scales and constants), drawn
     with numpy from ``seed``, every leaf float32; ``None`` at each
     ``"shared_attn"`` segment, as the reference's tree. Both packages can
-    then be fed the same weights, at any width."""
+    then be fed the same weights, at any width. The leaves are those of
+    :func:`numpy_lm_leaves`, drawn up to 8 at a time."""
     tree: dict = {"segments": [None] * len(lm.segments(cfg))}
-    for path, x in numpy_lm_leaves(cfg, seed):
+    for path, x in numpy_lm_leaves(cfg, seed,
+                                   threads=min(8, os.cpu_count() or 1)):
         node = tree
         for key, nxt in zip(path[:-1], path[1:]):
             if isinstance(key, int):
@@ -255,8 +295,10 @@ def lm_params_from_numpy(cfg, tree: Mapping, device=None) -> "lm.LM":
     segment is split into its layers; a ``"shared_attn"`` segment holds
     ``None`` (its layers run the one ``shared_attn`` block, loaded once from
     the tree's ``shared_attn``). Every matrix keeps the reference's ``[in,
-    out]`` orientation. Every leaf must land on exactly one parameter and
-    every parameter must be given."""
+    out]`` orientation. An encoder-decoder's ``encoder.blocks`` and
+    ``cross_attn`` leaves are split into their layers the same way
+    (``encoder.blocks.{j}.*``, ``cross_attn.{j}.*``). Every leaf must land
+    on exactly one parameter and every parameter must be given."""
     model = lm.LM(cfg, device=resolve_device(device))
     params = dict(model.named_parameters())
     given = set()
@@ -271,9 +313,28 @@ def lm_params_from_numpy(cfg, tree: Mapping, device=None) -> "lm.LM":
         params[name].copy_(torch.from_numpy(np.array(a, copy=True)))
         given.add(name)
 
+    def put_layers(prefix, stacked, n):
+        for name, leaf in _flatten(stacked):
+            if np.shape(leaf)[0] != n:
+                raise ValueError(f"{prefix} leaf {name} has "
+                                 f"{np.shape(leaf)[0]} layers, want {n}")
+            for j in range(n):
+                put(f"{prefix}.{j}.{name}", leaf[j])
+
     layer = 0
     for key, value in tree.items():
-        if key != "segments":
+        if key == "segments":
+            continue
+        if key == "cross_attn" and cfg.encdec is not None:
+            put_layers("cross_attn", value, cfg.num_layers)
+        elif key == "encoder" and cfg.encdec is not None:
+            for sub, part in value.items():
+                if sub == "blocks":
+                    put_layers("encoder.blocks", part, cfg.encdec.enc_layers)
+                else:
+                    for name, leaf in _flatten(part, f"encoder.{sub}."):
+                        put(name, leaf)
+        else:
             for name, leaf in (_flatten(value, f"{key}.")
                                if isinstance(value, Mapping) else [(key, value)]):
                 put(name, leaf)

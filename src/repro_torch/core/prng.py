@@ -9,15 +9,25 @@ the port's copy of what it uses:
   * :func:`split`, :func:`fold_in`, :func:`random_bits` — the key
     derivations and the raw bit draws;
   * :func:`randint` — ``jax.random.randint`` for int32, with JAX's two draws
-    and its ``2**32 mod span`` multiplier.
+    and its ``2**32 mod span`` multiplier;
+  * :func:`uniform` and :func:`gumbel` — ``jax.random.uniform`` in float32
+    and ``jax.random.gumbel``'s default ``"low"`` mode, for sampled
+    decoding, always in the partitionable layout below.
 
-All of it follows the **non-partitionable** layout of the counters
-(``jax_threefry_partitionable=False``): ``split(key, n)`` hashes the counter
-pairs ``(j, n + j)`` and reads the key ``j`` from the flat output's words
-``2j`` and ``2j + 1``, and ``random_bits`` hashes ``(j, ceil(m/2) + j)``.
-The placement goldens of ``BENCH_overlay.json`` were recorded on that
-layout; the partitionable one, JAX's default from 0.5 on, gives other
-streams and is not ported.
+Two layouts of the counters. The **non-partitionable** one
+(``jax_threefry_partitionable=False``), the default of :func:`split`,
+:func:`fold_in`, :func:`random_bits` and :func:`randint`:
+``split(key, n)`` hashes the counter pairs ``(j, n + j)`` and reads the key
+``j`` from the flat output's words ``2j`` and ``2j + 1``, and
+``random_bits`` hashes ``(j, ceil(m/2) + j)``. The placement goldens of
+``BENCH_overlay.json`` were recorded on it, and placement and the
+surrogate draw on it. The **partitionable** one, JAX's default from 0.5
+on, which the reference's sampled decoding runs under, and which
+:func:`uniform` and :func:`gumbel` draw from: ``random_bits(...,
+partitionable=True)`` hashes each flat index ``i`` as the pair ``(i >> 32,
+i & (2**32 - 1))`` and XORs the two output words for a 32-bit draw (a
+64-bit one is the first word over the second). Its ``split`` is not
+ported: nothing of the port splits in that layout.
 
 Words: a uint32 word is held in ``torch.int64`` in ``[0, 2**32)``, and every
 operation that can carry past bit 31 is masked back, as the RDY words of
@@ -101,15 +111,33 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
 
 
-def random_bits(keys: torch.Tensor, bit_width: int, shape) -> torch.Tensor:
+def _hash_indices(keys: torch.Tensor, size: int):
+    """The partitionable layout's hash of the flat indices ``0..size-1``
+    per key: ``threefry2x32(key, (i >> 32, i & (2**32 - 1)))`` ->
+    ``([..., size], [..., size])``."""
+    idx = torch.arange(size, dtype=torch.int64, device=keys.device)
+    return threefry2x32(keys[..., 0:1], keys[..., 1:2], idx >> 32,
+                        idx & _LOW32)
+
+
+def random_bits(keys: torch.Tensor, bit_width: int, shape, *,
+                partitionable: bool = False) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32 | uint64)`` per key:
     ``[..., 2]`` -> ``[..., *shape]`` int64 words (a 64-bit word is held as
-    its two's-complement int64)."""
+    its two's-complement int64), in the non-partitionable counter layout or,
+    with ``partitionable``, in the partitionable one (the module's
+    docstring)."""
     shape = tuple(shape)
     size = 1
     for s in shape:
         size *= int(s)
     batch = tuple(keys.shape[:-1])
+    if partitionable:
+        if bit_width not in (32, 64):
+            raise ValueError(f"bit_width must be 32 or 64, got {bit_width}")
+        y0, y1 = _hash_indices(keys, size)
+        bits = y0 ^ y1 if bit_width == 32 else (y0 << 32) | y1
+        return bits.reshape(batch + shape)
     if bit_width == 32:
         return _hash_counts(keys, size).reshape(batch + shape)
     if bit_width == 64:
@@ -161,3 +189,36 @@ def randint(keys: torch.Tensor, shape, minval: int, maxval: int
         offset = offset % span
     val = (lo_v + offset) & _LOW32
     return torch.where(val >= 2 ** 31, val - 2 ** 32, val).to(torch.int32)
+
+
+#: The smallest normal float32, ``jnp.finfo(float32).tiny``.
+F32_TINY = float(torch.finfo(torch.float32).tiny)
+
+
+def uniform(keys: torch.Tensor, shape, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)`` per key
+    under JAX's default (partitionable) layout, bit for bit: 32-bit draws
+    (:func:`random_bits` with ``partitionable=True``),
+    their top 23 bits as the mantissa of a float in [1, 2), minus 1, then
+    ``x * (maxval - minval) + minval`` rounded once, as XLA's fused
+    multiply-add rounds it (computed in float64, whose product is exact),
+    and ``max(minval, .)``, in float32. ``[..., 2]`` -> ``[..., *shape]``
+    float32."""
+    bits = random_bits(keys, 32, shape, partitionable=True)
+    one = (bits >> 9) | 0x3F800000                   # exponent of 1.0
+    floats = one.to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=keys.device)
+    span = torch.tensor(maxval, dtype=torch.float32, device=keys.device) - lo
+    x = floats.double() * span.double() + lo.double()
+    return torch.maximum(lo, x.float())
+
+
+def gumbel(keys: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)`` in its default ``"low"``
+    mode per key, under JAX's default (partitionable) layout:
+    ``-log(-log(u))`` of ``u = uniform(key, shape, minval=tiny,
+    maxval=1)``. The uniform draw is JAX's bit for bit; the two
+    logarithms are torch's, within an ulp or two of XLA's."""
+    u = uniform(keys, shape, F32_TINY, 1.0)
+    return -torch.log(-torch.log(u))

@@ -1,8 +1,10 @@
 """Batched serving driver: prefill a prompt batch, decode N tokens greedily,
 report throughput. The counterpart of the reference package's
-``launch/serve.py``, for the dense, MoE (MLA too), SSM, hybrid and VLM
-families. A VLM's prompt is stub patch embeddings ``[batch, prompt,
-d_model]``, as in the reference.
+``launch/serve.py``, for every family of the registry. A VLM's prompt is
+stub patch embeddings ``[batch, prompt, d_model]``, as in the reference;
+whisper's encoder input is stub frame embeddings ``[batch, 2 x prompt,
+d_model]`` (the reference fixes the frames at twice the decoder prompt),
+its decoder prompt tokens.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --batch 8 --prompt-len 2048 --gen 32          # on the CUDA card
@@ -12,6 +14,8 @@ d_model]``, as in the reference.
       --batch 8 --prompt-len 2048 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-72b \\
       --layers 16 --batch 8 --prompt-len 2048 --gen 32   # depth cut to fit
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch whisper-large-v3 --batch 8 --prompt-len 750 --gen 32  # 1,500 frames
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --smoke --device cpu --batch 2 --prompt-len 8 --gen 4
 
@@ -20,9 +24,10 @@ assignments its MoE layers dropped at the capacity cut (0 for a dense
 model).
 
 Weights are random, drawn from ``torch.Generator(device).manual_seed(0)``;
-prompt tokens (or a VLM's embeddings) come from ``np.random.default_rng(0)``,
-as in the reference. ``--layers N`` keeps the first N layers (a depth cut,
-for a model the card cannot hold whole); the widths stay the config's.
+prompt tokens (or a VLM's embeddings; whisper's frames, drawn before its
+tokens) come from ``np.random.default_rng(0)``, as in the reference.
+``--layers N`` keeps the first N layers (a depth cut, for a model the card
+cannot hold whole); the widths stay the config's.
 """
 from __future__ import annotations
 
@@ -70,13 +75,24 @@ def main(argv=None):
 
     prefill = make_prefill_step(cfg)
     decode = make_decode_step(cfg, greedy=args.greedy)
-    if cfg.family == "vlm":
-        batch = {"embeds": torch.from_numpy(rng.standard_normal(
-            (b, p, cfg.d_model))).to(device, cfg.torch_dtype)}
+
+    def normal(t):
+        return torch.from_numpy(rng.standard_normal(
+            (b, t, cfg.d_model))).to(device, cfg.torch_dtype)
+
+    def tokens():
+        return torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (b, p)).astype(np.int32)).to(device)
+
+    if cfg.encdec is not None:
+        batch = {"frames": normal(2 * p)}        # drawn before the tokens
+        batch["tokens"] = tokens()
+        cache = lm.encdec_init_cache(cfg, b, max_dec_len=p + gen,
+                                     enc_len=2 * p, device=device)
     else:
-        batch = {"tokens": torch.from_numpy(rng.integers(
-            0, cfg.vocab_size, (b, p)).astype(np.int32)).to(device)}
-    cache = lm.init_cache(cfg, b, max_len=p + gen, device=device)
+        batch = ({"embeds": normal(p)} if cfg.family == "vlm"
+                 else {"tokens": tokens()})
+        cache = lm.init_cache(cfg, b, max_len=p + gen, device=device)
 
     _sync(device)
     t0 = time.perf_counter()

@@ -6,7 +6,9 @@ FFN of :mod:`.moe` in place of the MLP) and ``"mamba"`` (norm and a Mamba2
 mixer of :mod:`.ssm`, no FFN), with GQA attention (RoPE or M-RoPE) and a KV
 cache, or MLA (:mod:`.mla`, a latent cache) in every attention layer when
 ``cfg.mla`` is set. The hybrid's ``"shared_attn"`` layers run one shared
-``"attn"`` block (:class:`repro_torch.models.lm.LM`).
+``"attn"`` block (:class:`repro_torch.models.lm.LM`); whisper's encoder
+runs ``"attn"`` blocks non-causally and its decoder adds a
+cross-attention :class:`Attention` a layer (``kv_override``).
 Every weight keeps the reference's ``[in, out]`` orientation
 (``y = x @ w``) and its parameter path (``attn.wq.w``, ``ffn.w_down.b``), so
 a reference parameter tree maps onto a block leaf for leaf
@@ -104,7 +106,9 @@ class MLP(nn.Module):
 
 
 class Attention(nn.Module):
-    """GQA/MQA/MHA self-attention with a KV cache (``attn_apply``)."""
+    """GQA/MQA/MHA attention with a KV cache (``attn_apply``): self-attention,
+    causal or not, or cross-attention over ``kv_override`` (whisper's
+    decoder over the encoder states)."""
 
     def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
         super().__init__()
@@ -116,14 +120,38 @@ class Attention(nn.Module):
         self.wv = Dense(d, hkv * hd, cfg, bias=cfg.qkv_bias, **kw)
         self.wo = Dense(h * hd, d, cfg, bias=cfg.proj_bias, **kw)
 
-    def forward(self, x, aux):
+    def _chunk(self):
+        return dict(q_chunk=self.cfg.attn_chunk, kv_chunk=self.cfg.attn_chunk)
+
+    def _out(self, out):
+        b, t = out.shape[:2]
+        return self.wo(out.reshape(b, t, -1))
+
+    def forward(self, x, aux, *, causal=True, kv_override=None):
         """train (no cache), prefill (writes the cache from position 0) or
         decode (writes position ``cache_len``, then attends with
-        ``kv_len = cache_len + 1``). Returns (out, extras)."""
+        ``kv_len = cache_len + 1``), each causal or not. With
+        ``kv_override`` [b, s, d]: cross-attention, k and v projected from
+        it, non-causal over all of it, whatever the mode; where
+        ``aux["cache"]`` is given the projected k and v are written into it
+        in place (whisper's cross cache, filled in prefill). Returns (out,
+        extras)."""
         cfg = self.cfg
         b, t, _ = x.shape
         h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
         q = self.wq(x).reshape(b, t, h, hd)
+        extras = {}
+        if kv_override is not None:
+            s = kv_override.shape[1]
+            k = self.wk(kv_override).reshape(b, s, hkv, hd)
+            v = self.wv(kv_override).reshape(b, s, hkv, hd)
+            cache = aux.get("cache")
+            if cache is not None:
+                cache["k"].copy_(k)
+                cache["v"].copy_(v)
+                extras["cache"] = cache
+            out = blockwise_attention(q, k, v, causal=False, **self._chunk())
+            return self._out(out), extras
         k = self.wk(x).reshape(b, t, hkv, hd)
         v = self.wv(x).reshape(b, t, hkv, hd)
         if cfg.pos in ("rope", "mrope"):
@@ -133,28 +161,38 @@ class Attention(nn.Module):
             q = rot(q.transpose(1, 2), pos, cfg.rope_theta).transpose(1, 2)
             k = rot(k.transpose(1, 2), pos, cfg.rope_theta).transpose(1, 2)
         mode = aux["mode"]
-        chunk = dict(q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk)
-        extras = {}
         if mode == "train":
             # A scoring forward: the reference's training form computes the
             # same function; autograd through attention is not ported yet.
-            out = blockwise_attention(q, k, v, **chunk)
+            out = blockwise_attention(q, k, v, causal=causal, **self._chunk())
         elif mode == "prefill":
             cache = aux["cache"]
             cache["k"][:, :t].copy_(k)
             cache["v"][:, :t].copy_(v)
-            out = blockwise_attention(q, k, v, **chunk)
+            out = blockwise_attention(q, k, v, causal=causal, **self._chunk())
             extras["cache"] = cache
         elif mode == "decode":
             cache, clen = aux["cache"], int(aux["cache_len"])
             cache["k"][:, clen:clen + t].copy_(k)
             cache["v"][:, clen:clen + t].copy_(v)
-            out = blockwise_attention(q, cache["k"], cache["v"],
-                                      kv_len=clen + 1, **chunk)
+            out = blockwise_attention(q, cache["k"], cache["v"], causal=causal,
+                                      kv_len=clen + 1, **self._chunk())
             extras["cache"] = cache
         else:
             raise ValueError(f"unknown mode {mode!r}")
-        return self.wo(out.reshape(b, t, h * hd)), extras
+        return self._out(out), extras
+
+    def attend_cached(self, x, cache):
+        """Cross-attention of a decode step: q projected from x, then
+        non-causal over the whole of ``cache``'s k and v (no ``kv_len``),
+        and ``wo`` with its bias, as the reference's decoder projects by
+        hand."""
+        cfg = self.cfg
+        b, t, _ = x.shape
+        q = self.wq(x).reshape(b, t, cfg.num_heads, cfg.hd)
+        out = blockwise_attention(q, cache["k"], cache["v"], causal=False,
+                                  **self._chunk())
+        return self._out(out)
 
 
 def attn_cache_init(cfg: ModelConfig, batch: int, max_len: int, device):
@@ -189,11 +227,15 @@ class Block(nn.Module):
         self.ln2 = Norm(cfg, device=device)
         self.ffn = moe_mod.MoE(cfg, **kw) if kind == "moe" else MLP(cfg, **kw)
 
-    def forward(self, h, aux):
+    def forward(self, h, aux, *, causal=True):
+        """``causal=False`` runs the attention non-causally (whisper's
+        encoder; GQA attention only)."""
         if self.kind == "mamba":
             y, extras = self.mamba(self.ln1(h), aux)
             return h + y, extras
-        y, extras = self.attn(self.ln1(h), aux)
+        x = self.ln1(h)
+        y, extras = (self.attn(x, aux) if causal
+                     else self.attn(x, aux, causal=False))
         h = h + y
         x = self.ln2(h)
         if self.kind == "moe":

@@ -1,5 +1,5 @@
-"""Model config schema, parameter init helpers, norms, activations, RoPE
-and M-RoPE.
+"""Model config schema, parameter init helpers, norms, activations, RoPE,
+M-RoPE and sinusoidal positions.
 
 The counterpart of the reference package's ``repro/models/common.py``. The
 config dataclasses are a plain copy (they hold no arrays); ``torch_dtype``
@@ -240,3 +240,27 @@ def apply_mrope(x, positions3, theta: float, sections=MROPE_SECTIONS):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Sinusoidal positions (whisper)
+# --------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=16)
+def _sinusoid_on(t: int, d: int, offset: int, device: torch.device):
+    # Built on the host in numpy float32 as the reference builds it, once
+    # per shape and device (as the RoPE frequencies are).
+    pos = np.arange(offset, offset + t, dtype=np.float32)[:, None]
+    div = np.exp(-np.log(10000.0) * np.arange(0, d, 2, dtype=np.float32) / d)
+    pe = np.zeros((t, d), dtype=np.float32)
+    pe[:, 0::2] = np.sin(pos * div)
+    pe[:, 1::2] = np.cos(pos * div)
+    return torch.from_numpy(pe).to(device)
+
+
+def sinusoid_positions(t: int, d: int, offset: int = 0, *, device):
+    """[t, d] float32 sinusoids of positions ``offset .. offset + t - 1`` on
+    ``device``: sin in the even columns, cos in the odd, at frequencies
+    ``10000 ** (-2i / d)``; the reference's numbers. The tensor is shared
+    between calls: do not write into it."""
+    return _sinusoid_on(int(t), int(d), int(offset), torch.device(device))

@@ -1,9 +1,10 @@
 """Language model: embedding -> blocks -> norm -> head.
 
-The counterpart of the reference package's ``models/lm.py``, for the dense,
-MoE, VLM, SSM and hybrid families (block kinds ``"attn"``, ``"moe"``,
-``"mamba"`` and ``"shared_attn"``; RoPE, M-RoPE or no positions; GQA
-attention or MLA). The functions keep the reference's names and signatures,
+The counterpart of the reference package's ``models/lm.py``, for every
+family of the registry: dense, MoE, VLM, SSM, hybrid and the
+encoder-decoder (block kinds ``"attn"``, ``"moe"``, ``"mamba"`` and
+``"shared_attn"``; RoPE, M-RoPE, sinusoidal or no positions; GQA attention
+or MLA). The functions keep the reference's names and signatures,
 with :class:`LM` (an ``nn.Module``) in place of the parameter pytree. Layers
 are grouped into the same segments; the reference scans a segment's stacked
 parameters, here each layer is its own module and the cache of a segment
@@ -12,36 +13,26 @@ on a leading ``[n]`` axis as in the reference. The cache is updated in
 place. ``forward`` returns the reference's metrics, ``moe_aux`` and
 ``moe_dropped`` summed over the MoE layers (zero without any).
 
-This slice serves: ``forward`` (a scoring forward), ``prefill`` and
-``decode_step`` run under ``torch.no_grad()``, from tokens or (a VLM's stub
-patch embeddings) from ``embeds``. The encoder-decoder family raises
-``NotImplementedError`` naming the ROADMAP item where it waits.
+``forward`` (a scoring forward), ``prefill`` and ``decode_step`` run under
+``torch.no_grad()``, from tokens or (a VLM's stub patch embeddings) from
+``embeds``. Whisper, the encoder-decoder, has its own: ``encode`` (stub
+frame embeddings through the non-causal encoder), ``forward_encdec``,
+``encdec_init_cache`` (the decoder's self-attention cache and the cross
+cache of the encoder's k and v, each stacked on a leading ``[n]`` layer
+axis), ``prefill_encdec`` and ``decode_step_encdec``.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..api import resolve_device
 from . import blocks as B
-from .common import ModelConfig, embed_init
-
-#: ROADMAP queue 1 item of each family or feature that is not ported yet.
-_WAITING = (
-    (lambda c: c.encdec is not None, "the encoder-decoder stack", "12f"),
-    (lambda c: c.pos == "sinusoid", "sinusoidal positions", "12f"),
-)
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    for test, what, item in _WAITING:
-        if test(cfg):
-            raise NotImplementedError(
-                f"{cfg.name} needs {what}, which is not ported yet (ROADMAP "
-                f"queue 1 item {item}); the port's LM runs the dense, MoE, "
-                f"VLM, SSM and hybrid families")
+from .common import ModelConfig, embed_init, sinusoid_positions
 
 
 def segments(cfg: ModelConfig) -> list[tuple[str, int]]:
@@ -65,13 +56,15 @@ class LM(nn.Module):
     (None without such layers), as the reference's ``params["shared_attn"]``,
     each application with its own cache entry. So a parameter has one name:
     ``blocks.{i}.*`` for layer i's own, ``shared_attn.*`` for the shared
-    block's. With no generator the weights are left uninitialised, to be
+    block's. An encoder-decoder (``cfg.encdec``) also has ``encoder``
+    (:class:`Encoder`) and ``cross_attn[i]``, layer i's
+    :class:`CrossAttention`, named as the reference's tree (None
+    otherwise). With no generator the weights are left uninitialised, to be
     loaded, on ``device`` (``None`` = the CUDA card; raises without one);
     with one they are drawn on the generator's device."""
 
     def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
         super().__init__()
-        check_supported(cfg)
         device = (generator.device if generator is not None
                   else resolve_device(device))
         self.cfg = cfg
@@ -93,6 +86,35 @@ class LM(nn.Module):
             for kind in kinds)
         self.final_norm = B.Norm(cfg, device=device)
         self.lm_head = None if cfg.tie_embeddings else table(shape[::-1])
+        self.encoder = self.cross_attn = None
+        if cfg.encdec is not None:
+            self.encoder = Encoder(cfg, **kw)
+            self.cross_attn = nn.ModuleList(
+                CrossAttention(cfg, **kw) for _ in range(cfg.num_layers))
+
+
+class Encoder(nn.Module):
+    """Whisper's encoder: ``enc_layers`` ``"attn"`` blocks, run
+    non-causally, and ``final_norm`` (the reference's
+    ``params["encoder"]``)."""
+
+    def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            B.Block(cfg, "attn", generator=generator, device=device)
+            for _ in range(cfg.encdec.enc_layers))
+        self.final_norm = B.Norm(cfg, device=device)
+
+
+class CrossAttention(nn.Module):
+    """One decoder layer's cross-attention: its norm ``ln`` and an
+    :class:`~.blocks.Attention` over the encoder states (an entry of the
+    reference's ``params["cross_attn"]``)."""
+
+    def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
+        super().__init__()
+        self.ln = B.Norm(cfg, device=device)
+        self.attn = B.Attention(cfg, generator=generator, device=device)
 
 
 def init(generator: torch.Generator, cfg: ModelConfig) -> LM:
@@ -137,8 +159,44 @@ def embed_tokens(params: LM, cfg, tokens):
 
 
 def _embed(params, cfg, tokens, embeds):
-    return (embed_tokens(params, cfg, tokens) if embeds is None
-            else embeds.to(cfg.torch_dtype))
+    """The token rows (or ``embeds``), plus the sinusoids of positions
+    0..t-1 where ``cfg.pos`` is ``"sinusoid"``."""
+    h = (embed_tokens(params, cfg, tokens) if embeds is None
+         else embeds.to(cfg.torch_dtype))
+    if cfg.pos == "sinusoid":
+        h = h + _sinusoids(h.shape[1], cfg.d_model, h)
+    return h
+
+
+def _sinusoids(t, d, like):
+    """[1, t, d] sinusoids of positions 0..t-1 in ``like``'s dtype."""
+    return sinusoid_positions(t, d, device=like.device).to(like.dtype)[None]
+
+
+@functools.lru_cache(maxsize=None)
+def _sinusoid_div_on(d: int, device: torch.device):
+    # The reference's frequencies: numpy, rounded to float32 on the device.
+    div = np.exp(-np.log(10000.0) * np.arange(0, d, 2, dtype=np.float32) / d)
+    return torch.from_numpy(div.astype(np.float32)).to(device)
+
+
+def _sinusoid_at(pos, d, *, device):
+    """[d] float32 sinusoids of one position, as a decode step adds them:
+    the angles ``float32(pos) * div`` and their sin and cos in float32 on
+    ``device``. Not a row of :func:`~.common.sinusoid_positions`, which
+    numpy computes: the two may differ in the last ulp."""
+    ang = _sinusoid_div_on(int(d), torch.device(device)) * float(int(pos))
+    return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).reshape(d)
+
+
+def _embed_step(params, cfg, tokens, cache_len):
+    """A decode step's [b, 1, d] input: the token rows, plus the sinusoids
+    of position ``cache_len`` where ``cfg.pos`` is ``"sinusoid"``."""
+    h = embed_tokens(params, cfg, tokens[:, None])
+    if cfg.pos == "sinusoid":
+        h = h + _sinusoid_at(cache_len, cfg.d_model,
+                             device=h.device).to(h.dtype)
+    return h
 
 
 @torch.no_grad()
@@ -173,7 +231,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     max_len, rope_head_dim]}``, and for ``"mamba"`` ``{"state": [n, batch,
     nheads, head_dim, d_state], "conv": [n, batch, d_conv - 1, conv_dim]}``
     (float32). ``device`` None = the CUDA card (raises without one)."""
-    check_supported(cfg)
     device = resolve_device(device)
     out = []
     for kind, n in segments(cfg):
@@ -204,9 +261,128 @@ def decode_step(params: LM, cfg: ModelConfig, tokens, cache, cache_len):
     """One decode step. tokens: [b] int; cache_len: int (tokens already in
     the cache). Returns (logits [b, V], cache)."""
     cache_len = int(cache_len)
-    h = embed_tokens(params, cfg, tokens[:, None])
+    h = _embed_step(params, cfg, tokens, cache_len)
     b = h.shape[0]
     pos = make_positions(cfg, b, 1, device=h.device, offset=cache_len)
     aux = {"mode": "decode", "positions": pos, "cache_len": cache_len}
     h, _ = _apply_stack(params, cfg, h, aux, cache)
+    return logits_fn(params, cfg, params.final_norm(h)[:, -1]), cache
+
+
+# --------------------------------------------------------------------------
+# Whisper-style encoder-decoder
+# --------------------------------------------------------------------------
+
+@torch.no_grad()
+def encode(params: LM, cfg: ModelConfig, frames):
+    """frames: [b, t_enc, d_model] stub frame embeddings -> the encoder
+    states [b, t_enc, d_model]: the sinusoids added, each block with
+    non-causal self-attention (the reference's training form of attention,
+    which computes the same function), then the encoder's final norm."""
+    h = frames.to(cfg.torch_dtype)
+    h = h + _sinusoids(h.shape[1], cfg.d_model, h)
+    aux = {"mode": "train", "positions": None, "cache": None,
+           "cache_len": None}
+    for blk in params.encoder.blocks:
+        h, _ = blk(h, aux, causal=False)
+    return params.encoder.final_norm(h)
+
+
+def _layer(cache, i):
+    return None if cache is None else {n: t[i] for n, t in cache.items()}
+
+
+def _decoder_stack(params: LM, cfg, h, aux, enc_out, cache, xcache):
+    """The decoder: per layer, causal self-attention, cross-attention
+    (``cross_attn[i]``: its norm, then attention over ``enc_out``, or in
+    decode over the layer's cross cache), then the MLP. In prefill the
+    encoder's k and v are projected once and written into ``xcache`` in
+    place."""
+    if segments(cfg) != [("attn", cfg.num_layers)]:
+        raise ValueError("the whisper decoder is dense")
+    mode = aux["mode"]
+    for i, blk in enumerate(params.blocks):
+        a = dict(aux)
+        a["cache"] = _layer(cache, i)
+        y, _ = blk.attn(blk.ln1(h), a)
+        h = h + y
+        xa = params.cross_attn[i]
+        x = xa.ln(h)
+        if mode == "decode":
+            y = xa.attn.attend_cached(x, _layer(xcache, i))
+        else:
+            y, _ = xa.attn(x, {"mode": mode, "cache": _layer(xcache, i)},
+                           kv_override=enc_out)
+        h = h + y
+        h = h + blk.ffn(blk.ln2(h))
+    return h
+
+
+@torch.no_grad()
+def forward_encdec(params: LM, cfg: ModelConfig, frames, dec_tokens):
+    """Scoring forward of whisper -> (decoder hidden [b, t, d], {})."""
+    enc_out = encode(params, cfg, frames)
+    h = _embed(params, cfg, dec_tokens, None)
+    b, t = dec_tokens.shape
+    aux = {"mode": "train", "positions": make_positions(cfg, b, t,
+                                                        device=h.device),
+           "cache": None, "cache_len": None}
+    h = _decoder_stack(params, cfg, h, aux, enc_out, None, None)
+    return params.final_norm(h), {}
+
+
+def encdec_init_cache(cfg: ModelConfig, batch: int, max_dec_len: int,
+                      enc_len: int, device=None):
+    """``{"self": {"k", "v"}, "cross": {"k", "v"}}``: the decoder's
+    self-attention cache ``[n, batch, max_dec_len, Hkv, D]`` and the cross
+    cache of the encoder's k and v ``[n, batch, enc_len, Hkv, D]``, zeros
+    in ``cfg``'s dtype. ``device`` None = the CUDA card (raises without
+    one)."""
+    device = resolve_device(device)
+    n = cfg.num_layers
+
+    def stacked(length):
+        shape = (n, batch, length, cfg.num_kv_heads, cfg.hd)
+        return {name: torch.zeros(shape, dtype=cfg.torch_dtype, device=device)
+                for name in ("k", "v")}
+
+    return {"self": stacked(max_dec_len), "cross": stacked(enc_len)}
+
+
+@torch.no_grad()
+def prefill_encdec(params: LM, cfg: ModelConfig, frames, dec_tokens, cache,
+                   return_metrics: bool = False):
+    """Encode ``frames``, fill the cross cache with the encoder's k and v
+    and the self-attention cache with the decoder prompt ``dec_tokens``;
+    returns (last-token logits, cache), and zero MoE metrics after them
+    with ``return_metrics`` (as :func:`prefill` returns them)."""
+    enc_out = encode(params, cfg, frames)
+    h = _embed(params, cfg, dec_tokens, None)
+    b, t = dec_tokens.shape
+    aux = {"mode": "prefill", "positions": make_positions(cfg, b, t,
+                                                          device=h.device),
+           "cache_len": t}
+    h = _decoder_stack(params, cfg, h, aux, enc_out, cache["self"],
+                       cache["cross"])
+    logits = logits_fn(params, cfg, params.final_norm(h)[:, -1])
+    if return_metrics:
+        zero = torch.zeros((), dtype=torch.float32, device=logits.device)
+        return logits, cache, {"moe_aux": zero, "moe_dropped": zero}
+    return logits, cache
+
+
+@torch.no_grad()
+def decode_step_encdec(params: LM, cfg: ModelConfig, tokens, cache,
+                       cache_len):
+    """One whisper decode step: tokens [b] int, cache_len int. Cross-
+    attention reads the whole cross cache. Returns (logits [b, V], cache)."""
+    cache_len = int(cache_len)
+    h = _embed_step(params, cfg, tokens, cache_len)
+    b = h.shape[0]
+    aux = {"mode": "decode",
+           "positions": make_positions(cfg, b, 1, device=h.device,
+                                       offset=cache_len),
+           "cache_len": cache_len}
+    h = _decoder_stack(params, cfg, h, aux, None, cache["self"],
+                       cache["cross"])
     return logits_fn(params, cfg, params.final_norm(h)[:, -1]), cache

@@ -373,9 +373,10 @@ def test_policy_sweep_goldens_through_batch(cuda):
 
 # (b, tq, tkv, hq, hkv, d, causal, kv_len, (body in float32, in bfloat16)):
 # causal prefills with Tq < Tkv over ragged tiles (Tq 33 and 2047, Tkv 70
-# and 2049), head_dim 80 non-causal with ragged kv_len (whisper's
-# cross-attention form), 128 with ragged kv_len and 256 under GQA; rep-7
-# decode steps with ragged cache lengths (1, 64, 65 and the full 2080).
+# and 2049), head_dim 80 non-causal with ragged kv_len (the non-causal form
+# of whisper's encoder and cross-attention, at another head_dim), 128 with
+# ragged kv_len and 256 under GQA; rep-7 decode steps with ragged cache
+# lengths (1, 64, 65 and the full 2080).
 PREFILL, DECODE = ("simt", "mma"), ("split", "split")
 FLASH_CASES = [(2, 33, 70, 4, 2, 64, True, None, PREFILL),
                (3, 1, 90, 14, 2, 64, True, [1, 90, 45], DECODE),
@@ -393,7 +394,22 @@ FLASH_CASES = [(2, 33, 70, 4, 2, 64, True, None, PREFILL),
                # head in decode)
                (2, 2048, 2048, 64, 8, 128, True, None, PREFILL),
                (8, 1, 2080, 64, 8, 128, True,
-                [1, 2080, 2049, 1500, 777, 64, 65, 2079], DECODE)]
+                [1, 2080, 2049, 1500, 777, 64, 65, 2079], DECODE),
+               # whisper-large-v3's (20 heads of 64 over 20; 1,500 frames,
+               # not a multiple of the 64-key tiles, a 750-token prompt):
+               # the encoder's non-causal self-attention, the decoder's
+               # causal prefill, the cross-attention's non-causal prefill,
+               # a decode step's self-attention over up to 782 keys
+               # (ragged) and its cross-attention over all 1,500 keys; then
+               # non-causal calls over 1,500 keys with ragged kv_len
+               (2, 1500, 1500, 20, 20, 64, False, None, PREFILL),
+               (2, 750, 750, 20, 20, 64, True, None, PREFILL),
+               (2, 750, 1500, 20, 20, 64, False, None, PREFILL),
+               (8, 1, 782, 20, 20, 64, True,
+                [751, 782, 760, 1, 64, 65, 400, 781], DECODE),
+               (8, 1, 1500, 20, 20, 64, False, None, DECODE),
+               (3, 750, 1500, 20, 20, 64, False, [1500, 1000, 65], PREFILL),
+               (4, 1, 1500, 20, 20, 64, False, [1, 1500, 1499, 700], DECODE)]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -500,6 +516,86 @@ def test_ssm_golden_at_full_width(cuda, arch):
     apps = 1 if arch == "zamba2-7b" else 0
     assert fa.launches["flash_attention"] == 4 * apps
     assert fa.launches["flash_attention_simt"] == apps
+
+
+def test_whisper_golden_at_full_width(cuda):
+    """The JAX package's f32 golden of whisper-large-v3 at full width and
+    depth (``tests/fixtures/whisper_large_v3_golden.npz``): the numpy
+    recipe's weights in f32 on the card (~6.1 GB), TF32 off, the encoder
+    over 2 x 150 frames, a prefill of 75 tokens and 3 teacher-forced decode
+    steps; the logits at the golden's top-32 indices and the logsumexp
+    within 1e-4; the f32 prefill's 96 calls on ``simt``, the steps' on
+    ``split``."""
+    import dataclasses
+    from pathlib import Path
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_numpy, numpy_lm_params
+    from repro_torch.models import lm
+
+    g = np.load(Path(__file__).parent / "fixtures"
+                / "whisper_large_v3_golden.npz")
+    cfg = dataclasses.replace(get_config("whisper-large-v3"), dtype="float32")
+    rng = np.random.default_rng(int(g["seed"]))
+    frames = rng.standard_normal(
+        (g["tokens"].shape[0], int(g["frames_len"]), cfg.d_model),
+        dtype=np.float32)
+    assert frames.sum(dtype=np.float64) == float(g["frames_sum"])
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model = lm_params_from_numpy(cfg, numpy_lm_params(cfg, int(g["seed"])),
+                                     device=cuda)
+        tokens = torch.from_numpy(g["tokens"]).to(cuda)
+        frames = torch.from_numpy(frames).to(cuda)
+        p = int(g["prompt_len"])
+        cache = lm.encdec_init_cache(cfg, tokens.shape[0], tokens.shape[1],
+                                     frames.shape[1], device=cuda)
+        fa.reset_launches()
+        logits, cache = lm.prefill_encdec(model, cfg, frames, tokens[:, :p],
+                                          cache)
+        steps = [logits]
+        for i in range(p, tokens.shape[1]):
+            logits, cache = lm.decode_step_encdec(model, cfg, tokens[:, i],
+                                                  cache, i)
+            steps.append(logits)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    lg = torch.stack(steps).cpu().numpy()
+    k = int(g["topk"])
+    at = np.take_along_axis(lg, g["top_idx"][..., :k], -1)
+    np.testing.assert_allclose(at, g["top_val"][..., :k], rtol=1e-4, atol=1e-4)
+    m = lg.max(-1)
+    lse = m + np.log(np.exp(lg - m[..., None]).sum(-1))
+    np.testing.assert_allclose(lse, g["lse"], rtol=1e-4, atol=1e-4)
+    assert fa.launches["flash_attention_simt"] == 96
+    assert fa.launches["flash_attention_split"] == 64 * (len(steps) - 1)
+
+
+def test_partitionable_draws_on_the_card_equal_the_cpu(cuda):
+    """Sampled decoding's draws: the partitionable layout's bits and
+    uniforms from keys on the card equal the CPU's bit for bit, and a
+    sampled token on the card equals the CPU's argmax of the same logits
+    plus the CPU's Gumbel noise."""
+    from repro_torch.core import prng
+    from repro_torch.train import steps
+
+    shape = (8, 151936)
+    for seed in (0, 11, 2**31 - 1):
+        key = prng.key(seed)
+        for draw in (lambda k: prng.random_bits(k, 32, shape,
+                                                partitionable=True),
+                     lambda k: prng.random_bits(k, 64, (5, 7),
+                                                partitionable=True),
+                     lambda k: prng.uniform(k, shape, prng.F32_TINY, 1.0
+                                            ).view(torch.int32)):
+            assert torch.equal(draw(key.to(cuda)).cpu(), draw(key))
+        logits = torch.randn(shape, generator=torch.Generator().manual_seed(
+            seed)) * 3
+        got = steps.sample(key.to(cuda), logits.to(cuda), 0.8)
+        want = torch.argmax(prng.gumbel(key, shape) + logits / 0.8,
+                            -1).to(torch.int32)
+        assert torch.equal(got.cpu(), want)
 
 
 # ---------------------------------------------------------------------------

@@ -2,16 +2,18 @@
 
 For each served smoke config (the dense family; the MoE family:
 deepseek-v2-lite with MLA, dbrx with GQA; the VLM with M-RoPE, fed tokens
-here; the SSM and hybrid families) the reference's own weights
+here; the SSM and hybrid families; whisper, whose decoder stack alone runs
+``forward``, ``prefill`` and ``decode_step`` with sinusoidal positions and
+whose serve steps encode frames) the reference's own weights
 (``lm.init``) go through ``convert.lm_params_from_numpy``; ``forward`` (with
 its MoE metrics), ``prefill`` and every ``decode_step`` must give the
-reference's logits (f32, rtol = atol = 1e-4) and greedy decoding the same
+reference's logits (f32, rtol = atol = 1e-4), and greedy decoding the same
 tokens. Prefill + decode equals ``forward`` for the MoE configs only under a
 capacity that drops nothing (a prompt's cut depends on its length; the
 reference's serving test does the same). Also: the configs, the numpy
 weight recipe against the reference's parameter shapes at full width, the
-serve entry point (the VLM from stub embeddings), the family that is not
-ported yet (the encoder-decoder), and the full-width
+serve entry point (the VLM from stub embeddings), every registry arch
+served, and the full-width
 golden fixtures (qwen2-0.5b float32 and bfloat16, deepseek-v2-lite float32
 at depth 2) against the recipe.
 """
@@ -33,6 +35,7 @@ from repro.train.steps import make_decode_step as ref_decode_step
 from repro.train.steps import make_prefill_step as ref_prefill_step
 from repro_torch import convert
 from repro_torch.configs import ARCHS, SHAPES, get_config
+from repro_torch.core import prng
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch import serve
 from repro_torch.models import common, lm
@@ -42,7 +45,9 @@ DENSE = ("qwen2-0.5b", "gemma-2b", "minicpm-2b", "starcoder2-7b")
 MOE = ("deepseek-v2-lite-16b", "dbrx-132b")
 #: The VLM (M-RoPE), the SSM and the hybrid family.
 NEW = ("qwen2-vl-72b", "mamba2-130m", "zamba2-7b")
-SERVED = DENSE + MOE + NEW
+#: The encoder-decoder.
+ENCDEC = ("whisper-large-v3",)
+SERVED = DENSE + MOE + NEW + ENCDEC
 OTHERS = tuple(a for a in ARCHS if a not in SERVED)
 TOL = dict(rtol=1e-4, atol=1e-4)
 GOLDEN = Path(__file__).parent / "fixtures" / "qwen2_0_5b_golden.npz"
@@ -139,15 +144,34 @@ def test_prefill_decode_match_forward_without_drops(arch):
         np.testing.assert_allclose(tlg.numpy(), full[:, i], rtol=3e-4, atol=3e-4)
 
 
+def _serve_inputs(cfg, rcfg, b, p, gen, seed=0):
+    """The prompt batch of both packages' serve steps (whisper: 24 frames
+    and the tokens) and their caches."""
+    rng = np.random.default_rng(seed)
+    batch = {}
+    if cfg.encdec is not None:
+        batch["frames"] = rng.standard_normal((b, 24, cfg.d_model)).astype(
+            np.float32)
+    batch["tokens"] = rng.integers(0, cfg.vocab_size, (b, p)).astype(np.int32)
+    if cfg.encdec is not None:
+        caches = (ref_lm.encdec_init_cache(rcfg, b, p + gen, 24),
+                  lm.encdec_init_cache(cfg, b, p + gen, 24, device="cpu"))
+    else:
+        caches = (ref_lm.init_cache(rcfg, b, max_len=p + gen),
+                  lm.init_cache(cfg, b, max_len=p + gen, device="cpu"))
+    return ({k: jnp.asarray(v) for k, v in batch.items()},
+            {k: torch.from_numpy(v) for k, v in batch.items()}, *caches)
+
+
 @pytest.mark.parametrize("arch", SERVED)
 def test_greedy_tokens_match_reference(arch):
     cfg, params, model = _port(arch)
     rcfg = ref_config(arch, smoke=True)
     b, p, gen = 2, 8, 8
-    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (b, p)).astype(np.int32)
+    batch, tbatch, cache, tcache = _serve_inputs(cfg, rcfg, b, p, gen)
 
-    def run(prefill, decode, params, cache, toks, argmax, cast):
-        logits, cache = prefill(params, {"tokens": toks}, cache)
+    def run(prefill, decode, params, cache, batch, argmax, cast):
+        logits, cache = prefill(params, batch, cache)
         cur = argmax(logits)
         outs = [np.asarray(cur)]
         for i in range(gen - 1):
@@ -155,13 +179,11 @@ def test_greedy_tokens_match_reference(arch):
             outs.append(np.asarray(cur))
         return np.stack(outs, 1)
 
-    want = run(ref_prefill_step(rcfg), ref_decode_step(rcfg), params,
-               ref_lm.init_cache(rcfg, b, max_len=p + gen), jnp.asarray(toks),
-               lambda x: jnp.argmax(x, -1).astype(jnp.int32), jnp.int32)
-    got = run(make_prefill_step(cfg), make_decode_step(cfg), model,
-              lm.init_cache(cfg, b, max_len=p + gen, device="cpu"),
-              torch.from_numpy(toks),
-              lambda x: torch.argmax(x, -1).to(torch.int32), int)
+    want = run(ref_prefill_step(rcfg), ref_decode_step(rcfg), params, cache,
+               batch, lambda x: jnp.argmax(x, -1).astype(jnp.int32),
+               jnp.int32)
+    got = run(make_prefill_step(cfg), make_decode_step(cfg), model, tcache,
+              tbatch, lambda x: torch.argmax(x, -1).to(torch.int32), int)
     np.testing.assert_array_equal(got, want)
 
 
@@ -211,24 +233,37 @@ def test_serve_cuts_the_depth():
                     "--layers", "3"])
 
 
-@pytest.mark.parametrize("arch", OTHERS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_other_families_raise(arch):
-    assert OTHERS == ("whisper-large-v3",)
+    """No family raises any more: every registry arch is served (``OTHERS``
+    is empty), and its smoke config builds an LM, a cache and both serve
+    steps, greedy and sampled, on the CPU."""
+    assert OTHERS == () and arch in SERVED
     cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP queue 1 item 12f\b"):
-        lm.LM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        lm.init_cache(cfg, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_prefill_step(cfg)
-    with pytest.raises(NotImplementedError):
-        serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
+    model = lm.LM(cfg, device="cpu")
+    if cfg.encdec is not None:
+        cache = lm.encdec_init_cache(cfg, 1, 4, 6, device="cpu")
+        assert set(cache) == {"self", "cross"}
+        assert len(model.encoder.blocks) == cfg.encdec.enc_layers
+        assert len(model.cross_attn) == cfg.num_layers
+    else:
+        assert lm.init_cache(cfg, 1, 4, device="cpu")
+        assert model.encoder is None and model.cross_attn is None
+    make_prefill_step(cfg)
+    make_decode_step(cfg, greedy=False, temperature=0.7)
 
 
 def test_sampling_raises():
-    with pytest.raises(NotImplementedError, match="item 12h"):
-        make_decode_step(get_config("qwen2-0.5b", smoke=True), greedy=False)
+    """Sampled decoding raises only without a key; with one it draws a
+    token."""
+    cfg, _, model = _port("qwen2-0.5b")
+    cache = lm.init_cache(cfg, 1, 4, device="cpu")
+    step = make_decode_step(cfg, greedy=False)
+    with pytest.raises(ValueError, match="key"):
+        step(model, torch.zeros(1, dtype=torch.int32), cache, 0)
+    nxt, _, _ = step(model, torch.zeros(1, dtype=torch.int32), cache, 1,
+                     prng.key(0))
+    assert nxt.dtype == torch.int32 and 0 <= int(nxt) < cfg.vocab_size
 
 
 @pytest.mark.parametrize("arch", REF_ARCHS)

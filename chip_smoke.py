@@ -358,7 +358,31 @@ Phases, each of which fails the run on any error (each prints its seconds):
      share, device ops per step and top kernels; then the same over one
      deepseek-v2-lite prefill of phase 16b's shape and 4 decode steps, over
      one zamba2-7b prefill of phase 16c's shape and 4 decode steps, and over
-     one whisper-large-v3 prefill of phase 16d's shape and 4 decode steps.
+     one whisper-large-v3 prefill of phase 16d's shape and 4 decode steps;
+ 20. training at full width: ``repro_torch.launch.train.main`` trains
+     qwen2-0.5b at full width and depth (bf16 parameters, f32 master
+     weights, WSD AdamW, warmup 4) on ``SyntheticZipfLM`` batches of 8 x
+     1,024 tokens for 20 steps, with one async checkpoint at the last
+     step: every loss finite, the mean of the last 5 at most 0.9 of the
+     first 5's, kernel 5 launched 0 times (training takes the
+     differentiable form of attention); ms a step, tok/s, peak device
+     memory and the checkpoint's bytes and seconds;
+ 20b. training against the reference: qwen2-0.5b at full width and depth
+     in float32 (TF32 off), the numpy recipe's weights and the copy task's
+     batch, against the JAX package's training golden
+     (``tests/fixtures/qwen2_0_5b_train_golden.npz``): the loss and its
+     metrics, the gradient's global and per-leaf norms, sliced gradients
+     and the sliced weights after one AdamW step; then ``grad_accum=2``
+     against the full batch at the reference test's thresholds;
+ 20c. every family trains on the card: one train step of each registry
+     arch's smoke config in float32 on the card and on the CPU from the
+     same weights and batch (the loss, every gradient and every parameter
+     after the step within a stated tolerance: the MoE dispatch, MLA, the
+     SSD scan, M-RoPE, the hybrid's shared block and whisper's
+     cross-attention under autograd on CUDA); then the driver on the
+     qwen2-0.5b smoke config crashed by ``--sim-fail`` and restarted: the
+     restored state equal to the saved one and the resumed run's
+     parameters equal to the uninterrupted run's, bit for bit.
 
 Each graph is built once (numpy set-up, in worker processes while the
 kernels build) and shared by the phases; phase 10e's four ranks build
@@ -2631,7 +2655,8 @@ def consistency(torch, np, fa):
     rng = np.random.default_rng(0)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, p + n))
                               .astype(np.int32)).cuda()
-    h, _ = lm.forward(model, cfg, tokens=tokens)
+    with torch.no_grad():       # the scoring forward, through the kernel
+        h, _ = lm.forward(model, cfg, tokens=tokens)
     full = lm.logits_fn(model, cfg, h)[:, p - 1:].transpose(0, 1)  # [steps, B, V]
     fa.reset_launches()
     kern = teacher_forced(torch, model, cfg, tokens, p)
@@ -3016,7 +3041,8 @@ def vlm_consistency(torch, np, fa):
     toks = torch.randint(0, cfg.vocab_size, (b, n), generator=g,
                          device="cuda", dtype=torch.int32)
     seq = torch.cat([emb, model.embed[toks]], dim=1)         # [b, p + n, d]
-    h, _ = lm.forward(model, cfg, embeds=seq)
+    with torch.no_grad():       # the scoring forward, through the kernel
+        h, _ = lm.forward(model, cfg, embeds=seq)
     full = lm.logits_fn(model, cfg, h)[:, p - 1:-1].transpose(0, 1)
     cache = lm.init_cache(cfg, b, p + n, device="cuda")
     fa.reset_launches()
@@ -3160,7 +3186,8 @@ def deepseek_consistency(torch, np, fa):
     rng = np.random.default_rng(0)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, p + n))
                               .astype(np.int32)).cuda()
-    h, metrics = lm.forward(model, cfg, tokens=tokens)
+    with torch.no_grad():       # the scoring forward, through the kernel
+        h, metrics = lm.forward(model, cfg, tokens=tokens)
     full = lm.logits_fn(model, cfg, h)[:, p - 1:].transpose(0, 1)
     cache = lm.init_cache(cfg, b, p + n, device="cuda")
     fa.reset_launches()
@@ -3389,7 +3416,8 @@ def whisper_golden(torch, np, fa):
         (b, int(g["frames_len"]), cfg.d_model), dtype=np.float32)).cuda()
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, p + n))
                               .astype(np.int32)).cuda()
-    h, _ = lm.forward_encdec(model, cfg, frames, tokens)
+    with torch.no_grad():       # the scoring forward, through the kernel
+        h, _ = lm.forward_encdec(model, cfg, frames, tokens)
     full = lm.logits_fn(model, cfg, h)[:, p - 1:].transpose(0, 1)
     fa.reset_launches()
     kern = whisper_steps(torch, model, cfg, frames, tokens, p)
@@ -3616,6 +3644,477 @@ def lm_phases(torch, np):
                          max_abs_err=err_by_body.get("simt_float32"))},
         serve_prefill_tok_s=prefill_tps, serve_decode_tok_s=decode_tps,
         golden_bf16_scaled_err=bf16_err, golden_bf16_tol=GOLDEN_BF16_TOL)
+
+
+# ---------------------------------------------------------------------------
+# Training (phases 20, 20b, 20c): the driver at full width, the JAX golden,
+# every family on the card.
+# ---------------------------------------------------------------------------
+
+TRAIN_ARGS = ["--arch", "qwen2-0.5b", "--data", "zipf", "--batch", "8",
+              "--seq", "1024", "--steps", "20", "--warmup", "4",
+              "--log-every", "5", "--ckpt-every", "20"]
+TRAIN_CKPT = ROOT / "build" / "train_ckpt"
+#: Phase 20's gate: the mean of the last 5 losses at most this times the
+#: first 5's.
+TRAIN_FALL = 0.9
+TRAIN_GOLDEN = ROOT / "tests" / "fixtures" / "qwen2_0_5b_train_golden.npz"
+#: The golden's tolerances (float32, TF32 off): the loss and xent relative;
+#: the gradient's global norm relative; each leaf's gradient norm relative;
+#: each sliced gradient within ``grad`` of its slice's largest magnitude;
+#: each sliced weight after one AdamW step (lr 1e-3, an update of ~lr an
+#: element) within ``new`` absolute. Accuracy and the token count exact.
+TRAIN_GOLDEN_TOL = dict(loss=1e-5, grad_norm=1e-4, leaf_norm=1e-3, grad=1e-3,
+                        new=1e-5)
+#: Accumulation against the full batch: the reference test's thresholds
+#: (``tests/test_train.py:89``): the loss relative; the parameters after a
+#: step of AdamW(lr=1e-3, no master weights), relative and absolute.
+TRAIN_ACCUM_TOL = dict(loss=1e-4, rtol=2e-3, atol=2e-5)
+TINY_GRAD = 1e-7
+#: Every family's smoke config, a step on the card against the same step on
+#: the CPU: the loss relative; each gradient leaf within ``grad`` of its
+#: largest magnitude plus 1e-7; the parameters after the step (AdamW, lr
+#: ``lr``) within ``q_lr`` x lr at 99.9% of each leaf's elements and 2 x lr
+#: + 1e-6 everywhere (Adam's update is at most ~lr, and an element whose
+#: gradient is zero but for rounding, such as whisper's k bias, may step
+#: either way).
+TRAIN_FAMILY_TOL = dict(loss=1e-5, grad=1e-4, lr=1e-3, q_lr=1e-2)
+#: The crash-and-resume run: the qwen2-0.5b smoke config through the
+#: driver, crashed after SIM_FAIL steps.
+RESUME_ARGS = ["--arch", "qwen2-0.5b", "--smoke", "--batch", "8", "--seq",
+               "64", "--steps", "12", "--warmup", "2", "--log-every", "100",
+               "--ckpt-every", "100"]
+SIM_FAIL = 5
+TRAIN_RESUME_CKPT = ROOT / "build" / "train_resume"
+
+
+def flat_tree(np, tree, prefix=""):
+    """A reference-layout tree -> {"a/b/0/c": leaf}."""
+    if tree is None:
+        return {}
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: tree}
+    out = {}
+    for k, v in items:
+        out.update(flat_tree(np, v, f"{prefix}{k}/"))
+    return out
+
+
+def to_device(torch, batch, device):
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def train_full_width(torch, np, fa):
+    """Phase 20: ``repro_torch.launch.train.main`` trains qwen2-0.5b at full
+    width and depth (bf16 parameters, f32 master weights, WSD AdamW) on
+    ``SyntheticZipfLM`` batches of 8 x 1,024 tokens for 20 steps (warmup
+    4), with one async checkpoint at the last step. Every loss finite, the
+    mean of the last 5 at most TRAIN_FALL of the first 5's, kernel 5
+    launched 0 times (training takes the differentiable form). Prints ms a
+    step (steps 3-20, each step's end read by its loss), tok/s, peak device
+    memory and the checkpoint's bytes and seconds (the host copy and the
+    writer thread, which the driver waits for at its end); then profiles
+    one more step (``profile_run``)."""
+    import shutil
+
+    from repro_torch.data.pipeline import SyntheticZipfLM
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamW
+    from repro_torch.train.steps import make_train_step
+
+    free_card(torch)
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    fa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses, stamps = [], []
+
+    def on_step(step, state, m):
+        losses.append(float(m["loss"]))                 # waits for the step
+        stamps.append(time.perf_counter())
+
+    t0 = time.perf_counter()
+    state = train.main(TRAIN_ARGS + ["--ckpt", str(TRAIN_CKPT)],
+                       on_step=on_step)
+    ckpt_s = time.perf_counter() - stamps[-1]
+    launches = fa.launches["flash_attention"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    files = [f for f in TRAIN_CKPT.rglob("*") if f.is_file()]
+    ckpt_bytes = sum(f.stat().st_size for f in files)
+    steps = int(TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 1])
+    tokens = 8 * 1024
+    ms = (stamps[-1] - stamps[1]) / (steps - 2) * 1e3
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    model = state["params"]
+    print(f"train qwen2-0.5b full width and depth: {steps} steps of 8 x "
+          f"1024 tokens (zipf), bf16 parameters "
+          f"({model.embed.dtype}), f32 master weights "
+          f"({state['opt']['master']['embed'].dtype}); losses "
+          f"{[round(x, 4) for x in losses]}; mean of the first 5 "
+          f"{first:.4f}, of the last 5 {last:.4f} (ratio {last / first:.4f},"
+          f" gate {TRAIN_FALL}); {ms:.1f} ms a step after 2 "
+          f"({tokens / ms * 1e3:,.0f} tok/s); first step "
+          f"{(stamps[0] - t0) * 1e3:.1f} ms with the set-up; peak "
+          f"{peak:.2f} GiB; kernel 5 launches {launches}; checkpoint at step "
+          f"{steps}: {ckpt_bytes:,} bytes in {len(files)} files, "
+          f"{ckpt_s:.1f} s", flush=True)
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"losses {losses}")
+    if last > TRAIN_FALL * first:
+        raise AssertionError(f"the loss fell from {first} to {last} only")
+    if launches != 0:
+        raise AssertionError(f"training launched kernel 5 {launches} times")
+    if (model.embed.dtype != torch.bfloat16
+            or state["opt"]["master"]["embed"].dtype != torch.float32):
+        raise AssertionError("not bf16 parameters with f32 master weights")
+    if (TRAIN_CKPT / "LATEST").read_text() != str(steps):
+        raise AssertionError("no checkpoint at the last step")
+    shutil.rmtree(TRAIN_CKPT)
+    # Where a step's time goes: three more steps of the trained state, the
+    # last under the profiler.
+    step = make_train_step(model.cfg, AdamW(lr=3e-4, weight_decay=0.01))
+    batch = to_device(torch, SyntheticZipfLM(
+        model.cfg.vocab_size, batch=8, seq=1024, seed=0).batch_at(steps),
+        "cuda")
+    profile_run(torch, lambda: step(state, batch), 1,
+                "train qwen2-0.5b bf16 batch 8 x 1024", "step")
+    del state, model
+    free_card(torch)
+    return dict(losses=losses, ms_per_step=ms, tok_s=tokens / ms * 1e3,
+                peak_gib=peak, launches=launches, ckpt_bytes=ckpt_bytes,
+                ckpt_s=ckpt_s)
+
+
+def train_golden(torch, np, device, g, prefix=""):
+    """qwen2-0.5b in f32 at the golden's depth (``prefix`` ``""``: full,
+    ``"small_"``: 2 layers) with the numpy recipe's weights (their float64
+    sums equal the golden's) and its copy-task batch (its tokens equal the
+    golden's): the loss, xent, accuracy and token count, the gradient's
+    global norm, each leaf's gradient norm, the sliced gradients and the
+    sliced weights (equal) and, after one AdamW step (lr ``g["lr"]``), the
+    sliced weights, against the JAX package's golden
+    (``tests/fixtures/make_qwen2_0_5b_train_golden.py``) at
+    TRAIN_GOLDEN_TOL. Returns the largest error of each kind (relative,
+    or in units of the tolerance's scale) and the weight tree (numpy, for
+    :func:`train_accum`)."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticCopyTask
+    from repro_torch.optim import AdamW
+    from repro_torch.train.steps import make_loss_fn
+
+    tol = TRAIN_GOLDEN_TOL
+    layers = int(g["small_layers" if prefix else "layers"])
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), num_layers=layers,
+                              dtype="float32")
+    seed = int(g["seed"])
+    tree = convert.numpy_lm_params(cfg, seed)
+    weights = flat_tree(np, tree)
+    sums = dict(zip(g[prefix + "weight_paths"], g[prefix + "weight_sums"]))
+    if {k: x.sum(dtype=np.float64) for k, x in weights.items()} != sums:
+        raise AssertionError("the numpy recipe no longer makes the golden's "
+                             "weights")
+    model = convert.lm_params_from_numpy(cfg, tree, device=device)
+    model.requires_grad_(True)
+    batch = SyntheticCopyTask(cfg.vocab_size, batch=int(g["batch"]),
+                              seq=int(g["seq"]), seed=seed).batch_at(0)
+    if not np.array_equal(batch["tokens"], g["batch_tokens"]):
+        raise AssertionError("the copy task no longer makes the golden's batch")
+    loss, metrics = make_loss_fn(cfg)(model, to_device(torch, batch, device))
+    names, leaves = zip(*model.named_parameters())
+    grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+    gtree = flat_tree(np, convert.named_to_numpy(cfg, grads))
+    err = {}
+
+    def rel(name, got, want):
+        err[name] = max(err.get(name, 0.0),
+                        abs(float(got) - float(want)) / abs(float(want)))
+
+    rel("loss", loss.item(), g[prefix + "loss"])
+    rel("xent", metrics["xent"].item(), g[prefix + "xent"])
+    for k in ("accuracy", "tokens"):
+        if metrics[k].item() != float(g[prefix + k]):
+            raise AssertionError(f"{k} {metrics[k].item()} != "
+                                 f"{float(g[prefix + k])}")
+    paths = [str(p) for p in g[prefix + "leaf_paths"]]
+    if sorted(gtree) != paths:
+        raise AssertionError("the gradient's leaves differ from the golden's")
+    for p, want in zip(paths, g[prefix + "leaf_grad_norms"]):
+        rel("leaf_norm", np.sqrt(np.square(gtree[p], dtype=np.float64).sum()),
+            want)
+    for s in (str(x) for x in g["slices"]):
+        idx = g[f"{prefix}idx/{s}"]
+        want = g[f"{prefix}grad/{s}"]
+        err["grad"] = max(err.get("grad", 0.0), float(np.abs(
+            gtree[s].reshape(-1)[idx] - want).max() / np.abs(want).max()))
+        if not np.array_equal(weights[s].reshape(-1)[idx],
+                              g[f"{prefix}param/{s}"]):
+            raise AssertionError(f"weights {s} differ from the golden's")
+    del gtree, weights
+    opt = AdamW(lr=float(g["lr"]))
+    _, _, om = opt.update(grads, opt.init(model), model)
+    rel("grad_norm", om["grad_norm"].item(), g[prefix + "grad_norm"])
+    new = flat_tree(np, convert.lm_params_to_numpy(model))
+    for s in (str(x) for x in g["slices"]):
+        err["new"] = max(err.get("new", 0.0), float(np.abs(
+            new[s].reshape(-1)[g[f"{prefix}idx/{s}"]]
+            - g[f"{prefix}new/{s}"]).max()))
+    print(f"train golden qwen2-0.5b f32, {layers} layers, on {device}: loss "
+          f"{loss.item():.6f} (golden {float(g[prefix + 'loss']):.6f}), "
+          f"grad_norm {om['grad_norm'].item():.6f} (golden "
+          f"{float(g[prefix + 'grad_norm']):.6f}); largest errors "
+          f"{ {k: float(f'{v:.3e}') for k, v in err.items()} } (tolerances "
+          f"{tol})", flush=True)
+    for k, v in err.items():
+        if not v <= tol["loss" if k == "xent" else k]:
+            raise AssertionError(f"train golden: {k} error {v:.3e}")
+    del model, grads, new
+    return err, tree
+
+
+def train_accum(torch, np, device, tree, layers):
+    """One step of qwen2-0.5b in f32 (``layers`` deep, the weights
+    ``tree``) on the golden's copy-task batch with ``grad_accum=2`` (two
+    microbatches of one row) against the full batch, AdamW(lr=1e-3, no
+    master weights) as in the reference test: the loss and the parameters
+    at its thresholds (TRAIN_ACCUM_TOL), and the gradient (the first
+    moment, ``(1 - b1) g``) within 1e-5 of each leaf's largest magnitude.
+    Where the full batch's clipped gradient is below TINY_GRAD, ten times
+    AdamW's eps, Adam's step ``g / (|g| + eps)`` turns the gradient's last
+    bits into a visible part of ``lr`` (a third of the elements at depth 2:
+    the tied embedding's rows that only the head reaches), so the
+    parameter check holds those to one step, ``lr + atol``, and the
+    gradient check covers them. Returns the loss's relative difference,
+    the other parameters' largest ratio of difference to tolerance, the
+    count of elements below TINY_GRAD and the moments' largest error."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticCopyTask
+    from repro_torch.optim import AdamW
+    from repro_torch.train.steps import make_train_step
+
+    tol = TRAIN_ACCUM_TOL
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), num_layers=layers,
+                              dtype="float32")
+    batch = to_device(torch, SyntheticCopyTask(
+        cfg.vocab_size, batch=2, seq=64, seed=0).batch_at(0), device)
+    opt = AdamW(lr=1e-3, master_weights=False)
+    out = {}
+    for ga in (1, 2):
+        model = convert.lm_params_from_numpy(cfg, tree, device=device)
+        st = {"params": model.requires_grad_(True), "opt": opt.init(model),
+              "step": torch.zeros((), dtype=torch.int32, device=device)}
+        st, m = make_train_step(cfg, opt, grad_accum=ga)(st, batch)
+        out[ga] = (m["loss"].item(), [p.detach() for p in model.parameters()],
+                   list(st["opt"]["m"].values()))
+        del st, model
+    (l1, p1, m1), (l2, p2, m2) = out[1], out[2]
+    loss_rel = abs(l2 - l1) / abs(l1)
+    ratio, tiny, tiny_err, m_err = 0.0, 0, 0.0, 0.0
+    for a, b, ma, mb in zip(p2, p1, m2, m1):
+        m_err = max(m_err, ((ma - mb).abs().max()
+                            / (mb.abs().max() + 1e-30)).item())
+        small = mb.abs() < (1 - opt.b1) * TINY_GRAD
+        r = (a - b).abs() / (tol["atol"] + tol["rtol"] * b.abs())
+        ratio = max(ratio, torch.where(small, 0.0, r).max().item())
+        tiny += int(small.sum())
+        tiny_err = max(tiny_err, torch.where(small, (a - b).abs(), 0.0)
+                       .max().item())
+    print(f"train grad_accum=2 against the full batch, qwen2-0.5b f32, "
+          f"{layers} layers, on {device}: loss {l2:.6f} vs {l1:.6f} "
+          f"(relative {loss_rel:.3e}, tol {tol['loss']}); gradients (first "
+          f"moments) {m_err:.3e} of each leaf's scale (tol 1e-5); "
+          f"parameters' largest |difference| / (atol + rtol |p|) "
+          f"{ratio:.3e} (at most 1) over the elements with |g| >= "
+          f"{TINY_GRAD}; the {tiny:,} below it within {tiny_err:.3e} (lr + "
+          f"atol {opt.lr + tol['atol']:.1e})", flush=True)
+    if (loss_rel > tol["loss"] or m_err > 1e-5 or ratio > 1
+            or tiny_err > opt.lr + tol["atol"]):
+        raise AssertionError("grad_accum=2 is not close to the full batch")
+    return loss_rel, ratio, tiny, m_err
+
+
+def against_train_golden(torch, np, fa):
+    """Phase 20b: :func:`train_golden` at full width and depth on the card
+    (f32, TF32 off), then :func:`train_accum` there; kernel 5 launched 0
+    times. Returns the errors."""
+    free_card(torch)
+    full_width_f32(torch)
+    g = np.load(TRAIN_GOLDEN)
+    fa.reset_launches()
+    t = time.perf_counter()
+    err, tree = train_golden(torch, np, "cuda", g)
+    print(f"train golden: {time.perf_counter() - t:.1f} s with the numpy "
+          f"weights", flush=True)
+    free_card(torch)
+    loss_rel, ratio, tiny, m_err = train_accum(torch, np, "cuda", tree,
+                                               int(g["layers"]))
+    if fa.launches["flash_attention"] != 0:
+        raise AssertionError("training launched kernel 5")
+    del tree
+    free_card(torch)
+    return dict(golden=err, accum_loss_rel=loss_rel, accum_ratio=ratio,
+                accum_tiny_grads=tiny, accum_grad_err=m_err)
+
+
+def family_batch(np, cfg):
+    """The copy task's batch (2 rows, 15 tokens), with stub patch embeddings
+    in place of the tokens for a VLM and stub frames (twice the tokens)
+    beside them for an encoder-decoder, from ``default_rng(1)``."""
+    from repro_torch.data.pipeline import SyntheticCopyTask
+
+    b = SyntheticCopyTask(cfg.vocab_size, batch=2, seq=16, seed=0).batch_at(0)
+    t = b["tokens"].shape[1]
+    rng = np.random.default_rng(1)
+    if cfg.encdec is not None:
+        b["frames"] = rng.standard_normal((2, 2 * t, cfg.d_model),
+                                          dtype=np.float32)
+    elif cfg.family == "vlm":
+        b["embeds"] = rng.standard_normal((2, t, cfg.d_model),
+                                          dtype=np.float32)
+        del b["tokens"]
+    return b
+
+
+def family_step(torch, cfg, tree, batch, device):
+    """The loss and gradients of the smoke config ``cfg`` from the weights
+    ``tree``, then one train step (AdamW, lr TRAIN_FAMILY_TOL["lr"]) from
+    the same state: (loss, {name: grad}, {name: parameter after})."""
+    from repro_torch import convert
+    from repro_torch.optim import AdamW
+    from repro_torch.train.steps import make_loss_fn, make_train_step
+
+    model = convert.lm_params_from_numpy(cfg, tree, device=device)
+    model.requires_grad_(True)
+    b = to_device(torch, batch, device)
+    loss, _ = make_loss_fn(cfg)(model, b)
+    names, leaves = zip(*model.named_parameters())
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    # a VLM's embedding table takes no gradient from embeds: zeros
+    grads = {n: (torch.zeros_like(p) if x is None else x).cpu()
+             for n, p, x in zip(names, leaves, grads)}
+    opt = AdamW(lr=TRAIN_FAMILY_TOL["lr"])
+    st = {"params": model, "opt": opt.init(model),
+          "step": torch.zeros((), dtype=torch.int32, device=device)}
+    st, m = make_train_step(cfg, opt)(st, b)
+    if m["loss"].item() != loss.item():
+        raise AssertionError("the train step's loss is not the loss's")
+    return loss.item(), grads, {n: p.detach().cpu()
+                                for n, p in model.named_parameters()}
+
+
+def train_families(torch, np, fa):
+    """Phase 20c, first part: one train step of every registry arch's smoke
+    config in f32 (TF32 off) on the card and on the CPU, from the numpy
+    recipe's weights and the same batch: the loss, every gradient and every
+    parameter after the step at TRAIN_FAMILY_TOL. This runs the MoE
+    dispatch, MLA, the SSD scan, M-RoPE, the hybrid's shared block and
+    whisper's encoder and cross-attention under autograd on CUDA. Kernel 5
+    is launched 0 times. Returns {arch: (loss error, gradient error,
+    parameter error at 99.9%, largest parameter error)}."""
+    from repro_torch import convert
+    from repro_torch.configs import ARCHS, get_config
+
+    tol = TRAIN_FAMILY_TOL
+    full_width_f32(torch)
+    fa.reset_launches()
+    out = {}
+    for arch in ARCHS:
+        cfg = get_config(arch, smoke=True)
+        tree = convert.numpy_lm_params(cfg, 0)
+        batch = family_batch(np, cfg)
+        l_cpu, g_cpu, p_cpu = family_step(torch, cfg, tree, batch, "cpu")
+        l_gpu, g_gpu, p_gpu = family_step(torch, cfg, tree, batch, "cuda")
+        e_loss = abs(l_gpu - l_cpu) / abs(l_cpu)
+        e_grad = max(((g_gpu[n] - w).abs().max()
+                      / (w.abs().max() + 1e-7 / tol["grad"])).item()
+                     for n, w in g_cpu.items())
+        diffs = torch.cat([(p_gpu[n] - w).abs().reshape(-1)
+                           for n, w in p_cpu.items()])
+        e_q = torch.quantile(diffs[:2**24].double(), 0.999).item()
+        e_max = diffs.max().item()
+        out[arch] = (e_loss, e_grad, e_q, e_max)
+        print(f"train {arch} smoke, one step, card against CPU: loss "
+              f"{l_gpu:.6f} (relative {e_loss:.2e}), gradients "
+              f"{e_grad:.2e} of each leaf's scale, parameters after the "
+              f"step {e_q:.2e} at 99.9%, {e_max:.2e} at most (lr "
+              f"{tol['lr']})", flush=True)
+        if (e_loss > tol["loss"] or e_grad > tol["grad"]
+                or e_q > tol["q_lr"] * tol["lr"]
+                or e_max > 2 * tol["lr"] + 1e-6):
+            raise AssertionError(f"train {arch}: the card and the CPU differ")
+    if fa.launches["flash_attention"] != 0:
+        raise AssertionError("training launched kernel 5")
+    return out
+
+
+def train_resume(torch, np):
+    """Phase 20c, second part: the driver on the qwen2-0.5b smoke config on
+    the card (RESUME_ARGS), uninterrupted; then with ``--sim-fail
+    SIM_FAIL`` (a checkpoint, then a crash); the checkpoint restored must
+    equal the state at that step bit for bit; then restarted, it resumes
+    and its final parameters must equal the uninterrupted run's bit for
+    bit. Returns the number of parameters that differ (0)."""
+    import shutil
+
+    from repro_torch import convert
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import train
+
+    shutil.rmtree(TRAIN_RESUME_CKPT, ignore_errors=True)
+    want = train.main(RESUME_ARGS)
+    snap = {}
+
+    def on_step(step, state, m):
+        if step == SIM_FAIL:
+            snap.update(flat_tree(np, convert.train_state_tree(state)))
+
+    try:
+        train.main(RESUME_ARGS + ["--ckpt", str(TRAIN_RESUME_CKPT),
+                                  "--sim-fail", str(SIM_FAIL)],
+                   on_step=on_step)
+        raise AssertionError("--sim-fail did not fail")
+    except RuntimeError as e:
+        if "sim-fail" not in str(e):
+            raise
+    restored = CheckpointManager(str(TRAIN_RESUME_CKPT)).restore_latest(want)
+    got = flat_tree(np, convert.train_state_tree(restored))
+    if got.keys() != snap.keys() or not all(
+            got[k].dtype == snap[k].dtype
+            and torch.equal(got[k].reshape(-1).view(torch.uint8),
+                            snap[k].reshape(-1).view(torch.uint8))
+            for k in snap):
+        raise AssertionError("the restored state is not the saved one")
+    resumed = train.main(RESUME_ARGS + ["--ckpt", str(TRAIN_RESUME_CKPT)])
+    differ = [n for (n, a), (_, b) in zip(
+        want["params"].named_parameters(), resumed["params"].named_parameters())
+        if not torch.equal(a, b)]
+    print(f"train resume qwen2-0.5b smoke on the card: crashed after step "
+          f"{SIM_FAIL}, the restored state equals the saved one bit for bit "
+          f"({len(snap)} leaves); resumed to step {int(resumed['step'])}: "
+          f"{len(differ)} parameters differ from the uninterrupted run's "
+          f"{differ[:4]}", flush=True)
+    if differ:
+        raise AssertionError("the resumed run is not the uninterrupted one")
+    shutil.rmtree(TRAIN_RESUME_CKPT)
+    return len(differ)
+
+
+def train_phases(torch, np):
+    """Phases 20, 20b and 20c. Returns their summary for the kernels line
+    (kernel 5's launches in training: 0)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    full = phase("train full width", train_full_width, torch, np, fa)
+    golden = phase("train against the golden", against_train_golden, torch,
+                   np, fa)
+    families = phase("train every family", train_families, torch, np, fa)
+    differ = phase("train resume", train_resume, torch, np)
+    return dict(launches=full["launches"], full_width=full, golden=golden,
+                families=families, resume_params_differ=differ)
 
 
 # ---------------------------------------------------------------------------
@@ -5056,6 +5555,8 @@ def run_phases(torch, np, args, pool) -> int:
                     solo_walls["sweep_ooo"])
     nodes, replay_runs = phase("profiles", profiles, torch, graphs)
     flash = lm_phases(torch, np)
+    flash["train"] = train_phases(torch, np)
+    flash["train_launches"] = flash["train"]["launches"]
 
     line = []
     for name, replaces in KERNELS.items():

@@ -9,8 +9,9 @@ ModelConfig of each. SHAPES are the four (seq_len, global_batch, kind) cells.
     cache); pure full-attention archs skip it.
   * all archs here are decoder-bearing, so decode shapes always apply.
 
-Every arch has a config here; the port's model runs the dense and MoE families
-(:mod:`repro_torch.models.lm` raises for the others).
+Every arch has a config here, and the port's model serves and trains every
+family of them: dense, MoE, VLM, SSM, hybrid and encoder-decoder
+(:mod:`repro_torch.models.lm`).
 """
 from __future__ import annotations
 

@@ -262,9 +262,16 @@ def numpy_lm_params(cfg, seed: int = 0) -> dict:
     ``"shared_attn"`` segment, as the reference's tree. Both packages can
     then be fed the same weights, at any width. The leaves are those of
     :func:`numpy_lm_leaves`, drawn up to 8 at a time."""
+    return _tree_of(cfg, numpy_lm_leaves(
+        cfg, seed, threads=min(8, os.cpu_count() or 1)))
+
+
+def _tree_of(cfg, leaves) -> dict:
+    """The reference-layout LM tree of the (path, leaf) pairs ``leaves``
+    (paths of :func:`_lm_leaf_specs`); ``None`` at each ``"shared_attn"``
+    segment, as the reference's tree."""
     tree: dict = {"segments": [None] * len(lm.segments(cfg))}
-    for path, x in numpy_lm_leaves(cfg, seed,
-                                   threads=min(8, os.cpu_count() or 1)):
+    for path, x in leaves:
         node = tree
         for key, nxt in zip(path[:-1], path[1:]):
             if isinstance(key, int):
@@ -285,75 +292,216 @@ def _flatten(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
-def lm_params_from_numpy(cfg, tree: Mapping, device=None) -> "lm.LM":
-    """The reference's LM parameter pytree (numpy leaves; a segment's leaves
-    stacked on a leading [n] layer axis) -> the port's :class:`LM` in
-    ``cfg``'s dtype on ``device`` (``None`` = the CUDA card; raises without
-    one); a MoE router and Mamba2's ``A_log``, ``D`` and ``dt_bias`` stay
-    float32, as in the reference (each leaf is copied into its parameter's
-    dtype, so routing and the SSM decays see the weights as drawn). Each
-    segment is split into its layers; a ``"shared_attn"`` segment holds
-    ``None`` (its layers run the one ``shared_attn`` block, loaded once from
-    the tree's ``shared_attn``). Every matrix keeps the reference's ``[in,
-    out]`` orientation. An encoder-decoder's ``encoder.blocks`` and
-    ``cross_attn`` leaves are split into their layers the same way
-    (``encoder.blocks.{j}.*``, ``cross_attn.{j}.*``). Every leaf must land
-    on exactly one parameter and every parameter must be given."""
-    model = lm.LM(cfg, device=resolve_device(device))
-    params = dict(model.named_parameters())
-    given = set()
-
-    def put(name, leaf):
-        if name not in params or name in given:
-            raise ValueError(f"leaf {name} has no parameter of {cfg.name}")
-        a = np.asarray(leaf, dtype=np.float32)
-        if a.shape != params[name].shape:
-            raise ValueError(f"{name}: shape {a.shape}, parameter "
-                             f"{tuple(params[name].shape)}")
-        params[name].copy_(torch.from_numpy(np.array(a, copy=True)))
-        given.add(name)
-
-    def put_layers(prefix, stacked, n):
+def _named_leaves(cfg, tree: Mapping):
+    """(port parameter name, leaf) for every leaf of a reference-layout LM
+    tree: each segment split into its layers (``blocks.{i}.*``), an
+    encoder-decoder's ``encoder.blocks`` and ``cross_attn`` leaves split the
+    same way (``encoder.blocks.{j}.*``, ``cross_attn.{j}.*``), every other
+    leaf under its dotted path. A ``"shared_attn"`` segment holds ``None``
+    (its layers run the one ``shared_attn`` block, under the tree's
+    ``shared_attn``). Checks each stacked leaf's layer count."""
+    def layers(prefix, stacked, n, first=0):
         for name, leaf in _flatten(stacked):
             if np.shape(leaf)[0] != n:
                 raise ValueError(f"{prefix} leaf {name} has "
                                  f"{np.shape(leaf)[0]} layers, want {n}")
             for j in range(n):
-                put(f"{prefix}.{j}.{name}", leaf[j])
+                yield f"{prefix}.{first + j}.{name}", leaf[j]
 
-    layer = 0
     for key, value in tree.items():
         if key == "segments":
             continue
         if key == "cross_attn" and cfg.encdec is not None:
-            put_layers("cross_attn", value, cfg.num_layers)
+            yield from layers("cross_attn", value, cfg.num_layers)
         elif key == "encoder" and cfg.encdec is not None:
             for sub, part in value.items():
                 if sub == "blocks":
-                    put_layers("encoder.blocks", part, cfg.encdec.enc_layers)
+                    yield from layers("encoder.blocks", part,
+                                      cfg.encdec.enc_layers)
                 else:
-                    for name, leaf in _flatten(part, f"encoder.{sub}."):
-                        put(name, leaf)
+                    yield from _flatten(part, f"encoder.{sub}.")
+        elif isinstance(value, Mapping):
+            yield from _flatten(value, f"{key}.")
         else:
-            for name, leaf in (_flatten(value, f"{key}.")
-                               if isinstance(value, Mapping) else [(key, value)]):
-                put(name, leaf)
+            yield key, value
+    layer = 0
     for (kind, n), seg in zip(lm.segments(cfg), tree["segments"],
                               strict=True):
         if kind == "shared_attn":
             if seg:
                 raise ValueError("a shared_attn segment holds no leaves (the "
                                  "shared block's are under shared_attn)")
-            layer += n
-            continue
-        for name, leaf in _flatten(seg):
-            if np.shape(leaf)[0] != n:
-                raise ValueError(f"segment leaf {name} has {np.shape(leaf)[0]} "
-                                 f"layers, the segment {n}")
-            for j in range(n):
-                put(f"blocks.{layer + j}.{name}", leaf[j])
+        else:
+            yield from layers("blocks", seg, n, layer)
         layer += n
-    missing = set(params) - given
+
+
+def _leaf(x) -> torch.Tensor:
+    """A numpy array or a tensor -> a tensor (numpy copied)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.from_numpy(np.array(np.asarray(x), copy=True))
+
+
+def _load(named: dict, cfg, tree: Mapping, what: str) -> None:
+    """Copy every leaf of ``tree`` (reference layout) into the tensor of its
+    name in ``named``, cast to that tensor's dtype; every leaf must land on
+    exactly one tensor and every tensor must be given."""
+    given = set()
+    for name, leaf in _named_leaves(cfg, tree):
+        if name not in named or name in given:
+            raise ValueError(f"leaf {name} has no {what} of {cfg.name}")
+        t = _leaf(leaf).float()     # a float64 leaf rounds to f32 first
+        if tuple(t.shape) != tuple(named[name].shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, {what} "
+                             f"{tuple(named[name].shape)}")
+        named[name].copy_(t)
+        given.add(name)
+    missing = set(named) - given
     if missing:
-        raise ValueError(f"no leaf for parameters {sorted(missing)}")
+        raise ValueError(f"no leaf for {what}s {sorted(missing)}")
+
+
+def lm_params_from_numpy(cfg, tree: Mapping, device=None) -> "lm.LM":
+    """The reference's LM parameter pytree (numpy leaves; a segment's leaves
+    stacked on a leading [n] layer axis) -> the port's :class:`LM` in
+    ``cfg``'s dtype on ``device`` (``None`` = the CUDA card; raises without
+    one), frozen; a MoE router and Mamba2's ``A_log``, ``D`` and ``dt_bias``
+    stay float32, as in the reference (each leaf is copied into its
+    parameter's dtype, so routing and the SSM decays see the weights as
+    drawn). Each stacked leaf is split into its layers
+    (:func:`_named_leaves`). Every matrix keeps the reference's ``[in,
+    out]`` orientation. Every leaf must land on exactly one parameter and
+    every parameter must be given."""
+    model = lm.LM(cfg, device=resolve_device(device))
+    with torch.no_grad():
+        _load(dict(model.named_parameters()), cfg, tree, "parameter")
     return model
+
+
+def _leaf_names(cfg):
+    """(reference path, port names) of every leaf of the reference's LM
+    tree, in :func:`_lm_leaf_specs`'s order: one name for an unstacked leaf,
+    one a layer (in layer order) for a stacked one."""
+    first, layer = {}, 0
+    for si, (_, n) in enumerate(lm.segments(cfg)):
+        first[si] = (layer, n)
+        layer += n
+    for path, _, _ in _lm_leaf_specs(cfg):
+        rest = ".".join(str(p) for p in path[2:])
+        if path[0] == "segments":
+            l0, n = first[path[1]]
+            yield path, [f"blocks.{l0 + j}.{rest}" for j in range(n)]
+        elif tuple(path[:2]) == ("encoder", "blocks"):
+            yield path, [f"encoder.blocks.{j}.{rest}"
+                         for j in range(cfg.encdec.enc_layers)]
+        elif path[0] == "cross_attn":
+            rest = ".".join(path[1:])
+            yield path, [f"cross_attn.{j}.{rest}"
+                         for j in range(cfg.num_layers)]
+        else:
+            yield path, [".".join(path)]
+
+
+def _reference_tree(cfg, named: Mapping, leaf) -> dict:
+    """The reference-layout tree of the tensors ``named`` (by port name):
+    ``leaf(tensors, stacked)`` makes each leaf from its layers' tensors."""
+    return _tree_of(cfg, ((path, leaf([named[n] for n in names],
+                                      _stacked(path)))
+                          for path, names in _leaf_names(cfg)))
+
+
+def _host(tensors, stacked, device="cpu"):
+    """A leaf from its layers' tensors, copied to ``device`` (a copy even
+    where they lie there already: the train step updates them in place)."""
+    if stacked:
+        return torch.stack([t.detach().to(device) for t in tensors])
+    return tensors[0].detach().to(device, copy=True)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    # numpy has no bfloat16: such a leaf comes back as its exact float32.
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def named_to_numpy(cfg, named: Mapping) -> dict:
+    """Tensors by the port's parameter names (the parameters, their
+    gradients, the optimizer's moments) -> the reference's LM tree of numpy
+    arrays: a segment's leaves stacked on a leading [n] layer axis,
+    bfloat16 as its exact float32 values."""
+    return _map_tree(_to_numpy, _reference_tree(cfg, named, _host))
+
+
+def lm_params_to_numpy(model: "lm.LM") -> dict:
+    """The port's :class:`LM` -> the reference's LM parameter tree: the
+    inverse of :func:`lm_params_from_numpy` (:func:`named_to_numpy`)."""
+    return named_to_numpy(model.cfg, dict(model.named_parameters()))
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_tree(fn, v) for v in tree]
+    return None if tree is None else fn(tree)
+
+
+# ---------------------------------------------------------------------------
+# Train states.
+# ---------------------------------------------------------------------------
+
+def train_state_tree(state: Mapping, device="cpu") -> dict:
+    """A train state (:func:`repro_torch.train.steps.init_train_state`) ->
+    the reference's train-state tree with tensor leaves on ``device``:
+    ``params/...``, ``opt/m/...``, ``opt/v/...``, ``opt/master/...`` (with
+    master weights), ``opt/count`` and ``step``, each parameter-shaped tree
+    in the reference's layout (stacked segments), dtypes kept.
+    ``device="meta"`` gives the shapes and dtypes without copying."""
+    model = state["params"]
+    cfg = model.cfg
+
+    def tree(named):
+        return _reference_tree(cfg, named, lambda ts, st: _host(ts, st,
+                                                                 device))
+
+    opt = state["opt"]
+    out_opt = {k: tree(opt[k]) for k in ("m", "v", "master") if k in opt}
+    out_opt["count"] = opt["count"].detach().to(device, copy=True)
+    return {"params": tree(dict(model.named_parameters())), "opt": out_opt,
+            "step": state["step"].detach().to(device, copy=True)}
+
+
+def train_state_to_numpy(state: Mapping) -> dict:
+    """A train state -> the reference's train-state tree with numpy leaves
+    (:func:`train_state_tree`; bfloat16 weights as their exact float32
+    values), to compare whole states with the reference's."""
+    return _map_tree(_to_numpy, train_state_tree(state))
+
+
+def train_state_from_numpy(cfg, tree: Mapping, device=None) -> dict:
+    """The reference's train state (``{"params", "opt": {"m", "v",
+    ["master"], "count"}, "step"}``, numpy or tensor leaves, each
+    parameter-shaped tree in the reference's layout) -> the port's train
+    state on ``device`` (``None`` = the CUDA card; raises without one): a
+    trainable :class:`LM` in ``cfg``'s dtypes, the moments and master
+    weights float32 by parameter name, ``count`` and ``step`` int32
+    scalars. Every leaf must land on exactly one tensor."""
+    device = resolve_device(device)
+    model = lm_params_from_numpy(cfg, tree["params"], device=device)
+    model.requires_grad_(True)
+    names = dict(model.named_parameters())
+    opt = {}
+    with torch.no_grad():
+        for key in ("m", "v", "master"):
+            if key not in tree["opt"]:
+                continue
+            opt[key] = {n: torch.empty(p.shape, dtype=torch.float32,
+                                       device=device)
+                        for n, p in names.items()}
+            _load(opt[key], cfg, tree["opt"][key], f"opt/{key} tensor")
+
+    def scalar(x):
+        return _leaf(x).to(device=device, dtype=torch.int32).reshape(())
+
+    opt["count"] = scalar(tree["opt"]["count"])
+    return {"params": model, "opt": opt, "step": scalar(tree["step"])}

@@ -242,8 +242,9 @@ def _check(q, k, v, causal, lens):
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise NotImplementedError(
-            "attention has no backward yet: call it under torch.no_grad() "
-            "(training is ROADMAP queue 1 item 12g)")
+            "the attention kernel has no backward: call it under "
+            "torch.no_grad(); training takes the differentiable form, "
+            "models.attention.blockwise_attention(differentiable=True)")
     if any(n < 1 or n > tkv for n in lens):
         raise ValueError(f"kv_len must lie in [1, {tkv}], got {lens}")
     if causal and any(n < tq for n in lens):

@@ -20,6 +20,16 @@ with ``extras = {cache: entry}`` in prefill and decode, as the reference's
 ``block_apply`` does, and ``extras["metrics"]`` (``moe_aux``,
 ``moe_dropped``) from a ``"moe"`` block. The reference returns a new cache;
 here the entry's tensors are updated in place (an index copy) and returned.
+Mode ``"train"`` is differentiable: with gradients enabled its attention
+takes the training form (:func:`.attention.training_form`), under
+``torch.no_grad()`` the kernel. Prefill and decode run under
+``torch.no_grad()`` (the :mod:`.lm` serve functions), so no cache write
+enters a graph.
+
+Parameters are made frozen (``requires_grad`` False): a model loaded for
+serving or scoring needs no autograd, and the weights are filled in place
+after they are made. Training makes them trainable
+(``module.requires_grad_(True)``; :func:`repro_torch.train.steps.init_train_state`).
 """
 from __future__ import annotations
 
@@ -29,14 +39,15 @@ from torch import nn
 from . import mla as mla_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .attention import blockwise_attention
+from .attention import blockwise_attention, training_form
 from .common import (ModelConfig, act_fn, apply_mrope, apply_rope, dense_init,
                      layernorm, rmsnorm)
 
 
 def _param(shape, dtype, device, generator=None, fill=None):
-    """A parameter drawn by ``dense_init`` on ``generator``, filled with
-    ``fill``, or left uninitialised (to be loaded) when both are None."""
+    """A frozen parameter drawn by ``dense_init`` on ``generator``, filled
+    with ``fill``, or left uninitialised (to be loaded) when both are
+    None."""
     if generator is not None and fill is None:
         t = dense_init(generator, shape, dtype)
     else:
@@ -128,11 +139,13 @@ class Attention(nn.Module):
         return self.wo(out.reshape(b, t, -1))
 
     def forward(self, x, aux, *, causal=True, kv_override=None):
-        """train (no cache), prefill (writes the cache from position 0) or
-        decode (writes position ``cache_len``, then attends with
-        ``kv_len = cache_len + 1``), each causal or not. With
-        ``kv_override`` [b, s, d]: cross-attention, k and v projected from
-        it, non-causal over all of it, whatever the mode; where
+        """train (no cache; the training form with gradients enabled),
+        prefill (writes the cache from position 0) or decode (writes
+        position ``cache_len``, then attends with ``kv_len = cache_len +
+        1``), each causal or not. With ``kv_override`` [b, s, d]:
+        cross-attention, k and v projected from it, non-causal over all of
+        it, whatever the mode (in ``"train"`` with gradients enabled, the
+        training form); where
         ``aux["cache"]`` is given the projected k and v are written into it
         in place (whisper's cross cache, filled in prefill). Returns (out,
         extras)."""
@@ -150,7 +163,9 @@ class Attention(nn.Module):
                 cache["k"].copy_(k)
                 cache["v"].copy_(v)
                 extras["cache"] = cache
-            out = blockwise_attention(q, k, v, causal=False, **self._chunk())
+            out = blockwise_attention(
+                q, k, v, causal=False, **self._chunk(),
+                differentiable=aux["mode"] == "train" and training_form())
             return self._out(out), extras
         k = self.wk(x).reshape(b, t, hkv, hd)
         v = self.wv(x).reshape(b, t, hkv, hd)
@@ -162,9 +177,9 @@ class Attention(nn.Module):
             k = rot(k.transpose(1, 2), pos, cfg.rope_theta).transpose(1, 2)
         mode = aux["mode"]
         if mode == "train":
-            # A scoring forward: the reference's training form computes the
-            # same function; autograd through attention is not ported yet.
-            out = blockwise_attention(q, k, v, causal=causal, **self._chunk())
+            # The training form with gradients enabled, else the kernel.
+            out = blockwise_attention(q, k, v, causal=causal, **self._chunk(),
+                                      differentiable=training_form())
         elif mode == "prefill":
             cache = aux["cache"]
             cache["k"][:, :t].copy_(k)

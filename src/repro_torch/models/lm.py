@@ -13,13 +13,21 @@ on a leading ``[n]`` axis as in the reference. The cache is updated in
 place. ``forward`` returns the reference's metrics, ``moe_aux`` and
 ``moe_dropped`` summed over the MoE layers (zero without any).
 
-``forward`` (a scoring forward), ``prefill`` and ``decode_step`` run under
-``torch.no_grad()``, from tokens or (a VLM's stub patch embeddings) from
+``forward`` is the training forward: it follows the caller's autograd
+mode. With gradients enabled its attention takes the differentiable
+training form and, where ``cfg.remat``, each layer runs under
+``torch.utils.checkpoint`` (the reference's per-layer ``jax.checkpoint`` in
+mode ``"train"``); under ``torch.no_grad()`` it scores through the
+attention kernel. ``prefill`` and ``decode_step`` always run under
+``torch.no_grad()``. Each takes tokens or (a VLM's stub patch embeddings)
 ``embeds``. Whisper, the encoder-decoder, has its own: ``encode`` (stub
-frame embeddings through the non-causal encoder), ``forward_encdec``,
+frame embeddings through the non-causal encoder; it serves both),
+``forward_encdec`` (its training forward, like ``forward``),
 ``encdec_init_cache`` (the decoder's self-attention cache and the cross
 cache of the encoder's k and v, each stacked on a leading ``[n]`` layer
-axis), ``prefill_encdec`` and ``decode_step_encdec``.
+axis), ``prefill_encdec`` and ``decode_step_encdec``. The parameters are
+made frozen; the train state makes them trainable
+(:func:`repro_torch.train.steps.init_train_state`).
 """
 from __future__ import annotations
 
@@ -28,10 +36,12 @@ import itertools
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..api import resolve_device
 from . import blocks as B
+from .attention import training_form
 from .common import ModelConfig, embed_init, sinusoid_positions
 
 
@@ -61,7 +71,8 @@ class LM(nn.Module):
     :class:`CrossAttention`, named as the reference's tree (None
     otherwise). With no generator the weights are left uninitialised, to be
     loaded, on ``device`` (``None`` = the CUDA card; raises without one);
-    with one they are drawn on the generator's device."""
+    with one they are drawn on the generator's device. Every parameter is
+    made frozen; ``requires_grad_(True)`` makes the model trainable."""
 
     def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
         super().__init__()
@@ -132,22 +143,42 @@ def make_positions(cfg, b, t, device=None, offset=0):
     return pos.expand(b, t)
 
 
+def _remat(cfg, aux) -> bool:
+    """Whether a layer runs under ``torch.utils.checkpoint``: in mode
+    ``"train"`` with ``cfg.remat`` and gradients enabled."""
+    return aux["mode"] == "train" and cfg.remat and training_form()
+
+
+def _run_layer(remat: bool, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, under ``torch.utils.checkpoint`` where
+    ``remat`` (the forward draws no random numbers: no RNG state to
+    stash)."""
+    if not remat:
+        return fn(*args, **kwargs)
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False, **kwargs)
+
+
 def _apply_stack(params: LM, cfg, h, aux, cache):
     """Run the blocks; layer j of segment s uses entry j of ``cache[s]`` (a
     ``"shared_attn"`` segment: the shared block, its j-th application).
+    A segment's layers run checkpointed where :func:`_remat` says so; the
+    shared block's applications do not, as in the reference.
     Returns (h, metrics): ``moe_aux`` and ``moe_dropped`` summed over the
     MoE layers, float32 scalars on h's device."""
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     metrics = {"moe_aux": zero, "moe_dropped": zero}
+    remat = _remat(cfg, aux)
     layer = 0
     for si, (kind, n) in enumerate(segments(cfg)):
         for j in range(n):
             a = dict(aux)
             if cache is not None:
                 a["cache"] = {name: t[j] for name, t in cache[si].items()}
-            block = (params.shared_attn if kind == "shared_attn"
-                     else params.blocks[layer])
-            h, extras = block(h, a)
+            if kind == "shared_attn":
+                h, extras = params.shared_attn(h, a)
+            else:
+                h, extras = _run_layer(remat, params.blocks[layer], h, a)
             for name, x in extras.get("metrics", {}).items():
                 metrics[name] = metrics[name] + x
             layer += 1
@@ -155,7 +186,7 @@ def _apply_stack(params: LM, cfg, h, aux, cache):
 
 
 def embed_tokens(params: LM, cfg, tokens):
-    return params.embed[tokens]
+    return torch.nn.functional.embedding(tokens, params.embed)
 
 
 def _embed(params, cfg, tokens, embeds):
@@ -199,10 +230,11 @@ def _embed_step(params, cfg, tokens, cache_len):
     return h
 
 
-@torch.no_grad()
 def forward(params: LM, cfg: ModelConfig, *, tokens=None, embeds=None,
             positions=None):
-    """Scoring forward -> (hidden [b, t, d], metrics)."""
+    """Training forward -> (hidden [b, t, d], metrics). Differentiable
+    with gradients enabled; under ``torch.no_grad()`` a scoring forward
+    through the attention kernel."""
     h = _embed(params, cfg, tokens, embeds)
     b, t, _ = h.shape
     if positions is None:
@@ -273,18 +305,21 @@ def decode_step(params: LM, cfg: ModelConfig, tokens, cache, cache_len):
 # Whisper-style encoder-decoder
 # --------------------------------------------------------------------------
 
-@torch.no_grad()
 def encode(params: LM, cfg: ModelConfig, frames):
     """frames: [b, t_enc, d_model] stub frame embeddings -> the encoder
     states [b, t_enc, d_model]: the sinusoids added, each block with
-    non-causal self-attention (the reference's training form of attention,
-    which computes the same function), then the encoder's final norm."""
+    non-causal self-attention in mode ``"train"``, then the encoder's final
+    norm. Under the serve steps (``torch.no_grad()``) the attention is the
+    kernel; under :func:`forward_encdec` with gradients enabled it is the
+    training form, each layer checkpointed where ``cfg.remat`` (the
+    reference checkpoints the encoder's layers whenever ``cfg.remat``)."""
     h = frames.to(cfg.torch_dtype)
     h = h + _sinusoids(h.shape[1], cfg.d_model, h)
     aux = {"mode": "train", "positions": None, "cache": None,
            "cache_len": None}
+    remat = _remat(cfg, aux)
     for blk in params.encoder.blocks:
-        h, _ = blk(h, aux, causal=False)
+        h, _ = _run_layer(remat, blk, h, aux, causal=False)
     return params.encoder.final_norm(h)
 
 
@@ -292,35 +327,43 @@ def _layer(cache, i):
     return None if cache is None else {n: t[i] for n, t in cache.items()}
 
 
-def _decoder_stack(params: LM, cfg, h, aux, enc_out, cache, xcache):
-    """The decoder: per layer, causal self-attention, cross-attention
+def _decoder_layer(params: LM, i, h, aux, enc_out, cache, xcache):
+    """Decoder layer i: causal self-attention, cross-attention
     (``cross_attn[i]``: its norm, then attention over ``enc_out``, or in
-    decode over the layer's cross cache), then the MLP. In prefill the
-    encoder's k and v are projected once and written into ``xcache`` in
-    place."""
+    decode over the layer's cross cache), then the MLP."""
+    blk = params.blocks[i]
+    a = dict(aux)
+    a["cache"] = _layer(cache, i)
+    y, _ = blk.attn(blk.ln1(h), a)
+    h = h + y
+    xa = params.cross_attn[i]
+    x = xa.ln(h)
+    if aux["mode"] == "decode":
+        y = xa.attn.attend_cached(x, _layer(xcache, i))
+    else:
+        y, _ = xa.attn(x, {"mode": aux["mode"], "cache": _layer(xcache, i)},
+                       kv_override=enc_out)
+    h = h + y
+    return h + blk.ffn(blk.ln2(h))
+
+
+def _decoder_stack(params: LM, cfg, h, aux, enc_out, cache, xcache):
+    """The decoder's layers (:func:`_decoder_layer`), each checkpointed
+    where :func:`_remat` says so. In prefill the encoder's k and v are
+    projected once and written into ``xcache`` in place."""
     if segments(cfg) != [("attn", cfg.num_layers)]:
         raise ValueError("the whisper decoder is dense")
-    mode = aux["mode"]
-    for i, blk in enumerate(params.blocks):
-        a = dict(aux)
-        a["cache"] = _layer(cache, i)
-        y, _ = blk.attn(blk.ln1(h), a)
-        h = h + y
-        xa = params.cross_attn[i]
-        x = xa.ln(h)
-        if mode == "decode":
-            y = xa.attn.attend_cached(x, _layer(xcache, i))
-        else:
-            y, _ = xa.attn(x, {"mode": mode, "cache": _layer(xcache, i)},
-                           kv_override=enc_out)
-        h = h + y
-        h = h + blk.ffn(blk.ln2(h))
+    remat = _remat(cfg, aux)
+    for i in range(cfg.num_layers):
+        h = _run_layer(remat, _decoder_layer, params, i, h, aux, enc_out,
+                       cache, xcache)
     return h
 
 
-@torch.no_grad()
 def forward_encdec(params: LM, cfg: ModelConfig, frames, dec_tokens):
-    """Scoring forward of whisper -> (decoder hidden [b, t, d], {})."""
+    """Training forward of whisper -> (decoder hidden [b, t, d], {}):
+    differentiable with gradients enabled, a scoring forward through the
+    attention kernel under ``torch.no_grad()``."""
     enc_out = encode(params, cfg, frames)
     h = _embed(params, cfg, dec_tokens, None)
     b, t = dec_tokens.shape

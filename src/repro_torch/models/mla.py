@@ -1,7 +1,7 @@
 """DeepSeek-V2 Multi-head Latent Attention (MLA), as an ``nn.Module``.
 
 The counterpart of the reference package's ``models/mla.py``. The prefill
-(and the scoring forward) materialises per-head K and V from the compressed
+(and the forward of mode ``"train"``) materialises per-head K and V from the compressed
 latent ``c_kv`` (``kv_lora_rank`` wide), joins ``[nope, rope]`` to the qk
 width (192 at DeepSeek-V2-Lite), zero-pads v from 128 to that width and runs
 the blockwise attention with ``scale = qk_width ** -0.5``: on a CUDA tensor
@@ -9,7 +9,10 @@ that launches the flash-attention kernel at head_dim 192. The decode step
 uses the **absorbed** form, as the reference does: ``W_uk`` is folded into
 the query and the scores run against the ``[T, kv_lora + rope_dim]`` latent
 cache in float32, divided by ``sqrt(float32(qk_width))``; it launches no
-kernel. The two scales are written as the reference writes them.
+kernel. The two scales are written as the reference writes them. In mode
+``"train"`` with gradients enabled the attention takes the training form
+(:func:`.attention.training_form`), as the reference's ``differentiable=True``
+does; under ``torch.no_grad()`` the kernel.
 
 The cache entry is ``{"ckv": [b, L, kv_lora_rank], "kr": [b, L,
 rope_head_dim]}``, updated in place.
@@ -21,7 +24,7 @@ import torch
 from torch import nn
 
 from . import blocks as B
-from .attention import blockwise_attention
+from .attention import blockwise_attention, training_form
 from .common import ModelConfig, apply_rope, rmsnorm
 
 
@@ -59,9 +62,8 @@ class MLA(nn.Module):
         extras)."""
         mode = aux["mode"]
         if mode == "train":
-            # A scoring forward: the reference's training form computes the
-            # same function; autograd through attention is not ported yet.
-            return apply_seq(self, self.cfg, x, aux["positions"]), {}
+            return apply_seq(self, self.cfg, x, aux["positions"],
+                             differentiable=training_form()), {}
         if mode == "prefill":
             cache = aux["cache"]
             out, latent = apply_seq(self, self.cfg, x, aux["positions"],
@@ -97,8 +99,9 @@ def _latent(params: MLA, cfg, x, positions):
 
 
 def apply_seq(params: MLA, cfg: ModelConfig, x, positions, *,
-              return_cache=False):
-    """Full-sequence MLA. x: [b, t, d] -> out (and the latent cache)."""
+              return_cache=False, differentiable=False):
+    """Full-sequence MLA. x: [b, t, d] -> out (and the latent cache);
+    ``differentiable`` picks the attention's training form."""
     m = cfg.mla
     h = cfg.num_heads
     b, t, _ = x.shape
@@ -110,20 +113,21 @@ def apply_seq(params: MLA, cfg: ModelConfig, x, positions, *,
     kf = torch.cat([kn, kr[:, :, None, :].expand(b, t, h, m.rope_head_dim)],
                    dim=-1)
     scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
-    out = _attn_qkv(qf, kf, v, scale, cfg)
+    out = _attn_qkv(qf, kf, v, scale, cfg, differentiable)
     out = params.wo(out.reshape(b, t, h * m.v_head_dim))
     if return_cache:
         return out, {"ckv": ckv, "kr": kr}
     return out
 
 
-def _attn_qkv(qf, kf, v, scale: float, cfg):
+def _attn_qkv(qf, kf, v, scale: float, cfg, differentiable=False):
     """Causal blockwise attention where v is narrower than q and k: v is
     zero-padded to their width, the output cut back to v's."""
     dqk, dv = qf.shape[-1], v.shape[-1]
     vpad = torch.nn.functional.pad(v, (0, dqk - dv)) if dv < dqk else v
     out = blockwise_attention(qf, kf, vpad, causal=True, scale=scale,
-                              q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk)
+                              q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk,
+                              differentiable=differentiable)
     return out[..., :dv]
 
 

@@ -17,7 +17,8 @@ The arithmetic follows the reference step for step, so both drop the same
 assignments: the router product and softmax in float32 (the router weight
 stays float32 in a bfloat16 model), a tie-stable top-k (lower expert index
 first on ties, as ``jax.lax.top_k``), the criticality key ``fe * 2 + (1 -
-fw)`` in float32 under a STABLE argsort, positions by ``cumsum``, the
+fw)`` in float32 (``fw`` detached, as the reference's ``stop_gradient``)
+under a STABLE argsort, positions by ``cumsum``, the
 ``[G, E, cap]`` token and weight tables (the reference's ``mode="drop"``
 scatters as masked ``index_put_``), the gather to ``[G, E, cap, d]``, the
 three expert products (``torch.einsum``: the reference computes them outside
@@ -102,7 +103,8 @@ def route(router_w, cfg: ModelConfig, x):
     fe = topi.reshape(g, t * k)
     fw = topw.reshape(g, t * k)
     if m.dispatch_order == "criticality":
-        key = fe.float() * 2.0 + (1.0 - fw)
+        # the weight enters the key without a gradient (stop_gradient)
+        key = fe.float() * 2.0 + (1.0 - fw.detach())
         order = torch.argsort(key, dim=1, stable=True)               # [g,tk]
         fe_srt = torch.gather(fe, 1, order)
         oh = F.one_hot(fe_srt, e)

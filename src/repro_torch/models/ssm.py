@@ -120,13 +120,15 @@ def _softplus(x):
 def _segsum_exp(a):
     """a: [..., q, h] per-step log decay -> L [..., h, q, q] with
     L[i, j] = exp(sum_{j<k<=i} a_k) for i >= j else 0. Above the diagonal
-    the differences are positive and their exp may be inf: it is masked by
-    a select (a 0/1 product would give inf * 0 = NaN)."""
+    the differences are positive and their exp may overflow to inf, so the
+    mask goes on the argument: -inf there, whose exp is 0. (A select after
+    the exp gives the same values, but its backward multiplies the masked
+    inf by a zero gradient: NaN.)"""
     q = a.shape[-2]
     cs = torch.cumsum(a, dim=-2)                                  # [..., q, h]
     diff = cs[..., :, None, :] - cs[..., None, :, :]              # [..., i, j, h]
     mask = torch.ones(q, q, dtype=torch.bool, device=a.device).tril()
-    L = torch.where(mask[..., None], torch.exp(diff), 0.0)
+    L = torch.exp(torch.where(mask[..., None], diff, -torch.inf))
     return L.movedim(-1, -3)                                      # [..., h, i, j]
 
 

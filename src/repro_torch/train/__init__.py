@@ -1,1 +1,1 @@
-"""Step builders of the LM stack (serving only so far)."""
+"""Step builders of the LM stack: training and serving."""

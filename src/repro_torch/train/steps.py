@@ -1,13 +1,20 @@
-"""Serve step builders: the counterpart of the reference package's
-``train/steps.py`` ``make_prefill_step`` and ``make_decode_step``.
+"""Train and serve step builders: the counterpart of the reference package's
+``train/steps.py``.
+
+``make_train_step`` returns a function (state, batch) -> (state, metrics)
+that updates the train state in place: the loss (``make_loss_fn``: the
+training forward, the chunked cross-entropy and the MoE load-balance term)
+and its gradients by autograd, accumulated over ``grad_accum`` microbatches
+in float32 where asked, then one optimizer update. The train state is
+``{"params": LM (trainable), "opt": the optimizer's state, "step": int32}``
+(``init_train_state``).
 
 Prefill fills the KV cache from a prompt (whisper: encodes the frames and
 fills the cross cache too); a decode step advances one token, greedily or
 sampled as the reference samples, ``jax.random.categorical(key, logits /
 temperature)`` under JAX's default (partitionable) Threefry layout: the
 argmax of ``logits / temperature`` plus Gumbel noise drawn from ``key``
-(:func:`repro_torch.core.prng.gumbel`). The training step belongs to a
-later slice (ROADMAP queue 1 item 12g).
+(:func:`repro_torch.core.prng.gumbel`).
 """
 from __future__ import annotations
 
@@ -16,7 +23,113 @@ import torch
 from ..core import prng
 from ..models import lm
 from ..models.common import ModelConfig
+from ..optim.adamw import named_tensors
+from .losses import chunked_softmax_xent
 
+
+def make_loss_fn(cfg: ModelConfig, moe_aux_coef: float = 0.01,
+                 z_loss: float = 0.0):
+    """loss_fn(params, batch) -> (total loss, metrics). A batch holds
+    ``frames`` and ``tokens`` (encoder-decoder), ``embeds`` (a VLM's stub
+    patch embeddings) or ``tokens``, and ``labels`` and optionally ``mask``.
+    The head is ``embed.T`` when embeddings are tied, else ``lm_head``; the
+    total adds ``moe_aux_coef * moe_aux`` where the forward reports MoE
+    metrics (every forward but the encoder-decoder's, zero without MoE)."""
+    def loss_fn(params, batch):
+        if cfg.encdec is not None:
+            h, metrics = lm.forward_encdec(params, cfg, batch["frames"],
+                                           batch["tokens"])
+        elif "embeds" in batch:
+            h, metrics = lm.forward(params, cfg, embeds=batch["embeds"])
+        else:
+            h, metrics = lm.forward(params, cfg, tokens=batch["tokens"])
+        head = params.embed.T if cfg.tie_embeddings else params.lm_head
+        loss, lmetrics = chunked_softmax_xent(
+            h, head, batch["labels"], batch.get("mask"), chunk=cfg.loss_chunk,
+            z_loss=z_loss, valid_vocab=cfg.vocab_size)
+        total = loss
+        if metrics:
+            total = total + moe_aux_coef * metrics.get("moe_aux", 0.0)
+        return total, {**lmetrics, **metrics}
+
+    return loss_fn
+
+
+def init_train_state(generator: torch.Generator, cfg: ModelConfig,
+                     optimizer) -> dict:
+    """Random weights drawn on ``generator``'s device (:func:`lm.init`),
+    made trainable, and the optimizer's fresh state."""
+    params = lm.init(generator, cfg).requires_grad_(True)
+    return {"params": params, "opt": optimizer.init(params),
+            "step": torch.zeros((), dtype=torch.int32,
+                                device=generator.device)}
+
+
+def _grads(loss, leaves):
+    """d loss / d leaf for each leaf (zeros where the loss does not reach
+    it, as ``jax.grad`` gives)."""
+    gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, gs)]
+
+
+def _detached(metrics):
+    return {k: v.detach() if isinstance(v, torch.Tensor) else v
+            for k, v in metrics.items()}
+
+
+def make_train_step(cfg: ModelConfig, optimizer, *, grad_accum: int = 1,
+                    moe_aux_coef: float = 0.01, z_loss: float = 0.0):
+    """train_step(state, batch) -> (state, metrics), the state updated in
+    place. Batch tensors lie on the parameters' device, the batch axis
+    first. Metrics: ``loss`` (the total), the loss's and the forward's
+    metrics, the optimizer's ``grad_norm`` and ``lr``. With ``grad_accum >
+    1`` the batch is cut into that many equal microbatches along its first
+    axis, their gradients summed in float32 and divided by ``grad_accum``,
+    and the loss averaged; the metrics are then only ``loss`` and the
+    optimizer's, as in the reference."""
+    loss_fn = make_loss_fn(cfg, moe_aux_coef, z_loss)
+
+    def train_step(state, batch):
+        params = state["params"]
+        named = named_tensors(params)
+        names, leaves = list(named), list(named.values())
+        if grad_accum == 1:
+            loss, metrics = loss_fn(params, batch)
+            grads = _grads(loss, leaves)
+            loss, metrics = loss.detach(), _detached(metrics)
+        else:
+            grads = [torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device) for p in leaves]
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=leaves[0].device)
+            sizes = {x.shape[0] for x in batch.values()}
+            if len(sizes) != 1 or sizes.pop() % grad_accum:
+                raise ValueError(f"the batch's first axes "
+                                 f"{[x.shape[0] for x in batch.values()]} "
+                                 f"do not split into {grad_accum} equal "
+                                 f"microbatches")
+            for i in range(grad_accum):
+                mb = {k: x.reshape(grad_accum, -1, *x.shape[1:])[i]
+                      for k, x in batch.items()}
+                l, _ = loss_fn(params, mb)
+                torch._foreach_add_(grads, [g.float() for g in
+                                            _grads(l, leaves)])
+                loss = loss + l.detach()
+            torch._foreach_div_(grads, grad_accum)
+            loss = loss / grad_accum
+            metrics = {}
+        _, _, om = optimizer.update(dict(zip(names, grads)), state["opt"],
+                                    params)
+        state["step"] = state["step"] + 1
+        return state, {"loss": loss, **metrics, **om}
+
+    return train_step
+
+
+# --------------------------------------------------------------------------
+# Serving
+# --------------------------------------------------------------------------
 
 def make_prefill_step(cfg: ModelConfig):
     def prefill_step(params, batch, cache, *, return_metrics=False):

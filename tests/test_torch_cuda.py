@@ -1029,3 +1029,71 @@ def test_one_by_one_nccl_mesh_equals_the_non_mesh_run(cuda, tmp_path):
             assert getattr(a, f) == getattr(b, f), f
         np.testing.assert_array_equal(a.values.view(np.int32),
                                       b.values.view(np.int32))
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def test_training_on_the_card_launches_no_attention_kernel(cuda):
+    """The driver at full width (qwen2-0.5b, bf16 with f32 master weights,
+    a short zipf run): finite losses that fall, kernel 5 launched 0 times
+    (training takes the differentiable form); then a serve prefill of the
+    trained model launches it (the dispatch goes back to the kernel under
+    ``no_grad``)."""
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+
+    losses = []
+    fa.reset_launches()
+    state = train.main(["--arch", "qwen2-0.5b", "--data", "zipf", "--batch",
+                        "2", "--seq", "256", "--steps", "8", "--warmup", "2",
+                        "--log-every", "100"],
+                       on_step=lambda s, st, m: losses.append(m["loss"].item()))
+    assert fa.launches["flash_attention"] == 0
+    assert all(np.isfinite(losses)) and np.mean(losses[-3:]) < np.mean(
+        losses[:3])
+    model, cfg = state["params"], state["params"].cfg
+    cache = lm.init_cache(cfg, 1, 16, device=cuda)
+    lm.prefill(model, cfg, tokens=torch.zeros(1, 16, dtype=torch.int32,
+                                              device=cuda), cache=cache)
+    assert fa.launches["flash_attention"] == cfg.num_layers
+
+
+def test_train_golden_and_accumulation_at_depth_2_on_the_card(cuda):
+    """``chip_smoke.py`` phase 20b's checks at the golden's depth 2 (f32,
+    TF32 off): the JAX package's training golden, then ``grad_accum=2``
+    against the full batch."""
+    cs = _chip_smoke()
+    g = np.load(cs.TRAIN_GOLDEN)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        err, tree = cs.train_golden(torch, np, "cuda", g, "small_")
+        cs.train_accum(torch, np, "cuda", tree, int(g["small_layers"]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert set(err) >= {"loss", "grad", "new"}
+
+
+def test_every_family_trains_on_the_card_as_on_the_cpu(cuda):
+    """``chip_smoke.py`` phase 20c: one train step of every registry arch's
+    smoke config on the card against the CPU."""
+    cs = _chip_smoke()
+    out = cs.train_families(torch, np, fa)
+    from repro_torch.configs import ARCHS
+    assert set(out) == set(ARCHS)
+
+
+def test_the_driver_resumes_a_crashed_run_on_the_card(cuda):
+    """``chip_smoke.py`` phase 20c: ``--sim-fail``, the restored state equal
+    to the saved one and the resumed run to the uninterrupted one, bit for
+    bit."""
+    assert _chip_smoke().train_resume(torch, np) == 0

@@ -279,17 +279,33 @@ def test_caches_are_written_in_place():
     assert (k_self[:, :, p] != 0).all() and (k_self[:, :, p + 1:] == 0).all()
 
 
-def test_encoder_uses_the_forward_form_of_attention():
-    """The reference's encoder reaches the differentiable (training) form of
-    blockwise attention; the port's computes the same function without it,
-    under ``torch.no_grad()``, and the training form still raises (item
-    12g)."""
-    q = torch.zeros(1, 2, 1, 8)
-    with pytest.raises(NotImplementedError, match="12g"):
-        attention.blockwise_attention(q, q, q, differentiable=True)
+def test_encoder_uses_the_forward_form_of_attention(monkeypatch):
+    """The encoder's attention is the forward form (the kernel, its plain
+    version on the CPU) under ``torch.no_grad()``, as the serve steps run
+    it, and the differentiable training form with gradients enabled, as
+    ``forward_encdec`` trains it; both compute the same function, and only
+    the training form carries a gradient. ``train_attention`` is counted to
+    show which form ran: never under ``no_grad``, once a layer with
+    gradients."""
+    calls = []
+    train_form = attention.train_attention
+    monkeypatch.setattr(attention, "train_attention",
+                        lambda *a, **k: calls.append(1) or train_form(*a, **k))
     cfg, _, _, model = _port()
-    frames = torch.zeros(1, 3, cfg.d_model)
-    assert not lm.encode(model, cfg, frames).requires_grad
+    frames = torch.from_numpy(_normal(np.random.default_rng(7), 2, 40,
+                                      cfg.d_model))
+    with torch.no_grad():
+        served = lm.encode(model, cfg, frames)
+    assert not served.requires_grad and calls == []
+    model.requires_grad_(True)
+    trained = lm.encode(model, cfg, frames)
+    assert trained.requires_grad
+    assert len(calls) == cfg.encdec.enc_layers
+    torch.testing.assert_close(trained.detach(), served, **MODULE_TOL)
+    trained.square().mean().backward()
+    w = model.encoder.blocks[0].attn.wq.w
+    assert w.grad is not None and torch.isfinite(w.grad).all()
+    assert w.grad.abs().max() > 0
 
 
 def test_recipe_round_trips_whisper():

@@ -112,8 +112,18 @@ def test_wrapper_checks():
         fa.attention(q, k.to(torch.bfloat16), k, causal=True)
     with pytest.raises(ValueError, match="multiple"):
         fa.attention(torch.zeros(2, 5, 3, 16), k, k, causal=True)
-    with pytest.raises(NotImplementedError, match="differentiable"):
-        blockwise_attention(q, k, k, differentiable=True)
+    # The training form takes the same inputs and computes the same
+    # function, with a gradient; the kernel itself still refuses one.
+    gen = torch.Generator().manual_seed(0)
+    qr, kr = (torch.randn(x.shape, generator=gen) for x in (q, k))
+    qr.requires_grad_()
+    got = blockwise_attention(qr, kr, kr, differentiable=True, q_chunk=2,
+                              kv_chunk=16, kv_len=[5, 40])
+    with torch.no_grad():
+        want = fa.attention(qr, kr, kr, kv_len=[5, 40])
+    torch.testing.assert_close(got.detach(), want, rtol=1e-5, atol=1e-6)
+    got.sum().backward()
+    assert qr.grad.shape == q.shape and torch.isfinite(qr.grad).all()
     with pytest.raises(NotImplementedError, match="backward"):
         fa.attention(q.requires_grad_(), k, k)
 

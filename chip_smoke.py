@@ -3,6 +3,16 @@
 
     python3 chip_smoke.py                   # everything, as the check runs it
     python3 chip_smoke.py --rows n15072 --mega-rows n15072   # smallest rows
+    python3 chip_smoke.py --full-checks     # every case of phases 4-5b, 10e
+
+By default phases 4, 5 and 5b hold the kernels to their plain versions at
+the main path's eject configuration (``n_first``, capacity 1) wherever
+``tests/test_torch_cuda.py`` holds the other two on the matrix graph, and
+the 2x2 mesh of phase 10e leaves out the tensor engine's two runs (its
+``megakernel`` run runs the same chunk); ``--full-checks`` runs every case
+(minutes more). The CLIs of phases 8d, 10c and 10d run one after
+another in a thread while phases 4 to 5b run (nothing there is timed) and
+are read before phase 6.
 
 Phases, each of which fails the run on any error (each prints its seconds):
   1. the card: its name and power limit from ``nvidia-smi``;
@@ -42,7 +52,8 @@ Phases, each of which fails the run on any error (each prints its seconds):
      plain chunk, every trace leaf bit for bit too; 16 buckets of 8 cycles on
      2x2 and 48x48, the default 64 x 32 on n15072, groups off on the
      four-PEs-a-thread grids 36x36 and 42x42), so every traced instantiation
-     runs;
+     runs. Without ``--full-checks``: the matrix graph on 2x2 and 64x64 and
+     n15072 on 16x16 at ``n_first_cap1`` only;
   5. batched megakernel: the batched chunk (one CTA per config; each body,
      as in phase 4) against its plain version (each element through the
      tensor engine's chunk) on a mixed batch (all four policies, ``ooo`` at
@@ -60,7 +71,8 @@ Phases, each of which fails the run on any error (each prints its seconds):
      included) and the [K, B] trace equal as bit patterns. The mixed
      batches also run traced (the matrix graph's spec of phase 4 at every
      eject configuration, n15072's at n_first), every trace leaf equal
-     too;
+     too. Without ``--full-checks`` the mixed batches run at n_first only,
+     the matrix graph's traced only;
  5b. replayed chunks: the ``tensor`` and ``select`` engines' K-cycle chunk
      replayed from its captured CUDA graph (``overlay.ReplayedChunk``)
      against the eager chunk (``make_chunk_fn``, ``make_batch_chunk_fn``)
@@ -71,7 +83,8 @@ Phases, each of which fails the run on any error (each prints its seconds):
      K = 7 and the engine's own K (one capture per K, the later states
      copied into the captured tensors); traced too at n_first, every
      policy on the matrix graph, the mixed batch and n15072 ``ooo``, so the
-     captured graph records the trace updates;
+     captured graph records the trace updates. Without ``--full-checks``:
+     n_first only, the mixed batch traced only;
   6. main path, ``engine="select"``: ``repro_torch.run`` on the 16x16 PE
      grid for the Fig. 1 arrow-LU graphs (default rows n15072, n29772,
      n59172 and n117972); every cycle count must equal the reference's
@@ -110,9 +123,10 @@ Phases, each of which fails the run on any error (each prints its seconds):
      its solo run; the per-cycle trace of n117972 ``ooo``
      (``TelemetrySpec.per_cycle(14213)``, 116 MB) under both engines,
      bit-identical, each trace sum equal to its counter; ``python -m
-     repro_torch.telemetry --fig1`` writing two Perfetto traces of
-     ``track_count`` tracks; the traced megakernel launched; then the
-     traced and untraced chunk's device time at n15072 ``ooo`` in turns,
+     repro_torch.telemetry --fig1`` (run beside phases 4 to 5b) having
+     written two Perfetto traces of ``track_count`` tracks; the traced
+     megakernel launched; then the traced and untraced chunk's device
+     time at n15072 ``ooo`` in turns,
      the plain traced chunk's, and the traced bytes bound;
   9. full-card sweeps at n29772, one batch each: ``sweep_ooo`` (``ooo`` x
      select latency 1..128, B = 128) and ``sweep_mixed`` (inorder,
@@ -164,8 +178,9 @@ Phases, each of which fails the run on any error (each prints its seconds):
      2,282,179, cost evaluations 73,481 / 217,408 of 524,288 / 2,097,152
      proposals, 652 / 1372 cycles (unguided 684 / 1448); the guided kernel
      and the batched megakernel must have launched, every chunk on the
-     ``shared`` body. Then ``python -m repro_torch.surrogate --smoke`` in a
-     process of its own, and the guided kernel's device time (profiler, or
+     ``shared`` body. Then ``python -m repro_torch.surrogate --smoke``'s
+     output, which ran in a process of its own while phases 4 to 5b ran,
+     and the guided kernel's device time (profiler, or
      events as in 10b) beside its plain version's on a short search, and at each BENCH guided
      budget beside the unguided kernel's (µs a step and a proposal);
  10d. service: the placement service (``repro_torch.service``), counted:
@@ -182,12 +197,12 @@ Phases, each of which fails the run on any error (each prints its seconds):
      equal to three solo queries (three launches) row for row; two guided
      queries sharing one surrogate (one fit); ``schedule_step``, the
      batched megakernel, the anneal kernel and its ``GUIDED``
-     instantiation must have launched. Then ``python -m
+     instantiation must have launched. Then the output of ``python -m
      repro_torch.core.workloads megakernel_bench``, ``python -m
      repro_torch.kernels --smoke`` (every policy's megakernel run equal to
      the tensor engine's, one launch a chunk; n15072 2125 / 2369) and
-     ``python -m repro_torch.service --smoke``, each in a process of its
-     own;
+     ``python -m repro_torch.service --smoke``, each of which ran in a
+     process of its own while phases 4 to 5b ran;
  10e. sharded: ``repro_torch.run(..., mesh=)`` (``core/distributed.py``).
      (a) A 1x1 mesh in this process over NCCL (a world of one, a
      ``FileStore`` rendezvous in a temporary directory), counted: n15072
@@ -200,9 +215,10 @@ Phases, each of which fails the run on any error (each prints its seconds):
      must have launched through the mesh path, and no collective. (b) A 2x2
      mesh of four gloo ranks spawned on the one card (each tile on
      ``cuda:0``; halo edges and reduces staged through pinned host
-     buffers): n15072 ``ooo`` and ``inorder`` under ``select`` and
-     ``tensor``, and ``ooo`` under ``megakernel`` (which runs the tensor
-     chunk on a multi-shard mesh; the line names the chunk that ran), every
+     buffers): n15072 ``ooo`` and ``inorder`` under ``select`` (and under
+     ``tensor`` with ``--full-checks``), and ``ooo`` under ``megakernel``
+     (which runs the tensor chunk on a multi-shard mesh; the line names the
+     chunk that ran), every
      rank equal to the non-mesh run bit for bit; each run's wall, simulated
      cycles/s, halo exchanges and µs a cycle, reduces, the route and kernel
      2's launches;
@@ -224,16 +240,19 @@ Phases, each of which fails the run on any error (each prints its seconds):
  13. profiles: ``torch.profiler`` over the first 320 cycles of the n15072
      ``ooo`` select run (set-up, the capture and 20 replays); over its
      chunk loop alone (``run_state`` on a state built beforehand: the
-     capture, the replays with the host's read of ``done`` after each, the
-     tail); over 20 replays of the captured chunk back to back (n15072
-     ``ooo`` select, n29772 ``lru_flat`` select, n15072 ``ooo`` tensor),
+     capture, the replays with the host's read of ``done`` after each) for
+     its first 640 cycles; over 20 replays of the captured chunk back to
+     back (n15072 ``ooo`` select, n29772 ``lru_flat`` select, n15072
+     ``ooo`` tensor),
      each beside its device and host time per chunk (CUDA events), with
      each leading-one kernel's device us per launch inside the replay
      (PERF.md holds an empty kernel's node time, measured once, beside
      it); over the whole n15072 ``ooo`` megakernel run, over
      its chunk loop alone (``run_state`` on a state built beforehand) and
      over the whole n470772 ``ooo`` megakernel run, each with its device busy
-     share, device ops per cycle and top kernels;
+     share, device ops per cycle and top kernels (the profiler records the
+     card's activity only: the host's ops would multiply the events it
+     sorts, and nothing reads them);
  14. flash-attention kernel: against its plain version on the card, in
      float32 (within 1e-4) and bfloat16 (within 2e-2), and per output row
      within that tolerance of |want| plus the row's RMS, max error
@@ -404,6 +423,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -521,6 +541,9 @@ POLICIES = ("ooo", "inorder", "lru_flat", "scan")
 #: Eject configurations: name -> (eject_capacity, eject_policy).
 EJECTS = {"n_first_cap1": (1, "n_first"), "priority_cap1": (1, "priority"),
           "cap2": (2, "n_first")}
+#: The main path's eject configuration (``OverlayConfig``'s default): the
+#: one the default checks run where the card tests hold the other two.
+MAIN_EJECT = "n_first_cap1"
 #: The small matrix graph of the CPU parity tests.
 MATRIX_GRAPH = (3, 6, 4, 5)
 #: The megakernel body the plan must give a phase 4 grid: n15072 on 2x2 has
@@ -1160,7 +1183,15 @@ def sums_equal_counters(r) -> bool:
             and int(t["defl_eject"].sum()) == r.eject_deflections)
 
 
-def telemetry_phase(torch, np, graphs, mk):
+def telemetry_cli(out):
+    """``python -m repro_torch.telemetry --fig1`` writing into ``out``, with
+    a graph cache of its own there: (module arguments, line, environment)
+    for ``run_clis``."""
+    return (["repro_torch.telemetry", "--fig1", "--out", out], None,
+            {"REPRO_GRAPH_CACHE": os.path.join(out, "cache")})
+
+
+def telemetry_phase(torch, np, graphs, mk, cli_out, cli_wall):
     """Phase 7c, the traced main path. TELEMETRY_ROW ``ooo`` and
     ``inorder`` with ``TelemetrySpec()`` under ``select`` and
     ``megakernel``, each beside its untraced run: the same results, every
@@ -1168,13 +1199,12 @@ def telemetry_phase(torch, np, graphs, mk):
     select traces equal to a CPU run of the port; both policies as one
     traced megakernel batch, each element equal to its solo run; the
     per-cycle trace of PER_CYCLE_ROW ``ooo`` under both engines,
-    bit-identical, each leaf's sum equal to its counter; the CLI's Fig. 1
-    traces. The launch counts are set to 0 before the runs and read after
-    them. Then the traced and untraced chunk's device time at
-    TELEMETRY_ROW ``ooo``, in turns. Returns the numbers."""
-    import os
-    import tempfile
-
+    bit-identical, each leaf's sum equal to its counter; the Fig. 1 traces
+    that the CLI (``telemetry_cli``, run beside phases 4 to 5b in
+    ``cli_wall`` seconds) wrote into ``cli_out``. The launch counts are set
+    to 0 before the runs and read after them. Then the traced and untraced
+    chunk's device time at TELEMETRY_ROW ``ooo``, in turns. Returns the
+    numbers."""
     import repro_torch
     from repro_torch.core.overlay import OverlayConfig
     from repro_torch.telemetry import TelemetrySpec
@@ -1261,30 +1291,19 @@ def telemetry_phase(torch, np, graphs, mk):
         raise AssertionError("the telemetry phase never launched the traced "
                              "megakernel")
     assert_shared_body(counts, "telemetry")
-    # The CLI, on the card: the Fig. 1 graph's traces as Perfetto JSON.
-    with tempfile.TemporaryDirectory() as out:
-        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-                   REPRO_GRAPH_CACHE=os.path.join(out, "cache"))
-        t = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.telemetry", "--fig1", "--out",
-             out], env=env, cwd=ROOT, capture_output=True, text=True,
-            timeout=300)
-        if proc.returncode != 0:
-            raise AssertionError(
-                f"telemetry CLI failed:\n{proc.stderr[-3000:]}")
-        want = track_count(spec, 16, 16)
-        files = sorted(f for f in os.listdir(out) if f.endswith(".json"))
-        for f in files:
-            with open(os.path.join(out, f)) as fh:
-                events = json.load(fh)["traceEvents"]
-            tracks = {(e["pid"], e["name"]) for e in events if e["ph"] == "C"}
-            if len(tracks) != want:
-                raise AssertionError(f"{f}: {len(tracks)} tracks, not {want}")
-        print(f"telemetry CLI --fig1: {files}, {want} counter tracks each, "
-              f"{time.perf_counter() - t:.1f} s", flush=True)
-        if len(files) != 2:
-            raise AssertionError(f"telemetry CLI wrote {files}")
+    # The CLI's Fig. 1 traces as Perfetto JSON (it ran on the card).
+    want = track_count(spec, 16, 16)
+    files = sorted(f for f in os.listdir(cli_out) if f.endswith(".json"))
+    for f in files:
+        with open(os.path.join(cli_out, f)) as fh:
+            events = json.load(fh)["traceEvents"]
+        tracks = {(e["pid"], e["name"]) for e in events if e["ph"] == "C"}
+        if len(tracks) != want:
+            raise AssertionError(f"{f}: {len(tracks)} tracks, not {want}")
+    print(f"telemetry CLI --fig1: {files}, {want} counter tracks each, "
+          f"{cli_wall:.1f} s (beside phases 4 to 5b)", flush=True)
+    if len(files) != 2:
+        raise AssertionError(f"telemetry CLI wrote {files}")
     # The chunk's device time, traced and untraced in turns.
     timed = {}
     for tel in (None, spec, spec, None):
@@ -1401,15 +1420,17 @@ def traced(cfg, spec):
                                telemetry=TelemetrySpec(**TRACE_SPECS[spec]))
 
 
-def check_megakernel(torch, np, graphs, mk, rows):
+def check_megakernel(torch, np, graphs, mk, rows, full=False):
     """The megakernel chunk against its plain version on clones of one
     state, every leaf and the done trace as bit patterns: every policy x
     eject configuration on the small matrix graph and on n15072, the
     matrix graph on grids above 1024 PEs, and the main-path policies of the
     larger megakernel ``rows``. Every grid runs untraced and traced (the
     trace leaves of its spec in ``TRACE_SPECS`` held bit for bit too).
-    Returns the largest abs error and the number of cases, and those of
-    the traced variant."""
+    Unless ``full``, the matrix graph on 2x2 and 64x64 and n15072 on 16x16
+    run MAIN_EJECT only (``tests/test_torch_cuda.py`` holds the others on
+    the matrix graph). Returns the largest abs error and the number of
+    cases, and those of the traced variant."""
     from repro_torch.core import workloads as wl
     from repro_torch.core.overlay import (OverlayConfig, device_graph,
                                           init_state, run_state)
@@ -1418,8 +1439,9 @@ def check_megakernel(torch, np, graphs, mk, rows):
     b, s, w, seed = MATRIX_GRAPH
     matrix = wl.arrow_lu_graph(b, s, w, seed=seed)
     n15072, _ = graphs.graph("n15072")
-    grids = [("matrix 2x2", matrix, 2, 2, POLICIES, EJECTS, "small"),
-             ("n15072 16x16", n15072, 16, 16, POLICIES, EJECTS, "default"),
+    some = tuple(EJECTS) if full else (MAIN_EJECT,)
+    grids = [("matrix 2x2", matrix, 2, 2, POLICIES, some, "small"),
+             ("n15072 16x16", n15072, 16, 16, POLICIES, some, "default"),
              ("n15072 2x2", n15072, 2, 2, POLICIES, ("n_first_cap1",), None),
              ("matrix 36x36", matrix, 36, 36, ("ooo",), ("n_first_cap1",),
               "partial"),
@@ -1427,8 +1449,8 @@ def check_megakernel(torch, np, graphs, mk, rows):
               "partial"),
              ("matrix 48x48", matrix, 48, 48, ("ooo",), ("n_first_cap1",),
               "small"),
-             ("matrix 64x64", matrix, 64, 64, POLICIES, ("n_first_cap1",
-                                                         "cap2"), None)]
+             ("matrix 64x64", matrix, 64, 64, POLICIES,
+              ("n_first_cap1", "cap2") if full else (MAIN_EJECT,), None)]
     if "n470772" in rows:
         grids.append(("n470772 2x2", graphs.graph("n470772")[0], 2, 2,
                       ("ooo", "lru_flat"), ("n_first_cap1",), None))
@@ -1710,7 +1732,7 @@ def main_path_batches(graphs, rows):
     return batches
 
 
-def check_batched_megakernel(torch, graphs, mk, rows):
+def check_batched_megakernel(torch, graphs, mk, rows, full=False):
     """The batched kernel against its plain version. A mixed batch on the
     matrix graph (2x2) and on n15072 (16x16), every eject configuration,
     four start states, K = 1, 7, 32, and a one-cycle tail launch with
@@ -1721,7 +1743,9 @@ def check_batched_megakernel(torch, graphs, mk, rows):
     32 (K = 1 and 7 above SMALL_B elements), and a tail launch that freezes
     every other element. The mixed batches also run traced (the ``small``
     spec on the matrix graph, every eject configuration; the ``default`` on
-    n15072 at n_first). Returns
+    n15072 at n_first). Unless ``full`` the mixed batches run at MAIN_EJECT
+    only, on the matrix graph traced only (``tests/test_torch_cuda.py``
+    holds it untraced at every eject configuration). Returns
     (max abs error, cases) and those of the traced variant."""
     from repro_torch.core.overlay import device_graph, run_batch_state
     from repro_torch.telemetry import TelemetrySpec
@@ -1734,6 +1758,9 @@ def check_batched_megakernel(torch, graphs, mk, rows):
             for spec in (None, traced_spec)
             if spec is None or label == "matrix 2x2"
             or eject == "n_first_cap1"]
+    if not full:
+        runs = [r for r in runs if r[2] == MAIN_EJECT
+                and (r[0] != "matrix 2x2" or r[3] is not None)]
     for label, gm, eject, spec in runs:
         t = time.perf_counter()
         g = device_graph(gm)
@@ -1821,7 +1848,7 @@ def compare_replayed(torch, make, states, ks, label):
     return err, cases
 
 
-def check_replayed_chunks(torch, graphs, mk):
+def check_replayed_chunks(torch, graphs, mk, full=False):
     """Phase 5b: the ``tensor`` and ``select`` engines' chunk replayed from
     its captured CUDA graph against the eager chunk (``make_chunk_fn``,
     ``make_batch_chunk_fn``) on clones of one state: both engines, every
@@ -1831,7 +1858,10 @@ def check_replayed_chunks(torch, graphs, mk):
     before each element's end, signed zeros), at K = 7 and the engine's own
     K. Traced too, at n_first: every policy on the matrix graph and the
     mixed batch (the ``small`` spec) and n15072 ``ooo`` (the ``default``
-    spec), so the capture records the trace updates. Returns
+    spec), so the capture records the trace updates. Unless ``full``:
+    MAIN_EJECT only, the mixed batch traced only (``tests/test_torch_cuda.py``
+    holds the matrix graph's chunks, solo and batched, at every eject
+    configuration). Returns
     (largest abs error, cases) and those of the traced chunks."""
     from repro_torch.core import overlay, schedulers
     from repro_torch.core.overlay import device_graph, resolve_check_every
@@ -1849,6 +1879,8 @@ def check_replayed_chunks(torch, graphs, mk):
                   else matrix_memory(2, 2, sched == "ooo"))
             g = device_graph(gm)
             for eject, (cap, pol) in EJECTS.items():
+                if not (full or eject == MAIN_EJECT):
+                    continue
                 t = time.perf_counter()
                 mega = overlay.OverlayConfig(
                     scheduler=sched, eject_capacity=cap, eject_policy=pol,
@@ -1880,7 +1912,8 @@ def check_replayed_chunks(torch, graphs, mk):
                          if len(specs) > 1 else "")
                       + f"; {time.perf_counter() - t:.1f} s", flush=True)
     g = device_graph(matrix_memory(2, 2, True))
-    runs = [(eject, None) for eject in EJECTS] + [("n_first_cap1", "small")]
+    runs = ([(eject, None) for eject in EJECTS] if full else []) + [
+        ("n_first_cap1", "small")]
     for eject, spec in runs:
         cap, pol = EJECTS[eject]
         cfgs = select_batch("megakernel", cap, pol)
@@ -1998,7 +2031,9 @@ def profile_run(torch, run, cycles, label, unit="cycle"):
     run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # The card's activity only: the host's ops would multiply the events
+    # that key_averages sorts, and nothing here reads them.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -2039,6 +2074,9 @@ REPLAY_PROFILES = (("n15072", "ooo", "select"), ("n29772", "lru_flat", "select")
                    ("n15072", "ooo", "tensor"))
 #: Chunks per profiled window of a replayed chunk loop.
 REPLAY_CHUNKS = 20
+#: Cycles of the profiled select chunk loop (``run_state``): 40 chunks of
+#: 16, about a third of the n15072 ``ooo`` run.
+SELECT_LOOP_CYCLES = 640
 
 
 def replay_profile(torch, graphs, name, policy, engine):
@@ -2090,15 +2128,18 @@ def profiles(torch, graphs):
                 f"n15072 ooo select (first {cycles} cycles: set-up, the "
                 f"capture and {REPLAY_CHUNKS} replays)")
     # The main path's chunk loop alone (run_state on a state built
-    # beforehand): the capture, the replays with the host's read of `done`
-    # after each, and the eager tail.
-    select = OverlayConfig(scheduler="ooo", engine="select")
+    # beforehand): the capture and the replays with the host's read of
+    # `done` after each, over its first SELECT_LOOP_CYCLES cycles (the
+    # profiler's own time grows with the device ops it records).
+    select = OverlayConfig(scheduler="ooo", engine="select",
+                           max_cycles=SELECT_LOOP_CYCLES)
     g = overlay.device_graph(gm)
     built = [overlay.init_state(g, select) for _ in range(3)]
     torch.cuda.synchronize()
     profile_run(torch, lambda: overlay.run_state(g, select, built.pop()),
-                golden, "n15072 ooo select (chunk loop: run_state on a built "
-                "state)")
+                SELECT_LOOP_CYCLES, f"n15072 ooo select (chunk loop: "
+                f"run_state on a built state, its first {SELECT_LOOP_CYCLES} "
+                f"cycles)")
     for name, policy, engine in REPLAY_PROFILES:
         out = replay_profile(torch, graphs, name, policy, engine)
         replays[name, policy, engine] = out
@@ -2445,7 +2486,7 @@ def kernel_us(torch, fn, n, names, warmup=True):
     if warmup:
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
@@ -4746,19 +4787,42 @@ def surrogate_rows(torch, np, ka, mk):
     return counts, walls
 
 
-def surrogate_cli():
-    """``python -m repro_torch.surrogate --smoke`` on the card, in a process
-    of its own; prints its line and seconds."""
-    t = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.surrogate", "--smoke"],
-        cwd=ROOT, capture_output=True, text=True, timeout=300,
-        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-    if proc.returncode != 0:
-        raise AssertionError(f"the surrogate smoke failed:\n"
-                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-    print(f"{proc.stdout.strip()} ({time.perf_counter() - t:.1f} s)",
-          flush=True)
+#: ``python -m repro_torch.surrogate --smoke`` (phase 10c): its arguments,
+#: and no line its output must hold (its exit code says).
+SURROGATE_CLI = (["repro_torch.surrogate", "--smoke"], None)
+
+
+def run_clis(clis):
+    """Each CLI of ``clis`` (module arguments, a line its output must hold,
+    and optionally variables to add to its environment) on the card in a
+    process of its own, one after another: {"module arguments": (the
+    finished process, its seconds)}."""
+    out = {}
+    for args, _, *extra in clis:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        env.update(*extra)
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", *args], cwd=ROOT, capture_output=True,
+            text=True, timeout=300, env=env)
+        out[" ".join(args)] = proc, time.perf_counter() - t
+    return out
+
+
+def cli_smokes(job, clis):
+    """Waits for ``job`` (``run_clis(clis)``, started while phases 4 to 5b
+    ran): every CLI must have exited with 0 and printed its line. Prints
+    each one's output and seconds; returns {"module arguments": seconds}."""
+    walls = {}
+    for (_, ok, *_), (key, (proc, took)) in zip(clis, job.result().items()):
+        if proc.returncode != 0 or (ok is not None and ok not in proc.stdout):
+            raise AssertionError(f"python -m {key} failed:\n"
+                                 f"{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-4000:]}")
+        print(f"python -m {key} ({took:.1f} s, beside phases 4 to 5b):\n"
+              f"{proc.stdout.strip()}", flush=True)
+        walls[key] = took
+    return walls
 
 
 def guided_times(torch, np, ka):
@@ -4993,9 +5057,9 @@ def service_phase(torch, np, ka, lod, mk):
     all-hit replay, a fresh service per distinct graph), the same fresh
     queries under ``megakernel`` (same keys, same answers), the frontier
     through ``explore``, three anneal seeds in one ``run_batch`` against
-    three solo queries, and two guided queries sharing one surrogate. Then
-    the three CLIs in processes of their own. Returns (counts, walls,
-    anneal launches {batch, solo}, CLI walls)."""
+    three solo queries, and two guided queries sharing one surrogate
+    (SERVICE_CLIS run beside phases 4 to 5b). Returns (counts, walls,
+    anneal launches {batch, solo})."""
     from repro_torch.core import workloads as wl
     from repro_torch.core.overlay import OverlayConfig
     from repro_torch.place.spec import PlacementSpec
@@ -5145,22 +5209,7 @@ def service_phase(torch, np, ka, lod, mk):
             raise AssertionError(f"the service path never launched {k}")
     if counts["mega_chunk_global"]:
         raise AssertionError("a service memory took the global body")
-
-    clis = {}
-    for args, ok in SERVICE_CLIS:
-        t = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", *args], cwd=ROOT, capture_output=True,
-            text=True, timeout=300,
-            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-        clis[" ".join(args)] = time.perf_counter() - t
-        if proc.returncode != 0 or ok not in proc.stdout:
-            raise AssertionError(f"python -m {' '.join(args)} failed:\n"
-                                 f"{proc.stdout[-2000:]}\n"
-                                 f"{proc.stderr[-4000:]}")
-        print(f"python -m {' '.join(args)} ({clis[' '.join(args)]:.1f} s):\n"
-              f"{proc.stdout.strip()}", flush=True)
-    return counts, walls, fan, clis
+    return counts, walls, fan
 
 
 # ---------------------------------------------------------------------------
@@ -5179,8 +5228,10 @@ SHARD_BATCH = (dict(scheduler="ooo"), dict(scheduler="inorder"),
 SHARD_DEEP = "n470772"
 #: The 2x2 mesh of four gloo ranks on the one card: (policy, engine) runs on
 #: SHARD_ROW; ``megakernel`` runs the tensor chunk on a multi-shard mesh.
-SHARD_2X2 = (("ooo", "select"), ("inorder", "select"), ("ooo", "tensor"),
-             ("inorder", "tensor"), ("ooo", "megakernel"))
+SHARD_2X2 = (("ooo", "select"), ("inorder", "select"), ("ooo", "megakernel"))
+#: The 2x2 runs ``--full-checks`` adds: the tensor engine's, whose chunk the
+#: ``megakernel`` run above runs too.
+SHARD_2X2_FULL = (("ooo", "tensor"), ("inorder", "tensor"))
 SHARD_TIMEOUT_S = 120
 
 
@@ -5205,8 +5256,8 @@ def same_arrays(np, got: dict, want: dict) -> bool:
 
 def shard_rank(rank, world, store, out_dir, runs):
     """One rank of the 2x2 gloo mesh (spawned; its tile on ``cuda:0``):
-    the SHARD_2X2 runs on SHARD_ROW, each result, its wall, the halo's
-    exchanges and seconds and the leading-one launches saved to
+    the ``runs`` (policy, engine) on SHARD_ROW, each result, its wall,
+    the halo's exchanges and seconds and the leading-one launches saved to
     ``out_dir/rank<r>.npz``."""
     import datetime
 
@@ -5256,16 +5307,18 @@ def shard_rank(rank, world, store, out_dir, runs):
         dist.destroy_process_group()
 
 
-def sharded_phase(torch, np, graphs, lod, mk, mega_results, select_results):
+def sharded_phase(torch, np, graphs, lod, mk, mega_results, select_results,
+                  full=False):
     """Phase 10e. (a) A 1x1 mesh in this process, over NCCL with a world of
     one (a FileStore rendezvous): the SHARD_ROW pair under both engines, the
     reference's batch, ``ooo`` traced and SHARD_DEEP ``ooo``, counted (the
     launch counts set to 0 just before, read just after), each equal to its
     non-mesh run leaf for leaf, traces included, at the goldens; no
     collective is launched. (b) A 2x2 mesh of four gloo ranks spawned on the
-    one card: SHARD_2X2, every rank's result equal to the non-mesh run bit
-    for bit; each run's wall, simulated cycles/s, halo µs a cycle and route,
-    and kernel 2's launches. Returns the counts of (a) and the summed
+    one card: SHARD_2X2 (and SHARD_2X2_FULL where ``full``), every rank's
+    result equal to the non-mesh run bit for bit; each run's wall,
+    simulated cycles/s, halo µs a cycle and route, and kernel 2's
+    launches. Returns the counts of (a) and the summed
     leading-one launches of (b)."""
     import datetime
     import tempfile
@@ -5359,8 +5412,9 @@ def sharded_phase(torch, np, graphs, lod, mk, mega_results, select_results):
         raise AssertionError(f"a 1x1 mesh launched collectives {collectives}")
 
     # (b) The non-mesh runs of the 2x2 configs, then the four ranks.
+    runs = SHARD_2X2 + (SHARD_2X2_FULL if full else ())
     want = {}
-    for policy, engine in SHARD_2X2:
+    for policy, engine in runs:
         r = (solo.get((policy, engine)) or repro_torch.run(
             graphs.memory(SHARD_ROW, policy),
             OverlayConfig(scheduler=policy, engine=engine)))
@@ -5368,7 +5422,7 @@ def sharded_phase(torch, np, graphs, lod, mk, mega_results, select_results):
     with tempfile.TemporaryDirectory() as tmpdir:
         t = time.perf_counter()
         tmp.start_processes(shard_rank, args=(
-            4, str(Path(tmpdir) / "store"), tmpdir, SHARD_2X2), nprocs=4,
+            4, str(Path(tmpdir) / "store"), tmpdir, runs), nprocs=4,
             join=True, start_method="spawn")
         print(f"sharded 2x2: four gloo ranks on cuda:0 in "
               f"{time.perf_counter() - t:.1f} s", flush=True)
@@ -5378,7 +5432,7 @@ def sharded_phase(torch, np, graphs, lod, mk, mega_results, select_results):
                 ranks.append({k: z[k] for k in z.files})
     print(f"sharded 2x2 route: {ranks[0]['route']}", flush=True)
     launches_2x2 = {}
-    for policy, engine in SHARD_2X2:
+    for policy, engine in runs:
         key = f"{policy}/{engine}"
         same = all(same_arrays(np, {k[len(key) + 1:]: v for k, v in res.items()
                                     if k.startswith(key + "/") and "/stat/"
@@ -5442,6 +5496,11 @@ def main() -> int:
                     choices=list(ROWS),
                     help="rows of the megakernel main paths, solo and "
                          "batched (default: %(default)s)")
+    ap.add_argument("--full-checks", action="store_true",
+                    help="every case of the kernel checks (phases 4, 5 and "
+                         "5b) and the 2x2 mesh's tensor-engine runs, not "
+                         "only the main path's eject configuration where "
+                         "tests/test_torch_cuda.py holds the others")
     ap.add_argument("--fig1-full", action="store_true",
                     help="also the BENCH fig1_full placement row (n502447; "
                          "its graph builds in a worker; ~25 s more)")
@@ -5459,12 +5518,15 @@ def main() -> int:
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
-    with ProcessPoolExecutor(4, mp_context=multiprocessing.get_context(
-            "spawn")) as pool:
-        return run_phases(torch, np, args, pool)
+    # The CLIs' thread ends (waiting for the CLI it runs) before the
+    # directory they write into is removed.
+    with tempfile.TemporaryDirectory() as cli_out, ProcessPoolExecutor(
+            4, mp_context=multiprocessing.get_context("spawn")) as pool, \
+            ThreadPoolExecutor(1) as thread:
+        return run_phases(torch, np, args, pool, thread, cli_out)
 
 
-def run_phases(torch, np, args, pool) -> int:
+def run_phases(torch, np, args, pool, thread, cli_out) -> int:
     """Every phase, in order; then the kernels line and the last line."""
     from repro_torch.kernels import _build, lod
     from repro_torch.kernels import anneal as ka
@@ -5499,25 +5561,32 @@ def run_phases(torch, np, args, pool) -> int:
     print(f"phase leading-one kernels: {time.perf_counter() - t:.1f} s",
           flush=True)
 
+    # The CLIs run on the card in processes of their own while phases 4 to
+    # 5b check kernels (nothing there is timed); they are read before phase 6.
+    clis = (SURROGATE_CLI, *SERVICE_CLIS, telemetry_cli(cli_out))
+    cli_job = thread.submit(run_clis, clis)
+    full = args.full_checks
     mega_err, cases, traced_err, traced_cases = phase(
         "megakernel check", check_megakernel, torch, np, graphs, mk,
-        args.mega_rows)
+        args.mega_rows, full)
     print(f"megakernel equals its plain version in {cases} cases, max abs "
           f"error {mega_err}; traced in {traced_cases} cases, max abs error "
           f"{traced_err}", flush=True)
     batch_err, batch_cases, t_err, t_cases = phase(
         "batched megakernel check", check_batched_megakernel, torch, graphs,
-        mk, args.mega_rows)
+        mk, args.mega_rows, full)
     traced_err, traced_cases = max(traced_err, t_err), traced_cases + t_cases
     print(f"batched megakernel equals its plain version in {batch_cases} "
           f"cases, max abs error {batch_err}; traced in {t_cases} cases, max "
           f"abs error {t_err}", flush=True)
 
     replay_err, replay_cases, t_err, t_cases = phase(
-        "replayed chunk check", check_replayed_chunks, torch, graphs, mk)
+        "replayed chunk check", check_replayed_chunks, torch, graphs, mk,
+        full)
     print(f"replayed chunks equal the eager chunks in {replay_cases} cases, "
           f"max abs error {replay_err}; traced in {t_cases} cases, max abs "
           f"error {t_err}", flush=True)
+    cli_walls = phase("CLI smokes", cli_smokes, cli_job, clis)
     select_results, counts, replays, per_replay = phase(
         "main path select", select_main_path, torch, np, graphs, args.rows,
         lod)
@@ -5528,7 +5597,8 @@ def run_phases(torch, np, args, pool) -> int:
                          graphs, args.mega_rows, mk, mega_results)
     phase("eject rows", eject_rows, torch, np)
     phase("chunking rows", chunking_rows, torch, np, graphs, select_results)
-    tel = phase("telemetry", telemetry_phase, torch, np, graphs, mk)
+    tel = phase("telemetry", telemetry_phase, torch, np, graphs, mk, cli_out,
+                cli_walls[" ".join(clis[-1][0])])
     solo_walls = phase("full-card sweeps", full_card_sweeps, torch, np, graphs,
                        mk)
     phase("batched select", batched_select, torch, np, lod)
@@ -5542,13 +5612,14 @@ def run_phases(torch, np, args, pool) -> int:
     surrogate_counts, surrogate_walls = phase("surrogate rows",
                                               surrogate_rows, torch, np, ka,
                                               mk)
-    phase("surrogate smoke", surrogate_cli)
     guided_t = phase("guided anneal time", guided_times, torch, np, ka)
-    service_counts, service_walls, service_fan, service_clis = phase(
+    service_counts, service_walls, service_fan = phase(
         "service", service_phase, torch, np, ka, lod, mk)
+    service_clis = {" ".join(a): cli_walls[" ".join(a)]
+                    for a, _ in SERVICE_CLIS}
     shard_counts, shard_2x2 = phase("sharded", sharded_phase, torch, np,
                                     graphs, lod, mk, mega_results,
-                                    select_results)
+                                    select_results, full)
 
     mega_timed = phase("megakernel time", megakernel_times, torch, graphs, mk)
     scaling = phase("batch scaling", batch_scaling, torch, graphs, mk,

@@ -72,7 +72,9 @@ Phases, each of which fails the run on any error (each prints its seconds):
      batches also run traced (the matrix graph's spec of phase 4 at every
      eject configuration, n15072's at n_first), every trace leaf equal
      too. Without ``--full-checks`` the mixed batches run at n_first only,
-     the matrix graph's traced only;
+     the matrix graph's traced only, and the two full-card sweeps (126-128
+     elements) from their states three cycles before the ends only, at
+     K = 7;
  5b. replayed chunks: the ``tensor`` and ``select`` engines' K-cycle chunk
      replayed from its captured CUDA graph (``overlay.ReplayedChunk``)
      against the eager chunk (``make_chunk_fn``, ``make_batch_chunk_fn``)
@@ -401,7 +403,21 @@ Phases, each of which fails the run on any error (each prints its seconds):
      cross-attention under autograd on CUDA); then the driver on the
      qwen2-0.5b smoke config crashed by ``--sim-fail`` and restarted: the
      restored state equal to the saved one and the resumed run's
-     parameters equal to the uninterrupted run's, bit for bit.
+     parameters equal to the uninterrupted run's, bit for bit;
+ 20d. sharded training on a 1x1 mesh: the driver with ``--distributed
+     --mesh local`` over NCCL (a world of one) on phase 20's arguments for
+     5 steps: the losses equal phase 20's first 5 bit for bit, no
+     collective, kernel 5 launched 0 times, and its checkpoint restored
+     into a one-device state equal to the sharded state bit for bit; ms a
+     step, peak memory and the route;
+ 20e. sharded training on a 2x2 mesh: four gloo ranks spawned on
+     ``cuda:0`` train qwen2-0.5b at full width and depth (``fsdp=True``,
+     bf16 with f32 master weights) for 3 steps of 4 x 1,024 zipf tokens
+     from the state a 1x1 run of the same steps starts from: every block's
+     shape as ``to_shardings`` gives it, the losses, gradient norms and
+     f32 master weights (every rank's blocks) within stated tolerances of
+     the 1x1 run's; per rank ms a step, peak memory, the collectives' count and
+     bytes and the route.
 
 Each graph is built once (numpy set-up, in worker processes while the
 kernels build) and shared by the phases; phase 10e's four ranks build
@@ -1745,8 +1761,10 @@ def check_batched_megakernel(torch, graphs, mk, rows, full=False):
     spec on the matrix graph, every eject configuration; the ``default`` on
     n15072 at n_first). Unless ``full`` the mixed batches run at MAIN_EJECT
     only, on the matrix graph traced only (``tests/test_torch_cuda.py``
-    holds it untraced at every eject configuration). Returns
-    (max abs error, cases) and those of the traced variant."""
+    holds it untraced at every eject configuration), and the two full-card
+    sweeps (above SMALL_B elements) from their states three cycles before
+    the ends only, at K = 7. Returns (max abs error, cases) and those of
+    the traced variant."""
     from repro_torch.core.overlay import device_graph, run_batch_state
     from repro_torch.telemetry import TelemetrySpec
 
@@ -1796,6 +1814,7 @@ def check_batched_megakernel(torch, graphs, mk, rows, full=False):
               f"in 1, 7, 32, and a tail launch); "
               f"{time.perf_counter() - t:.1f} s", flush=True)
     for label, gm, cfgs in main_path_batches(graphs, rows):
+        t = time.perf_counter()
         g = device_graph(gm)
         base, names, s0 = batch_state(g, cfgs)
         budgets = [c.max_cycles for c in cfgs]
@@ -1810,6 +1829,11 @@ def check_batched_megakernel(torch, graphs, mk, rows, full=False):
             states["3 before the last end"] = run_batch_state(
                 g, base, names, clone_state(half), [max(ends) - 3] * len(cfgs))
         ks = (1, 32) if len(cfgs) <= SMALL_B else (1, 7)
+        if not full and len(cfgs) > SMALL_B:
+            # The full-card sweeps (the plain version loops over 126-128
+            # elements): their last cycles only, at K = 7.
+            del states["half-way"]
+            ks = (7,)
         e, n = compare_batch_chunks(torch, mk, g, base, names, states, ks,
                                     label)
         frozen = late["cycle"] + torch.arange(
@@ -1821,7 +1845,8 @@ def check_batched_megakernel(torch, graphs, mk, rows, full=False):
         print(f"batched megakernel equals its plain version: {label}, B = "
               f"{len(cfgs)}, members {names} (elements end at cycles "
               f"{min(ends)}..{max(ends)}; {len(states)} states x K in {ks}, "
-              f"and a tail launch)", flush=True)
+              f"and a tail launch); {time.perf_counter() - t:.1f} s",
+              flush=True)
     return err, cases, t_err, t_cases
 
 
@@ -3688,8 +3713,8 @@ def lm_phases(torch, np):
 
 
 # ---------------------------------------------------------------------------
-# Training (phases 20, 20b, 20c): the driver at full width, the JAX golden,
-# every family on the card.
+# Training (phases 20-20e): the driver at full width, the JAX golden,
+# every family on the card, sharded training on a 1x1 and a 2x2 mesh.
 # ---------------------------------------------------------------------------
 
 TRAIN_ARGS = ["--arch", "qwen2-0.5b", "--data", "zipf", "--batch", "8",
@@ -3727,6 +3752,24 @@ RESUME_ARGS = ["--arch", "qwen2-0.5b", "--smoke", "--batch", "8", "--seq",
                "--ckpt-every", "100"]
 SIM_FAIL = 5
 TRAIN_RESUME_CKPT = ROOT / "build" / "train_resume"
+#: Phase 20d: the driver on a 1x1 mesh, phase 20's arguments for this many
+#: steps.
+TRAIN_1X1_STEPS = 5
+TRAIN_1X1_CKPT = ROOT / "build" / "train_1x1"
+#: Phase 20e: the global batch and the steps of the 2x2 mesh and its 1x1
+#: run, and their WSD schedule (peak, warmup, stable, decay).
+TRAIN_2X2 = dict(batch=4, seq=1024, steps=3)
+TRAIN_2X2_LR = (3e-3, 4, 12, 4)
+#: The learning rates the three updates apply (the schedule's counts 1-3).
+TRAIN_2X2_LR_SUM = 3e-3 * (1 + 2 + 3) / 4
+#: Phase 20e's tolerances, 2x2 against 1x1 (bf16 parameters: the ranks'
+#: GEMMs see 2 of the 4 rows, and cuBLAS may tile them otherwise, so the
+#: bf16 activations and gradients round apart): the losses and gradient
+#: norms relative; the master weights everywhere within 2 x the summed lr
+#: (Adam moves an element at most ~lr a step, either way where a gradient
+#: near zero flips its sign), and at most the fraction ``beyond`` of the
+#: elements further off than ``q_lr`` x the summed lr.
+TRAIN_2X2_TOL = dict(loss=1e-3, grad_norm=1e-2, q_lr=0.1, beyond=1e-2)
 
 
 def flat_tree(np, tree, prefix=""):
@@ -4144,9 +4187,351 @@ def train_resume(torch, np):
     return len(differ)
 
 
+def _env(values):
+    """Set environment variables; returns a function that restores them."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+
+    def restore():
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    return restore
+
+
+def _leaves_equal(torch, sharded_state, local_state):
+    """Names of the leaves where a sharded train state's gathered tensors
+    differ from a one-device state's, bit for bit (parameters, m, v,
+    master, count, step)."""
+    from repro_torch.distributed import sharding
+
+    def bits(t):
+        return t.detach().reshape(-1).view(torch.uint8)
+
+    pairs = [(f"params/{n}", p, dict(local_state["params"].named_parameters())[n])
+             for n, p in sharded_state["params"].named_parameters()]
+    for k, v in sharded_state["opt"].items():
+        if isinstance(v, dict):
+            pairs += [(f"opt/{k}/{n}", t, local_state["opt"][k][n])
+                      for n, t in v.items()]
+        else:
+            pairs.append((f"opt/{k}", v, local_state["opt"][k]))
+    pairs.append(("step", sharded_state["step"], local_state["step"]))
+    return [name for name, a, b in pairs
+            if not torch.equal(bits(sharding.full_tensor(a)), bits(b))]
+
+
+def train_1x1(torch, np, fa, want_losses):
+    """Phase 20d: the driver with ``--distributed --mesh local`` over NCCL,
+    a world of one (the launcher's environment: a free localhost port):
+    phase 20's arguments for TRAIN_1X1_STEPS steps, the sharded train state
+    on a 1x1 mesh, a checkpoint at the last step. The losses must equal
+    phase 20's first ones bit for bit (one data rank: the one-device
+    step's arithmetic), kernel 5 launched 0 times, no collective; the
+    checkpoint restored into a one-device train state must equal the
+    sharded state bit for bit. Prints ms a step, peak memory and the
+    route."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamW
+    from repro_torch.train.steps import init_train_state
+
+    free_card(torch)
+    shutil.rmtree(TRAIN_1X1_CKPT, ignore_errors=True)
+    args = list(TRAIN_ARGS)
+    for flag in ("--steps", "--ckpt-every"):
+        args[args.index(flag) + 1] = str(TRAIN_1X1_STEPS)
+    fa.reset_launches()
+    sharding.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    losses, stamps, seen = [], [], {}
+
+    def on_step(step, state, m):
+        losses.append(float(m["loss"]))                 # waits for the step
+        stamps.append(time.perf_counter())
+        if step == 1:
+            seen.update(backend=dist.get_backend(), route=sharding.route(
+                state["params"].embed.device_mesh, "cuda"),
+                mesh=tuple(state["params"].embed.device_mesh.shape))
+
+    restore = _env(dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                        MASTER_ADDR="127.0.0.1", MASTER_PORT="0"))
+    try:
+        state = train.main(args + ["--distributed", "--mesh", "local",
+                                   "--ckpt", str(TRAIN_1X1_CKPT)],
+                           on_step=on_step)
+    finally:
+        restore()
+    steps = TRAIN_1X1_STEPS
+    ms = (stamps[-1] - stamps[1]) / (steps - 2) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = fa.launches["flash_attention"]
+    collectives = dict(sharding.stats)
+    equal = losses == want_losses[:steps]
+    template = init_train_state(torch.Generator("cuda").manual_seed(1),
+                                get_config("qwen2-0.5b"), AdamW())
+    restored = CheckpointManager(str(TRAIN_1X1_CKPT)).restore_latest(template)
+    del template
+    differ = _leaves_equal(torch, state, restored)
+    print(f"train 1x1 mesh (--distributed --mesh local, {seen['backend']}, "
+          f"mesh {seen['mesh']}, route {seen['route']}): qwen2-0.5b full "
+          f"width, {steps} steps of 8 x 1024 tokens; losses "
+          f"{[round(x, 4) for x in losses]}, equal to phase 20's first "
+          f"{steps} bit for bit {equal}; {ms:.1f} ms a step after 2 "
+          f"({8 * 1024 / ms * 1e3:,.0f} tok/s); peak {peak:.2f} GiB; "
+          f"collectives {collectives}; kernel 5 launches {launches}; the "
+          f"checkpoint at step {steps} restored into a one-device state: "
+          f"{len(differ)} leaves differ {differ[:4]}", flush=True)
+    if not equal:
+        raise AssertionError(f"1x1 losses {losses} != {want_losses[:steps]}")
+    if launches or collectives["all_gather"] or collectives["all_reduce"]:
+        raise AssertionError("a 1x1 mesh launched kernel 5 or a collective")
+    if differ:
+        raise AssertionError("the restored state is not the sharded one")
+    shutil.rmtree(TRAIN_1X1_CKPT)
+    del state, restored
+    free_card(torch)
+    return dict(losses=losses, ms_per_step=ms, peak_gib=peak,
+                route=seen["route"], leaves_differ=len(differ))
+
+
+def _train_2x2_optimizer():
+    from repro_torch.optim import AdamW, wsd_schedule
+
+    return AdamW(lr=wsd_schedule(*TRAIN_2X2_LR), weight_decay=0.01)
+
+
+def _train_2x2_batches(cfg):
+    from repro_torch.data.pipeline import SyntheticZipfLM
+
+    ds = SyntheticZipfLM(cfg.vocab_size, batch=TRAIN_2X2["batch"],
+                         seq=TRAIN_2X2["seq"], seed=0)
+    return [ds.batch_at(i) for i in range(TRAIN_2X2["steps"])]
+
+
+def train_rank(rank, world, store, out_dir, ref_path):
+    """One rank of phase 20e's 2x2 gloo mesh (spawned; its blocks on
+    ``cuda:0``): the sharded state of qwen2-0.5b (``fsdp=True``) drawn as
+    the 1x1 run's, each block's shape checked against ``to_shardings``;
+    then, once ``ref_path`` exists (the 1x1 run, made meanwhile, is done),
+    TRAIN_2X2's steps on the rank's rows; its blocks of the f32 master
+    weights held to the same blocks of the 1x1 run's. Saves its numbers to
+    ``out_dir/rank<r>.npz``."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.train import sharded
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store, world), rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    try:
+        mesh = init_device_mesh("cuda", (2, 2),
+                                mesh_dim_names=("data", "model"))
+        cfg = dataclasses.replace(get_config("qwen2-0.5b"), fsdp=True)
+        opt = _train_2x2_optimizer()
+        t = time.perf_counter()
+        state = sharded.init_train_state(
+            torch.Generator("cuda").manual_seed(0), cfg, opt, mesh)
+        setup_s = time.perf_counter() - t
+        specs = sharding.state_specs(cfg, state, mesh)
+        shards = sharding.to_shardings(mesh, specs)
+        leaves = [(f"params/{n}", p, shards["params"][n])
+                  for n, p in state["params"].named_parameters()]
+        for k in ("m", "v", "master"):
+            leaves += [(f"opt/{k}/{n}", x, shards["opt"][k][n])
+                       for n, x in state["opt"][k].items()]
+        bad_shapes = [name for name, x, sh in leaves
+                      if tuple(x.to_local().shape) != sharding.shard_shape(
+                          tuple(x.shape), sh.spec, mesh)
+                      or tuple(x.placements) != sh.placements]
+        sharded_leaves = sum(any(p.is_shard() for p in sh.placements)
+                             for _, _, sh in leaves)
+        step = sharded.make_sharded_train_step(cfg, opt, mesh)
+        while not os.path.exists(ref_path):
+            time.sleep(0.05)
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        sharding.reset_stats()
+        losses, norms, walls = [], [], []
+        for batch in _train_2x2_batches(cfg):
+            rows = {k: torch.from_numpy(v).cuda()
+                    for k, v in sharded.batch_rows(batch, mesh).items()}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, rows)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            walls.append(time.perf_counter() - t)
+        stats = dict(sharding.stats)
+        peak = torch.cuda.max_memory_allocated()
+        # Each rank holds its blocks of the master weights to the same
+        # blocks of the 1x1 run's; an element is counted once, on the rank
+        # of coordinate 0 along each mesh dim its leaf is replicated on.
+        ref = torch.load(ref_path, mmap=True)
+        coord = mesh.get_coordinate()
+        worst, beyond, total = 0.0, 0, 0
+        for n, x in state["opt"]["master"].items():
+            want = sharding.local_block(ref[n], sharding.Sharding(
+                mesh, None, tuple(x.placements))).cuda()
+            err = (x.to_local() - want).abs()
+            worst = max(worst, float(err.max()))
+            if all(c == 0 for c, p in zip(coord, x.placements)
+                   if not p.is_shard()):
+                beyond += int((err > TRAIN_2X2_TOL["q_lr"]
+                               * TRAIN_2X2_LR_SUM).sum())
+                total += err.numel()
+        res = dict(losses=np.asarray(losses), norms=np.asarray(norms),
+                   walls=np.asarray(walls), peak=np.asarray(peak),
+                   setup_s=np.asarray(setup_s),
+                   route=np.asarray(sharding.route(mesh, "cuda")),
+                   bad_shapes=np.asarray(len(bad_shapes)),
+                   sharded_leaves=np.asarray(sharded_leaves),
+                   leaves=np.asarray(len(leaves)),
+                   coord=np.asarray(mesh.get_coordinate()),
+                   **{f"stat/{k}": np.asarray(v) for k, v in stats.items()})
+        res.update(master_worst=np.asarray(worst),
+                   master_beyond=np.asarray(beyond),
+                   master_total=np.asarray(total))
+        np.savez(Path(out_dir) / f"rank{rank}.npz", **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def train_2x2(torch, np, fa):
+    """Phase 20e: the 1x1 run (one-device steps, the same as a 1x1 mesh's
+    bit for bit, phase 20d): qwen2-0.5b at full width and depth, bf16 with
+    f32 master weights, TRAIN_2X2's steps of zipf batches; its losses,
+    gradient norms and f32 master weights kept. Meanwhile the 2x2 mesh of
+    four gloo ranks spawned on ``cuda:0`` (``train_rank``) draws the same
+    state, ``fsdp=True``; it steps after the 1x1 run: every block's shape
+    as ``to_shardings`` gives it, the losses and gradient norms within
+    TRAIN_2X2_TOL of the 1x1 run's, the master weights too (every rank's
+    blocks: every element, without a 2 GB gather through gloo).
+    Prints per rank ms a step, peak memory (their sum under the card's 80
+    GB), the collectives' count, bytes and host seconds, and the route."""
+    import tempfile
+
+    import torch.multiprocessing as tmp
+
+    from repro_torch.configs import get_config
+    from repro_torch.train.steps import init_train_state, make_train_step
+
+    free_card(torch)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        # The ranks start and draw their state while the 1x1 run runs;
+        # they step once its master weights are written.
+        ref_path = str(Path(tmpdir) / "master.pt")
+        t = time.perf_counter()
+        ranks_job = tmp.start_processes(train_rank, args=(
+            4, str(Path(tmpdir) / "store"), tmpdir, ref_path), nprocs=4,
+            join=False, start_method="spawn")
+        try:
+            cfg = get_config("qwen2-0.5b")
+            opt = _train_2x2_optimizer()
+            state = init_train_state(torch.Generator("cuda").manual_seed(0),
+                                     cfg, opt)
+            step = make_train_step(cfg, opt)
+            want_losses, want_norms = [], []
+            for batch in _train_2x2_batches(cfg):
+                state, m = step(state, to_device(torch, batch, "cuda"))
+                want_losses.append(float(m["loss"]))
+                want_norms.append(float(m["grad_norm"]))
+            torch.save({n: t.cpu()
+                        for n, t in state["opt"]["master"].items()},
+                       ref_path + ".tmp")
+            del state, step
+            free_card(torch)
+            os.replace(ref_path + ".tmp", ref_path)
+            while not ranks_job.join():
+                pass
+        finally:
+            for proc in ranks_job.processes:
+                if proc.is_alive():
+                    proc.terminate()
+                    proc.join()
+        wall = time.perf_counter() - t
+        ranks = []
+        for r in range(4):
+            with np.load(Path(tmpdir) / f"rank{r}.npz") as z:
+                ranks.append({k: z[k] for k in z.files})
+    print(f"train 2x2 mesh: the 1x1 run and four gloo ranks on cuda:0 in "
+          f"{wall:.1f} s; "
+          f"route {ranks[0]['route']}; 1x1 losses "
+          f"{[round(x, 6) for x in want_losses]}, grad norms "
+          f"{[round(x, 4) for x in want_norms]}", flush=True)
+    peaks = [float(r["peak"]) / 2**30 for r in ranks]
+    for r, res in enumerate(ranks):
+        ms = float(np.mean(res["walls"][1:])) * 1e3
+        print(f"train 2x2 rank {r} (coordinate {res['coord'].tolist()}): "
+              f"losses {[round(float(x), 6) for x in res['losses']]}, grad "
+              f"norms {[round(float(x), 4) for x in res['norms']]}; "
+              f"{ms:.1f} ms a step after 1 (steps "
+              f"{[round(float(x) * 1e3, 1) for x in res['walls']]} ms), set-up "
+              f"{float(res['setup_s']):.1f} s; peak {peaks[r]:.2f} GiB; "
+              f"collectives all_gather {int(res['stat/all_gather'])}, "
+              f"all_reduce {int(res['stat/all_reduce'])}, "
+              f"{int(res['stat/bytes']):,} bytes, host seconds "
+              f"{float(res['stat/all_gather_s']):.2f} gathering, "
+              f"{float(res['stat/all_reduce_s']):.2f} reducing; block "
+              f"shapes off "
+              f"{int(res['bad_shapes'])} of {int(res['leaves'])} leaves "
+              f"({int(res['sharded_leaves'])} sharded)", flush=True)
+    loss_rel = max(abs(float(x) - w) / abs(w) for res in ranks
+                   for x, w in zip(res["losses"], want_losses))
+    norm_rel = max(abs(float(x) - w) / abs(w) for res in ranks
+                   for x, w in zip(res["norms"], want_norms))
+    worst = max(float(r["master_worst"]) for r in ranks)
+    beyond = (sum(int(r["master_beyond"]) for r in ranks)
+              / sum(int(r["master_total"]) for r in ranks))
+    bound = 2 * TRAIN_2X2_LR_SUM + 1e-6
+    print(f"train 2x2 against 1x1: losses within {loss_rel:.3e} relative "
+          f"(tolerance {TRAIN_2X2_TOL['loss']}), grad norms {norm_rel:.3e} "
+          f"(tolerance {TRAIN_2X2_TOL['grad_norm']}); f32 master weights "
+          f"within {worst:.3e} (bound {bound:.3e}: 2 x the summed lr), "
+          f"{beyond:.3e} of the elements beyond {TRAIN_2X2_TOL['q_lr']} x "
+          f"the summed lr (tolerance {TRAIN_2X2_TOL['beyond']}); the four "
+          f"peaks sum to {sum(peaks):.2f} GiB", flush=True)
+    if any(int(r["bad_shapes"]) for r in ranks):
+        raise AssertionError("a block's shape is not to_shardings'")
+    if (loss_rel > TRAIN_2X2_TOL["loss"]
+            or norm_rel > TRAIN_2X2_TOL["grad_norm"] or worst > bound
+            or beyond > TRAIN_2X2_TOL["beyond"]):
+        raise AssertionError("the 2x2 mesh's training is not the 1x1 run's")
+    if sum(peaks) > 80:
+        raise AssertionError(f"the four ranks' peaks sum to {sum(peaks)} GiB")
+    if fa.launches["flash_attention"]:
+        raise AssertionError("training launched kernel 5")
+    return dict(loss_rel=loss_rel, grad_norm_rel=norm_rel,
+                master_worst=worst, master_beyond=beyond, peaks_gib=peaks,
+                ms_per_step=[float(np.mean(r["walls"][1:])) * 1e3
+                             for r in ranks],
+                collectives=[{k[5:]: v.item() for k, v in r.items()
+                              if k.startswith("stat/")} for r in ranks],
+                route=str(ranks[0]["route"]))
+
+
 def train_phases(torch, np):
-    """Phases 20, 20b and 20c. Returns their summary for the kernels line
-    (kernel 5's launches in training: 0)."""
+    """Phases 20, 20b, 20c, 20d and 20e. Returns their summary for the
+    kernels line (kernel 5's launches in training: 0)."""
     from repro_torch.kernels import flash_attention as fa
 
     full = phase("train full width", train_full_width, torch, np, fa)
@@ -4154,8 +4539,12 @@ def train_phases(torch, np):
                    np, fa)
     families = phase("train every family", train_families, torch, np, fa)
     differ = phase("train resume", train_resume, torch, np)
+    mesh_1x1 = phase("train 1x1 mesh", train_1x1, torch, np, fa,
+                     full["losses"])
+    mesh_2x2 = phase("train 2x2 mesh", train_2x2, torch, np, fa)
     return dict(launches=full["launches"], full_width=full, golden=golden,
-                families=families, resume_params_differ=differ)
+                families=families, resume_params_differ=differ,
+                mesh_1x1=mesh_1x1, mesh_2x2=mesh_2x2)
 
 
 # ---------------------------------------------------------------------------

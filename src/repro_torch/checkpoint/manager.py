@@ -34,6 +34,13 @@ Where the two formats differ:
 
 Restore returns the template's structure with CPU tensor leaves (a train
 state template: a train state on the template's device).
+
+A sharded train state (DTensor leaves, :mod:`repro_torch.train.sharded`)
+is written as the whole state: every rank gathers each leaf to a host
+tensor on the calling thread (the writer thread runs no collective), and
+rank 0 writes. Restored into a sharded template, each leaf is placed on
+the template's mesh, whatever mesh wrote it; into a one-device template,
+on its device. So a checkpoint moves between meshes and one device.
 """
 from __future__ import annotations
 
@@ -45,6 +52,7 @@ from collections.abc import Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 _BF16 = "bfloat16"
@@ -80,6 +88,17 @@ def _unflatten(tree, leaves):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_unflatten(v, leaves) for v in tree)
     return next(leaves)
+
+
+def _sharded(tree) -> bool:
+    from ..train.sharded import is_sharded
+    return _is_train_state(tree) and is_sharded(tree)
+
+
+def _writes(tree) -> bool:
+    """Whether this rank writes ``tree``: rank 0 of a sharded state's
+    ranks, anyone otherwise."""
+    return not (_sharded(tree) and dist.get_rank() != 0)
 
 
 def _host_tree(tree):
@@ -123,8 +142,12 @@ def _from_file(arr: np.ndarray, dtype: str) -> torch.Tensor:
 
 
 def save(path: str, step: int, tree) -> str:
-    """Atomic synchronous save. Returns the final step directory."""
-    return _write(path, step, _host_tree(tree))
+    """Atomic synchronous save. Returns the final step directory (a
+    sharded state's ranks but 0 gather and write nothing)."""
+    host_tree = _host_tree(tree)
+    if not _writes(tree):
+        return os.path.join(path, f"step_{step:08d}")
+    return _write(path, step, host_tree)
 
 
 def _write(path: str, step: int, host_tree) -> str:
@@ -189,6 +212,10 @@ def restore(path: str, like, step: int | None = None):
     if state is None:
         return tree
     model = state["params"]
+    if _sharded(state):
+        return convert.train_state_from_numpy(
+            model.cfg, tree, device=model.embed.to_local().device,
+            mesh=model.embed.device_mesh)
     return convert.train_state_from_numpy(model.cfg, tree,
                                           device=model.embed.device)
 
@@ -212,8 +239,11 @@ class CheckpointManager:
             raise error
 
     def save(self, step: int, tree):
-        # Pull to host before handing to the writer thread.
+        # Pull to host before handing to the writer thread (a sharded
+        # state's gathers are collectives: never in the thread).
         host_tree = _host_tree(tree)
+        if not _writes(tree):
+            return
         if self.async_save:
             self.wait()
             self._thread = threading.Thread(

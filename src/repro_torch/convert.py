@@ -411,12 +411,26 @@ def _reference_tree(cfg, named: Mapping, leaf) -> dict:
                           for path, names in _leaf_names(cfg)))
 
 
+def _whole(t, device):
+    """A DTensor's whole tensor (gathered: every rank of its mesh calls;
+    on ``"meta"`` only its shape and dtype), any other tensor as it is."""
+    from .distributed.sharding import full_tensor, is_sharded
+
+    if not is_sharded(t):
+        return t
+    if torch.device(device).type == "meta":
+        return torch.empty(t.shape, dtype=t.dtype, device="meta")
+    return full_tensor(t)
+
+
 def _host(tensors, stacked, device="cpu"):
-    """A leaf from its layers' tensors, copied to ``device`` (a copy even
-    where they lie there already: the train step updates them in place)."""
+    """A leaf from its layers' tensors (DTensors gathered), copied to
+    ``device`` (a copy even where they lie there already: the train step
+    updates them in place)."""
     if stacked:
-        return torch.stack([t.detach().to(device) for t in tensors])
-    return tensors[0].detach().to(device, copy=True)
+        return torch.stack([_whole(t, device).detach().to(device)
+                            for t in tensors])
+    return _whole(tensors[0], device).detach().to(device, copy=True)
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -456,7 +470,9 @@ def train_state_tree(state: Mapping, device="cpu") -> dict:
     ``params/...``, ``opt/m/...``, ``opt/v/...``, ``opt/master/...`` (with
     master weights), ``opt/count`` and ``step``, each parameter-shaped tree
     in the reference's layout (stacked segments), dtypes kept.
-    ``device="meta"`` gives the shapes and dtypes without copying."""
+    ``device="meta"`` gives the shapes and dtypes without copying. A
+    sharded train state's leaves are gathered one at a time, in the tree's
+    order: every rank of its mesh calls this."""
     model = state["params"]
     cfg = model.cfg
 
@@ -466,27 +482,35 @@ def train_state_tree(state: Mapping, device="cpu") -> dict:
 
     opt = state["opt"]
     out_opt = {k: tree(opt[k]) for k in ("m", "v", "master") if k in opt}
-    out_opt["count"] = opt["count"].detach().to(device, copy=True)
+    out_opt["count"] = _host([opt["count"]], False, device)
     return {"params": tree(dict(model.named_parameters())), "opt": out_opt,
-            "step": state["step"].detach().to(device, copy=True)}
+            "step": _host([state["step"]], False, device)}
 
 
 def train_state_to_numpy(state: Mapping) -> dict:
     """A train state -> the reference's train-state tree with numpy leaves
     (:func:`train_state_tree`; bfloat16 weights as their exact float32
-    values), to compare whole states with the reference's."""
+    values; a sharded state gathered), to compare whole states with the
+    reference's."""
     return _map_tree(_to_numpy, train_state_tree(state))
 
 
-def train_state_from_numpy(cfg, tree: Mapping, device=None) -> dict:
+def train_state_from_numpy(cfg, tree: Mapping, device=None, *,
+                           mesh=None) -> dict:
     """The reference's train state (``{"params", "opt": {"m", "v",
     ["master"], "count"}, "step"}``, numpy or tensor leaves, each
     parameter-shaped tree in the reference's layout) -> the port's train
     state on ``device`` (``None`` = the CUDA card; raises without one): a
     trainable :class:`LM` in ``cfg``'s dtypes, the moments and master
     weights float32 by parameter name, ``count`` and ``step`` int32
-    scalars. Every leaf must land on exactly one tensor."""
+    scalars. Every leaf must land on exactly one tensor. With ``mesh`` (a
+    ``DeviceMesh`` of ``device``'s type) the state is placed straight onto
+    it by ``state_specs``, each rank copying only its blocks
+    (:func:`repro_torch.train.sharded.train_state_from_numpy`)."""
     device = resolve_device(device)
+    if mesh is not None:
+        from .train import sharded
+        return sharded.train_state_from_numpy(cfg, tree, mesh, device)
     model = lm_params_from_numpy(cfg, tree["params"], device=device)
     model.requires_grad_(True)
     names = dict(model.named_parameters())

@@ -30,6 +30,8 @@ device, where it is a no-op too.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -38,6 +40,26 @@ from torch import nn
 
 from . import blocks as B
 from .common import ModelConfig, act_fn
+
+
+#: The list that :func:`record_balance` opened, or None.
+_BALANCE = contextvars.ContextVar("moe_balance", default=None)
+
+
+@contextlib.contextmanager
+def record_balance():
+    """While open, each MoE layer's forward appends its load-balance terms
+    ``(me, ce)`` to the list this yields, in layer order: ``me`` [E] the
+    mean router probability (with its gradient), ``ce`` [E] the fraction of
+    top-k assignments per expert. A sharded step averages them over the
+    data ranks before it forms ``moe_aux``, which is not a mean of the
+    ranks' own. A backward's recomputation runs outside it."""
+    rec = []
+    token = _BALANCE.set(rec)
+    try:
+        yield rec
+    finally:
+        _BALANCE.reset(token)
 
 
 class Router(nn.Module):
@@ -172,4 +194,7 @@ def apply(params: MoE, cfg: ModelConfig, x):
     me = r["probs"].mean(dim=(0, 1))                                # [e]
     ce = F.one_hot(topi, e).sum(2).float().mean(dim=(0, 1))         # [e]
     aux = e * torch.sum(me * ce)
+    rec = _BALANCE.get()
+    if rec is not None:
+        rec.append((me, ce))
     return out.to(x.dtype), {"moe_aux": aux, "moe_dropped": dropped.float()}

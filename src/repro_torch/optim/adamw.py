@@ -21,6 +21,18 @@ from torch import nn
 OptState = dict  # {"m": {name: f32}, "v": ..., "master": ... | absent, "count"}
 
 
+def global_norm(grads) -> torch.Tensor:
+    """``sqrt(sum of g^2 + 1e-16)`` over the tensors ``grads`` in float32,
+    summed leaf by leaf in their order (the clip's norm)."""
+    total = None
+    for g in grads:
+        g = g.float()
+        if total is None:
+            total = torch.zeros((), dtype=torch.float32, device=g.device)
+        total = total + torch.sum(g * g)
+    return torch.sqrt(total + 1e-16)
+
+
 def named_tensors(params) -> dict:
     """An ``nn.Module``'s parameters by name, or a dict of tensors."""
     if isinstance(params, nn.Module):
@@ -59,7 +71,7 @@ class AdamW:
         return state
 
     @torch.no_grad()
-    def update(self, grads, state: OptState, params):
+    def update(self, grads, state: OptState, params, *, grad_norm=None):
         """grads: ``{name: tensor}`` (any float dtype). Returns (params,
         state, metrics), the first two the objects passed in, updated in
         place; metrics ``grad_norm`` (before clipping) and ``lr``, float32
@@ -72,15 +84,15 @@ class AdamW:
         ``sqrt(v / (1 - b2^count)) + eps``; the new master weight ``p (1 -
         lr wd) - lr update`` with ``lr = lr(count)``, from the master
         weights or (without them) the parameters in float32; each parameter
-        then takes its new value in its own dtype."""
+        then takes its new value in its own dtype. ``grad_norm``, where
+        given, is the norm to clip by in place of the norm of ``grads``: a
+        sharded step passes each rank's shards of the gradients and the
+        norm of the whole (:func:`global_norm`)."""
         named = named_tensors(params)
         names = list(named)
         count = state["count"] + 1
         gf = [grads[n].float() for n in names]
-        total = torch.zeros((), dtype=torch.float32, device=count.device)
-        for g in gf:
-            total = total + torch.sum(g * g)
-        gnorm = torch.sqrt(total + 1e-16)
+        gnorm = global_norm(gf) if grad_norm is None else grad_norm
         scale = torch.clamp(self.clip_norm / gnorm, max=1.0)
         gf = torch._foreach_mul(gf, scale)
 

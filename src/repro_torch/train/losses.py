@@ -29,17 +29,12 @@ def _chunk_sums(hc, head, lc, mc, z_loss: float, valid_vocab):
     return nll.sum(), zl.sum(), mc.sum(), correct.sum()
 
 
-def chunked_softmax_xent(h, head, labels, mask=None, chunk: int = 2048,
-                         z_loss: float = 0.0, valid_vocab: int | None = None):
-    """h: [b, t, d]; head: [d, V]; labels: [b, t] ints; mask: [b, t]
-    (1 = count).
-
-    ``valid_vocab``: mask logit columns >= this (padded embedding tables).
-    Returns (mean_loss, metrics), the loss float32: the masked mean of the
-    negative log-likelihood plus ``z_loss`` times the masked mean of
-    ``logsumexp ** 2``; metrics ``xent``, ``accuracy`` and ``tokens`` (the
-    mask's sum, at least 1).
-    """
+def chunked_xent_sums(h, head, labels, mask=None, chunk: int = 2048,
+                      z_loss: float = 0.0, valid_vocab: int | None = None):
+    """The sums :func:`chunked_softmax_xent` divides, float32 0-d tensors:
+    (masked nll sum, ``z_loss`` times the masked ``logsumexp ** 2`` sum,
+    mask sum, masked correct count); the first two carry gradients. A
+    sharded step reduces them over the data ranks before dividing."""
     b, t, _ = h.shape
     c = min(chunk, t)
     pad = -t % c
@@ -59,7 +54,27 @@ def chunked_softmax_xent(h, head, labels, mask=None, chunk: int = 2048,
             preserve_rng_state=False)
         loss_sum, z_sum = loss_sum + sums[0], z_sum + sums[1]
         denom, ncorrect = denom + sums[2], ncorrect + sums[3]
+    return loss_sum, z_sum, denom, ncorrect
+
+
+def xent_from_sums(loss_sum, z_sum, denom, ncorrect):
+    """(mean loss, metrics) from the sums of :func:`chunked_xent_sums`."""
     denom = torch.clamp(denom, min=1.0)
     loss = loss_sum / denom + z_sum / denom
     return loss, {"xent": loss_sum / denom, "accuracy": ncorrect / denom,
                   "tokens": denom}
+
+
+def chunked_softmax_xent(h, head, labels, mask=None, chunk: int = 2048,
+                         z_loss: float = 0.0, valid_vocab: int | None = None):
+    """h: [b, t, d]; head: [d, V]; labels: [b, t] ints; mask: [b, t]
+    (1 = count).
+
+    ``valid_vocab``: mask logit columns >= this (padded embedding tables).
+    Returns (mean_loss, metrics), the loss float32: the masked mean of the
+    negative log-likelihood plus ``z_loss`` times the masked mean of
+    ``logsumexp ** 2``; metrics ``xent``, ``accuracy`` and ``tokens`` (the
+    mask's sum, at least 1).
+    """
+    return xent_from_sums(*chunked_xent_sums(h, head, labels, mask, chunk,
+                                             z_loss, valid_vocab))

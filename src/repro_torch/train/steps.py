@@ -27,23 +27,43 @@ from ..optim.adamw import named_tensors
 from .losses import chunked_softmax_xent
 
 
+def forward_hidden(params, cfg: ModelConfig, batch):
+    """The training forward of a batch -> (final hidden states, the
+    forward's metrics, the head [d, V]). A batch holds ``frames`` and
+    ``tokens`` (encoder-decoder), ``embeds`` (a VLM's stub patch
+    embeddings) or ``tokens``. The head is ``embed.T`` when embeddings are
+    tied, else ``lm_head``."""
+    if cfg.encdec is not None:
+        h, metrics = lm.forward_encdec(params, cfg, batch["frames"],
+                                       batch["tokens"])
+    elif "embeds" in batch:
+        h, metrics = lm.forward(params, cfg, embeds=batch["embeds"])
+    else:
+        h, metrics = lm.forward(params, cfg, tokens=batch["tokens"])
+    head = params.embed.T if cfg.tie_embeddings else params.lm_head
+    return h, metrics, head
+
+
+def microbatches(batch, grad_accum: int) -> list:
+    """The batch cut into ``grad_accum`` equal microbatches along its first
+    axis (rows ``[i B / ga, (i + 1) B / ga)``), as the reference cuts it."""
+    sizes = {x.shape[0] for x in batch.values()}
+    if len(sizes) != 1 or sizes.pop() % grad_accum:
+        raise ValueError(f"the batch's first axes "
+                         f"{[x.shape[0] for x in batch.values()]} do not "
+                         f"split into {grad_accum} equal microbatches")
+    return [{k: x.reshape(grad_accum, -1, *x.shape[1:])[i]
+             for k, x in batch.items()} for i in range(grad_accum)]
+
+
 def make_loss_fn(cfg: ModelConfig, moe_aux_coef: float = 0.01,
                  z_loss: float = 0.0):
-    """loss_fn(params, batch) -> (total loss, metrics). A batch holds
-    ``frames`` and ``tokens`` (encoder-decoder), ``embeds`` (a VLM's stub
-    patch embeddings) or ``tokens``, and ``labels`` and optionally ``mask``.
-    The head is ``embed.T`` when embeddings are tied, else ``lm_head``; the
+    """loss_fn(params, batch) -> (total loss, metrics) of a batch
+    (:func:`forward_hidden`'s, with ``labels`` and optionally ``mask``): the
     total adds ``moe_aux_coef * moe_aux`` where the forward reports MoE
     metrics (every forward but the encoder-decoder's, zero without MoE)."""
     def loss_fn(params, batch):
-        if cfg.encdec is not None:
-            h, metrics = lm.forward_encdec(params, cfg, batch["frames"],
-                                           batch["tokens"])
-        elif "embeds" in batch:
-            h, metrics = lm.forward(params, cfg, embeds=batch["embeds"])
-        else:
-            h, metrics = lm.forward(params, cfg, tokens=batch["tokens"])
-        head = params.embed.T if cfg.tie_embeddings else params.lm_head
+        h, metrics, head = forward_hidden(params, cfg, batch)
         loss, lmetrics = chunked_softmax_xent(
             h, head, batch["labels"], batch.get("mask"), chunk=cfg.loss_chunk,
             z_loss=z_loss, valid_vocab=cfg.vocab_size)
@@ -103,15 +123,7 @@ def make_train_step(cfg: ModelConfig, optimizer, *, grad_accum: int = 1,
                                  device=p.device) for p in leaves]
             loss = torch.zeros((), dtype=torch.float32,
                                device=leaves[0].device)
-            sizes = {x.shape[0] for x in batch.values()}
-            if len(sizes) != 1 or sizes.pop() % grad_accum:
-                raise ValueError(f"the batch's first axes "
-                                 f"{[x.shape[0] for x in batch.values()]} "
-                                 f"do not split into {grad_accum} equal "
-                                 f"microbatches")
-            for i in range(grad_accum):
-                mb = {k: x.reshape(grad_accum, -1, *x.shape[1:])[i]
-                      for k, x in batch.items()}
+            for mb in microbatches(batch, grad_accum):
                 l, _ = loss_fn(params, mb)
                 torch._foreach_add_(grads, [g.float() for g in
                                             _grads(l, leaves)])

@@ -2,16 +2,23 @@
 mesh builders on the CPU: a run with ``--sim-fail`` crashes after its
 checkpoint and a restart resumes it to the uninterrupted run's parameters
 bit for bit; SIGTERM checkpoints and stops; without a card and without
-``--device cpu`` it raises; the sharded options raise, naming ROADMAP item
-12g.8; the log line; ``make_local_mesh`` over a one-rank gloo group.
+``--device cpu`` it raises; the sharded options: ``--distributed`` (a
+gloo world of one from the launcher's environment, a 1x1 mesh) trains to
+the local run's state bit for bit, ``--mesh single|multi`` on a world of
+one fail naming the world size they need; the log line;
+``make_local_mesh`` over a one-rank gloo group, and without a card and
+without ``device_type`` it raises.
 """
 import os
 import signal
 
+import numpy as np
 import pytest
 import torch
 
 from _torch_ref import one_rank_mesh
+from _torch_train import flat
+from repro_torch import convert
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import train
 
@@ -73,9 +80,41 @@ def test_without_a_card_it_raises(monkeypatch):
 
 @pytest.mark.parametrize("extra", [["--mesh", "single"], ["--mesh", "multi"],
                                    ["--distributed"]])
-def test_sharded_options_raise(extra):
-    with pytest.raises(NotImplementedError, match="12g.8"):
-        train.main(ARGS + ["--steps", "1"] + extra)
+def test_sharded_options_raise(extra, monkeypatch):
+    """``--mesh single|multi`` need worlds of 256 and 512 ranks and fail on
+    a world of one, naming the size; ``--distributed`` (``--mesh local``)
+    joins the launcher's group, a gloo world of one (``MASTER_PORT`` 0:
+    the store takes a free port), shards the state on a 1x1 mesh and
+    trains to the local run's state bit for bit, leaving no group."""
+    import torch.distributed as dist
+
+    from repro_torch.train import sharded
+
+    if extra[0] == "--mesh":
+        size = 256 if extra[1] == "single" else 512
+        with pytest.raises(RuntimeError,
+                           match=f"needs a world size of {size}"):
+            train.main(ARGS + ["--steps", "1"] + extra)
+        return
+    want = convert.train_state_to_numpy(train.main(ARGS + ["--steps", "3"]))
+    for k, v in dict(RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT="0").items():
+        monkeypatch.setenv(k, v)
+    seen = {}
+
+    def on_step(step, state, metrics):
+        seen.update(sharded=sharded.is_sharded(state),
+                    backend=dist.get_backend(),
+                    mesh=tuple(state["params"].embed.device_mesh.shape))
+
+    state = train.main(ARGS + ["--steps", "3"] + extra, on_step=on_step)
+    assert seen == {"sharded": True, "backend": "gloo", "mesh": (1, 1)}
+    assert not dist.is_initialized()
+    got = convert.train_state_to_numpy(state)
+    a, b = flat(got), flat(want)
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 def test_local_mesh_over_one_rank(tmp_path):
@@ -93,3 +132,13 @@ def test_local_mesh_over_one_rank(tmp_path):
                 mesh_mod.make_production_mesh(multi_pod=multi,
                                               device_type="cpu")
     assert not dist.is_initialized()
+
+
+def test_local_mesh_needs_a_card_or_a_device_type(monkeypatch):
+    """With no ``device_type`` a mesh is the card's: without one it raises
+    in ``resolve_device``'s words, before any process group is touched."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (mesh_mod.make_local_mesh, mesh_mod.make_production_mesh):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+

@@ -417,7 +417,26 @@ Phases, each of which fails the run on any error (each prints its seconds):
      shape as ``to_shardings`` gives it, the losses, gradient norms and
      f32 master weights (every rank's blocks) within stated tolerances of
      the 1x1 run's; per rank ms a step, peak memory, the collectives' count and
-     bytes and the route.
+     bytes and the route;
+ 21. sharded serve on a 1x1 mesh: phase 16's serve (qwen2-0.5b at full
+     width and depth, bf16, weights from seed 0, batch 8 x 2048 prompt
+     tokens, 32 new tokens) through ``make_sharded_prefill_step`` and
+     ``make_sharded_decode_step`` over NCCL (a world of one): every step's
+     logits and every token equal to the one-device steps' (``serve.main``'s,
+     run first on the same weights) bit for bit, kernel 5 launched as in
+     phase 16 (24 ``mma``, 744 ``split`` and 744 ``combine``, counted around
+     the sharded run), no collective; then the dry-run's count of the same
+     run on fake tensors (its argument and peak bytes) beside the
+     allocator's, printed side by side with no bound;
+ 21b. the dry-run on the card host: ``python -m repro_torch.launch.dryrun``
+     in three processes, started before phase 21 and read after it
+     (qwen2-0.5b at every shape on the 256-rank mesh, deepseek-v2-lite-16b
+     at ``prefill_32k`` on it, qwen2-0.5b at ``train_4k`` on the 512-rank
+     mesh; the fake tensors on the card, nothing allocated): each record's
+     status and wall, every applicable cell ``OK`` with its argument bytes
+     and ``model_flops_total`` equal to the reference's
+     (``tests/fixtures/dryrun_reference.json``), its per-rank FLOPs, bytes,
+     collective traffic and peak.
 
 Each graph is built once (numpy set-up, in worker processes while the
 kernels build) and shared by the phases; phase 10e's four ranks build
@@ -4548,6 +4567,270 @@ def train_phases(torch, np):
 
 
 # ---------------------------------------------------------------------------
+# Sharded serving and the dry-run (phases 21, 21b).
+# ---------------------------------------------------------------------------
+
+#: Phase 21: phase 16's serve (qwen2-0.5b at full width and depth, bf16,
+#: weights from seed 0, prompt tokens from ``default_rng(0)``) through the
+#: sharded prefill and decode steps on a 1x1 NCCL mesh.
+SHARDED_SERVE = dict(batch=8, prompt=2048, gen=32)
+#: Phase 21b: the dry-run's cells run on the card host, one process each,
+#: as (arch, shapes, mesh).
+DRYRUN_CELLS = (("qwen2-0.5b", ("all",), "single"),
+                ("deepseek-v2-lite-16b", ("prefill_32k",), "single"),
+                ("qwen2-0.5b", ("train_4k",), "multi"))
+DRYRUN_FIXTURE = ROOT / "tests" / "fixtures" / "dryrun_reference.json"
+DRYRUN_OUT = ROOT / "build" / "dryrun"
+#: Seconds a dry-run process may take before the phase fails.
+DRYRUN_TIMEOUT_S = 400
+
+
+def serve_loop(torch, prefill, decode, params, batch, cache, prompt, gen):
+    """A prefill and ``gen - 1`` greedy decode steps, as ``serve.main``
+    runs them: (the logits of every step [gen, B, V], the tokens [B,
+    gen])."""
+    logits, cache = prefill(params, batch, cache)
+    cur = torch.argmax(logits, -1).to(torch.int32)
+    every, outs = [logits], [cur]
+    for i in range(gen - 1):
+        cur, logits, cache = decode(params, cur, cache, prompt + i)
+        every.append(logits)
+        outs.append(cur)
+    torch.cuda.synchronize()
+    return torch.stack(every), torch.stack(outs, 1)
+
+
+def predicted_serve(torch, cfg, mesh, b, p, gen):
+    """The dry-run's count of phase 21's sharded run on ``mesh``: its
+    prefill and first decode step on fake tensors on the card under
+    ``cost.Analysis`` (kernel 5 charged, not launched; the run's peak is
+    the prefill's, and each fake decode step takes ~0.5 s of the host).
+    Returns (argument bytes, peak bytes, the analysis's result)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.distributed import cost
+    from repro_torch.launch import dryrun
+    from repro_torch.train import sharded
+
+    with FakeTensorMode():
+        params = sharded._sharded_lm(cfg, dryrun._placed_params(cfg, mesh,
+                                                                "cuda"))
+        cache = sharded.init_cache(cfg, b, p + gen, mesh, device="cuda")
+        rows = {"tokens": torch.empty((b, p), dtype=torch.int32,
+                                      device="cuda")}
+        prefill = sharded.make_sharded_prefill_step(cfg, mesh)
+        decode = sharded.make_sharded_decode_step(cfg, mesh)
+        with cost.Analysis() as a:
+            a.track([params, rows, cache])
+            serve_loop(torch, prefill, decode, params, rows, cache, p, 2)
+        args = dryrun.argument_size((params, rows, cache))
+    return args, a.peak_bytes, a.result()
+
+
+def serve_sharded(torch, np, fa):
+    """Phase 21: phase 16's serve through ``make_sharded_prefill_step`` and
+    ``make_sharded_decode_step`` on a 1x1 mesh over NCCL (a world of one,
+    a FileStore rendezvous), from the same weights and prompt: every
+    step's logits and every token equal to the one-device steps'
+    (``serve.main``'s, run here first) bit for bit; kernel 5's launches by
+    body, counted (set to 0 just before the sharded run, read just after),
+    equal to phase 16's (24 ``mma``, 744 ``split`` and 744 ``combine``); no
+    collective. Then the dry-run's count of the same run on fake tensors,
+    its bytes beside the allocator's (no bound: PERF.md reads the gap).
+    Returns the launches and the readings."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.models import lm
+    from repro_torch.train import sharded
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    free_card(torch)
+    b, p, gen = (SHARDED_SERVE[k] for k in ("batch", "prompt", "gen"))
+    cfg = get_config("qwen2-0.5b")
+    params = lm.init(torch.Generator("cuda").manual_seed(0), cfg)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, p)).astype(np.int32)).to("cuda")
+    t = time.perf_counter()
+    want_lg, want_tok = serve_loop(
+        torch, make_prefill_step(cfg), make_decode_step(cfg), params,
+        {"tokens": tokens}, lm.init_cache(cfg, b, p + gen, device="cuda"), p,
+        gen)
+    one_s = time.perf_counter() - t
+    with tempfile.TemporaryDirectory() as tmpdir:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(str(Path(tmpdir) / "store"), 1),
+            rank=0, world_size=1,
+            timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+        try:
+            mesh = init_device_mesh("cuda", (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            sp = sharded.shard_params(cfg, params, mesh)
+            cache = sharded.init_cache(cfg, b, p + gen, mesh, device="cuda")
+            rows = sharded.serve_rows({"tokens": tokens}, mesh)
+            args = sum(t_.numel() * t_.element_size() for t_ in
+                       [*(x.to_local() for x in sp.parameters()),
+                        rows["tokens"],
+                        *(x.to_local() for x in sharded._leaves(cache))])
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launches()
+            sharding.reset_stats()
+            t = time.perf_counter()
+            got_lg, got_tok = serve_loop(
+                torch, sharded.make_sharded_prefill_step(cfg, mesh),
+                sharded.make_sharded_decode_step(cfg, mesh), sp, rows, cache,
+                p, gen)
+            wall = time.perf_counter() - t
+            used = dict(fa.launches)
+            collectives = sharding.stats["all_gather"] \
+                + sharding.stats["all_reduce"]
+            measured = torch.cuda.max_memory_allocated() - before + args
+            route = sharding.route(mesh, "cuda")
+            pred_args, pred_peak, pred = predicted_serve(torch, cfg, mesh, b,
+                                                         p, gen)
+        finally:
+            dist.destroy_process_group()
+    lg_equal = torch.equal(got_lg.view(torch.int32), want_lg.view(torch.int32))
+    tok_equal = torch.equal(got_tok, want_tok)
+    want = {"flash_attention": SERVE_LAUNCHES, **SERVE_BODIES}
+    print(f"serve sharded 1x1 ({route}): qwen2-0.5b full width, bf16, batch "
+          f"{b} x {p} prompt tokens, {gen} new; logits of every step equal "
+          f"to the one-device steps' bit for bit {lg_equal}, tokens "
+          f"{tok_equal}; one-device {one_s:.2f} s, sharded {wall:.2f} s; "
+          f"flash_attention launches {used} (want {want}); collectives "
+          f"{collectives}", flush=True)
+    print(f"serve sharded 1x1 bytes: the dry-run's count (fake tensors; the "
+          f"prefill and the first decode step) arguments {pred_args:,} B, "
+          f"peak {pred_peak:,} B, {pred['flops']:.4e} FLOPs, "
+          f"{pred['bytes']:.4e} B moved; the allocator's arguments "
+          f"{args:,} B, peak {measured:,} B (its peak over the run less what "
+          f"was allocated before, plus the arguments); peak ratio "
+          f"{pred_peak / measured:.4f}", flush=True)
+    if not (lg_equal and tok_equal):
+        raise AssertionError("the sharded serve differs from the one-device "
+                             "serve")
+    if used != want or collectives:
+        raise AssertionError(f"sharded serve launched {used} and "
+                             f"{collectives} collectives, want {want}, 0")
+    del params, sp, cache, want_lg, got_lg
+    free_card(torch)
+    return dict(launches=used, wall_s=wall, one_device_s=one_s,
+                predicted_argument_bytes=pred_args,
+                predicted_peak_bytes=pred_peak, predicted_flops=pred["flops"],
+                predicted_bytes=pred["bytes"], argument_bytes=args,
+                measured_peak_bytes=measured, route=route)
+
+
+def dryrun_start():
+    """Phase 21b's processes, started: ``python -m
+    repro_torch.launch.dryrun`` for each of :data:`DRYRUN_CELLS` on the
+    card (fake tensors there; the records under :data:`DRYRUN_OUT`)."""
+    import shutil
+
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    jobs = []
+    for arch, shapes, mesh in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", *shapes, "--mesh", mesh, "--out",
+               str(DRYRUN_OUT), "--force"]
+        jobs.append(((arch, shapes, mesh), time.perf_counter(),
+                     subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)))
+    return jobs
+
+
+def dryrun_cells(jobs):
+    """Phase 21b: waits for :func:`dryrun_start`'s processes and reads
+    their records: each cell's status and wall; every applicable cell
+    ``OK``, its ``argument_size_in_bytes`` and ``model_flops_total`` equal
+    to the reference's (``tests/fixtures/dryrun_reference.json``'s full-size
+    records), its chips 256 or 512. Returns the records' readings."""
+    full = json.loads(DRYRUN_FIXTURE.read_text())["full"]
+    out = {}
+    for (arch, shapes, mesh), start, proc in jobs:
+        try:
+            text, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise AssertionError(f"dry-run {arch} {mesh} took over "
+                                 f"{DRYRUN_TIMEOUT_S} s") from None
+        wall = time.perf_counter() - start
+        if proc.returncode:
+            raise AssertionError(f"dry-run {arch} {mesh} exited "
+                                 f"{proc.returncode}:\n{text[-3000:]}")
+        print(f"dry-run process {arch} {' '.join(shapes)} {mesh}: "
+              f"{wall:.1f} s", flush=True)
+        for path in sorted(DRYRUN_OUT.glob(f"{arch}__*__{mesh}.json")):
+            key = path.stem
+            if key in out or (shapes != ("all",)
+                              and key.split("__")[1] not in shapes):
+                continue
+            rec = json.loads(path.read_text())
+            want = full[key]
+            line = f"dry-run {key}: {rec['status']} ({rec['wall_s']} s)"
+            if rec["status"] != want["status"]:
+                raise AssertionError(f"{line}, want {want['status']}: "
+                                     f"{rec.get('error')}")
+            if rec["status"] == "OK":
+                mem, walk = rec["memory"], rec["hlo_walk"]
+                roof = rec["roofline"]
+                line += (f" chips {rec['chips']}, route {rec['route']}; per "
+                         f"rank {walk['flops']:.4e} FLOPs, {walk['bytes']:.4e} "
+                         f"B moved, collective traffic "
+                         f"{walk['collective_traffic']:.4e} B, peak "
+                         f"{mem['peak_bytes']:,} B; arguments "
+                         f"{mem['argument_size_in_bytes']:,} B (reference "
+                         f"{want['argument_bytes']:,}); model FLOPs "
+                         f"{roof['model_flops_total']:,} (reference "
+                         f"{want['model_flops_total']:,}); useful "
+                         f"{roof['useful_flops_frac']:.4f}")
+                if (mem["argument_size_in_bytes"] != want["argument_bytes"]
+                        or roof["model_flops_total"]
+                        != want["model_flops_total"]
+                        or rec["chips"] != (512 if mesh == "multi" else 256)):
+                    raise AssertionError(f"{line}: not the reference's")
+                out[key] = dict(
+                    flops=walk["flops"], bytes=walk["bytes"],
+                    collective_traffic=walk["collective_traffic"],
+                    peak_bytes=mem["peak_bytes"],
+                    argument_bytes=mem["argument_size_in_bytes"],
+                    wall_s=rec["wall_s"])
+            else:
+                out[key] = dict(status=rec["status"])
+            print(line, flush=True)
+    want_keys = 4 + 1 + 1
+    if len(out) != want_keys:
+        raise AssertionError(f"dry-run wrote {sorted(out)}, want "
+                             f"{want_keys} records")
+    return out
+
+
+def dryrun_phases(torch, np, fa):
+    """Phases 21 and 21b: 21b's processes run on the host while phase 21
+    runs on the card. Returns both phases' readings."""
+    jobs = dryrun_start()
+    try:
+        serve = phase("serve sharded", serve_sharded, torch, np, fa)
+        cells = phase("dry-run", dryrun_cells, jobs)
+    finally:
+        for _, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return serve, cells
+
+
+# ---------------------------------------------------------------------------
 # Placement (phase 10b): the anneal kernel, the BENCH placement and
 # multilevel rows.
 # ---------------------------------------------------------------------------
@@ -6017,6 +6300,10 @@ def run_phases(torch, np, args, pool, thread, cli_out) -> int:
     flash = lm_phases(torch, np)
     flash["train"] = train_phases(torch, np)
     flash["train_launches"] = flash["train"]["launches"]
+    serve_1x1, dry = dryrun_phases(torch, np, fa)
+    flash["sharded_serve_launches"] = serve_1x1["launches"]
+    flash["sharded_serve"] = serve_1x1
+    flash["dryrun"] = dry
 
     line = []
     for name, replaces in KERNELS.items():

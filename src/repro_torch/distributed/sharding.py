@@ -32,9 +32,12 @@ is JAX's order for a folded entry. :func:`local_block` and
 
 Transport (:func:`route`): under gloo a CUDA tensor is staged through
 pinned host memory, as gloo's collectives take host memory; under NCCL,
-and on the CPU, tensors go directly. No DTensor collective is used.
-:data:`stats` counts the collectives and their bytes since
-:func:`reset_stats`.
+and on the CPU, tensors go directly; under the fake backend (the
+dry-run's, ``torch.testing._internal.distributed.fake_pg``) nothing moves
+and nothing is staged. No DTensor collective is used. :data:`stats`
+counts the collectives and their bytes since :func:`reset_stats`, and
+:data:`records` keeps one ``(kind, result bytes, group size)`` a
+collective (:mod:`repro_torch.distributed.collectives`).
 """
 from __future__ import annotations
 
@@ -367,6 +370,13 @@ def is_sharded(t) -> bool:
 stats: dict = {"all_gather": 0, "all_reduce": 0, "bytes": 0,
                "all_gather_s": 0.0, "all_reduce_s": 0.0}
 
+#: One record a collective since :func:`reset_stats`: ``(kind, result
+#: bytes, group size)``, the kind named as XLA names it (``"all-gather"``,
+#: ``"all-reduce"``). An all-gather's result is S payloads (``stats``
+#: counts the payload alone); an all-reduce's is its buffer.
+#: :func:`repro_torch.distributed.collectives.collective_bytes` reads them.
+records: list = []
+
 #: Pinned host buffers of the staged collectives, by (dtype, numel), kept
 #: for the next step's collectives of the same sizes.
 _pinned: dict = {}
@@ -375,6 +385,7 @@ _pinned: dict = {}
 def reset_stats() -> None:
     stats.update(all_gather=0, all_reduce=0, bytes=0, all_gather_s=0.0,
                  all_reduce_s=0.0)
+    records.clear()
 
 
 def _staged(group, device: torch.device) -> bool:
@@ -419,15 +430,22 @@ def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
         dist.all_reduce(t, op=op, group=group)
     stats["all_reduce"] += 1
     stats["bytes"] += t.numel() * t.element_size()
+    records.append(("all-reduce", t.numel() * t.element_size(),
+                    dist.get_world_size(group)))
     stats["all_reduce_s"] += time.perf_counter() - start
     return t
 
 
 def _line_ranks(mesh, i: int) -> list:
-    """Global ranks along mesh dim ``i`` through this rank, by coordinate."""
+    """Global ranks along mesh dim ``i`` through this rank, by coordinate
+    (read from the mesh's rank table, a real tensor, also where a fake
+    tensor mode is active)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
     coord = mesh.get_coordinate()
     index = tuple(slice(None) if j == i else c for j, c in enumerate(coord))
-    return mesh.mesh[index].tolist()
+    with unset_fake_temporarily():
+        return mesh.mesh[index].tolist()
 
 
 def _gather_parts(t: torch.Tensor, mesh, i: int) -> list:
@@ -446,16 +464,20 @@ def _gather_parts(t: torch.Tensor, mesh, i: int) -> list:
         parts = [p.to(t.device) for p in parts]
     stats["all_gather"] += 1
     stats["bytes"] += t.numel() * t.element_size()
+    records.append(("all-gather", len(parts) * t.numel() * t.element_size(),
+                    len(parts)))
     stats["all_gather_s"] += time.perf_counter() - start
     return parts
 
 
-def full_tensors(ts) -> list:
+def full_tensors(ts, *, keep: int | None = None) -> list:
     """The whole tensors of the DTensors ``ts`` (one mesh; plain tensors
     pass as they are), on their device. Every rank of the mesh calls it,
     in the same order. Along each sharded mesh dim, minor first, the blocks
     of every tensor sharded there go in one collective a dtype (their
-    blocks flattened into one buffer)."""
+    blocks flattened into one buffer). With ``keep``, tensor dim ``keep``
+    stays as this rank's block (the mesh dims that shard it are not
+    gathered): the whole of every other dim of the rank's rows."""
     outs = [t.to_local() if is_sharded(t) else t for t in ts]
     dts = [t for t in ts if is_sharded(t)]
     if not dts:
@@ -467,7 +489,8 @@ def full_tensors(ts) -> list:
         if mesh.size(i) == 1:
             continue
         picked = [k for k, t in enumerate(ts)
-                  if is_sharded(t) and t.placements[i].is_shard()]
+                  if is_sharded(t) and t.placements[i].is_shard()
+                  and t.placements[i].dim != keep]
         for dtype in dict.fromkeys(outs[k].dtype for k in picked):
             ks = [k for k in picked if outs[k].dtype == dtype]
             flat = torch.cat([outs[k].reshape(-1) for k in ks])

@@ -18,7 +18,11 @@ f32 and the output has q's dtype (float32 or bfloat16).
 A tensor on the CPU goes to the plain version (:func:`attention_plain`), the
 reference's online-softmax arithmetic over kv chunks with the same masks; a
 CUDA tensor launches the kernel of ``csrc/flash_attention.cu`` on the
-current stream, or raises. There is no fallback.
+current stream, or raises. There is no fallback. Fake tensors (the
+dry-run's, ``FakeTensorMode``), and only they, launch nothing: the call
+returns an output of the kernel's shape and dtype and charges the running
+:class:`repro_torch.distributed.cost.Analysis` the kernel's closed-form work
+(:func:`work`), never the plain version's ``[B, H, Tq, Tkv]`` scores.
 
 The kernel has three bodies, and :func:`plan` alone picks one from the
 dtype and the shape: ``"split"`` where a (batch row, kv head) has at most 16
@@ -265,6 +269,29 @@ def _check_layout(*ts):
             raise ValueError("the kernel needs 16-byte aligned tensors")
 
 
+def _fake(q, k, v) -> bool:
+    """Whether q, k and v are fake tensors (all or none)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    fake = [isinstance(t, FakeTensor) for t in (q, k, v)]
+    if any(fake) and not all(fake):
+        raise ValueError("q, k and v must all be fake tensors or none")
+    return fake[0]
+
+
+def work(q, k, causal: bool, lens) -> tuple[int, int]:
+    """(operations, bytes) the function needs for q [B, Tq, Hq, D] and k
+    [B, Tkv, Hkv, D] with the B key counts ``lens``: 4 D per visible (row,
+    key) pair and q head; q, k and v read once and o written once (the
+    kernels line's bound)."""
+    b, tq, hq, d = q.shape
+    hkv = k.shape[2]
+    # ends-aligned causal: row i sees i + n - Tq + 1 of the n keys
+    pairs = sum(tq * n - (tq * (tq - 1) // 2 if causal else 0) for n in lens)
+    return (4 * d * hq * pairs,
+            q.element_size() * (2 * b * tq * hq * d + 2 * sum(lens) * hkv * d))
+
+
 def attention(q, k, v, *, causal=True, scale=None, kv_len=None,
               kv_chunk=1024):
     """q [B, Tq, Hq, D], k/v [B, Tkv, Hkv, D] -> [B, Tq, Hq, D] in q's
@@ -275,7 +302,13 @@ def attention(q, k, v, *, causal=True, scale=None, kv_len=None,
     b, tq, hq, d = q.shape
     tkv = k.shape[1]
     lens = kv_lengths(kv_len, b, tkv)
-    if not _check(q, k, v, causal, lens):
+    on_card = _check(q, k, v, causal, lens)
+    if _fake(q, k, v):
+        from ..distributed import cost
+
+        cost.charge("flash_attention", *work(q, k, causal, lens))
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if not on_card:
         return attention_plain(q, k, v, causal=causal, scale=scale,
                                kv_len=lens, kv_chunk=kv_chunk)
     return launch(q, k, v, plan(b, tq, tkv, hq, k.shape[2], d, q.dtype, lens),

@@ -11,9 +11,14 @@ mesh's size (``torch.distributed.init_process_group``, with its address,
 world size and rank given); on another world it raises, naming the size it
 needs. ``device_type`` None means the CUDA card, and raises without one;
 pass ``device_type="cpu"`` for a CPU mesh.
+
+:func:`fake_production_mesh` makes the production mesh on a fake process
+group of its size (the dry-run's: this process is rank 0, collectives move
+nothing), and tears the group down after.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 from ..api import resolve_device
@@ -49,3 +54,23 @@ def make_local_mesh(data: int = 1, model: int = 1, device_type=None):
     (tests/smokes; the world must be ``data * model`` ranks).
     ``device_type`` None: the CUDA card (raises without one)."""
     return _make_mesh((data, model), ("data", "model"), device_type, "local")
+
+
+@contextlib.contextmanager
+def fake_production_mesh(*, multi_pod: bool = False, device_type=None):
+    """:func:`make_production_mesh` on a fake process group (torch's
+    ``fake`` backend) of 256 or 512 ranks, this process rank 0; the group is
+    destroyed on exit. Refuses to run where a process group exists."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group exists: the fake production "
+                           "mesh needs a process of its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=512 if multi_pod else 256)
+    try:
+        yield make_production_mesh(multi_pod=multi_pod,
+                                   device_type=device_type)
+    finally:
+        dist.destroy_process_group()

@@ -187,6 +187,38 @@ def act_fn(name: str):
 
 
 # --------------------------------------------------------------------------
+# Per-device constants
+# --------------------------------------------------------------------------
+
+def _fake_mode():
+    """The active fake tensor mode (the dry-run's), or None."""
+    return torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE)
+
+
+def per_device(fn=None, *, maxsize=None):
+    """``fn(..., device)`` made once per arguments and kept (the last
+    ``maxsize``; a copy from the host on every call would synchronise the
+    host with the card). Under a fake tensor mode the tensor is kept on the
+    mode itself: a fake tensor must not outlive its mode in a cache."""
+    if fn is None:
+        return functools.partial(per_device, maxsize=maxsize)
+    cached = functools.lru_cache(maxsize=maxsize)(fn)
+
+    @functools.wraps(fn)
+    def get(*args):
+        mode = _fake_mode()
+        if mode is None:
+            return cached(*args)
+        made = mode.__dict__.setdefault("_per_device", {})
+        key = (fn.__qualname__, args)
+        if key not in made:
+            made[key] = fn(*args)
+        return made[key]
+
+    return get
+
+
+# --------------------------------------------------------------------------
 # Rotary position embeddings
 # --------------------------------------------------------------------------
 
@@ -194,7 +226,7 @@ def rope_freqs(head_dim: int, theta: float):
     return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
 
 
-@functools.lru_cache(maxsize=None)
+@per_device
 def _rope_freqs_on(head_dim: int, theta: float, device: torch.device):
     # Made once per device: a copy from the host on every call would
     # synchronise the host with the card twice a layer.
@@ -216,7 +248,7 @@ def apply_rope(x, positions, theta: float):
 MROPE_SECTIONS = (16, 24, 24)  # qwen2-vl: (temporal, height, width) freq split
 
 
-@functools.lru_cache(maxsize=None)
+@per_device
 def _mrope_streams_on(half: int, sections: tuple, device: torch.device):
     # The stream (0 temporal, 1 height, 2 width) of each of the ``half``
     # frequency channels, built on the host as the reference builds it:
@@ -246,7 +278,7 @@ def apply_mrope(x, positions3, theta: float, sections=MROPE_SECTIONS):
 # Sinusoidal positions (whisper)
 # --------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=16)
+@per_device(maxsize=16)
 def _sinusoid_on(t: int, d: int, offset: int, device: torch.device):
     # Built on the host in numpy float32 as the reference builds it, once
     # per shape and device (as the RoPE frequencies are).

@@ -31,7 +31,6 @@ made frozen; the train state makes them trainable
 """
 from __future__ import annotations
 
-import functools
 import itertools
 
 import numpy as np
@@ -42,7 +41,7 @@ from torch import nn
 from ..api import resolve_device
 from . import blocks as B
 from .attention import training_form
-from .common import ModelConfig, embed_init, sinusoid_positions
+from .common import ModelConfig, embed_init, per_device, sinusoid_positions
 
 
 def segments(cfg: ModelConfig) -> list[tuple[str, int]]:
@@ -134,6 +133,24 @@ def init(generator: torch.Generator, cfg: ModelConfig) -> LM:
     return LM(cfg, generator=generator, device=generator.device)
 
 
+def param_count(cfg: ModelConfig) -> int:
+    """The parameters of ``cfg``'s model, counted from its shapes on the
+    meta device (nothing is allocated): the reference's ``param_count``."""
+    return sum(p.numel() for p in LM(cfg, device="meta").parameters())
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE: the top_k routed and the shared
+    experts only): the reference's ``active_param_count``."""
+    total = param_count(cfg)
+    if cfg.moe is None:
+        return total
+    m = cfg.moe
+    n_moe = sum(1 for i in range(cfg.num_layers) if cfg.block_kind(i) == "moe")
+    return total - n_moe * (m.num_experts - m.top_k) * 3 * cfg.d_model \
+        * m.d_ff_expert
+
+
 def make_positions(cfg, b, t, device=None, offset=0):
     """[b, t] positions from ``offset``, or [b, 3, t] under M-RoPE (text:
     the t, h and w ids equal)."""
@@ -204,7 +221,7 @@ def _sinusoids(t, d, like):
     return sinusoid_positions(t, d, device=like.device).to(like.dtype)[None]
 
 
-@functools.lru_cache(maxsize=None)
+@per_device
 def _sinusoid_div_on(d: int, device: torch.device):
     # The reference's frequencies: numpy, rounded to float32 on the device.
     div = np.exp(-np.log(10000.0) * np.arange(0, d, 2, dtype=np.float32) / d)

@@ -33,6 +33,13 @@ def global_norm(grads) -> torch.Tensor:
     return torch.sqrt(total + 1e-16)
 
 
+def same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether ``a`` and ``b`` view the same elements (one storage, one
+    offset; fake tensors too, which have no data pointer)."""
+    return (a.untyped_storage()._cdata == b.untyped_storage()._cdata
+            and a.storage_offset() == b.storage_offset())
+
+
 def named_tensors(params) -> dict:
     """An ``nn.Module``'s parameters by name, or a dict of tensors."""
     if isinstance(params, nn.Module):
@@ -124,7 +131,7 @@ class AdamW:
         torch._foreach_mul_(upd, lr)
         torch._foreach_sub_(base, upd)
         for n, new in zip(names, base):
-            if new.data_ptr() != named[n].data_ptr():
+            if not same_memory(new, named[n]):
                 named[n].copy_(new)
         state["count"] = count
         return params, state, {"grad_norm": gnorm, "lr": lr}

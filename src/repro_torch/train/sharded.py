@@ -37,6 +37,17 @@ gradients' sum over the ranks):
 
 With one data rank the step is the one-device step's arithmetic, bit for
 bit.
+
+Serving (:func:`make_sharded_prefill_step`, :func:`make_sharded_decode_step`)
+is gather-then-compute too: the counterparts of the reference's prefill and
+greedy ``serve_step`` jitted over ``param_specs``, ``batch_specs`` and
+``cache_specs``. Parameters placed by :func:`shard_params`, a cache by
+:func:`init_cache` (the sequence over the data axes with ``seq_shard``, as
+the reference places a batch of one) and the rank's rows of the batch
+(:func:`serve_rows`); each step gathers the whole model, the cache's rows
+of the rank whole along every other dim, runs the one-device step and
+writes back the rank's own cache blocks. With one data rank its logits and
+cache are the one-device step's, bit for bit.
 """
 from __future__ import annotations
 
@@ -46,7 +57,7 @@ from torch import nn
 
 from ..distributed import sharding
 from ..models import lm, moe
-from ..optim.adamw import global_norm
+from ..optim.adamw import global_norm, same_memory
 from .losses import chunked_xent_sums, xent_from_sums
 from .steps import _grads, forward_hidden, microbatches
 
@@ -287,3 +298,174 @@ def make_sharded_train_step(cfg, optimizer, mesh, *, grad_accum: int = 1,
         return state, {"loss": loss, **metrics, **om}
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# Serving: the counterparts of the reference's jitted prefill and
+# ``serve_step`` over ``param_specs``, ``batch_specs`` and ``cache_specs``.
+# ---------------------------------------------------------------------------
+
+def shard_params(cfg, model: "lm.LM", mesh) -> "lm.LM":
+    """An :class:`LM` whose parameters are DTensors placed by
+    ``param_specs``, each rank keeping copies of its blocks of ``model``'s
+    parameters (every rank passes the same whole model)."""
+    shards = sharding.to_shardings(mesh, sharding.param_specs(cfg, model,
+                                                              mesh))
+    return _sharded_lm(cfg, {
+        n: sharding.from_local(
+            sharding.local_block(p.detach(), shards[n]).clone(), shards[n],
+            tuple(p.shape))
+        for n, p in model.named_parameters()})
+
+
+def _zip_map(fn, tree, specs):
+    """``fn(leaf, spec)`` over a cache tree and its spec tree."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zip_map(fn, v, s) for v, s in zip(tree, specs))
+    return fn(tree, specs)
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _rebuild(tree, leaves):
+    """``tree``'s structure with its leaves taken from the iterator
+    ``leaves``, in :func:`_leaves`' order."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, leaves) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(v, leaves) for v in tree)
+    return next(leaves)
+
+
+def init_cache(cfg, batch: int, max_len: int, mesh, *, seq_shard=False,
+               enc_len: int | None = None, device=None):
+    """The serve cache of :func:`repro_torch.models.lm.init_cache` (or, for
+    an encoder-decoder, ``encdec_init_cache`` with ``max_len`` decoder
+    positions and ``enc_len`` frames) as DTensors placed by
+    ``cache_specs(..., seq_shard=)``: each rank makes only its zero blocks,
+    on ``device`` (None = the card)."""
+    from ..api import resolve_device
+
+    device = resolve_device(device)
+    if cfg.encdec is not None:
+        whole = lm.encdec_init_cache(cfg, batch, max_len, enc_len,
+                                     device="meta")
+    else:
+        whole = lm.init_cache(cfg, batch, max_len, device="meta")
+    specs = sharding.cache_specs(cfg, whole, mesh, seq_shard=seq_shard)
+
+    def place(leaf, spec):
+        block = torch.zeros(sharding.shard_shape(tuple(leaf.shape), spec,
+                                                 mesh),
+                            dtype=leaf.dtype, device=device)
+        return sharding.from_local(block, sharding.to_shardings(mesh, spec),
+                                   tuple(leaf.shape))
+
+    return _zip_map(place, whole, specs)
+
+
+def serve_rows(batch: dict, mesh) -> dict:
+    """This rank's rows of the global serve batch ``batch`` (tensors, rows
+    first): data rank r of D holds rows ``[r B / D, (r + 1) B / D)`` where D
+    divides B, else every row (as ``batch_specs`` and ``cache_specs``
+    replicate a batch they cannot split). Ranks along ``"model"`` get the
+    same rows."""
+    r, n = sharding.data_index(mesh)
+    return {k: (x[r * (x.shape[0] // n):(r + 1) * (x.shape[0] // n)]
+                if x.shape[0] % n == 0 else x).contiguous()
+            for k, x in batch.items()}
+
+
+class _Gathered:
+    """The rank's whole model: a meta :class:`LM` whose parameters are set
+    to the gathered tensors of a sharded one at each call (no copy where a
+    mesh dim does not split them)."""
+
+    def __init__(self, cfg):
+        self.model = lm.LM(cfg, device="meta")
+
+    def __call__(self, params):
+        sharded = dict(params.named_parameters())
+        names = [n for n, _ in self.model.named_parameters()]
+        for n, t in zip(names, sharding.full_tensors([sharded[n]
+                                                      for n in names])):
+            _set_param(self.model, n, t)
+        return self.model
+
+
+def _cache_rows(cache):
+    """(the rank's rows of every cache leaf, whole along every other dim,
+    as a tree of tensors; the leaves' placements)."""
+    leaves = _leaves(cache)
+    rows = sharding.full_tensors(leaves, keep=1)
+    return _rebuild(cache, iter(rows)), leaves
+
+
+def _write_back(leaves, rows_tree) -> None:
+    """Each DTensor leaf's block taken from the rank's rows (the rows' dim
+    is already the rank's block)."""
+    from torch.distributed.tensor import Replicate
+
+    for leaf, rows in zip(leaves, _leaves(rows_tree)):
+        plc = tuple(Replicate() if p.is_shard() and p.dim == 1 else p
+                    for p in leaf.placements)
+        block = sharding.local_block(
+            rows, sharding.Sharding(leaf.device_mesh, None, plc))
+        local = leaf.to_local()
+        if not same_memory(block, local):
+            local.copy_(block)
+
+
+def make_sharded_prefill_step(cfg, mesh):
+    """prefill_step(params, rows, cache) -> (logits of the rank's rows,
+    cache): the counterpart of the reference's prefill jitted over
+    ``param_specs``, ``batch_specs`` and ``cache_specs``. ``params`` is a
+    sharded :class:`LM` (:func:`shard_params`), ``rows`` the rank's rows of
+    the batch (:func:`serve_rows`), ``cache`` a sharded cache
+    (:func:`init_cache`), updated in place. Gather-then-compute: the
+    parameters are gathered into one whole model, the cache's rows of the
+    rank whole along the other dims, the one-device prefill runs on them,
+    and each rank writes back its own blocks. With one data rank the
+    logits and the cache are the one-device step's, bit for bit."""
+    from .steps import make_prefill_step
+
+    prefill = make_prefill_step(cfg)
+    whole = _Gathered(cfg)
+
+    def prefill_step(params, rows, cache):
+        model = whole(params)
+        local, leaves = _cache_rows(cache)
+        logits, local = prefill(model, rows, local)
+        _write_back(leaves, local)
+        return logits, cache
+
+    return prefill_step
+
+
+def make_sharded_decode_step(cfg, mesh):
+    """decode_step(params, tokens, cache, cache_len) -> (next tokens,
+    logits, cache) of the rank's rows: the counterpart of the reference's
+    greedy ``serve_step`` jitted over the same specs (tokens over the data
+    axes), gather-then-compute as :func:`make_sharded_prefill_step`.
+    ``tokens`` are the rank's rows, ``cache_len`` an int."""
+    from .steps import make_decode_step
+
+    decode = make_decode_step(cfg, greedy=True)
+    whole = _Gathered(cfg)
+
+    def decode_step(params, tokens, cache, cache_len):
+        model = whole(params)
+        local, leaves = _cache_rows(cache)
+        nxt, logits, local = decode(model, tokens, local, int(cache_len))
+        _write_back(leaves, local)
+        return nxt, logits, cache
+
+    return decode_step

@@ -12,7 +12,8 @@ the 2x2 mesh of phase 10e leaves out the tensor engine's two runs (its
 ``megakernel`` run runs the same chunk); ``--full-checks`` runs every case
 (minutes more). The CLIs of phases 8d, 10c and 10d run one after
 another in a thread while phases 4 to 5b run (nothing there is timed) and
-are read before phase 6.
+are read before phase 6; phase 21b's three dry-run processes start beside
+them and are read after phase 21.
 
 Phases, each of which fails the run on any error (each prints its seconds):
   1. the card: its name and power limit from ``nvidia-smi``;
@@ -71,8 +72,8 @@ Phases, each of which fails the run on any error (each prints its seconds):
      included) and the [K, B] trace equal as bit patterns. The mixed
      batches also run traced (the matrix graph's spec of phase 4 at every
      eject configuration, n15072's at n_first), every trace leaf equal
-     too. Without ``--full-checks`` the mixed batches run at n_first only,
-     the matrix graph's traced only, and the two full-card sweeps (126-128
+     too. Without ``--full-checks`` the mixed batches run at n_first only
+     and traced only, and the two full-card sweeps (126-128
      elements) from their states three cycles before the ends only, at
      K = 7;
  5b. replayed chunks: the ``tensor`` and ``select`` engines' K-cycle chunk
@@ -272,7 +273,10 @@ Phases, each of which fails the run on any error (each prints its seconds):
      2047), zamba2-7b's shared attention (32 heads of 112: the ``mma`` body
      pads them to 128) and qwen2-vl-72b's (64 q over 8 kv heads of 128),
      each at its serve prefill (batch 8 x 2048) and decode (a 2080-key
-     cache, ragged fill levels), and whisper-large-v3's five calls at its
+     cache, ragged fill levels), gemma-2b's (8 q heads over one kv head of
+     256), minicpm-2b's (36 heads of 64, MHA), starcoder2-7b's (36 over 4
+     heads of 128: a group of 9 rows) and dbrx-132b's (48 over 8 heads of
+     128) the same way, and whisper-large-v3's five calls at its
      serve shapes (20 heads of 64; batch 8): the encoder's non-causal
      1,500 x 1,500, the decoder's causal 750 x 750 prefill, the non-causal
      cross-attention of 750 queries over 1,500 keys, and a decode step's
@@ -282,10 +286,12 @@ Phases, each of which fails the run on any error (each prints its seconds):
      bf16 step;
  15. flash-attention time: device time at the prefill and decode shapes in
      bfloat16 (CUDA-graph replay) and at deepseek-v2-lite's MLA prefill
-     (head_dim 192), at zamba2-7b's and qwen2-vl-72b's prefill and decode
-     and at whisper-large-v3's five shapes (decode over a full cache),
+     (head_dim 192), at zamba2-7b's, qwen2-vl-72b's, gemma-2b's,
+     minicpm-2b's, starcoder2-7b's and dbrx-132b's prefill and decode and
+     at whisper-large-v3's five shapes (decode over a full cache),
      each body kernel's time by the profiler (the simt
-     body's at the prefill shapes in float32), beside the plain version's,
+     body's at qwen2-0.5b's and the MLA prefill in float32), beside the
+     plain version's,
      SDPA's (the yardstick, with an explicit mask and without one), the
      host time per call and the bound (FLOPs at 989 TFLOP/s or bytes at
      3.35 TB/s, whichever is larger; head_dim 192 counted as 192, not the
@@ -321,6 +327,16 @@ Phases, each of which fails the run on any error (each prints its seconds):
      96 ``mma`` (32 encoder, 32 self- and 32 cross-attention prefill
      calls), 1,984 ``split`` and 1,984 ``combine`` (31 steps x 32 layers x
      self and cross) and no ``simt``;
+ 16e. serve the four registry archs not served before: ``serve.main`` for
+     gemma-2b (18 layers), minicpm-2b (40) and starcoder2-7b (32) at full
+     width and depth and dbrx-132b at full width cut to 8 of its 40 layers
+     (``--layers 8``; 16 experts top-4 at capacity factor 1.25), bf16,
+     batch 8 x 2048, 32 new tokens (after a warm-up run of 2): prefill and
+     decode tok/s, peak device memory, the prefill's ``moe_dropped``, the
+     wall, and the flash kernel's launches by body against the count
+     ``plan`` gives (one ``mma`` a layer in the prefill, one ``split`` and
+     one ``combine`` a layer and decode step: 18 / 558 / 558, 40 / 1,240 /
+     1,240, 32 / 992 / 992 and 8 / 248 / 248);
  17. serve consistency: full width in float32 (TF32 off), prefill (on the
      ``simt`` body) and 16 teacher-forced decode steps (``split``) through
      the kernel against ``forward``'s logits, and against the same steps
@@ -374,6 +390,21 @@ Phases, each of which fails the run on any error (each prints its seconds):
      bit, and each token equal to ``argmax(logits / T + gumbel)`` computed
      on the CPU from the card's logits; the host time of a sampled and a
      greedy step;
+ 18h. the registry goldens: gemma-2b at full width and depth 4,
+     minicpm-2b at depth 8 and starcoder2-7b at depth 2 in float32 (TF32
+     off), the numpy recipe's weights (drawn on the host while phase 14
+     runs), a prefill of 2 x 300 tokens (``simt``) and three decode steps
+     (``split``) against the JAX package's goldens
+     (``tests/fixtures/gemma_2b_golden.npz``, ``minicpm_2b_golden.npz``,
+     ``starcoder2_7b_golden.npz``): top-32 logits and logsumexp at 1e-4,
+     and the launches ``plan`` gives;
+ 18i. dbrx consistency: dbrx-132b at full width and depth 2 in float32
+     (~31 GB on the card; weights from a card generator), capacity factor
+     4 (nothing drops): prefill and 16 teacher-forced decode steps through
+     the kernel against ``forward``'s logits and against the same steps
+     with the plain attention, at 3e-4, and each MoE layer's prefill
+     routing (top-4 experts, keep mask) equal to the plain run's but for
+     near-ties (gap below 1e-5), which are counted;
  19. serve profiles: ``torch.profiler`` over one prefill of phase 16's
      shape and over 8 decode steps after it, each with its device busy
      share, device ops per step and top kernels; then the same over one
@@ -429,7 +460,8 @@ Phases, each of which fails the run on any error (each prints its seconds):
      run on fake tensors (its argument and peak bytes) beside the
      allocator's, printed side by side with no bound;
  21b. the dry-run on the card host: ``python -m repro_torch.launch.dryrun``
-     in three processes, started before phase 21 and read after it
+     in three processes, started before phase 4 (while the untimed checks
+     of phases 4 to 5b run) and read after phase 21
      (qwen2-0.5b at every shape on the 256-rank mesh, deepseek-v2-lite-16b
      at ``prefill_32k`` on it, qwen2-0.5b at ``train_4k`` on the 512-rank
      mesh; the fake tensors on the card, nothing allocated): each record's
@@ -1779,11 +1811,12 @@ def check_batched_megakernel(torch, graphs, mk, rows, full=False):
     every other element. The mixed batches also run traced (the ``small``
     spec on the matrix graph, every eject configuration; the ``default`` on
     n15072 at n_first). Unless ``full`` the mixed batches run at MAIN_EJECT
-    only, on the matrix graph traced only (``tests/test_torch_cuda.py``
-    holds it untraced at every eject configuration), and the two full-card
-    sweeps (above SMALL_B elements) from their states three cycles before
-    the ends only, at K = 7. Returns (max abs error, cases) and those of
-    the traced variant."""
+    only and traced only (``tests/test_torch_cuda.py`` holds the matrix
+    graph's untraced at every eject configuration; every main-path batch
+    below holds the untraced kernel on the 16x16 grid), and the two
+    full-card sweeps (above SMALL_B elements) from their states three
+    cycles before the ends only, at K = 7. Returns (max abs error, cases)
+    and those of the traced variant."""
     from repro_torch.core.overlay import device_graph, run_batch_state
     from repro_torch.telemetry import TelemetrySpec
 
@@ -1796,8 +1829,7 @@ def check_batched_megakernel(torch, graphs, mk, rows, full=False):
             if spec is None or label == "matrix 2x2"
             or eject == "n_first_cap1"]
     if not full:
-        runs = [r for r in runs if r[2] == MAIN_EJECT
-                and (r[0] != "matrix 2x2" or r[3] is not None)]
+        runs = [r for r in runs if r[2] == MAIN_EJECT and r[3] is not None]
     for label, gm, eject, spec in runs:
         t = time.perf_counter()
         g = device_graph(gm)
@@ -2315,6 +2347,20 @@ SERVE_CASES = {
                        [1, 2080, 2049, 1500, 777, 64, 65, 2079], "tokens",
                        DECODE),
 }
+#: Phase 16e's four archs at their serve shapes, the same way: gemma-2b's
+#: 8 q heads over one kv head of 256 (8 rows a kv head in decode),
+#: minicpm-2b's 36 heads of 64 (MHA: one row), starcoder2-7b's 36 over 4
+#: heads of 128 (a group of 9 rows, odd) and dbrx-132b's 48 over 8 of 128
+#: (6 rows).
+REGISTRY_HEADS = {"gemma": (8, 1, 256), "minicpm": (36, 36, 64),
+                  "starcoder2": (36, 4, 128), "dbrx": (48, 8, 128)}
+SERVE_CASES.update({
+    f"{name}_{step}": (8, hq, hkv, *shape, d, True, lens, "tokens", bodies)
+    for name, (hq, hkv, d) in REGISTRY_HEADS.items()
+    for step, shape, lens, bodies in (
+        ("prefill", (2048, 2048), None, PREFILL),
+        ("decode", (1, 2080), [1, 2080, 2049, 1500, 777, 64, 65, 2079],
+         DECODE))})
 FLASH_CASES.update(SERVE_CASES)
 #: whisper-large-v3's five calls at its serve shapes (phase 16d: batch 8,
 #: 1,500 frames, a 750-token prompt, 32 new tokens; 20 heads of 64 over 20
@@ -2348,6 +2394,9 @@ FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 FLASH_TIMED = {"prefill": "qwen2_prefill", "decode": "qwen2_decode",
                "mla_prefill": "deepseek_prefill",
                **{case: case for case in (*SERVE_CASES, *WHISPER_CASES)}}
+#: The timed shapes where the ``simt`` body is timed in float32 too (the
+#: kernels line keeps its time there; a profiled run costs ~1 s).
+FLASH_TIMED_F32 = ("prefill", "mla_prefill")
 #: The decode timing reads a full cache: kv_len = Tkv for every row (at most
 #: 2080).
 DECODE_TIMED_KV_LEN = 2080
@@ -2613,8 +2662,9 @@ def flash_times(torch, fa):
     bound. The kernel and SDPA are replayed from a CUDA graph; the plain
     version (which copies kv_len to the card, so it cannot be captured) is
     timed call by call from the host. Host ms per kernel call too, and each
-    body kernel's device us from the profiler; at the prefill shape also in
-    float32, where the plan takes the simt body."""
+    body kernel's device us from the profiler; at the qwen2-0.5b and MLA
+    prefill shapes (``FLASH_TIMED_F32``) also in float32, where the plan
+    takes the simt body."""
     import torch.nn.functional as F
 
     out = {}
@@ -2669,7 +2719,7 @@ def flash_times(torch, fa):
               f"{n['bound_ms'] * 1e3:.3f} us by {n['bound_by']} ({flops} FLOP "
               f"at 989 TFLOP/s = {n['ops_ms'] * 1e3:.3f} us, {nbytes} bytes "
               f"at 3.35 TB/s = {n['bytes_ms'] * 1e3:.3f} us)", flush=True)
-        if big:
+        if label in FLASH_TIMED_F32:
             q32, k32, v32 = (x.float() for x in (q, k, v))
             f32_plan = fa.plan(b, tq, tkv, hq, hkv, d, q32.dtype, lens)
             n["f32_plan"] = list(f32_plan)
@@ -2691,7 +2741,7 @@ def serve_main_path(torch, np, fa):
     the launches by body, prefill tok/s, decode tok/s)."""
     from repro_torch.configs import get_config
 
-    used, prefill, decode, _, _ = counted_serve(
+    used, prefill, decode, _, _, _ = counted_serve(
         torch, fa, SERVE_ARGS, {"flash_attention": SERVE_LAUNCHES,
                                 **SERVE_BODIES},
         get_config("qwen2-0.5b").vocab_size)
@@ -2769,19 +2819,21 @@ def consistency(torch, np, fa):
     return max(e_full, e_plain)
 
 
-def against_golden(torch, np):
-    """Full width, f32, the numpy recipe's weights: the top-32 logits of a
-    prefill and 3 decode steps against the reference's golden (indices and
-    values) and the logsumexp. An index may differ from the golden's only
-    where the golden's own values at the two ranks lie within 2 x tol (a
-    near-tie); the golden keeps 40 ranks for that."""
-    from repro_torch.convert import lm_params_from_numpy, numpy_lm_params
+def against_golden(torch, np, trees=None):
+    """Full width, f32, the numpy recipe's weights (``recipe_tree``, kept in
+    ``trees`` for the bf16 golden): the top-32 logits of a prefill and 3
+    decode steps against the reference's golden (indices and values) and
+    the logsumexp. An index may differ from the golden's only where the
+    golden's own values at the two ranks lie within 2 x tol (a near-tie);
+    the golden keeps 40 ranks for that."""
+    from repro_torch.convert import lm_params_from_numpy
 
     g = np.load(GOLDEN)
     cfg = full_width_f32(torch)
     t = time.perf_counter()
-    model = lm_params_from_numpy(cfg, numpy_lm_params(cfg, int(g["seed"])),
-                                 device="cuda")
+    model = lm_params_from_numpy(
+        cfg, recipe_tree(trees, "qwen2-0.5b", cfg, int(g["seed"]), keep=True),
+        device="cuda")
     print(f"golden: numpy weights (seed {int(g['seed'])}) to the card in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
     tokens = torch.from_numpy(g["tokens"]).cuda()
@@ -2823,7 +2875,7 @@ def golden_top(np, lg, g, arch):
     return max(err, lse_err)
 
 
-def against_golden_bf16(torch, np, fa):
+def against_golden_bf16(torch, np, fa, trees=None):
     """Full width in bfloat16, the serve path's dtype: the numpy recipe's
     weights rounded to bf16, a prefill of 8 tokens (56 rows a kv head:
     the ``mma`` body) and three decode steps (``split`` + ``combine``)
@@ -2834,14 +2886,15 @@ def against_golden_bf16(torch, np, fa):
     of the logits, within the tolerance x the RMS). Returns the largest
     such scaled error."""
     from repro_torch.configs import get_config
-    from repro_torch.convert import lm_params_from_numpy, numpy_lm_params
+    from repro_torch.convert import lm_params_from_numpy
 
     g = np.load(GOLDEN_BF16)
     cfg = get_config("qwen2-0.5b")
     if cfg.dtype != str(g["dtype"]):
         raise AssertionError(f"config dtype {cfg.dtype}, golden {g['dtype']}")
-    model = lm_params_from_numpy(cfg, numpy_lm_params(cfg, int(g["seed"])),
-                                 device="cuda")
+    model = lm_params_from_numpy(
+        cfg, recipe_tree(trees, "qwen2-0.5b", cfg, int(g["seed"])),
+        device="cuda")
     tokens = torch.from_numpy(g["tokens"]).cuda()
     fa.reset_launches()
     lg = teacher_forced(torch, model, cfg, tokens, int(g["prompt_len"]))
@@ -2933,7 +2986,8 @@ def counted_serve(torch, fa, args, want, vocab):
     """``serve.main(args)`` once with 2 new tokens as a warm-up, then
     counted: the flash launches must equal ``want`` and the tokens lie in
     ``[0, vocab)``. Prints ``serve.main``'s lines and a summary; returns
-    (the launches, prefill tok/s, decode tok/s, peak GiB, those lines)."""
+    (the launches, prefill tok/s, decode tok/s, peak GiB, those lines, the
+    counted run's wall in seconds)."""
     import contextlib
     import io
     import re
@@ -2968,7 +3022,7 @@ def counted_serve(torch, fa, args, want, vocab):
         raise AssertionError(f"serve returned tokens {seq.shape} out of range")
     if len(rates) != 2:
         raise AssertionError(f"serve printed no rates: {text!r}")
-    return used, rates[0], rates[1], peak, text
+    return used, rates[0], rates[1], peak, text, wall
 
 
 def serve_deepseek(torch, np, fa):
@@ -2985,7 +3039,7 @@ def serve_deepseek(torch, np, fa):
     b, p = int(DEEPSEEK_SERVE_ARGS[3]), int(DEEPSEEK_SERVE_ARGS[5])
     want = flash_calls(mla_prefill_plan(fa, cfg, b, p,
                                             cfg.torch_dtype), cfg.num_layers)
-    used, prefill, decode, peak, text = counted_serve(
+    used, prefill, decode, peak, text, _ = counted_serve(
         torch, fa, DEEPSEEK_SERVE_ARGS, want, cfg.vocab_size)
     dropped = [int(x) for x in re.findall(r"prefill moe_dropped: (\d+)", text)]
     print(f"serve {DEEPSEEK}: prefill moe_dropped {dropped}; flash_attention "
@@ -3000,6 +3054,12 @@ def serve_deepseek(torch, np, fa):
 #: full width cut to its first 16 (~33 GB).
 NEW_SERVES = {"mamba2-130m": [], "zamba2-7b": [],
               "qwen2-vl-72b": ["--layers", "16"]}
+#: Phase 16e: the four registry archs not served on the card before, the
+#: same way. dbrx-132b's 40 layers take ~265 GB in bf16 (16 experts of 3 x
+#: 6144 x 10752 a layer, 6.3 GB), so it runs at full width cut to its
+#: first 8 (~56 GB).
+REGISTRY_SERVES = {"gemma-2b": [], "minicpm-2b": [], "starcoder2-7b": [],
+                   "dbrx-132b": ["--layers", "8"]}
 NEW_SERVE_ARGS = ["--batch", "8", "--prompt-len", "2048", "--gen", "32"]
 
 
@@ -3009,7 +3069,7 @@ def new_serve_want(fa, cfg, b, p, gen):
     in the prefill and in each of the ``gen - 1`` decode steps, each on the
     body ``plan`` gives."""
     want = {k: 0 for k in body_launches("mma")}
-    n = sum(cfg.block_kind(i) in ("attn", "shared_attn")
+    n = sum(cfg.block_kind(i) in ("attn", "moe", "shared_attn")
             for i in range(cfg.num_layers))
     if not n:
         return want
@@ -3022,77 +3082,131 @@ def new_serve_want(fa, cfg, b, p, gen):
     return want
 
 
-def serve_new(torch, np, fa):
-    """``serve.main`` for mamba2-130m and zamba2-7b at full width and depth
-    and qwen2-vl-72b at full width and depth 16 (from stub patch
-    embeddings), bf16, batch 8 x 2048, 32 new tokens, each after a warm-up
-    run of 2 new tokens. The flash kernel must launch exactly as
+def serve_new(torch, np, fa, serves=NEW_SERVES):
+    """``serve.main`` for each arch of ``serves`` at full width (and the
+    depth its arguments keep), bf16, batch 8 x 2048, 32 new tokens, each
+    after a warm-up run of 2 new tokens: by default mamba2-130m and
+    zamba2-7b at full depth and qwen2-vl-72b at depth 16 (from stub patch
+    embeddings). The flash kernel must launch exactly as
     :func:`new_serve_want` says (mamba2: never). Returns, by arch, the
-    launches by body, prefill and decode tok/s and peak GiB."""
+    launches by body, prefill and decode tok/s, peak GiB, the prefill's
+    ``moe_dropped`` and the counted run's wall."""
+    import re
+
     from repro_torch.configs import get_config
 
     out = {}
     b, p, gen = (int(x) for x in NEW_SERVE_ARGS[1::2])
-    for arch, extra in NEW_SERVES.items():
+    for arch, extra in serves.items():
         cfg = get_config(arch)
         if extra:
             cfg = dataclasses.replace(cfg, num_layers=int(extra[1]))
         want = new_serve_want(fa, cfg, b, p, gen)
         print(f"serve {arch} ({cfg.num_layers} layers): flash launches "
               f"expected {want}", flush=True)
-        used, prefill, decode, peak, _ = counted_serve(
+        used, prefill, decode, peak, text, wall = counted_serve(
             torch, fa, ["--arch", arch, *extra, *NEW_SERVE_ARGS], want,
             cfg.vocab_size)
+        dropped = [int(x) for x in
+                   re.findall(r"prefill moe_dropped: (\d+)", text)]
+        if len(dropped) != 1:
+            raise AssertionError(f"serve printed no drops: {text!r}")
+        print(f"serve {arch}: prefill moe_dropped {dropped[0]}", flush=True)
         out[arch] = dict(launches=used, prefill_tok_s=prefill,
                          decode_tok_s=decode, peak_gib=peak,
-                         layers=cfg.num_layers)
+                         layers=cfg.num_layers, moe_dropped=dropped[0],
+                         wall_s=wall)
     return out
 
 
-#: The SSM goldens (phase 18d): arch -> (fixture, the flash launches of its
-#: prefill and 3 decode steps in f32: zamba2's one shared-block application
-#: on ``simt`` (600 rows a kv head) then ``split``; mamba2 none).
-SSM_GOLDENS = {
-    "mamba2-130m": (ROOT / "tests" / "fixtures" / "mamba2_130m_golden.npz",
-                    {}),
-    "zamba2-7b": (ROOT / "tests" / "fixtures" / "zamba2_7b_golden.npz",
-                  {"flash_attention": 4, "flash_attention_simt": 1,
-                   "flash_attention_split": 3,
-                   "flash_attention_combine": 3}),
-}
+FIXTURES = ROOT / "tests" / "fixtures"
+#: The SSM goldens (phase 18d): arch -> fixture.
+SSM_GOLDENS = {"mamba2-130m": FIXTURES / "mamba2_130m_golden.npz",
+               "zamba2-7b": FIXTURES / "zamba2_7b_golden.npz"}
+#: The registry goldens (phase 18h): gemma-2b at depth 4, minicpm-2b at 8
+#: and starcoder2-7b at 2 (~965, ~772 and ~887 M values, each within 8 GB
+#: on the reference's CPU).
+REGISTRY_GOLDENS = {"gemma-2b": FIXTURES / "gemma_2b_golden.npz",
+                    "minicpm-2b": FIXTURES / "minicpm_2b_golden.npz",
+                    "starcoder2-7b": FIXTURES / "starcoder2_7b_golden.npz"}
 
 
-def against_ssm_goldens(torch, np, fa):
-    """mamba2-130m at full width and depth and zamba2-7b at full width and
-    depth 7 (6 Mamba2 layers, one shared-block application), f32 with TF32
-    off, the numpy recipe's weights: a prefill of 2 x 300 tokens (past one
-    SSD chunk of 256) and three teacher-forced decode steps against the
-    JAX package's goldens (``golden_top``: top-32 logits and logsumexp at
-    1e-4). Returns the largest error by arch."""
+def golden_config(arch, layers=None):
+    """``arch``'s full config in float32, cut to ``layers`` where given."""
     from repro_torch.configs import get_config
-    from repro_torch.convert import lm_params_from_numpy, numpy_lm_params
+
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, num_layers=layers or cfg.num_layers,
+                               dtype="float32")
+
+
+def recipe_tree(trees, arch, cfg, seed, keep=False):
+    """The numpy recipe's weights of ``cfg`` from ``seed`` (float32): the
+    tree :func:`golden_weights` drew for ``arch``, taken out of ``trees``
+    (left there with ``keep``), or drawn now where there is none."""
+    from repro_torch.convert import numpy_lm_params
+
+    trees = {} if trees is None else trees
+    tree = trees.get(arch) if keep else trees.pop(arch, None)
+    return numpy_lm_params(cfg, seed) if tree is None else tree
+
+
+def golden_weights(np, goldens):
+    """The numpy recipe's weights of each golden of ``goldens`` (its arch
+    at its depth and seed, float32), drawn on the host: arch -> tree. The
+    goldens are drawn at once, each on 8 threads (a golden's largest leaf,
+    gemma-2b's 524 M-value embedding, takes one thread ~10 s); this runs in
+    a thread beside phase 14 (``DRAWN_GOLDENS``: ~6.7 B values, ~27 GB)."""
+    from repro_torch.convert import numpy_lm_params
+
+    def draw(arch, path):
+        with np.load(path) as g:
+            layers = int(g["layers"]) if "layers" in g.files else None
+            seed = int(g["seed"])
+        return numpy_lm_params(golden_config(arch, layers), seed)
+
+    with ThreadPoolExecutor(len(goldens)) as pool:
+        jobs = {arch: pool.submit(draw, arch, path)
+                for arch, path in goldens.items()}
+    return {arch: job.result() for arch, job in jobs.items()}
+
+
+def against_goldens(torch, np, fa, goldens=SSM_GOLDENS, trees=None):
+    """Each arch of ``goldens`` at full width and its fixture's depth, f32
+    with TF32 off, the numpy recipe's weights (from ``trees``, arch -> the
+    tree :func:`golden_weights` drew, which is emptied as it is used; drawn
+    here where an arch is missing): a prefill of 2 x 300 tokens and three
+    teacher-forced decode steps against the JAX package's golden
+    (``golden_top``: top-32 logits and logsumexp at 1e-4), and the flash
+    launches :func:`new_serve_want` gives for them (the prefill on
+    ``simt``, every decode step on ``split``; none for mamba2). By default
+    the SSM goldens: mamba2-130m at full depth (past one SSD chunk of 256)
+    and zamba2-7b at depth 7 (6 Mamba2 layers, one shared-block
+    application). Returns the largest error by arch."""
+    from repro_torch.convert import lm_params_from_numpy
 
     errs = {}
-    for arch, (path, launches) in SSM_GOLDENS.items():
+    for arch, path in goldens.items():
         free_card(torch)
         g = np.load(path)
         full_width_f32(torch)
-        cfg = dataclasses.replace(get_config(arch), num_layers=int(g["layers"]),
-                                  dtype="float32")
+        cfg = golden_config(arch, int(g["layers"]))
         t = time.perf_counter()
-        model = lm_params_from_numpy(cfg, numpy_lm_params(cfg, int(g["seed"])),
-                                     device="cuda")
+        model = lm_params_from_numpy(
+            cfg, recipe_tree(trees, arch, cfg, int(g["seed"])), device="cuda")
         print(f"golden {arch}: numpy weights (seed {int(g['seed'])}, "
               f"{cfg.num_layers} layers) to the card in "
               f"{time.perf_counter() - t:.1f} s", flush=True)
         tokens = torch.from_numpy(g["tokens"]).cuda()
+        prompt = int(g["prompt_len"])
         fa.reset_launches()
-        lg = teacher_forced(torch, model, cfg, tokens, int(g["prompt_len"]))
-        want = {k: 0 for k in body_launches("mma")}
-        want.update(launches)
+        lg = teacher_forced(torch, model, cfg, tokens, prompt)
+        want = new_serve_want(fa, cfg, tokens.shape[0], prompt,
+                              tokens.shape[1] - prompt + 1)
         if fa.launches != want:
             raise AssertionError(f"{arch}: launches {fa.launches}, want {want}")
         errs[arch] = golden_top(np, lg.cpu().numpy(), g, arch)
+        print(f"golden {arch}: flash launches {dict(fa.launches)}", flush=True)
         del model
     return errs
 
@@ -3200,22 +3314,22 @@ def routing_check(np, got, g):
     return idx_ties, keep_ties
 
 
-def against_deepseek_golden(torch, np, fa):
+def against_deepseek_golden(torch, np, fa, trees=None):
     """deepseek-v2-lite at full width, depth 2, f32, the numpy recipe's
     weights: a prefill of 2 x 64 tokens and three decode steps against the
     reference's golden (``golden_top``), and the MoE layer's prefill
     routing (``routing_check``), read by a hook on each MoE module through
     ``moe.route`` on its input. Returns (the largest logit error, top-6
     near-ties, keep near-ties)."""
-    from repro_torch.convert import lm_params_from_numpy, numpy_lm_params
+    from repro_torch.convert import lm_params_from_numpy
     from repro_torch.models import moe
 
     free_card(torch)
     g = np.load(DEEPSEEK_GOLDEN)
     cfg = deepseek_f32(torch, int(g["layers"]))
     t = time.perf_counter()
-    model = lm_params_from_numpy(cfg, numpy_lm_params(cfg, int(g["seed"])),
-                                 device="cuda")
+    model = lm_params_from_numpy(
+        cfg, recipe_tree(trees, DEEPSEEK, cfg, int(g["seed"])), device="cuda")
     print(f"golden {DEEPSEEK}: numpy weights (seed {int(g['seed'])}, "
           f"{cfg.num_layers} layers) to the card in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
@@ -3299,6 +3413,125 @@ def deepseek_consistency(torch, np, fa):
         raise AssertionError(f"capacity factor {cf} dropped {drops}")
     torch.testing.assert_close(kern, full, rtol=CONSIST_TOL, atol=CONSIST_TOL)
     return e_full
+
+
+DBRX = "dbrx-132b"
+#: dbrx-132b's f32 consistency (phase 18i): layers and capacity factor. At
+#: E / top_k = 4 an expert's slots a group equal the group's tokens, so
+#: nothing drops and ``forward`` over the whole sequence equals the prefill
+#: and decode steps (the reference's serving test does the same). 2 layers
+#: at full width are ~7.8 B f32 values (~31 GB on the card); the
+#: reference's golden would need them on a CPU, so dbrx is held to itself.
+DBRX_CONSIST = (2, 4.0)
+
+
+def route_record(np, r, cfg):
+    """One MoE layer's routing from ``moe.route``'s dict ``r``, on the host,
+    in the golden's layout (``routing_check``): the top-k expert ids, the
+    k + 1 largest router probabilities, the capacity cut's keep mask and,
+    per (group, expert), the gap between the criticality keys on either
+    side of the cut (inf where the expert took no more than its
+    capacity)."""
+    k, e, cap = cfg.moe.top_k, cfg.moe.num_experts, r["cap"]
+    probs = r["probs"].sort(-1, descending=True).values[..., :k + 1]
+    fe = r["topi"].reshape(r["topi"].shape[0], -1)
+    key = (fe.float() * 2.0 + (1.0 - r["topw"].reshape(fe.shape))).cpu().numpy()
+    fe = fe.cpu().numpy()
+    gap = np.full((fe.shape[0], e), np.inf, np.float32)
+    for gi in range(fe.shape[0]):
+        for ei in range(e):
+            ks = np.sort(key[gi][fe[gi] == ei])
+            if len(ks) > cap:
+                gap[gi, ei] = ks[cap] - ks[cap - 1]
+    return (r["topi"].cpu().numpy(), probs.cpu().numpy(),
+            (r["mypos"] < cap).cpu().numpy(), gap)
+
+
+def dbrx_consistency(torch, np, fa):
+    """dbrx-132b at full width, depth 2, f32 (TF32 off), weights from a card
+    generator, capacity factor 4 (no drops): prefill and 16 teacher-forced
+    decode steps through the kernel against ``forward``'s logits and
+    against the same steps with the plain attention, at CONSIST_TOL; each
+    MoE layer's prefill routing (top-4 ids and keep mask, read by a hook
+    through ``moe.route``) in the kernel's run equal to the plain run's
+    but for near-ties (``routing_check``, the plain run standing for the
+    golden); the flash launches as :func:`new_serve_want` gives them (the
+    prefill on ``simt``, each decode step on ``split``). Returns (the
+    largest logit error, top-4 near-ties, keep near-ties)."""
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm, moe
+
+    free_card(torch)
+    layers, cf = DBRX_CONSIST
+    full_width_f32(torch)
+    cfg = get_config(DBRX)
+    cfg = dataclasses.replace(cfg, num_layers=layers, dtype="float32",
+                              moe=dataclasses.replace(cfg.moe,
+                                                      capacity_factor=cf))
+    t = time.perf_counter()
+    model = lm.init(torch.Generator("cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    print(f"consistency {DBRX}: {layers} layers of f32 weights drawn on the "
+          f"card in {time.perf_counter() - t:.1f} s", flush=True)
+    b, p, n = CONSIST
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, p + n))
+                              .astype(np.int32)).cuda()
+    with torch.no_grad():       # the scoring forward, through the kernel
+        h, metrics = lm.forward(model, cfg, tokens=tokens)
+    full = lm.logits_fn(model, cfg, h)[:, p - 1:].transpose(0, 1)
+    runs = {}
+    for name, attn in (("kernel", fa.attention), ("plain", fa.attention_plain)):
+        routes = []
+
+        def record(mod, args):
+            if args[0].shape[1] == p:               # the prefill's call
+                routes.append(route_record(
+                    np, moe.route(mod.router.w, cfg, args[0]), cfg))
+
+        hooks = [blk.ffn.register_forward_pre_hook(record)
+                 for blk in model.blocks if blk.kind == "moe"]
+        fa.reset_launches()
+        try:
+            with mock.patch.object(fa, "attention", attn):
+                lg = teacher_forced(torch, model, cfg, tokens, p)
+        finally:
+            for hook in hooks:
+                hook.remove()
+        runs[name] = (lg, routes, dict(fa.launches))
+    (kern, got, used), (plain, ref, _) = runs["kernel"], runs["plain"]
+    want = new_serve_want(fa, cfg, b, p, n + 1)
+    if used != want:
+        raise AssertionError(f"launches {used}, want {want}")
+    g = {name: np.stack([r[i] for r in ref]) for i, name in enumerate(
+        ("route_idx", "route_prob", "route_keep", "route_cut_gap"))}
+    idx_ties, keep_ties = routing_check(
+        np, [(topi, keep) for topi, _, keep, _ in got], g)
+    drops = (int(metrics["moe_dropped"].item()),
+             sum(int((~keep).sum()) for _, _, keep, _ in got))
+    e_full = (kern - full).abs().max().item()
+    e_plain = (kern - plain).abs().max().item()
+    print(f"consistency {DBRX} f32 full width, {layers} layers, capacity "
+          f"factor {cf}, batch {b}, prompt {p}, {n} decode steps: prefill+"
+          f"decode vs forward max abs error {e_full:.3e}, vs the plain "
+          f"attention on the card {e_plain:.3e} (tol {CONSIST_TOL}; |logits| "
+          f"up to {full[..., :cfg.vocab_size].abs().max().item():.3f}); "
+          f"moe_dropped forward / prefill {drops}; top-{cfg.moe.top_k} "
+          f"experts and keep masks of {len(got)} MoE layers equal to the "
+          f"plain run's but for {idx_ties} top-k and {keep_ties} keep "
+          f"near-ties (gap < {ROUTE_TIE}); launches {used}", flush=True)
+    if drops != (0, 0):
+        raise AssertionError(f"capacity factor {cf} dropped {drops}")
+    if len(got) != layers or len(ref) != layers:
+        raise AssertionError(f"{len(got)} and {len(ref)} MoE prefill routes "
+                             f"recorded")
+    torch.testing.assert_close(kern, full, rtol=CONSIST_TOL, atol=CONSIST_TOL)
+    torch.testing.assert_close(kern, plain, rtol=CONSIST_TOL, atol=CONSIST_TOL)
+    del model
+    free_card(torch)
+    return max(e_full, e_plain), idx_ties, keep_ties
 
 
 def deepseek_profiles(torch, fa):
@@ -3421,7 +3654,7 @@ def serve_whisper(torch, np, fa):
           f"{want}", flush=True)
     if want != WHISPER_SERVE_BODIES:
         raise AssertionError(f"plan gives {want}, want {WHISPER_SERVE_BODIES}")
-    used, prefill, decode, peak, _ = counted_serve(
+    used, prefill, decode, peak, _, _ = counted_serve(
         torch, fa, WHISPER_SERVE_ARGS, want, cfg.vocab_size)
     return dict(launches=used, prefill_tok_s=prefill, decode_tok_s=decode,
                 peak_gib=peak, layers=[cfg.encdec.enc_layers, cfg.num_layers])
@@ -3459,7 +3692,7 @@ def whisper_steps(torch, model, cfg, frames, tokens, prompt):
     return torch.stack(steps)
 
 
-def whisper_golden(torch, np, fa):
+def whisper_golden(torch, np, fa, trees=None):
     """whisper-large-v3 at full width and depth in f32 (TF32 off), the numpy
     recipe's weights (~6.1 GB): the encoder over 2 x 150 frames, a prefill
     of 75 tokens and three teacher-forced decode steps against the JAX
@@ -3469,7 +3702,7 @@ def whisper_golden(torch, np, fa):
     teacher-forced decode steps against ``forward_encdec``'s logits at
     CONSIST_TOL. Returns (the golden's largest error, the consistency's)."""
     from repro_torch.configs import get_config
-    from repro_torch.convert import lm_params_from_numpy, numpy_lm_params
+    from repro_torch.convert import lm_params_from_numpy
     from repro_torch.models import lm
 
     free_card(torch)
@@ -3479,8 +3712,8 @@ def whisper_golden(torch, np, fa):
     if int(g["layers"]) != cfg.num_layers:
         raise AssertionError(f"golden of {int(g['layers'])} layers")
     t = time.perf_counter()
-    model = lm_params_from_numpy(cfg, numpy_lm_params(cfg, int(g["seed"])),
-                                 device="cuda")
+    model = lm_params_from_numpy(
+        cfg, recipe_tree(trees, WHISPER, cfg, int(g["seed"])), device="cuda")
     print(f"golden {WHISPER}: numpy weights (seed {int(g['seed'])}, "
           f"{cfg.encdec.enc_layers} + {cfg.num_layers} layers) to the card in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
@@ -3622,6 +3855,13 @@ def whisper_profiles(torch, fa):
     del model
 
 
+#: The goldens whose numpy weights ``lm_phases`` draws beside phase 14:
+#: arch -> fixture (its depth, or the config's where it keeps none, and its
+#: seed). qwen2-0.5b's tree serves its f32 and bf16 goldens.
+DRAWN_GOLDENS = {"qwen2-0.5b": GOLDEN, DEEPSEEK: DEEPSEEK_GOLDEN,
+                 **SSM_GOLDENS, WHISPER: WHISPER_GOLDEN, **REGISTRY_GOLDENS}
+
+
 def lm_phases(torch, np):
     """The LM serving path: the flash kernel against its plain version, its
     times, serve at full width (qwen2-0.5b, deepseek-v2-lite, mamba2-130m,
@@ -3630,29 +3870,44 @@ def lm_phases(torch, np):
     kernels line."""
     from repro_torch.kernels import flash_attention as fa
 
-    err, err_by_body, err_by_case = phase("flash_attention check",
-                                          check_flash, torch, fa)
-    ex2_abs, ex2_rel = phase("flash_attention ex2 error", ex2_error, torch, fa)
+    # The goldens' weights are drawn on the host while the kernel checks
+    # (untimed) run on the card, and waited for before any timing.
+    with ThreadPoolExecutor(1) as pool:
+        drawing = pool.submit(golden_weights, np, DRAWN_GOLDENS)
+        err, err_by_body, err_by_case = phase("flash_attention check",
+                                              check_flash, torch, fa)
+        ex2_abs, ex2_rel = phase("flash_attention ex2 error", ex2_error,
+                                 torch, fa)
+        trees = phase("golden weights (the rest of their draw)",
+                      drawing.result)
     timed = phase("flash_attention time", flash_times, torch, fa)
     launches, bodies, prefill_tps, decode_tps = phase(
         "serve main path", serve_main_path, torch, np, fa)
     ds_launches, ds_prefill, ds_decode, ds_dropped, ds_peak = phase(
         "serve deepseek", serve_deepseek, torch, np, fa)
     phase("serve consistency", consistency, torch, np, fa)
-    phase("serve against the golden", against_golden, torch, np)
+    phase("serve against the golden", against_golden, torch, np, trees)
     bf16_err = phase("serve against the bf16 golden", against_golden_bf16,
-                     torch, np, fa)
+                     torch, np, fa, trees)
     ds_err, ds_idx_ties, ds_keep_ties = phase(
-        "deepseek against the golden", against_deepseek_golden, torch, np, fa)
+        "deepseek against the golden", against_deepseek_golden, torch, np, fa,
+        trees)
     ds_consist = phase("deepseek consistency", deepseek_consistency, torch,
                        np, fa)
     new_serves = phase("serve mamba2, zamba2, qwen2-vl", serve_new, torch, np,
                        fa)
     new_serves[WHISPER] = phase("serve whisper", serve_whisper, torch, np, fa)
-    ssm_errs = phase("ssm goldens", against_ssm_goldens, torch, np, fa)
+    new_serves.update(phase("serve gemma, minicpm, starcoder2, dbrx",
+                            serve_new, torch, np, fa, REGISTRY_SERVES))
+    ssm_errs = phase("ssm goldens", against_goldens, torch, np, fa,
+                     SSM_GOLDENS, trees)
     vlm_consist = phase("vlm consistency", vlm_consistency, torch, np, fa)
     whisper_err, whisper_consist = phase("whisper golden", whisper_golden,
-                                         torch, np, fa)
+                                         torch, np, fa, trees)
+    registry_errs = phase("registry goldens", against_goldens, torch, np, fa,
+                          REGISTRY_GOLDENS, trees)
+    dbrx_err, dbrx_idx_ties, dbrx_keep_ties = phase(
+        "dbrx consistency", dbrx_consistency, torch, np, fa)
     sample_margin, sampled_ms, greedy_ms = phase(
         "sampled decoding", sampled_decoding, torch, np, fa)
     phase("serve profiles", serve_profiles, torch)
@@ -3679,6 +3934,9 @@ def lm_phases(torch, np):
                         **new_launches},
         serve_shapes=new_shapes, serves=new_serves,
         ssm_golden_max_abs_err=ssm_errs,
+        registry_golden_max_abs_err=registry_errs,
+        dbrx_consistency_max_abs_err=dbrx_err,
+        dbrx_route_near_ties=[dbrx_idx_ties, dbrx_keep_ties],
         vlm_consistency_max_abs_err=vlm_consist,
         whisper_golden_max_abs_err=whisper_err,
         whisper_consistency_max_abs_err=whisper_consist,
@@ -4728,11 +4986,21 @@ def serve_sharded(torch, np, fa):
                 measured_peak_bytes=measured, route=route)
 
 
+def _drain(proc, done):
+    """Reads a dry-run process's output to its end (so that no pipe
+    fills), then notes the time it ended."""
+    done["text"] = proc.communicate()[0]
+    done["end"] = time.perf_counter()
+
+
 def dryrun_start():
     """Phase 21b's processes, started: ``python -m
     repro_torch.launch.dryrun`` for each of :data:`DRYRUN_CELLS` on the
-    card (fake tensors there; the records under :data:`DRYRUN_OUT`)."""
+    card (fake tensors there; the records under :data:`DRYRUN_OUT`), each
+    read by a thread of its own. Returns [(cell, start, process, thread,
+    its output and end time once done)]."""
     import shutil
+    import threading
 
     shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -4741,10 +5009,15 @@ def dryrun_start():
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
                arch, "--shape", *shapes, "--mesh", mesh, "--out",
                str(DRYRUN_OUT), "--force"]
-        jobs.append(((arch, shapes, mesh), time.perf_counter(),
-                     subprocess.Popen(cmd, cwd=ROOT, env=env,
-                                      stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True)))
+        start = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        done = {}
+        reader = threading.Thread(target=_drain, args=(proc, done),
+                                  daemon=True)
+        reader.start()
+        jobs.append(((arch, shapes, mesh), start, proc, reader, done))
     return jobs
 
 
@@ -4756,20 +5029,21 @@ def dryrun_cells(jobs):
     records), its chips 256 or 512. Returns the records' readings."""
     full = json.loads(DRYRUN_FIXTURE.read_text())["full"]
     out = {}
-    for (arch, shapes, mesh), start, proc in jobs:
-        try:
-            text, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
+    for (arch, shapes, mesh), start, proc, reader, done in jobs:
+        reader.join(max(0.0, start + DRYRUN_TIMEOUT_S - time.perf_counter()))
+        if reader.is_alive():
             proc.kill()
-            proc.communicate()
+            reader.join()
             raise AssertionError(f"dry-run {arch} {mesh} took over "
-                                 f"{DRYRUN_TIMEOUT_S} s") from None
-        wall = time.perf_counter() - start
+                                 f"{DRYRUN_TIMEOUT_S} s")
+        text, wall = done["text"], done["end"] - start
+        waited = time.perf_counter() - done["end"]
         if proc.returncode:
             raise AssertionError(f"dry-run {arch} {mesh} exited "
                                  f"{proc.returncode}:\n{text[-3000:]}")
         print(f"dry-run process {arch} {' '.join(shapes)} {mesh}: "
-              f"{wall:.1f} s", flush=True)
+              f"{wall:.1f} s (read {waited:.1f} s after it ended)",
+              flush=True)
         for path in sorted(DRYRUN_OUT.glob(f"{arch}__*__{mesh}.json")):
             key = path.stem
             if key in out or (shapes != ("all",)
@@ -4815,18 +5089,37 @@ def dryrun_cells(jobs):
     return out
 
 
-def dryrun_phases(torch, np, fa):
-    """Phases 21 and 21b: 21b's processes run on the host while phase 21
-    runs on the card. Returns both phases' readings."""
-    jobs = dryrun_start()
+def dryrun_stop(jobs):
+    """Kills what is left of :func:`dryrun_start`'s processes and waits
+    for their readers."""
+    for _, _, proc, reader, _ in jobs:
+        if proc.poll() is None:
+            proc.kill()
+        reader.join()
+
+
+@contextlib.contextmanager
+def dryrun_jobs():
+    """A list for :func:`dryrun_start`'s jobs; whatever of their processes
+    is left is stopped on exit."""
+    jobs = []
+    try:
+        yield jobs
+    finally:
+        dryrun_stop(jobs)
+
+
+def dryrun_phases(torch, np, fa, jobs=None):
+    """Phases 21 and 21b: 21b's processes (``jobs``, started by
+    :func:`dryrun_start` beside phases 4 to 5b; started here when None)
+    run on the host while the card runs the phases before 21b. Returns
+    both phases' readings."""
+    jobs = dryrun_start() if jobs is None else jobs
     try:
         serve = phase("serve sharded", serve_sharded, torch, np, fa)
         cells = phase("dry-run", dryrun_cells, jobs)
     finally:
-        for _, _, proc in jobs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
+        dryrun_stop(jobs)
     return serve, cells
 
 
@@ -6191,14 +6484,15 @@ def main() -> int:
     from concurrent.futures import ProcessPoolExecutor
 
     # The CLIs' thread ends (waiting for the CLI it runs) before the
-    # directory they write into is removed.
+    # directory they write into is removed; phase 21b's processes are
+    # stopped whatever happens.
     with tempfile.TemporaryDirectory() as cli_out, ProcessPoolExecutor(
             4, mp_context=multiprocessing.get_context("spawn")) as pool, \
-            ThreadPoolExecutor(1) as thread:
-        return run_phases(torch, np, args, pool, thread, cli_out)
+            ThreadPoolExecutor(1) as thread, dryrun_jobs() as jobs:
+        return run_phases(torch, np, args, pool, thread, cli_out, jobs)
 
 
-def run_phases(torch, np, args, pool, thread, cli_out) -> int:
+def run_phases(torch, np, args, pool, thread, cli_out, jobs) -> int:
     """Every phase, in order; then the kernels line and the last line."""
     from repro_torch.kernels import _build, lod
     from repro_torch.kernels import anneal as ka
@@ -6235,8 +6529,11 @@ def run_phases(torch, np, args, pool, thread, cli_out) -> int:
 
     # The CLIs run on the card in processes of their own while phases 4 to
     # 5b check kernels (nothing there is timed); they are read before phase 6.
+    # Phase 21b's dry-run processes start here too (fake tensors: nothing is
+    # allocated on the card); they are read after phase 21.
     clis = (SURROGATE_CLI, *SERVICE_CLIS, telemetry_cli(cli_out))
     cli_job = thread.submit(run_clis, clis)
+    jobs.extend(dryrun_start())
     full = args.full_checks
     mega_err, cases, traced_err, traced_cases = phase(
         "megakernel check", check_megakernel, torch, np, graphs, mk,
@@ -6300,7 +6597,7 @@ def run_phases(torch, np, args, pool, thread, cli_out) -> int:
     flash = lm_phases(torch, np)
     flash["train"] = train_phases(torch, np)
     flash["train_launches"] = flash["train"]["launches"]
-    serve_1x1, dry = dryrun_phases(torch, np, fa)
+    serve_1x1, dry = dryrun_phases(torch, np, fa, jobs)
     flash["sharded_serve_launches"] = serve_1x1["launches"]
     flash["sharded_serve"] = serve_1x1
     flash["dryrun"] = dry

@@ -343,12 +343,12 @@ def _leaf(x) -> torch.Tensor:
     return torch.from_numpy(np.array(np.asarray(x), copy=True))
 
 
-def _load(named: dict, cfg, tree: Mapping, what: str) -> None:
-    """Copy every leaf of ``tree`` (reference layout) into the tensor of its
-    name in ``named``, cast to that tensor's dtype; every leaf must land on
-    exactly one tensor and every tensor must be given."""
+def _load(named: dict, cfg, leaves, what: str) -> None:
+    """Copy each leaf of the (port name, leaf) pairs ``leaves`` into the
+    tensor of its name in ``named``, cast to that tensor's dtype; every
+    leaf must land on exactly one tensor and every tensor must be given."""
     given = set()
-    for name, leaf in _named_leaves(cfg, tree):
+    for name, leaf in leaves:
         if name not in named or name in given:
             raise ValueError(f"leaf {name} has no {what} of {cfg.name}")
         t = _leaf(leaf).float()     # a float64 leaf rounds to f32 first
@@ -375,8 +375,35 @@ def lm_params_from_numpy(cfg, tree: Mapping, device=None) -> "lm.LM":
     every parameter must be given."""
     model = lm.LM(cfg, device=resolve_device(device))
     with torch.no_grad():
-        _load(dict(model.named_parameters()), cfg, tree, "parameter")
+        _load(dict(model.named_parameters()), cfg,
+              _named_leaves(cfg, tree), "parameter")
     return model
+
+
+def lm_params_from_recipe(cfg, seed: int = 0, device=None,
+                          threads: int = 1) -> "lm.LM":
+    """:func:`lm_params_from_numpy` of ``numpy_lm_params(cfg, seed)``
+    without the tree: each leaf of :func:`numpy_lm_leaves` (``threads``
+    drawn at a time) is copied into its parameters as it is drawn, so the
+    host holds at most ``threads`` + 1 leaves."""
+    model = lm.LM(cfg, device=resolve_device(device))
+    with torch.no_grad():
+        _load(dict(model.named_parameters()), cfg,
+              _recipe_leaves(cfg, seed, threads), "parameter")
+    return model
+
+
+def _recipe_leaves(cfg, seed, threads):
+    """(port parameter name, leaf) for every leaf of
+    :func:`numpy_lm_leaves`, a stacked leaf split into its layers; checks
+    each stacked leaf's layer count."""
+    names = dict(_leaf_names(cfg))
+    for path, x in numpy_lm_leaves(cfg, seed, threads=threads):
+        parts = list(x) if _stacked(path) else [x]
+        if len(parts) != len(names[path]):
+            raise ValueError(f"{path}: {len(parts)} layers, want "
+                             f"{len(names[path])}")
+        yield from zip(names[path], parts)
 
 
 def _leaf_names(cfg):
@@ -522,7 +549,8 @@ def train_state_from_numpy(cfg, tree: Mapping, device=None, *,
             opt[key] = {n: torch.empty(p.shape, dtype=torch.float32,
                                        device=device)
                         for n, p in names.items()}
-            _load(opt[key], cfg, tree["opt"][key], f"opt/{key} tensor")
+            _load(opt[key], cfg, _named_leaves(cfg, tree["opt"][key]),
+                  f"opt/{key} tensor")
 
     def scalar(x):
         return _leaf(x).to(device=device, dtype=torch.int32).reshape(())
